@@ -1,0 +1,205 @@
+"""Gemma decoder blocks for the Pi0 trunk: the PaliGemma VLM stream and the
+smaller action-expert stream, which attends over the VLM's prefix K/V cache.
+
+Two entry points for serving:
+  prefill  the prefix through the VLM, emitting the K/V cache
+  decode   the suffix through the expert against the cached prefix K/V
+           (called once per Euler step)
+
+Grouped-query attention: 8 query heads / 1 KV head / head_dim 256 for both
+streams (widths differ: 2048 VLM vs 1024 expert). The prefix attention goes
+through `multi_head_attention(impl=attention_impl)`, which reaches the
+hand-written CUDA kernel for "pallas"; decode's split-cache attention stays
+on the plain path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from intact_tpu_torch.models import common as cm
+from intact_tpu_torch.models.common import DEFAULT_POLICY, DtypePolicy
+from intact_tpu_torch.ops.attention import multi_head_attention, xla_attention_cached
+from intact_tpu_torch.ops.rope import apply_rope
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmaConfig:
+    width: int
+    depth: int
+    mlp_dim: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    vocab_size: int = 257_152  # PaliGemma vocab
+    rope_base: float = 10_000.0
+    norm_eps: float = 1e-6
+
+
+def gemma_2b() -> GemmaConfig:
+    """PaliGemma-3B's language trunk."""
+    return GemmaConfig(width=2048, depth=18, mlp_dim=16_384, num_heads=8, num_kv_heads=1, head_dim=256)
+
+
+def gemma_300m_expert() -> GemmaConfig:
+    """Pi0 action expert: same depth/heads as the VLM trunk, narrower width."""
+    return GemmaConfig(width=1024, depth=18, mlp_dim=4096, num_heads=8, num_kv_heads=1, head_dim=256)
+
+
+def tiny_test_config(width: int = 32, depth: int = 2) -> GemmaConfig:
+    return GemmaConfig(
+        width=width, depth=depth, mlp_dim=64, num_heads=2, num_kv_heads=1,
+        head_dim=16, vocab_size=256,
+    )
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_blocks_params(init: cm.Initializer, cfg: GemmaConfig) -> cm.Params:
+    d, m, lead = cfg.width, cfg.mlp_dim, (cfg.depth,)
+    qdim = cfg.num_heads * cfg.head_dim
+    kvdim = cfg.num_kv_heads * cfg.head_dim
+    return {
+        "blocks": {
+            "ln1": cm.rmsnorm_init(init, d, lead),
+            "attn": {
+                "q": cm.dense_init(init, d, qdim, use_bias=False, lead=lead),
+                "k": cm.dense_init(init, d, kvdim, use_bias=False, lead=lead),
+                "v": cm.dense_init(init, d, kvdim, use_bias=False, lead=lead),
+                "o": cm.dense_init(init, qdim, d, use_bias=False, lead=lead),
+            },
+            "ln2": cm.rmsnorm_init(init, d, lead),
+            "mlp": {
+                "gate": cm.dense_init(init, d, m, use_bias=False, lead=lead),
+                "up": cm.dense_init(init, d, m, use_bias=False, lead=lead),
+                "down": cm.dense_init(init, m, d, use_bias=False, lead=lead),
+            },
+        },
+        "final_norm": cm.rmsnorm_init(init, d),
+    }
+
+
+def init_embed_params(init: cm.Initializer, cfg: GemmaConfig) -> cm.Params:
+    return cm.embed_init(init, cfg.vocab_size, cfg.width)
+
+
+def init_blocks(cfg: GemmaConfig, seed: int = 0, device=None, dtype=torch.float32) -> cm.Params:
+    return init_blocks_params(cm.Initializer(seed, cm.resolve_device(device), dtype), cfg)
+
+
+def init_embed(cfg: GemmaConfig, seed: int = 0, device=None, dtype=torch.float32) -> cm.Params:
+    return init_embed_params(cm.Initializer(seed, cm.resolve_device(device), dtype), cfg)
+
+
+# ---------------------------------------------------------------------------
+# layer pieces
+# ---------------------------------------------------------------------------
+
+def _kv(bp, x, positions, cfg: GemmaConfig, policy: DtypePolicy):
+    b, t, _ = x.shape
+    k = cm.dense(bp["attn"]["k"], x, policy).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    v = cm.dense(bp["attn"]["v"], x, policy).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    return apply_rope(k, positions, cfg.rope_base), v
+
+
+def _qkv(bp, x, positions, cfg: GemmaConfig, policy: DtypePolicy):
+    b, t, _ = x.shape
+    q = cm.dense(bp["attn"]["q"], x, policy).reshape(b, t, cfg.num_heads, cfg.head_dim)
+    q = apply_rope(q, positions, cfg.rope_base)
+    k, v = _kv(bp, x, positions, cfg, policy)
+    return q, k, v
+
+
+def _post_attention(bp, x, att_out, cfg: GemmaConfig, policy: DtypePolicy):
+    b, t = att_out.shape[:2]
+    x = x + cm.dense(bp["attn"]["o"], att_out.reshape(b, t, -1), policy)
+    y = cm.rms_norm(bp["ln2"], x, cfg.norm_eps)
+    return x + cm.gemma_mlp(bp["mlp"], y, policy)
+
+
+# ---------------------------------------------------------------------------
+# forward modes
+# ---------------------------------------------------------------------------
+
+def prefill(
+    vlm_params: cm.Params,
+    x_pre: torch.Tensor,  # [B, P, D_vlm]
+    mask: torch.Tensor,  # bool[B, P, P]
+    positions: torch.Tensor,  # int[B, P]
+    cfg: GemmaConfig,
+    policy: DtypePolicy = DEFAULT_POLICY,
+    attention_impl: str = "xla",
+    kv_only: bool = False,
+):
+    """Prefix-only pass; returns (prefix_out, kv_cache).
+
+    kv_cache = (k, v) each [L, B, P, KVH, head_dim], K cached WITH RoPE
+    applied, so decode never re-rotates prefix keys.
+
+    kv_only=True is for callers that consume only the cache (Pi0
+    sample_actions): the last layer's attention output, out-projection, MLP
+    and the final norm feed only prefix_out, so the pass runs depth-1 full
+    layers and then only the last layer's ln1 + K/V projection (depth-1
+    attention calls); returns (None, kv_cache).
+    """
+    scale = cfg.head_dim**-0.5
+    blocks = vlm_params["blocks"]
+    b, p_len, _ = x_pre.shape
+    shape = (cfg.depth, b, p_len, cfg.num_kv_heads, cfg.head_dim)
+    cache_k = torch.empty(shape, dtype=policy.compute_dtype, device=x_pre.device)
+    cache_v = torch.empty_like(cache_k)
+
+    full_layers = cfg.depth - 1 if kv_only else cfg.depth
+    for i in range(full_layers):
+        bp = cm.layer(blocks, i)
+        y = cm.rms_norm(bp["ln1"], x_pre, cfg.norm_eps)
+        q, k, v = _qkv(bp, y, positions, cfg, policy)
+        att = multi_head_attention(q, k, v, mask=mask, impl=attention_impl, scale=scale)
+        x_pre = _post_attention(bp, x_pre, att, cfg, policy)
+        cache_k[i], cache_v[i] = k, v
+
+    if not kv_only:
+        return cm.rms_norm(vlm_params["final_norm"], x_pre, cfg.norm_eps), (cache_k, cache_v)
+
+    last = cm.layer(blocks, cfg.depth - 1)
+    y = cm.rms_norm(last["ln1"], x_pre, cfg.norm_eps)
+    cache_k[-1], cache_v[-1] = _kv(last, y, positions, cfg, policy)
+    return None, (cache_k, cache_v)
+
+
+def decode(
+    expert_params: cm.Params,
+    kv_cache,  # (k, v) from prefill: [L, B, P, KVH, head_dim]
+    x_suf: torch.Tensor,  # [B, S, D_exp]
+    mask: torch.Tensor,  # bool[B, S, P+S]
+    positions: torch.Tensor,  # int[B, S] (continuing after the prefix)
+    cfg: GemmaConfig,
+    policy: DtypePolicy = DEFAULT_POLICY,
+    attention_impl: str = "xla",
+) -> torch.Tensor:
+    """Suffix pass against a frozen prefix cache. Returns final-normed suffix.
+
+    The attention scale is the EXPERT's head_dim**-0.5. The attention is the
+    split-cache form: the prefix K/V stay where prefill wrote them.
+    `attention_impl` is accepted for signature parity; the suffix's few query
+    rows always take the plain path, as in the reference.
+    """
+    cache_k, cache_v = kv_cache
+    scale = cfg.head_dim**-0.5
+    p_len = cache_k.shape[2]
+    mask_cache, mask_new = mask[:, :, :p_len], mask[:, :, p_len:]
+
+    for i in range(cfg.depth):
+        bp = cm.layer(expert_params["blocks"], i)
+        y = cm.rms_norm(bp["ln1"], x_suf, cfg.norm_eps)
+        q, k, v = _qkv(bp, y, positions, cfg, policy)
+        att = xla_attention_cached(
+            q, cache_k[i].to(k.dtype), cache_v[i].to(v.dtype), k, v,
+            mask_cache, mask_new, scale=scale,
+        )
+        x_suf = _post_attention(bp, x_suf, att, cfg, policy)
+    return cm.rms_norm(expert_params["final_norm"], x_suf, cfg.norm_eps)
