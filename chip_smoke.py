@@ -13,6 +13,13 @@ Phases, each failing loudly (non-zero exit):
              shapes and finiteness, and the actions against the plain-attention
              path on the same params and noise; then latency at batch 1 and 64,
              and one torch.profiler pass each (device busy share, top kernels)
+  4. training the 1-chip joint recipe (config/train/pi0_finetune_bridge_1chip.yaml:
+             fused step, bf16 params with stochastic rounding, fp8 moments,
+             batch 16, synthetic data) at full width and depth through the
+             Trainer: every step's loss and grad_norm finite and its launches
+             of both kernels as expected; median step time, samples/s, peak
+             memory and a profiler pass; then one step through the kernels
+             against one through their plain versions at full width, 4 layers
 The second-to-last line is `nvidia-smi`'s card name and power limit; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
@@ -42,6 +49,18 @@ KERNEL_ATOL = 2e-2
 # path: the two round q*scale and the logits at different places in 17 layers,
 # and 10 Euler steps carry that through the expert (bf16 rounding is 2^-9)
 ACTIONS_RTOL = 5e-2
+H100_FP32_FLOPS = 67e12  # fp32 outside the tensor cores, H100 SXM data sheet
+# fused_adam_rows: bytes each element must move (p read+write 2+2, g 2, the two
+# fp8 codes read+write 1+1 each) and its fp32 operations (decode 2, clip 1,
+# g*g and the ss sum 2, the two moments 7, direction 5, decay and update 4,
+# two absmax 2, encode 2)
+ADAM_BYTES_PER_ELEM = 10
+ADAM_FLOPS_PER_ELEM = 25
+# the kernel repeats the plain version's fp32 operations one by one (no fused
+# multiply-adds) and sums ss in another order: scales (one division of equal
+# maxima) agree to an fp32 ulp, ss (16 M squares) to 1e-5
+ADAM_SCALE_RTOL = 1e-6
+ADAM_SS_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -111,7 +130,7 @@ def attention_case(rng, b, t, s, h, kvh, d, dtype, mask):
     return rnd(b, t, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d), mask
 
 
-def phase_kernels() -> dict:
+def phase_kernels() -> list[dict]:
     from intact_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
 
     rng = np.random.default_rng(0)
@@ -156,7 +175,7 @@ def phase_kernels() -> dict:
         f"sdpa {library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
         f"({moved / 1e6:.1f} MB -> {bytes_ms:.4f} ms, {flops / 1e9:.1f} GFLOP -> {ops_ms:.4f} ms)")
     flash_attention.launches = 0  # comparison launches do not count
-    return {
+    return [{
         "name": "flash_attention",
         "route": "cuda",
         "source": "intact_tpu_torch/csrc/flash_attention.cu",
@@ -168,6 +187,129 @@ def phase_kernels() -> dict:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
+    }, phase_adam_kernel()]
+
+
+def fp8_index(codes: torch.Tensor) -> torch.Tensor:
+    """fp8 codes (sign-magnitude bytes) -> integers ordered like their
+    values, so that neighbouring codes differ by 1."""
+    u = codes.view(torch.uint8).to(torch.int32)
+    return torch.where(u >= 128, -(u - 128), u)
+
+
+def adam_case(rng: np.random.Generator, L: int, r: int, NB: int, B: int, fp8: bool):
+    """Random p (bf16), g (bf16) and moments at realistic magnitudes."""
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 31)))
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device="cuda").mul_(std)
+
+    p = randn(L, r, B, std=0.02).to(torch.bfloat16)
+    g = randn(r, B, std=1e-3).to(torch.bfloat16)
+    mu, nu = randn(L, NB, B, std=1e-3), randn(L, NB, B, std=1e-6).square_()
+    if not fp8:
+        return p, g, mu, torch.zeros(L, NB, device="cuda"), nu, torch.zeros(L, NB, device="cuda")
+    out = []
+    for x, dt in ((mu, torch.float8_e4m3fn), (nu, torch.float8_e5m2)):
+        s = x.abs().amax(-1) / (448.0 if dt == torch.float8_e4m3fn else 57344.0)
+        out += [(x / s[..., None]).to(dt), s]
+        del x
+    return (p, g, *out)
+
+
+def phase_adam_kernel() -> dict:
+    """fused_adam_rows against its plain version on the card: the Gemma-2B
+    gate leaf in the full packed fp8 moments (SR on and off), and an fp32
+    moment case; every row and layer outside the leaf's must stay as it was."""
+    from intact_tpu_torch.ops.fused_adam import fused_adam_rows, fused_adam_rows_reference
+    from intact_tpu_torch.train.optim import OptimizerConfig
+
+    hp = OptimizerConfig(lr=5e-5, weight_decay=0.0)
+    rng = np.random.default_rng(3)
+    # Gemma-2B trunk pack at block 2048: NB = 57344 rows per layer, the gate
+    # leaf owns rows [20992, 20992 + 16384) (TrunkPack order: attn k, o, q, v,
+    # mlp down, gate, up, then the norms)
+    gate = dict(L=18, r=16384, NB=57344, B=2048, off=20992, layer=5)
+    cases = {
+        "gate_fp8_sr": (gate, True, True),
+        "gate_fp8": (gate, True, False),
+        "expert_q_fp32_sr": (dict(L=4, r=1024, NB=4096, B=2048, off=1024, layer=2), False, True),
+    }
+    hyp = torch.tensor([1 - 0.9**3, 1 - 0.999**3, 5e-5, 0.7], device="cuda")
+    max_err = 0.0
+    timed = None
+    for name, (sh, fp8, sr) in cases.items():
+        L, r, NB, B, off, layer = (sh[k] for k in ("L", "r", "NB", "B", "off", "layer"))
+        orig = adam_case(rng, L, r, NB, B, fp8)
+        kern = [x.clone() for x in orig]
+        ref = [x.clone() for x in orig]
+        kw = dict(layer=layer, row_offset=off, hyp=hyp, hp=hp, salt=987654321, stochastic=sr)
+        ss_k, ss_r = torch.zeros(1, device="cuda"), torch.zeros(1, device="cuda")
+        fused_adam_rows(*kern, ss=ss_k, **kw)
+        torch.cuda.synchronize()
+        fused_adam_rows_reference(*ref, ss=ss_r, **kw)
+        rows = slice(off, off + r)
+        pk, pr = kern[0][layer].float(), ref[0][layer].float()
+        ulp = torch.exp2(torch.floor(torch.log2(pr.abs().clamp_min(2.0**-126))) - 7)
+        p_ulps = ((pk - pr).abs() / ulp).max().item()
+        if fp8:
+            code_gap = max((fp8_index(kern[i][layer, rows]) - fp8_index(ref[i][layer, rows])).abs().max().item()
+                           for i in (2, 4))
+            scale_rel = max(((kern[i][layer, rows] - ref[i][layer, rows]).abs() / ref[i][layer, rows]).max().item()
+                            for i in (3, 5))
+        else:
+            code_gap = 0
+            scale_rel = max(((kern[i][layer, rows] - ref[i][layer, rows]).abs()
+                             / ref[i][layer, rows].abs().clamp_min(1e-30)).max().item() for i in (2, 4))
+        ss_rel = abs(ss_k.item() - ss_r.item()) / ss_r.item()
+        untouched = all(
+            torch.equal(k[:layer], o[:layer]) and torch.equal(k[layer + 1:], o[layer + 1:])
+            for k, o in zip(kern, orig)
+        ) and all(
+            torch.equal(kern[i][layer, :off], orig[i][layer, :off])
+            and torch.equal(kern[i][layer, off + r:], orig[i][layer, off + r:]) for i in (2, 3, 4, 5))
+        same_p = torch.equal(kern[0], ref[0])
+        log(f"# fused_adam_rows {name}: p [{L}, {r}, {B}] bf16, moments [{L}, {NB}, {B}] "
+            f"{kern[2].dtype}/{kern[4].dtype}, layer {layer}, rows [{off}, {off + r}), SR {sr}: "
+            f"p max {p_ulps:.3f} bf16 ulp (tol 1, bit-equal {same_p}), codes max {code_gap} apart (tol 1), "
+            f"{'scales' if fp8 else 'fp32 moments'} max rel {scale_rel:.3e} (tol {ADAM_SCALE_RTOL}), "
+            f"ss rel {ss_rel:.3e} (tol {ADAM_SS_RTOL}), outside rows/layers bit-identical {untouched}")
+        if not (p_ulps <= 1 and code_gap <= 1 and scale_rel <= ADAM_SCALE_RTOL and ss_rel <= ADAM_SS_RTOL
+                and untouched and all(torch.isfinite(x.float()).all() for x in kern)):
+            raise SystemExit(f"fused_adam_rows disagrees with its plain version on {name}")
+        max_err = max(max_err, (pk - pr).abs().max().item())
+        if name == "gate_fp8_sr":
+            timed = kern, kw
+        del orig, kern, ref
+
+    args, kw = timed
+    L, r, B = args[0].shape
+    ss = torch.zeros(1, device="cuda")
+    ms = cuda_ms(lambda: fused_adam_rows(*args, ss=ss, **kw))
+    plain_ms = cuda_ms(lambda: fused_adam_rows_reference(*args, ss=ss, **kw), reps=5, warmup=1)
+    n = r * B
+    moved = n * ADAM_BYTES_PER_ELEM + r * 4 * 4  # + the two scale rows, read and written
+    bytes_ms = moved / H100_BYTES_PER_S * 1e3
+    ops_ms = n * ADAM_FLOPS_PER_ELEM / H100_FP32_FLOPS * 1e3
+    log(f"# fused_adam_rows gate leaf timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {max(bytes_ms, ops_ms):.4f} ms ({moved / 1e6:.1f} MB -> {bytes_ms:.4f} ms, "
+        f"{n * ADAM_FLOPS_PER_ELEM / 1e9:.2f} GFLOP fp32 -> {ops_ms:.4f} ms), "
+        f"{moved / ms / 1e6:.1f} GB/s; no library call computes this function")
+    fused_adam_rows.launches = 0  # comparison launches do not count
+    return {
+        "name": "fused_adam_rows",
+        "route": "cuda",
+        "source": "intact_tpu_torch/csrc/fused_adam_rows.cu",
+        "replaces": "intact_tpu/ops/pallas_adam.py:141",
+        "launches": None,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        # fp8 moments with per-row absmax scales and hash SR: no single
+        # PyTorch call computes this update
+        "library_ms": None,
     }
 
 
@@ -262,26 +404,225 @@ def phase_serving() -> int:
             f"({[round(x * 1e3, 2) for x in times]}), {b * cfg.n_action_steps / med:.2f} policy steps/s")
     log(f"# peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for b, obs in ((1, obs1), (64, obs64)):
-        profile_inference(policy, obs, b)
+        profile_pass(f"batch {b}", lambda: policy.sample_action_chunk(obs))
     return launches
 
 
-def profile_inference(policy, obs: dict, b: int) -> None:
+def profile_pass(label: str, fn) -> None:
     """Device busy share and the kernels that take the most device time in
-    one inference, under torch.profiler (which adds host time of its own)."""
+    one call of fn (which ends in a sync), under torch.profiler (which adds
+    host time of its own)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        policy.sample_action_chunk(obs)
+        fn()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    log(f"# profile batch {b}: wall {wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms "
+    log(f"# profile {label}: wall {wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms "
         f"({100 * busy_us / wall_us:.1f}%), {sum(e.count for e in kernels)} kernel launches")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    ours = [e for e in kernels if ("attn_kernel" in e.key or "fused_adam_rows_kernel" in e.key) and e not in top]
+    for e in top + ours:
         log(f"#   {e.self_device_time_total / 1e3:8.3f} ms {100 * e.self_device_time_total / busy_us:5.1f}% "
             f"x{e.count:<5d} {e.key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# 4. full-width training
+# ---------------------------------------------------------------------------
+
+RECIPE = "config/train/pi0_finetune_bridge_1chip.yaml"
+DEVICE = "cuda"
+TRAIN_STEPS = 4
+# kernel path vs plain path, one step at full width and 4 layers: the two
+# round the attention (bf16 P, fp32 sums in another order) at different
+# places, which moves the loss and the gradients by ~1e-3 relative; the
+# updated parameters differ only where stochastic rounding lands on the other
+# side (same salt, nearly the same exact value); a moment code may move by one
+# where the gradient moved
+TRAIN_LOSS_RTOL = 2e-2
+TRAIN_GNORM_RTOL = 5e-2
+TRAIN_PARAMS_RTOL = 1e-3  # relative L2 of the parameters after the step
+TRAIN_UPDATE_RTOL = 0.5  # relative L2 of the parameter change (mostly +-1 bf16 ulp flips)
+TRAIN_CODES_SHARE = 0.05  # share of moment codes more than one code apart
+
+
+def recipe_config():
+    """The 1-chip recipe (config/train/pi0_finetune_bridge_1chip.yaml) with
+    the hash tokenizer and a few logged steps; assembled in code from the
+    same values where PyYAML is missing."""
+    from intact_tpu_torch.config import TrainPipelineConfig, apply_overrides, from_dict, load_yaml
+
+    overrides = {"n_updates": str(TRAIN_STEPS), "log_freq": "1", "tokenizer_path": "hash"}
+    try:
+        import yaml  # noqa: F401
+
+        data = load_yaml(RECIPE)
+        log(f"# training: {RECIPE} (PyYAML)")
+    except ImportError:
+        model = json.loads(Path("config/models/pi0_finetune_bridge.json").read_text())
+        data = {
+            "name": "pi0_finetune_1chip", "model_cfg": model, "freeze_lm_head": True, "seed": 42,
+            "global_batch_size": 16, "per_device_batch_size": 16, "n_epochs": 15, "max_grad_norm": 1.0,
+            "mesh": {"data": -1, "fsdp": 1, "tensor": 1}, "use_bf16": True, "master_dtype": "bfloat16",
+            "fused_update": True, "remat": False, "log_freq": 4, "eval_freq": 250, "eval_size": 1024,
+            "data": {"train": {"dataset_mix": "bridge",
+                               "dataset_statistics_path": "config/dataset/bridge_statistics.json",
+                               "shuffle_buffer_size": 200000}},
+        }
+        log(f"# training: {RECIPE} assembled in code (no PyYAML)")
+    return from_dict(TrainPipelineConfig, apply_overrides(data, overrides))
+
+
+def expected_row_updates(state, block: int = 2048) -> tuple[int, int]:
+    """(fused_adam_rows launches, elements they update) of one step: every
+    kernel-eligible trunk leaf in every layer, and every eligible 8-bit leaf
+    of the head and the embed side."""
+    from intact_tpu_torch.ops.fused_adam import eligible
+    from intact_tpu_torch.train.fused_joint import EMBED_NAMES, TrunkPack, _is_quant_leaf, tree_items
+
+    sizes = []
+    for t in ("vlm", "expert"):
+        blocks = state.params[t]["blocks"]
+        depth = next(tree_items(blocks))[1].shape[0]
+        sizes += depth * [size for size in TrunkPack(blocks, block).sizes if eligible(size, block)]
+    for name in EMBED_NAMES + ("action_out_proj",):
+        moments = dict(tree_items(state.mu[name], quant_leaves=True))
+        sizes += [p.numel() for path, p in tree_items(state.params[name])
+                  if _is_quant_leaf(moments[path]) and eligible(p.numel(), block)]
+    return len(sizes), sum(sizes)
+
+
+def phase_training() -> dict:
+    """-> {kernel: launches} on the training path."""
+    from intact_tpu_torch.ops.flash_attention import flash_attention
+    from intact_tpu_torch.ops.fused_adam import fused_adam_rows
+    from intact_tpu_torch.train.fused_joint import tree_items
+    from intact_tpu_torch.train.trainer import Trainer
+
+    cfg = recipe_config()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    mc = trainer.model_cfg
+    n_params = sum(x.numel() for _, x in tree_items(trainer.state.params))
+    want_adam, adam_elems = expected_row_updates(trainer.state)
+    want_flash = 2 * (mc.vlm.depth - 1)
+    log(f"# training: Pi0 bridge ({mc.vlm.depth}+{mc.expert.depth} trunk layers, SigLIP {mc.vision.depth}), "
+        f"{n_params / 1e9:.3f} B params bf16, batch {trainer.micro_batch_size}, init "
+        f"{time.perf_counter() - t0:.2f} s; per step expect {want_adam} fused_adam_rows launches over "
+        f"{adam_elems / 1e9:.3f} G elements (bound {adam_elems * ADAM_BYTES_PER_ELEM / H100_BYTES_PER_S * 1e3:.3f} ms) "
+        f"and {want_flash} flash_attention launches")
+
+    # record each step the trainer takes: its launches, metrics and time
+    steps = []
+    real_step = trainer.train_step
+
+    def recorded(state, batch):
+        f0, a0 = flash_attention.launches, fused_adam_rows.launches
+        t = time.perf_counter()
+        out = real_step(state, batch)
+        torch.cuda.synchronize()
+        steps.append((flash_attention.launches - f0, fused_adam_rows.launches - a0,
+                      out[1]["l2_loss"].item(), out[1]["grad_norm"].item(), time.perf_counter() - t))
+        return out
+
+    trainer.train_step = recorded
+    torch.cuda.reset_peak_memory_stats()
+    # --- the main path: the trainer's loop, as `python -m intact_tpu_torch.run` drives it ---
+    flash_attention.launches = fused_adam_rows.launches = 0
+    t0 = time.perf_counter()
+    trainer.train()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.launches, "fused_adam_rows": fused_adam_rows.launches}
+    # -------------------------------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    for i, (nf, na, loss, gnorm, dt) in enumerate(steps):
+        log(f"# training step {i + 1}: loss {loss:.6f}, grad_norm {gnorm:.6f}, {dt * 1e3:.2f} ms, "
+            f"launches flash_attention {nf}, fused_adam_rows {na}")
+        if not (np.isfinite(loss) and np.isfinite(gnorm)) or nf != want_flash or na != want_adam:
+            raise SystemExit(f"training step {i + 1}: non-finite metrics or unexpected kernel launches")
+    if len(steps) != TRAIN_STEPS or launches["fused_adam_rows"] != TRAIN_STEPS * want_adam:
+        raise SystemExit(f"{len(steps)} steps, launches {launches}")
+    med = statistics.median(dt for *_, dt in steps[1:])
+    log(f"# training: median step {med * 1e3:.2f} ms over steps 2..{TRAIN_STEPS} "
+        f"({[round(s[-1] * 1e3, 2) for s in steps]}), {trainer.micro_batch_size / med:.2f} samples/s; "
+        f"loop wall {wall:.2f} s for {TRAIN_STEPS} steps incl. data; peak device memory {peak / 2**30:.2f} GiB")
+    batch = trainer.device_batch(next(iter(trainer.train_data)))
+    profile_pass("training step", lambda: (real_step(trainer.state, batch), torch.cuda.synchronize()))
+    del trainer, batch
+    torch.cuda.empty_cache()
+    compare_training_paths()
+    return launches
+
+
+def compare_training_paths(depth: int = 4) -> None:
+    """One fused step at full width and `depth` layers through the kernels
+    (flash attention, fused_adam_rows) and through their plain versions
+    (plain attention; the row update's plain math, `fused_rows_update` with
+    exact scales, which fused_adam_rows_reference runs), from the same
+    params, batch, noise, time and salt."""
+    from intact_tpu_torch.config.pipeline import optimizer_config_from_model_json
+    from intact_tpu_torch.data.dataset import InterleavedDataset
+    from intact_tpu_torch.models import common as cm
+    from intact_tpu_torch.models.pi0 import model as pi0
+    from intact_tpu_torch.models.tokenizer import HashTokenizer
+    from intact_tpu_torch.train import fused_joint as fj
+    from intact_tpu_torch.train.trainer import preprocess_batch
+
+    cfg = recipe_config()
+    full = cfg.make_model_config()
+    mc = dataclasses.replace(full, vlm=dataclasses.replace(full.vlm, depth=depth),
+                             expert=dataclasses.replace(full.expert, depth=depth),
+                             vision=dataclasses.replace(full.vision, depth=depth))
+    opt = optimizer_config_from_model_json(cfg.model_cfg, cfg)
+    policy = cm.DtypePolicy(param_dtype=torch.float32, compute_dtype=torch.bfloat16)
+    data = InterleavedDataset(cfg.data, 16, seed=7, image_size=mc.vision.image_size)
+    raw = preprocess_batch(next(iter(data)), HashTokenizer(mc.vlm.vocab_size, mc.tokenizer_max_length), mc)
+    batch = {k: torch.from_numpy(np.asarray(v)).to(DEVICE) for k, v in raw.items()}
+    rng = np.random.default_rng(8)
+    noise = torch.from_numpy(rng.standard_normal(batch["actions"].shape, dtype=np.float32)).to(DEVICE)
+    time_ = pi0.sample_time(rng, 16, mc, DEVICE)
+    runs = {}
+    for name, attn, mode in (("kernel", "pallas", "on"), ("plain", "xla", "off")):
+        params = pi0.init(mc, seed=1, device=DEVICE, dtype=torch.bfloat16)
+        before = {k: v.clone() for k, v in fj.tree_items(params)}
+        state = fj.init_fused_state(params, seed=1)
+        state.count = opt.warmup_steps  # past warmup: lr at its peak
+        step = fj.make_fused_joint_step(dataclasses.replace(mc, attention_impl=attn), opt, policy,
+                                        stochastic_rounding=True, pallas_mode=mode, scale_mode="exact")
+        state, metrics = step(state, batch, noise=noise, time=time_, salt=12345)
+        torch.cuda.synchronize()
+        runs[name] = (state, metrics, before)
+    (sk, mk, before), (sp, mp, _) = runs["kernel"], runs["plain"]
+    loss_rel = abs(mk["l2_loss"].item() - mp["l2_loss"].item()) / abs(mp["l2_loss"].item())
+    gnorm_rel = abs(mk["grad_norm"].item() - mp["grad_norm"].item()) / mp["grad_norm"].item()
+    pk, pp = dict(fj.tree_items(sk.params)), dict(fj.tree_items(sp.params))
+    num = sum((pk[k].float() - pp[k].float()).square().sum().item() for k in pp)
+    den = sum(pp[k].float().square().sum().item() for k in pp)
+    dnum = sum(((pk[k].float() - before[k].float()) - (pp[k].float() - before[k].float())).square().sum().item()
+               for k in pp)
+    dden = sum((pp[k].float() - before[k].float()).square().sum().item() for k in pp)
+    far = total = 0
+    for tree in ("mu", "nu"):
+        qk = dict(fj.tree_items(getattr(sk, tree), quant_leaves=True))
+        qp = dict(fj.tree_items(getattr(sp, tree), quant_leaves=True))
+        for k, node in qp.items():
+            if fj._is_quant_leaf(node) and node["q"].dtype != torch.float32:
+                gap = (fp8_index(qk[k]["q"]) - fp8_index(node["q"])).abs()
+                far += int((gap > 1).sum())
+                total += gap.numel()
+    share = far / total
+    log(f"# training kernel vs plain path (full width, {depth} layers, batch 16, one step, same params, batch, "
+        f"noise, time and salt): loss {mk['l2_loss'].item():.6f} vs {mp['l2_loss'].item():.6f} (rel {loss_rel:.3e}, "
+        f"tol {TRAIN_LOSS_RTOL}), grad_norm rel {gnorm_rel:.3e} (tol {TRAIN_GNORM_RTOL}), params rel L2 "
+        f"{(num / den) ** 0.5:.3e} (tol {TRAIN_PARAMS_RTOL}), update rel L2 {(dnum / dden) ** 0.5:.3e} "
+        f"(tol {TRAIN_UPDATE_RTOL}), moment codes more than one apart {share:.3e} of {total} (tol {TRAIN_CODES_SHARE})")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and gnorm_rel <= TRAIN_GNORM_RTOL and (num / den) ** 0.5 <= TRAIN_PARAMS_RTOL
+            and (dnum / dden) ** 0.5 <= TRAIN_UPDATE_RTOL and share <= TRAIN_CODES_SHARE):
+        raise SystemExit("the training step through the kernels disagrees with the plain path")
 
 
 def main() -> int:
@@ -295,11 +636,19 @@ def main() -> int:
     t0 = time.perf_counter()
     log(f"# torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     phase_build()
-    kernel = phase_kernels()
-    kernel["launches"] = phase_serving()
+    kernels = {k["name"]: k for k in phase_kernels()}
+    serving = phase_serving()
+    torch.cuda.empty_cache()
+    training = phase_training()
+    if not (serving > 0 and all(n > 0 for n in training.values())):
+        raise SystemExit(f"a kernel of the path never launched: serving {serving}, training {training}")
+    kernels["flash_attention"]["launches"] = serving + training["flash_attention"]
+    kernels["fused_adam_rows"]["launches"] = training["fused_adam_rows"]
+    log(f"# launches on the main paths: flash_attention {serving} serving + {training['flash_attention']} "
+        f"training, fused_adam_rows {training['fused_adam_rows']} training")
     torch.cuda.synchronize()
     log(f"# total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": list(kernels.values())}))
     print(gpu_name_and_power())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -1,0 +1,263 @@
+"""Training pipeline configuration: the train role's part of
+intact_tpu/config/pipeline.py, copied.
+
+Derivations kept: n_updates = train_episode_count // global_batch_size *
+n_epochs; save_model_freq defaults to one epoch of updates; the val data
+section inherits unset fields from the train section. Every key the train
+YAMLs under config/train/ set binds here; the trainer refuses the settings
+whose paths are not ported yet. Not copied: the evaluation/server sections
+(the server runs through `python -m intact_tpu_torch.serve`) and W&B.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from dataclasses import field
+from pathlib import Path
+
+# Bridge dataset statistics (proprio/action mean/std), the hard-coded default
+# the reference carries in DataConfig.
+BRIDGE_DATASET_STATS: dict = {
+    "observation.state": {
+        "mean": [0.30904945731163025, 0.03045589290559292, 0.06558273732662201,
+                 0.00706630339846015, -0.07828629016876221, 0.10661222040653229,
+                 0.7149746417999268],
+        "std": [0.06059328466653824, 0.09172434359788895, 0.05185756832361221,
+                0.1313914805650711, 0.1698099821805954, 0.573583722114563,
+                0.3517141044139862],
+        "p01": [0.17017078369855881, -0.16965715914964677, -0.054787094071507454,
+                -0.3655692100524902, -0.5435487496852874, -1.3501438736915587,
+                0.052190229296684265],
+        "p99": [0.4527312242984769, 0.23490807592868757, 0.1973453593254087,
+                0.37877989292144754, 0.27723048210143925, 1.8378053522109963,
+                1.0105689764022827],
+    },
+    "action": {
+        "mean": [0.00021758403454441577, 0.00012507825158536434,
+                 -0.00017109014152083546, -0.0001617111702216789,
+                 -0.0002524859446566552, 0.0002515816013328731,
+                 0.5879487991333008],
+        "std": [0.009632210247218609, 0.013500974513590336, 0.012510341592133045,
+                0.028145477175712585, 0.03028254210948944, 0.07585873454809189,
+                0.4877150356769562],
+        "p01": [-0.028539552688598632, -0.041432044506073, -0.025977383628487588,
+                -0.08020886614918708, -0.09213060349225997, -0.2054861941933632,
+                0.0],
+        "p99": [0.028122276067733765, 0.040630316659808145, 0.03994889184832546,
+                0.08121915772557152, 0.07724379181861864, 0.20214049845933896,
+                1.0],
+    },
+}
+
+
+def _default_data_path() -> Path:
+    return Path(os.environ.get("VLA_DATA_DIR", "/tmp/vla_data")) / "resize_224"
+
+
+@dataclasses.dataclass
+class TrainDataConfig:
+    dataset_mix: str = "bridge"
+    split: str = "train"
+    data_path: Path = field(default_factory=_default_data_path)
+    window_size: int = 1
+    action_horizon: int | None = None  # filled from model chunk_size
+    skip_unlabeled: bool = True
+    load_proprio: bool = True
+    shuffle_buffer_size: int = 200_000
+    num_parallel_calls: int = 50
+    traj_transform_threads: int = 20
+    traj_read_threads: int = 20
+    max_action_future: int = 50
+    subsample_length: int = 100  # post-chunk frames kept per traj (train)
+    image_dropout_prob: float = 0.0  # whole-camera dropout (non-primary)
+    # explicit statistics for single-dataset mixes (e.g. the shipped
+    # config/dataset/bridge_statistics.json): guarantees training
+    # normalizes with the SAME constants serving denormalizes with
+    dataset_statistics_path: str | None = None
+    # tf.data service dispatcher ("grpc://host:port"), for the RLDS backend
+    service_address: str | None = None
+
+
+@dataclasses.dataclass
+class ValDataConfig:
+    dataset_mix: str | None = None
+    split: str = "val"
+    data_path: Path | None = None
+    window_size: int | None = None
+    action_horizon: int | None = None
+    skip_unlabeled: bool | None = None
+    load_proprio: bool | None = None
+    shuffle_buffer_size: int = 10_000
+    num_parallel_calls: int | None = None
+    traj_transform_threads: int | None = None
+    traj_read_threads: int | None = None
+    max_action_future: int | None = None
+    subsample_length: int | None = None
+    image_dropout_prob: float | None = None
+    dataset_statistics_path: str | None = None
+
+
+@dataclasses.dataclass
+class DataConfig:
+    train: TrainDataConfig = field(default_factory=TrainDataConfig)
+    val: ValDataConfig = field(default_factory=ValDataConfig)
+    dataset_stats: dict = field(default_factory=lambda: dict(BRIDGE_DATASET_STATS))
+    train_episode_count: int = 1_550_000
+    backend: str = "auto"  # "synthetic" | "auto" (= synthetic); "rlds" is not ported yet
+    # instruction-paraphrase table (local JSON), for task_paraphrase
+    paraphrase_json: str | None = None
+
+
+@dataclasses.dataclass
+class EnvConfig:
+    dataset_statistics_path: str | None = None
+    image_size: tuple[int, int] = (224, 224)
+    action_normalization_type: str = "bound"
+    state_normalization_type: str = "bound"
+
+
+@dataclasses.dataclass
+class MeshSection:
+    """Replaces the reference's multi_gpu/mechanism fields
+    (`configuration_pipeline.py:159-172`): data/fsdp/tensor axis sizes;
+    -1 data absorbs remaining devices."""
+    data: int = -1
+    fsdp: int = 1
+    tensor: int = 1
+
+
+@dataclasses.dataclass
+class TrainPipelineConfig:
+    task_paraphrase: bool = False
+    data: DataConfig = field(default_factory=DataConfig)
+
+    name: str | None = None
+    seed: int = 42
+    debug: bool = False
+
+    mesh: MeshSection = field(default_factory=MeshSection)
+
+    use_bf16: bool = True
+    remat: bool = False
+    optimizer_8bit: bool = False
+    # "bfloat16" stores every parameter in bf16 and applies updates with
+    # stochastic rounding (the joint recipe's precision)
+    master_dtype: str = "float32"
+    # fused backward+optimizer (train/fused_joint.py): the pi0 joint recipe
+    # with one-step-delayed global-norm clipping; no gradient accumulation
+    fused_update: bool = False
+    quantize_frozen_int8: bool = False
+
+    global_batch_size: int = 1024
+    per_device_batch_size: int = 32
+    n_epochs: int = 15
+    max_grad_norm: float = 1.0
+
+    n_updates: int | None = None
+    save_model_freq: int | None = None
+
+    log_freq: int = 4
+    train_log_metrics: list = field(default_factory=lambda: ["l2_loss"])
+    eval_freq: int = 250
+    eval_size: int = 1024
+
+    # model config: raw dict from the model JSON (must carry "type")
+    model_cfg: dict = field(default_factory=lambda: {"type": "pi0"})
+    # language tokenizer asset (a local HF tokenizer directory); "hash" opts
+    # into the hermetic fallback explicitly; None defers to
+    # $VLA_TOKENIZER_PATH, then the model JSON's "tokenizer_path"
+    tokenizer_path: str | None = None
+    freeze_lm_head: bool = True
+    freeze_vlm: bool = False
+    load_from_checkpoint: str | None = None
+    resume_run: bool = True
+
+    use_wandb: bool = False
+    env: EnvConfig = field(default_factory=EnvConfig)
+
+    log_dir: Path = field(default_factory=lambda: Path(os.environ.get("VLA_LOG_DIR", "log")))
+
+    def __post_init__(self):
+        self.finalize()
+
+    def finalize(self) -> "TrainPipelineConfig":
+        if self.data.train.action_horizon is None:
+            self.data.train.action_horizon = int(self.model_cfg.get("chunk_size", 1))
+        for key, value in vars(self.data.train).items():
+            if getattr(self.data.val, key, None) is None:
+                setattr(self.data.val, key, value)
+        if self.n_updates is None:
+            self.n_updates = self.data.train_episode_count // self.global_batch_size * self.n_epochs
+        if self.save_model_freq is None:
+            self.save_model_freq = self.data.train_episode_count // self.global_batch_size
+        return self
+
+    def make_model_config(self):
+        """model_cfg dict -> Pi0Config (the only family ported)."""
+        if self.model_type != "pi0":
+            raise NotImplementedError(f"model type {self.model_type!r} is not ported yet")
+        return pi0_config_from_json(self.model_cfg)
+
+    @property
+    def model_type(self) -> str:
+        return self.model_cfg.get("type", "pi0")
+
+    def resolve_tokenizer_path(self) -> str | None:
+        return (
+            self.tokenizer_path
+            or os.environ.get("VLA_TOKENIZER_PATH")
+            or self.model_cfg.get("tokenizer_path")
+            or None
+        )
+
+
+def pi0_config_from_json(d: dict):
+    """LeRobot-style pi0 JSON (config/models/pi0_finetune_bridge.json) ->
+    Pi0Config. Unknown keys are ignored."""
+    from intact_tpu_torch.models.pi0.config import Pi0Config
+
+    base = Pi0Config.bridge()
+    num_cameras = max(1, len([
+        k for k, v in d.get("input_features", {}).items()
+        if v.get("type") == "VISUAL"
+    ]) + int(d.get("empty_cameras", 0) or 0)) if d.get("input_features") else base.num_cameras
+
+    return dataclasses.replace(
+        base,
+        chunk_size=int(d.get("chunk_size", base.chunk_size)),
+        n_action_steps=int(d.get("n_action_steps", base.n_action_steps)),
+        max_state_dim=int(d.get("max_state_dim", base.max_state_dim)),
+        max_action_dim=int(d.get("max_action_dim", base.max_action_dim)),
+        tokenizer_max_length=int(d.get("tokenizer_max_length", base.tokenizer_max_length)),
+        num_steps=int(d.get("num_steps", base.num_steps)),
+        num_cameras=num_cameras,
+        freeze_vision_encoder=bool(d.get("freeze_vision_encoder", False)),
+        train_expert_only=bool(d.get("train_expert_only", False)),
+        # every accelerated-attention name maps onto the hand-written kernel
+        # path; "xla" opts into the plain path explicitly
+        attention_impl={"eager": "pallas", "flex": "pallas", "fa2": "pallas",
+                        "pallas": "pallas", "xla": "xla"}.get(
+            d.get("attention_implementation", "eager"), "pallas"
+        ),
+    )
+
+
+def optimizer_config_from_model_json(d: dict, pipeline: TrainPipelineConfig):
+    """Model-JSON optimizer hyperparams -> train.optim.OptimizerConfig.
+    grad_accumulation_steps is left at 1: the trainer sets it."""
+    from intact_tpu_torch.train.optim import OptimizerConfig
+
+    first_cycle = int(d.get("scheduler_decay_steps", pipeline.n_updates or 30_000))
+    warmup = min(int(d.get("scheduler_warmup_steps", 200)), max(first_cycle - 1, 0))
+    return OptimizerConfig(
+        lr=float(d.get("optimizer_lr", 5e-5)),
+        betas=tuple(d.get("optimizer_betas", (0.9, 0.999))),
+        eps=float(d.get("optimizer_eps", 1e-8)),
+        weight_decay=float(d.get("optimizer_weight_decay", 1e-5)),
+        max_grad_norm=pipeline.max_grad_norm,
+        warmup_steps=warmup,
+        first_cycle_steps=first_cycle,
+        min_lr=float(d.get("scheduler_decay_lr", 1e-8)),
+        quantize_moments=pipeline.optimizer_8bit,
+    )

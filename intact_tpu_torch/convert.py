@@ -5,6 +5,10 @@ kernels [in, out], per-layer weights stacked [L, ...] under "blocks"), so the
 bridge is a checked walk: every reference leaf must land on a port parameter
 of the same path and shape, and every port parameter must be filled.
 Leftovers on either side raise.
+
+`from_jax_fused_state` carries a fused training state across the same way:
+parameters as above, fp8 moment codes bit for bit (numpy's uint8 view of the
+ml_dtypes array -> torch's float8 view), scales and exact moments as fp32.
 """
 
 from __future__ import annotations
@@ -48,3 +52,56 @@ def from_jax_params(tree, cfg: Pi0Config, device=None, dtype=torch.float32) -> c
         return torch.from_numpy(np.array(leaf, np.float32)).to(device=device, dtype=dtype)
 
     return fill(template)
+
+
+_FP8_BY_NAME = {"float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2}
+
+
+def _moment_leaf(x, device) -> torch.Tensor:
+    x = np.asarray(x)
+    fp8 = _FP8_BY_NAME.get(x.dtype.name)
+    if fp8 is not None:
+        return torch.from_numpy(np.ascontiguousarray(x).view(np.uint8).copy()).view(fp8).to(device)
+    if x.dtype != np.float32:
+        raise ValueError(f"moment leaves are fp8 codes or fp32; got {x.dtype}")
+    return torch.from_numpy(np.array(x)).to(device)
+
+
+def from_jax_fused_state(state, cfg: Pi0Config, seed: int, device=None, block_size=2048, min_quant_elems=65536):
+    """A JAX `fused_joint.FusedTrainState` (leaves as numpy or JAX arrays)
+    -> the port's `FusedTrainState` on `device` (CUDA unless given).
+
+    Parameters stay bf16 where every reference leaf is bf16 (the joint
+    recipe's masters), else become fp32. The moment trees must match, leaf
+    for leaf and in shape and dtype, the ones `init_fused_state(params, seed,
+    block_size, min_quant_elems)` makes for `cfg`; leftovers on either side
+    raise. The JAX generator key has no counterpart: the port's step draws
+    from (seed, count)."""
+    from intact_tpu_torch.train.fused_joint import init_fused_state
+
+    device = cm.resolve_device(device)
+    src = _numpy_tree(state.params)
+    bf16 = all(x.dtype.name == "bfloat16" for x in _flatten(src).values())
+    params = from_jax_params(src, cfg, device, torch.bfloat16 if bf16 else torch.float32)
+    fresh = init_fused_state(params, seed, block_size=block_size, min_quant_elems=min_quant_elems)
+    for name in ("mu", "nu"):
+        src = _flatten(_numpy_tree(getattr(state, name)))
+        want = _flatten(getattr(fresh, name))
+        missing, extra = sorted(set(want) - set(src)), sorted(set(src) - set(want))
+        if missing or extra:
+            raise ValueError(f"{name} trees differ: missing {missing}, unconsumed {extra}")
+        for path, leaf in want.items():
+            new = _moment_leaf(src[path], device)
+            if new.shape != leaf.shape or new.dtype != leaf.dtype:
+                raise ValueError(f"{name}/{path}: reference {tuple(new.shape)} {new.dtype} != "
+                                 f"port {tuple(leaf.shape)} {leaf.dtype}")
+            leaf.copy_(new)
+    fresh.count = int(np.asarray(state.count))
+    fresh.prev_gnorm = torch.tensor(float(np.asarray(state.prev_gnorm)), dtype=torch.float32, device=device)
+    return fresh
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return np.asarray(tree)

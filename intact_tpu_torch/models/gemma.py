@@ -1,16 +1,19 @@
 """Gemma decoder blocks for the Pi0 trunk: the PaliGemma VLM stream and the
 smaller action-expert stream, which attends over the VLM's prefix K/V cache.
 
-Two entry points for serving:
-  prefill  the prefix through the VLM, emitting the K/V cache
-  decode   the suffix through the expert against the cached prefix K/V
-           (called once per Euler step)
+Entry points:
+  forward_joint   training: prefix+suffix in one pass (no cache), the two
+                  streams sharing one attention per layer
+  prefill         the prefix through the VLM, emitting the K/V cache
+  decode          the suffix through the expert against the cached prefix K/V
+                  (called once per Euler step)
 
 Grouped-query attention: 8 query heads / 1 KV head / head_dim 256 for both
 streams (widths differ: 2048 VLM vs 1024 expert). The prefix attention goes
 through `multi_head_attention(impl=attention_impl)`, which reaches the
-hand-written CUDA kernel for "pallas"; decode's split-cache attention stays
-on the plain path.
+hand-written CUDA kernel for "pallas" (with the plain backward where a
+gradient is required); decode's split-cache attention and the suffix-only last
+layer of the joint pass stay on the plain path.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from intact_tpu_torch.models import common as cm
 from intact_tpu_torch.models.common import DEFAULT_POLICY, DtypePolicy
@@ -124,6 +128,106 @@ def _post_attention(bp, x, att_out, cfg: GemmaConfig, policy: DtypePolicy):
 # ---------------------------------------------------------------------------
 # forward modes
 # ---------------------------------------------------------------------------
+
+def _depth(blocks: cm.Params) -> int:
+    return cm.tree_leaves(blocks)[0].shape[0]
+
+
+def forward_joint(
+    vlm_params: cm.Params,
+    expert_params: cm.Params,
+    x_pre: torch.Tensor,  # [B, P, D_vlm] embedded prefix
+    x_suf: torch.Tensor,  # [B, S, D_exp] embedded suffix
+    mask: torch.Tensor,  # bool[B, P+S, P+S] over the concatenated sequence
+    positions: torch.Tensor,  # int[B, P+S]
+    vlm_cfg: GemmaConfig,
+    expert_cfg: GemmaConfig,
+    policy: DtypePolicy = DEFAULT_POLICY,
+    attention_impl: str = "xla",
+    suffix_only: bool = False,
+):
+    """Training pass. Returns (prefix_out, suffix_out), both final-normed.
+
+    Where a gradient is required each layer pair runs under
+    `torch.utils.checkpoint`: the backward recomputes one layer at a time,
+    as the reference's per-layer remat does.
+
+    suffix_only=True is for callers that discard prefix_out (Pi0's training
+    loss reads only the action-chunk suffix): the last layer's prefix
+    attention output, o-projection and MLP feed only prefix_out, so the last
+    pair runs `joint_last_pair` (prefix: bare ln1 + K/V; suffix: the full
+    layer). Gradients are unchanged. Returns (None, suffix_out).
+    """
+    p_len = x_pre.shape[1]
+    pos_pre, pos_suf = positions[:, :p_len], positions[:, p_len:]
+    body = _joint_body(mask, pos_pre, pos_suf, vlm_cfg, expert_cfg, policy, attention_impl)
+    vb, eb = vlm_params["blocks"], expert_params["blocks"]
+    depth = _depth(vb)
+    n_full = depth if not suffix_only else depth - 1
+    carry = (x_pre, x_suf)
+    for i in range(n_full):
+        carry = _remat_layer(body, carry, cm.layer(vb, i), cm.layer(eb, i))
+    x_pre, x_suf = carry
+    if not suffix_only:
+        x_pre = cm.rms_norm(vlm_params["final_norm"], x_pre, vlm_cfg.norm_eps)
+        x_suf = cm.rms_norm(expert_params["final_norm"], x_suf, expert_cfg.norm_eps)
+        return x_pre, x_suf
+    x_suf = joint_last_pair(
+        cm.layer(vb, depth - 1), cm.layer(eb, depth - 1), x_pre, x_suf, mask[:, p_len:, :],
+        pos_pre, pos_suf, vlm_cfg, expert_cfg, policy,
+    )
+    return None, cm.rms_norm(expert_params["final_norm"], x_suf, expert_cfg.norm_eps)
+
+
+def _remat_layer(body, carry, bp_v, bp_e):
+    if not torch.is_grad_enabled():
+        return body(carry, (bp_v, bp_e))[0]
+    return checkpoint(lambda xp, xs: body((xp, xs), (bp_v, bp_e))[0], *carry, use_reentrant=False)
+
+
+def _joint_body(mask, pos_pre, pos_suf, vlm_cfg: GemmaConfig, expert_cfg: GemmaConfig,
+                policy: DtypePolicy, attention_impl: str):
+    """One joint prefix+suffix layer pair, body(carry, (bp_v, bp_e)) ->
+    (carry, None), shared by forward_joint and the fused training step's
+    forward and per-layer recompute."""
+    p_len = pos_pre.shape[1]
+    scale = vlm_cfg.head_dim**-0.5
+
+    def body(carry, bps):
+        xp, xs = carry
+        bp_v, bp_e = bps
+        yp = cm.rms_norm(bp_v["ln1"], xp, vlm_cfg.norm_eps)
+        ys = cm.rms_norm(bp_e["ln1"], xs, expert_cfg.norm_eps)
+        qp, kp, vp = _qkv(bp_v, yp, pos_pre, vlm_cfg, policy)
+        qs, ks, vs = _qkv(bp_e, ys, pos_suf, expert_cfg, policy)
+        q = torch.cat([qp, qs], dim=1)
+        k = torch.cat([kp, ks], dim=1)
+        v = torch.cat([vp, vs], dim=1)
+        att = multi_head_attention(q, k, v, mask=mask, impl=attention_impl, scale=scale)
+        xp = _post_attention(bp_v, xp, att[:, :p_len], vlm_cfg, policy)
+        xs = _post_attention(bp_e, xs, att[:, p_len:], expert_cfg, policy)
+        return (xp, xs), None
+
+    return body
+
+
+def joint_last_pair(last_v, last_e, x_pre, x_suf, suffix_mask, pos_pre, pos_suf,
+                    vlm_cfg: GemmaConfig, expert_cfg: GemmaConfig,
+                    policy: DtypePolicy = DEFAULT_POLICY):
+    """The suffix_only last layer: the prefix side contributes only ln1 + K/V;
+    the suffix side runs the full layer against [prefix K/V; suffix K/V].
+    suffix_mask is mask[:, p_len:, :]. The attention is the plain path: the
+    suffix has only 1 + chunk query rows."""
+    scale = vlm_cfg.head_dim**-0.5
+    yp = cm.rms_norm(last_v["ln1"], x_pre, vlm_cfg.norm_eps)
+    kp, vp = _kv(last_v, yp, pos_pre, vlm_cfg, policy)
+    ys = cm.rms_norm(last_e["ln1"], x_suf, expert_cfg.norm_eps)
+    qs, ks, vs = _qkv(last_e, ys, pos_suf, expert_cfg, policy)
+    k = torch.cat([kp, ks], dim=1)
+    v = torch.cat([vp, vs], dim=1)
+    att = multi_head_attention(qs, k, v, mask=suffix_mask, impl="xla", scale=scale)
+    return _post_attention(last_e, x_suf, att, expert_cfg, policy)
+
 
 def prefill(
     vlm_params: cm.Params,

@@ -1,5 +1,9 @@
-"""Pi0 flow-matching inference: embed, prefill, Euler sampler.
+"""Pi0 flow-matching core: embed, training loss, Euler sampler.
 
+  t ~ Beta(1.5, 1) * 0.999 + 0.001           (sample_time)
+  x_t = t * noise + (1 - t) * actions        (noisy action interpolation)
+  u_t = noise - actions                      (flow target)
+  loss = mse(u_t, v_t)                       (masked by action padding)
   inference: x' = x + dt * v_t, dt = -1/num_steps, t: 1 -> 0  (Euler)
 
 The prefix K/V cache is computed once by `gemma.prefill(kv_only=True)`, then
@@ -10,10 +14,16 @@ Input convention (tensors on one device, batch-leading):
   img_masks   [B, K] bool
   lang_tokens [B, L] int, lang_masks [B, L] bool
   state       [B, max_state_dim] float
+  actions     [B, chunk_size, max_action_dim] float (training only)
+
+Training draws its noise and time on the host from an explicit
+`numpy.random.Generator` (torch's beta sampler takes no generator); callers
+may pass both instead, as the tests do with the reference's draws.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -117,6 +127,79 @@ def embed_suffix(params, state, noisy_actions, timestep, cfg: Pi0Config,
 
 def sample_noise(generator: torch.Generator | None, shape, device) -> torch.Tensor:
     return torch.randn(tuple(shape), generator=generator, device=device, dtype=torch.float32)
+
+
+def sample_time(rng: np.random.Generator, bsize: int, cfg: Pi0Config, device=None) -> torch.Tensor:
+    """Flow-matching time [B] (fp32): Beta(alpha, beta) * scale + offset,
+    drawn on the host from `rng`."""
+    t = rng.beta(cfg.time_beta_alpha, cfg.time_beta_beta, size=bsize).astype(np.float32)
+    t = t * np.float32(cfg.time_scale) + np.float32(cfg.time_offset)
+    return torch.from_numpy(t).to(device)
+
+
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+
+def compute_loss(params, rng: np.random.Generator | None, batch: dict, cfg: Pi0Config,
+                 policy: DtypePolicy = DEFAULT_POLICY, train: bool = True,
+                 noise: torch.Tensor | None = None, time: torch.Tensor | None = None):
+    """-> (mean loss, {"l2_loss": mean loss, "losses": [B, chunk, action_dim]}).
+
+    batch keys: images, img_masks, lang_tokens, lang_masks, state, actions,
+    and optionally action_is_pad [B, chunk] bool. `rng` draws the noise and
+    the time unless both are given.
+    """
+    if train and cfg.train_expert_only:
+        raise NotImplementedError("the frozen-prefix (train_expert_only) path is not ported yet")
+    actions = batch["actions"].to(torch.float32)
+    device = actions.device
+    if noise is None:
+        noise = torch.from_numpy(rng.standard_normal(tuple(actions.shape), dtype=np.float32)).to(device)
+    if time is None:
+        time = sample_time(rng, actions.shape[0], cfg, device)
+
+    t = time[:, None, None]
+    x_t = t * noise + (1 - t) * actions
+    u_t = noise - actions
+
+    v_t = predict_velocity(
+        params, batch["images"], batch["img_masks"], batch["lang_tokens"],
+        batch["lang_masks"], batch["state"], x_t, time, cfg, policy,
+    )
+    losses = torch.square(u_t - v_t)
+    if "action_is_pad" in batch:
+        keep = ~batch["action_is_pad"]  # [B, chunk]
+        losses = losses * keep[:, :, None].to(losses.dtype)
+        denom = (keep.sum() * cfg.max_action_dim).clamp_min(1)
+        mean_loss = losses.sum() / denom
+    else:
+        mean_loss = losses.mean()
+    return mean_loss, {"l2_loss": mean_loss, "losses": losses}
+
+
+def flow_masks(pre_pad: torch.Tensor, cfg: Pi0Config):
+    """The joint pass's layout for a prefix pad mask [B, P]: (mask_2d
+    [B, P+S, P+S], positions [B, P+S])."""
+    suf_pad, suf_att = suffix_layout(pre_pad.shape[0], cfg, pre_pad.device)
+    pad = torch.cat([pre_pad, suf_pad], dim=1)
+    att = torch.cat([torch.zeros_like(pre_pad, dtype=torch.int32), suf_att], dim=1)
+    return make_att_2d_masks(pad, att), torch.cumsum(pad.to(torch.int32), dim=1) - 1
+
+
+def predict_velocity(params, images, img_masks, lang_tokens, lang_masks, state,
+                     x_t, time, cfg: Pi0Config, policy: DtypePolicy = DEFAULT_POLICY):
+    """Single joint prefix+suffix pass -> v_t [B, chunk, action_dim] (fp32)."""
+    pre_embs, pre_pad, _ = embed_prefix(params, images, img_masks, lang_tokens, lang_masks, cfg, policy)
+    suf_embs, _, _ = embed_suffix(params, state, x_t, time, cfg, policy)
+    mask_2d, positions = flow_masks(pre_pad, cfg)
+    _, suffix_out = gemma.forward_joint(
+        params["vlm"], params["expert"], pre_embs, suf_embs, mask_2d, positions,
+        cfg.vlm, cfg.expert, policy, cfg.attention_impl,
+        suffix_only=True,  # skip the last layer's dead prefix tail
+    )
+    suffix_out = suffix_out[:, -cfg.chunk_size:].to(torch.float32)
+    return cm.dense(params["action_out_proj"], suffix_out, FP32_POLICY)  # fp32 action head
 
 
 # ---------------------------------------------------------------------------

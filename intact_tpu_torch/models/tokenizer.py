@@ -52,12 +52,13 @@ class HashTokenizer:
 
 
 class HFTokenizer:
-    """PaliGemma tokenizer via transformers (needs a local asset)."""
+    """PaliGemma tokenizer via transformers (needs a local asset: nothing is
+    downloaded)."""
 
     def __init__(self, path_or_repo: str, max_length: int = 72):
         from transformers import AutoTokenizer
 
-        self.tok = AutoTokenizer.from_pretrained(path_or_repo)
+        self.tok = AutoTokenizer.from_pretrained(path_or_repo, local_files_only=True)
         self.max_length = max_length
 
     def __call__(self, texts: list[str], max_length: int | None = None):

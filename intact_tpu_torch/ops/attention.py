@@ -7,7 +7,11 @@ fp32; the probabilities are cast to V's dtype before the P·V product.
 impl="xla":    grouped einsum + masked softmax in plain torch ops. The name
                is kept from the reference config; it means "the plain path".
 impl="pallas": the hand-written CUDA kernel (ops/flash_attention.py) on a
-               CUDA tensor, its plain version on a CPU tensor.
+               CUDA tensor, its plain version on a CPU tensor. Where a
+               gradient is required it goes through `FlashAttentionFn`:
+               the kernel's forward, and the plain path's backward
+               recomputed from q, k, v and the mask (the kernel has no
+               backward, as the Pallas kernel had none).
 
 Not `scaled_dot_product_attention`: its fully-masked-row and precision
 semantics differ from the reference's.
@@ -19,7 +23,7 @@ import torch
 
 from intact_tpu_torch.ops.flash_attention import BIG_NEG, flash_attention
 
-__all__ = ["BIG_NEG", "multi_head_attention", "xla_attention", "xla_attention_cached"]
+__all__ = ["BIG_NEG", "FlashAttentionFn", "multi_head_attention", "xla_attention", "xla_attention_cached"]
 
 
 def _grouped_logits(qg: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -85,6 +89,29 @@ def xla_attention_cached(
     return out.reshape(b, t, h, d)
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """Counterpart of intact_tpu/ops/attention.py::pallas_attention_diff:
+    the flash forward, and the gradient of the plain `xla_attention`
+    recomputed from the saved q, k, v and mask. The two agree wherever a
+    query row attends to at least one key (the Pi0 masks have no fully
+    masked rows)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale):
+        ctx.save_for_backward(q, k, v, mask)
+        ctx.scale = scale
+        return flash_attention(q, k, v, mask, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, mask = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [x.detach().requires_grad_() for x in (q, k, v)]
+            out = xla_attention(*qkv, mask, ctx.scale)
+            dq, dk, dv = torch.autograd.grad(out, qkv, grad_out)
+        return dq, dk, dv, None, None
+
+
 def multi_head_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -94,6 +121,9 @@ def multi_head_attention(
     scale: float | None = None,
 ) -> torch.Tensor:
     if impl == "pallas":
+        if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+            scale = q.shape[-1] ** -0.5 if scale is None else scale
+            return FlashAttentionFn.apply(q, k, v, mask, scale)
         return flash_attention(q, k, v, mask, scale)
     if impl != "xla":
         raise ValueError(f"unknown attention impl: {impl!r}")
