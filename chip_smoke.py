@@ -6,6 +6,8 @@ Phases, each failing loudly (non-zero exit):
   1. build   compile every CUDA kernel of the path from csrc/ (nvcc, sm_90a)
   2. kernels each kernel against its plain PyTorch version on the card, at the
              main path's shapes and at ragged ones, with timings and bounds
+             (w8a8_matmul at every bridge shape, per row and per 2048-chunk,
+             beside torch._int_mm on its codes and the bf16 matmul it replaces)
   3. serving full-width Pi0 bridge (SigLIP So400m + Gemma-2B + 300M expert,
              random bf16 weights from a seed): requests through
              Pi0Policy.select_action at batch 1 with a reset, and a batch-64
@@ -13,6 +15,16 @@ Phases, each failing loudly (non-zero exit):
              shapes and finiteness, and the actions against the plain-attention
              path on the same params and noise; then latency at batch 1 and 64,
              and one torch.profiler pass each (device busy share, top kernels)
+  3b. int8   the server role's Pi0PolicyWrapper from
+             config/experiment/simpler/pi0_finetune_bridge_ev.yaml with
+             quantize_int8 on (the bf16 phase's random weights, quantized):
+             fused requests through infer_batch at batch 1 and 64, with the
+             launches of both serving kernels per inference checked (1544
+             w8a8_matmul, 17 flash_attention at the bridge); env actions finite
+             and of the right shape; the actions bit-equal with only the
+             W8A8 product plain, and within ACTIONS_RTOL of the plain path;
+             int8 against bf16 (reported); peak memory; latency and profiles
+             beside the same wrapper with quantize_int8 off (bf16)
   4. training the 1-chip joint recipe (config/train/pi0_finetune_bridge_1chip.yaml:
              fused step, bf16 params with stochastic rounding, fp8 moments,
              batch 16, synthetic data) at full width and depth through the
@@ -40,6 +52,7 @@ import torch
 if __name__ == "__main__":
     sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+DEVICE = "cuda"
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
 # the kernel and its plain version round at different places (bf16 P, bf16
@@ -187,7 +200,7 @@ def phase_kernels() -> list[dict]:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
-    }, phase_adam_kernel()]
+    }, phase_adam_kernel(), phase_w8a8_kernel()]
 
 
 def fp8_index(codes: torch.Tensor) -> torch.Tensor:
@@ -313,6 +326,133 @@ def phase_adam_kernel() -> dict:
     }
 
 
+H100_INT8_OPS = 1979e12  # dense int8 tensor-core peak, H100 SXM data sheet
+# w8a8_matmul against its plain version: the same codes and scales are
+# expected; each fused multiply-add of the plain version is formed in float64,
+# which rounds twice where the kernel's __fmaf_rn rounds once, so an output
+# may differ by one fp32 ulp where that lands on an fp32 tie (about 2^-29 of
+# values), which a bf16 cast hides unless it also sits on a bf16 tie: allow
+# one bf16 ulp of the row's largest |y| per element
+W8A8_ROW_RTOL = 2.0**-8
+# the bridge's W8A8 products: (name, M, K, N); M = B*256 (SigLIP, img_proj),
+# B*328 (Gemma prefill), B*5 (expert decode) at batch 64, and a batch-1 decode
+W8A8_SHAPES = (
+    ("gemma_q", 20992, 2048, 2048), ("gemma_k", 20992, 2048, 256), ("gemma_up", 20992, 2048, 16384),
+    ("gemma_down", 20992, 16384, 2048), ("siglip_fc1", 16384, 1152, 4304), ("siglip_fc2", 16384, 4304, 1152),
+    ("img_proj", 16384, 1152, 2048), ("expert_q", 320, 1024, 2048), ("expert_down", 320, 4096, 1024),
+    ("expert_q_b1", 5, 1024, 2048), ("expert_down_b1", 5, 4096, 1024),
+)
+W8A8_TIMED = "gemma_up"  # the shape of the kernels line
+
+
+def w8a8_case(gen: torch.Generator, m: int, k: int, n: int):
+    """bf16 activations at unit scale with a few large channels, int8 weight
+    codes over the full range, per-channel scales near 1e-3, a bias."""
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    x[:, ::97] *= 8.0  # outlier channels, as real activations have
+    wq = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    ws = (torch.rand(n, generator=gen, device="cuda") + 0.5) * 1e-3
+    bias = torch.randn(n, generator=gen, device="cuda") * 0.1
+    return x.to(torch.bfloat16), wq, ws, bias
+
+
+def w8a8_bound_ms(m: int, k: int, n: int) -> tuple[float, float, str]:
+    """(bound ms, bytes ms, what bounds it): x bf16 read once, w int8 and its
+    fp32 scales read once, y bf16 written once; 2*M*K*N int8 operations."""
+    moved = m * k * 2 + k * n + n * 4 + m * n * 2
+    bytes_ms = moved / H100_BYTES_PER_S * 1e3
+    ops_ms = 2 * m * k * n / H100_INT8_OPS * 1e3
+    return max(bytes_ms, ops_ms), bytes_ms, "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def phase_w8a8_kernel() -> dict:
+    """w8a8_matmul against its plain version on the card at the bridge's
+    shapes, per row and (at K 16384 and 4304) per 2048-chunk: the wrapper's
+    outputs, and the kernel's codes and scales; then times at each per-row shape beside the bound, the plain
+    version, torch._int_mm on the same codes (the product only) and the bf16
+    matmul that int8 replaces."""
+    from intact_tpu_torch.ops import w8a8
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cases = [(name, m, k, n, None) for name, m, k, n in W8A8_SHAPES]
+    cases += [(name + "_chunk2048", m, k, n, w8a8.PALLAS_BLOCK_K)
+              for name, m, k, n in W8A8_SHAPES if k in (16384, 4304)]
+    cases += [("ragged_fp32", 77, 300, 131, None), ("ragged_chunk128", 45, 1000, 200, 128)]
+    max_err, rows, timed = 0.0, [], None
+    for name, m, k, n, chunk in cases:
+        x, wq, ws, bias = w8a8_case(gen, m, k, n)
+        if name.startswith("ragged_fp32"):
+            x, out_dtype = x.float(), torch.float32
+        else:
+            out_dtype = torch.bfloat16
+        n0 = w8a8.w8a8_matmul.launches
+        y = w8a8.w8a8_matmul(x, wq, ws, bias, chunk, out_dtype)  # the wrapper the main path calls
+        if w8a8.w8a8_matmul.launches != n0 + 1:
+            raise SystemExit(f"w8a8_matmul did not launch its kernel on {name}")
+        _, xq, xs = w8a8.launch(x, wq, ws, bias, chunk, out_dtype)  # the same kernel, for its codes and scales
+        torch.cuda.synchronize()
+        rq, rs = w8a8.quantize_reference(x, chunk)
+        ref = w8a8.w8a8_matmul_reference(x, wq, ws, bias, chunk, out_dtype)
+        same_codes = torch.equal(xq[:, :k], rq) and not xq[:, k:].any().item()
+        same_scales = torch.equal(xs, rs)
+        diff = (y.float() - ref.float()).abs()
+        err = diff.max().item()
+        row_tol = W8A8_ROW_RTOL * ref.float().abs().amax(dim=1, keepdim=True)
+        unequal = int((y != ref).sum().item())
+        ok = same_codes and same_scales and bool((diff <= row_tol).all()) and bool(torch.isfinite(y).all())
+        log(f"# w8a8_matmul {name}: M {m} K {k} N {n} chunk {chunk or 'row'} {x.dtype}->{out_dtype}: codes equal "
+            f"{same_codes}, scales equal {same_scales}, outputs unequal {unequal} of {y.numel()}, max abs err "
+            f"{err:.3e} (tol {W8A8_ROW_RTOL:.4g} x row max |y|), max |y| {ref.float().abs().max().item():.3e}")
+        if not ok:
+            raise SystemExit(f"w8a8_matmul disagrees with its plain version on {name}")
+        max_err = max(max_err, err)
+        if chunk is None and not name.startswith("ragged"):
+            rows.append((name, m, k, n, x, wq, ws, bias, xq))
+        del y, ref, rq, rs
+    for name, m, k, n, x, wq, ws, bias, xq in rows:
+        ms = cuda_ms(lambda: w8a8.w8a8_matmul(x, wq, ws, bias, out_dtype=torch.bfloat16))
+        plain_ms = cuda_ms(lambda: w8a8.w8a8_matmul_reference(x, wq, ws, bias, out_dtype=torch.bfloat16),
+                           reps=3, warmup=1)
+        codes = xq[:, :k].contiguous()
+        try:
+            int_mm_ms = cuda_ms(lambda: torch._int_mm(codes, wq))
+        except RuntimeError as e:  # _int_mm takes M > 16 only
+            int_mm_ms = None
+            log(f"#   torch._int_mm refused {name}: {str(e).splitlines()[0][:100]}")
+        wb = wq.to(torch.bfloat16)
+        bf16_ms = cuda_ms(lambda: torch.matmul(x, wb))
+        bound, bytes_ms, by = w8a8_bound_ms(m, k, n)
+        log(f"# w8a8_matmul timing {name} (M {m} K {k} N {n}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"torch._int_mm on the same codes (product only) "
+            f"{'n/a' if int_mm_ms is None else f'{int_mm_ms:.4f} ms'}, bf16 torch.matmul {bf16_ms:.4f} ms, "
+            f"bound {bound:.4f} ms by {by} ({2 * m * k * n / 1e12:.3f} T int8 ops, bytes {bytes_ms:.4f} ms), "
+            f"{2 * m * k * n / ms / 1e9:.1f} TOPS")
+        if name == W8A8_TIMED:
+            timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, int_mm_ms=int_mm_ms, bf16_ms=bf16_ms)
+        del wb
+    rows.clear()
+    torch.cuda.empty_cache()
+    w8a8.w8a8_matmul.launches = 0  # comparison launches do not count
+    return {
+        "name": "w8a8_matmul",
+        "route": "cuda",
+        "source": "intact_tpu_torch/csrc/w8a8_matmul.cu",
+        "replaces": "intact_tpu/ops/pallas_int8.py:81",
+        "launches": None,
+        "max_abs_err": max_err,
+        "ms": timed["ms"],
+        "plain_ms": timed["plain_ms"],
+        "bound_ms": timed["bound_ms"],
+        "bound_by": timed["bound_by"],
+        # no single PyTorch call quantizes the activations, multiplies in int8
+        # and rescales; the product alone and the bf16 product it replaces:
+        "library_ms": None,
+        "int_mm_product_only_ms": timed["int_mm_ms"],
+        "bf16_matmul_ms": timed["bf16_ms"],
+        "shape": "Gemma-2B up projection, M 20992 K 2048 N 16384 (batch-64 prefill)",
+    }
+
+
 # ---------------------------------------------------------------------------
 # 3. full-width serving
 # ---------------------------------------------------------------------------
@@ -337,6 +477,7 @@ def phase_serving() -> int:
 
     cfg = Pi0Config.bridge()
     per_inference = cfg.vlm.depth - 1  # kv_only prefill: depth-1 attention layers
+    torch.cuda.reset_peak_memory_stats()  # the kernel phase's comparisons are not serving's
     t0 = time.perf_counter()
     policy = Pi0Policy(cfg, seed=0, tokenizer_path="hash", device="cuda")
     torch.cuda.synchronize()
@@ -408,6 +549,9 @@ def phase_serving() -> int:
     return launches
 
 
+KERNEL_SYMBOLS = ("attn_kernel", "fused_adam_rows_kernel", "quantize_kernel", "gemm_kernel")
+
+
 def profile_pass(label: str, fn) -> None:
     """Device busy share and the kernels that take the most device time in
     one call of fn (which ends in a sync), under torch.profiler (which adds
@@ -423,10 +567,186 @@ def profile_pass(label: str, fn) -> None:
     log(f"# profile {label}: wall {wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms "
         f"({100 * busy_us / wall_us:.1f}%), {sum(e.count for e in kernels)} kernel launches")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    ours = [e for e in kernels if ("attn_kernel" in e.key or "fused_adam_rows_kernel" in e.key) and e not in top]
+    ours = [e for e in kernels if any(name in e.key for name in KERNEL_SYMBOLS) and e not in top]
     for e in top + ours:
         log(f"#   {e.self_device_time_total / 1e3:8.3f} ms {100 * e.self_device_time_total / busy_us:5.1f}% "
             f"x{e.count:<5d} {e.key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# 3b. full-width int8 serving through the server role's wrapper
+# ---------------------------------------------------------------------------
+
+EV_CONFIG = "config/experiment/simpler/pi0_finetune_bridge_ev.yaml"
+SERVING_SEED = 0  # the bf16 serving phase's weights, quantized
+
+
+def ev_config(quantize: bool = True):
+    """The server role's config (config/experiment/simpler/pi0_finetune_bridge_ev.yaml)
+    with int8 on (or off), random weights from the bf16 phase's seed (no
+    checkpoint) and the hash tokenizer."""
+    from intact_tpu_torch.config import TrainPipelineConfig, apply_overrides, from_dict, load_yaml
+
+    overrides = {"eval_cfg.role": "server", "eval_cfg.quantize_int8": json.dumps(quantize),
+                 "eval_cfg.pretrained_model_path": "null", "tokenizer_path": "hash", "seed": str(SERVING_SEED)}
+    return from_dict(TrainPipelineConfig, apply_overrides(load_yaml(EV_CONFIG), overrides))
+
+
+def w8a8_per_inference(cfg) -> int:
+    """W8A8 products of one inference: SigLIP 6 per layer, img_proj, the
+    kv_only prefill's 7 per full layer and the last layer's k and v, and the
+    expert's 7 per layer per Euler step."""
+    return cfg.vision.depth * 6 + 1 + (cfg.vlm.depth - 1) * 7 + 2 + cfg.num_steps * cfg.expert.depth * 7
+
+
+def wire_inputs(rng: np.random.Generator, b: int, size: int) -> list[dict]:
+    """b single-row requests as Pi0Session.preprocess emits them: a resized
+    uint8 frame, the normalized 7-d proprio, one task string."""
+    obs = make_obs(rng, b, size)
+    state = np.clip(obs["state"], -1.0, 1.0)
+    return [{"image": obs["image"][i:i + 1], "state": state[i:i + 1], "task": [obs["task"][i]]} for i in range(b)]
+
+
+def phase_int8_serving() -> dict:
+    """-> {kernel: launches} on the int8 serving path."""
+    from intact_tpu_torch.models import common as cm
+    from intact_tpu_torch.models.pi0 import model as pi0
+    from intact_tpu_torch.ops import w8a8
+    from intact_tpu_torch.ops.flash_attention import flash_attention
+    from intact_tpu_torch.serve.policy_wrapper import make_policy_wrapper
+
+    cfg = ev_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wrapper = make_policy_wrapper(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    mc = wrapper.model_cfg
+    leaves = cm.tree_leaves(wrapper.policy.params)
+    n_int8 = sum(x.numel() for x in leaves if x.dtype == torch.int8)
+    n_other = sum(x.numel() for x in leaves if x.dtype != torch.int8)
+    per_inference = w8a8_per_inference(mc)
+    flash_per = mc.vlm.depth - 1
+    log(f"# int8 serving: Pi0PolicyWrapper from {EV_CONFIG} ({cfg.model_type}, quantize_int8 "
+        f"{cfg.eval_cfg.quantize_int8}, seed {cfg.seed}), {n_int8 / 1e9:.3f} B int8 weights + "
+        f"{n_other / 1e9:.3f} B bf16/fp32 values, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, "
+        f"init {time.perf_counter() - t0:.2f} s (peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB); "
+        f"expect {per_inference} w8a8_matmul and {flash_per} flash_attention launches per inference")
+
+    rng = np.random.default_rng(1)
+    size = mc.vision.image_size
+    sessions = [wrapper.new_session() for _ in range(64)]
+    req1, req64 = wire_inputs(rng, 1, size), wire_inputs(rng, 64, size)
+
+    # --- the main path: fused requests through the wrapper, as the batching server calls it ---
+    w8a8.w8a8_matmul.launches = flash_attention.launches = 0
+    inferences = 0
+
+    def fused(items):
+        nonlocal inferences
+        w0, f0 = w8a8.w8a8_matmul.launches, flash_attention.launches
+        out = wrapper.infer_batch(items)
+        dw, df = w8a8.w8a8_matmul.launches - w0, flash_attention.launches - f0
+        if dw != per_inference or df != flash_per:
+            raise SystemExit(f"one fused inference launched w8a8_matmul {dw} and flash_attention {df} times; "
+                             f"expected {per_inference} and {flash_per}")
+        inferences += 1
+        return out
+
+    out1 = [fused([(req1[0], sessions[0])]) for _ in range(2)]
+    out64 = fused(list(zip(req64, sessions)))
+    launches = {"w8a8_matmul": w8a8.w8a8_matmul.launches, "flash_attention": flash_attention.launches}
+    # -------------------------------------------------------------------------------------------
+    for a in [o[0] for o in out1] + out64:
+        if isinstance(a, Exception) or a.shape != (cfg.eval_cfg.action_step, 7) or not np.isfinite(a).all():
+            raise SystemExit(f"bad int8 serving result {a!r:.200}")
+    log(f"# int8 serving: {inferences} fused inferences (batch 1, 1, 64), launches {launches} "
+        f"({per_inference} w8a8_matmul and {flash_per} flash_attention each), 66 env actions of shape "
+        f"{out64[0].shape}, finite")
+
+    # kernel path vs plain path on the same int8 params, inputs and noise
+    policy = wrapper.policy
+    batch = {"image": np.concatenate([r["image"] for r in req64]),
+             "state": np.concatenate([r["state"] for r in req64]), "task": [r["task"][0] for r in req64]}
+    inputs = policy.device_inputs(batch)
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    noise = pi0.sample_noise(gen, (64, mc.chunk_size, mc.max_action_dim), DEVICE)
+    n0 = w8a8.w8a8_matmul.launches
+    a_kernel = pi0.sample_actions(policy.params, None, *inputs, mc, policy.policy, noise=noise)
+    n1 = w8a8.w8a8_matmul.launches
+    real = w8a8.w8a8_matmul
+    w8a8.w8a8_matmul = w8a8.w8a8_matmul_reference  # the plain W8A8 product, for this comparison only
+    try:
+        a_w8a8_plain = pi0.sample_actions(policy.params, None, *inputs, mc, policy.policy, noise=noise)
+        a_plain = pi0.sample_actions(policy.params, None, *inputs, dataclasses.replace(mc, attention_impl="xla"),
+                                     policy.policy, noise=noise)
+    finally:
+        w8a8.w8a8_matmul = real
+    if n1 - n0 != per_inference or w8a8.w8a8_matmul.launches != n1:
+        raise SystemExit(f"the comparison's kernel run launched w8a8_matmul {n1 - n0} times and its plain runs "
+                         f"{w8a8.w8a8_matmul.launches - n1}; expected {per_inference} and 0")
+    rel = ((a_kernel - a_plain).norm() / a_plain.norm()).item()
+    rel_w = ((a_kernel - a_w8a8_plain).norm() / a_w8a8_plain.norm()).item()
+    same = torch.equal(a_kernel, a_w8a8_plain)
+    log(f"# int8 serving: kernel path vs plain path (plain W8A8 product and plain attention), batch 64 "
+        f"actions: rel L2 {rel:.3e} (rtol {ACTIONS_RTOL}), max abs {(a_kernel - a_plain).abs().max().item():.3e}; "
+        f"with only the W8A8 product plain: rel L2 {rel_w:.3e}, bit-equal {same} (gate: bit-equal)")
+    # the kernel's codes, scales and outputs equal the plain version's at every
+    # bridge shape (phase 2), so swapping only the W8A8 product must leave the
+    # actions bit for bit; a tolerance would pass a kernel that skipped the
+    # quantization (int8 vs bf16 moves the actions by ~4e-2)
+    if not same:
+        raise SystemExit("int8 actions with the W8A8 kernel differ from those with its plain version")
+    if not rel <= ACTIONS_RTOL:
+        raise SystemExit("int8 actions from the kernel path disagree with the plain path")
+    del a_plain, a_w8a8_plain
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    items1, items64 = [(req1[0], sessions[0])], list(zip(req64, sessions))
+    for items in (items1, items64):
+        wrapper.infer_batch(items)
+    log(f"# int8 serving peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(one wrapper, batch 1 and 64)")
+
+    # the same server role with quantize_int8 off: the same random weights in
+    # bf16 behind the same wrapper, so both latencies include the fuse, the
+    # uint8 upload and the adapters' postprocess
+    bf16_wrapper = make_policy_wrapper(ev_config(quantize=False), device=DEVICE)
+    bf16_sessions = [bf16_wrapper.new_session() for _ in range(64)]
+    a_bf16 = pi0.sample_actions(bf16_wrapper.policy.params, None, *inputs, mc, bf16_wrapper.policy.policy,
+                                noise=noise)
+    mse = (a_kernel - a_bf16).square().mean().item()
+    log(f"# int8 vs bf16 actions (same random weights, inputs and noise, batch 64): MSE {mse:.4e}, "
+        f"rel L2 {((a_kernel - a_bf16).norm() / a_bf16.norm()).item():.3e}, mean |a_bf16|^2 "
+        f"{a_bf16.square().mean().item():.4e} (no gate on random weights)")
+    del a_bf16, inputs
+    torch.cuda.empty_cache()
+
+    # latency through infer_batch, int8 and bf16 wrappers alternating call by call
+    runs = {"int8": (wrapper, sessions), "bf16": (bf16_wrapper, bf16_sessions)}
+    for b, reps in ((1, 5), (64, 3)):
+        times = {k: [] for k in runs}
+        calls = {k: [(req, ss[i]) for i, req in enumerate(req1 if b == 1 else req64)] for k, (w, ss) in runs.items()}
+        for k, (w, _) in runs.items():
+            w.infer_batch(calls[k])  # warm
+        for _ in range(reps):
+            for k, (w, _) in runs.items():
+                t0 = time.perf_counter()
+                w.infer_batch(calls[k])  # ends in a device->host copy and the adapters' postprocess
+                times[k].append(time.perf_counter() - t0)
+        med = {k: statistics.median(v) for k, v in times.items()}
+        for k in runs:
+            log(f"# {k} serving batch {b} (Pi0PolicyWrapper.infer_batch): median fused inference "
+                f"{med[k] * 1e3:.2f} ms over {reps} ({[round(x * 1e3, 2) for x in times[k]]}), "
+                f"{b * mc.n_action_steps / med[k]:.2f} policy steps/s")
+        log(f"# serving batch {b} through the wrapper: int8 / bf16 latency {med['int8'] / med['bf16']:.3f}")
+    for b in (1, 64):
+        for k, (w, ss) in runs.items():
+            calls = [(req, ss[i]) for i, req in enumerate(req1 if b == 1 else req64)]
+            profile_pass(f"{k} wrapper batch {b}", lambda: w.infer_batch(calls))
+    del wrapper, policy, bf16_wrapper, runs
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -434,7 +754,6 @@ def profile_pass(label: str, fn) -> None:
 # ---------------------------------------------------------------------------
 
 RECIPE = "config/train/pi0_finetune_bridge_1chip.yaml"
-DEVICE = "cuda"
 TRAIN_STEPS = 4
 # kernel path vs plain path, one step at full width and 4 layers: the two
 # round the attention (bf16 P, fp32 sums in another order) at different
@@ -451,29 +770,11 @@ TRAIN_CODES_SHARE = 0.05  # share of moment codes more than one code apart
 
 def recipe_config():
     """The 1-chip recipe (config/train/pi0_finetune_bridge_1chip.yaml) with
-    the hash tokenizer and a few logged steps; assembled in code from the
-    same values where PyYAML is missing."""
+    the hash tokenizer and a few logged steps."""
     from intact_tpu_torch.config import TrainPipelineConfig, apply_overrides, from_dict, load_yaml
 
     overrides = {"n_updates": str(TRAIN_STEPS), "log_freq": "1", "tokenizer_path": "hash"}
-    try:
-        import yaml  # noqa: F401
-
-        data = load_yaml(RECIPE)
-        log(f"# training: {RECIPE} (PyYAML)")
-    except ImportError:
-        model = json.loads(Path("config/models/pi0_finetune_bridge.json").read_text())
-        data = {
-            "name": "pi0_finetune_1chip", "model_cfg": model, "freeze_lm_head": True, "seed": 42,
-            "global_batch_size": 16, "per_device_batch_size": 16, "n_epochs": 15, "max_grad_norm": 1.0,
-            "mesh": {"data": -1, "fsdp": 1, "tensor": 1}, "use_bf16": True, "master_dtype": "bfloat16",
-            "fused_update": True, "remat": False, "log_freq": 4, "eval_freq": 250, "eval_size": 1024,
-            "data": {"train": {"dataset_mix": "bridge",
-                               "dataset_statistics_path": "config/dataset/bridge_statistics.json",
-                               "shuffle_buffer_size": 200000}},
-        }
-        log(f"# training: {RECIPE} assembled in code (no PyYAML)")
-    return from_dict(TrainPipelineConfig, apply_overrides(data, overrides))
+    return from_dict(TrainPipelineConfig, apply_overrides(load_yaml(RECIPE), overrides))
 
 
 def expected_row_updates(state, block: int = 2048) -> tuple[int, int]:
@@ -639,13 +940,16 @@ def main() -> int:
     kernels = {k["name"]: k for k in phase_kernels()}
     serving = phase_serving()
     torch.cuda.empty_cache()
+    int8 = phase_int8_serving()
     training = phase_training()
-    if not (serving > 0 and all(n > 0 for n in training.values())):
-        raise SystemExit(f"a kernel of the path never launched: serving {serving}, training {training}")
-    kernels["flash_attention"]["launches"] = serving + training["flash_attention"]
+    if not (serving > 0 and all(n > 0 for n in int8.values()) and all(n > 0 for n in training.values())):
+        raise SystemExit(f"a kernel of the path never launched: serving {serving}, int8 {int8}, training {training}")
+    kernels["flash_attention"]["launches"] = serving + int8["flash_attention"] + training["flash_attention"]
     kernels["fused_adam_rows"]["launches"] = training["fused_adam_rows"]
-    log(f"# launches on the main paths: flash_attention {serving} serving + {training['flash_attention']} "
-        f"training, fused_adam_rows {training['fused_adam_rows']} training")
+    kernels["w8a8_matmul"]["launches"] = int8["w8a8_matmul"]
+    log(f"# launches on the main paths: flash_attention {serving} serving + {int8['flash_attention']} int8 "
+        f"serving + {training['flash_attention']} training, fused_adam_rows {training['fused_adam_rows']} "
+        f"training, w8a8_matmul {int8['w8a8_matmul']} int8 serving")
     torch.cuda.synchronize()
     log(f"# total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -1,12 +1,14 @@
-"""Training pipeline configuration: the train role's part of
-intact_tpu/config/pipeline.py, copied.
+"""Pipeline configuration: intact_tpu/config/pipeline.py's train and server
+roles, copied.
 
 Derivations kept: n_updates = train_episode_count // global_batch_size *
 n_epochs; save_model_freq defaults to one epoch of updates; the val data
-section inherits unset fields from the train section. Every key the train
-YAMLs under config/train/ set binds here; the trainer refuses the settings
-whose paths are not ported yet. Not copied: the evaluation/server sections
-(the server runs through `python -m intact_tpu_torch.serve`) and W&B.
+section inherits unset fields from the train section; with an `eval_cfg`,
+the env-adapter path is built from simulator_name, pointing into
+intact_tpu_torch.envs.adapters; simulator_path stays None, because the
+evaluators are not ported yet. Every key the
+YAMLs under config/train/ and config/experiment/ set binds here; the trainer
+and the server refuse the settings whose paths are not ported yet.
 """
 
 from __future__ import annotations
@@ -110,11 +112,53 @@ class DataConfig:
 
 
 @dataclasses.dataclass
+class WandBConfig:
+    project: str = "INT-ACT"
+    entity: str | None = None
+    run_id: str | None = None
+
+
+@dataclasses.dataclass
 class EnvConfig:
     dataset_statistics_path: str | None = None
     image_size: tuple[int, int] = (224, 224)
     action_normalization_type: str = "bound"
     state_normalization_type: str = "bound"
+
+
+@dataclasses.dataclass
+class EvalConfig:
+    simulator_name: str = "simpler"
+    env_adapter: str | None = "BridgeSimplerAdapter"
+    task_list: list[str] | None = field(
+        default_factory=lambda: [
+            "widowx_carrot_on_plate",
+            "widowx_put_eggplant_in_basket",
+            "widowx_spoon_on_towel",
+            "widowx_stack_cube",
+        ]
+    )
+    n_eval_episode: int = 24
+    n_video: int = 24
+    n_parallel_eval: int | None = None
+    recording: bool = True
+    pretrained_model_path: str | None = None
+    pretrained_model_gradient_step_cnt: list[int] | None = None
+    role: str = "server"  # "server" | "client"
+    host: str = "0.0.0.0"
+    port: int = 8000
+    action_step: int = 4
+    language_logic_chain: bool = False
+    unnorm_key: str | None = None
+    # continuous batching: fused device batches pad to power-of-two buckets
+    # up to max_batch_size; requests wait at most batch_timeout_ms to fuse
+    max_batch_size: int = 64
+    batch_timeout_ms: float = 5.0
+    prewarm: bool = True  # run every fused-batch bucket once before serving
+    # single-card int8 (W8A8) serving of the transformer-block matmuls
+    quantize_int8: bool = False
+    env_adapter_path: str | None = None
+    simulator_path: str | None = None
 
 
 @dataclasses.dataclass
@@ -174,6 +218,9 @@ class TrainPipelineConfig:
     resume_run: bool = True
 
     use_wandb: bool = False
+    wandb: WandBConfig = field(default_factory=WandBConfig)
+
+    eval_cfg: EvalConfig | None = None
     env: EnvConfig = field(default_factory=EnvConfig)
 
     log_dir: Path = field(default_factory=lambda: Path(os.environ.get("VLA_LOG_DIR", "log")))
@@ -182,6 +229,7 @@ class TrainPipelineConfig:
         self.finalize()
 
     def finalize(self) -> "TrainPipelineConfig":
+        self.validate_parallel_eval()
         if self.data.train.action_horizon is None:
             self.data.train.action_horizon = int(self.model_cfg.get("chunk_size", 1))
         for key, value in vars(self.data.train).items():
@@ -191,12 +239,40 @@ class TrainPipelineConfig:
             self.n_updates = self.data.train_episode_count // self.global_batch_size * self.n_epochs
         if self.save_model_freq is None:
             self.save_model_freq = self.data.train_episode_count // self.global_batch_size
+        if self.eval_cfg is not None:
+            sim = self.eval_cfg.simulator_name
+            if sim is None:
+                raise ValueError("Simulator name is not specified in the config.")
+            adapter = self.eval_cfg.env_adapter or "BridgeSimplerAdapter"
+            self.eval_cfg.env_adapter_path = f"intact_tpu_torch.envs.adapters.{sim}.{adapter}"
+            # simulator_path stays None: the evaluators are not ported (ROADMAP A9/A10)
         return self
 
+    def validate_parallel_eval(self):
+        if self.eval_cfg is None:
+            return
+        npe = self.eval_cfg.n_parallel_eval
+        if npe is not None:
+            if self.eval_cfg.simulator_name != "simplerMS3":
+                raise ValueError("n_parallel_eval is only applicable for simplerMS3")
+            if npe <= 1:
+                raise ValueError("n_parallel_eval should be greater than 1")
+            if self.eval_cfg.env_adapter and "Batch" not in self.eval_cfg.env_adapter:
+                raise ValueError(
+                    "You need to use an env adapter that supports batch eval for n_parallel_eval>1"
+                )
+        if npe is None and self.eval_cfg.simulator_name == "simplerMS3":
+            raise ValueError("n_parallel_eval should be set for simplerMS3")
+
     def make_model_config(self):
-        """model_cfg dict -> Pi0Config (the only family ported)."""
+        """model_cfg dict -> Pi0Config: "pi0" from the model JSON, "pi0_tiny"
+        the CPU-testable config (the only family ported)."""
+        if self.model_type == "pi0_tiny":
+            from intact_tpu_torch.models.pi0.config import Pi0Config
+
+            return Pi0Config.tiny()
         if self.model_type != "pi0":
-            raise NotImplementedError(f"model type {self.model_type!r} is not ported yet")
+            raise NotImplementedError(f"model type {self.model_type!r} is not ported yet (ROADMAP A9)")
         return pi0_config_from_json(self.model_cfg)
 
     @property

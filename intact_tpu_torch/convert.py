@@ -6,6 +6,10 @@ bridge is a checked walk: every reference leaf must land on a port parameter
 of the same path and shape, and every port parameter must be filled.
 Leftovers on either side raise.
 
+A quantized reference tree (`quantize_params` of the JAX package) carries
+across the same way against the port's `quantize_params` of the meta-device
+template: int8 `kernel_q` bit for bit, fp32 `kernel_scale` as fp32.
+
 `from_jax_fused_state` carries a fused training state across the same way:
 parameters as above, fp8 moment codes bit for bit (numpy's uint8 view of the
 ml_dtypes array -> torch's float8 view), scales and exact moments as fp32.
@@ -21,23 +25,17 @@ from intact_tpu_torch.models.pi0 import model as pi0
 from intact_tpu_torch.models.pi0.config import Pi0Config
 
 
-def _flatten(tree, prefix="") -> dict:
-    if isinstance(tree, dict):
-        out = {}
-        for k, v in tree.items():
-            out.update(_flatten(v, f"{prefix}/{k}" if prefix else str(k)))
-        return out
-    return {prefix: tree}
-
-
 def from_jax_params(tree, cfg: Pi0Config, device=None, dtype=torch.float32) -> cm.Params:
-    """Map the reference `pi0.init` tree (leaves as numpy arrays) onto the
-    port's parameter tree for `cfg`, on `device` (CUDA unless given), in
-    `dtype`."""
+    """Map the reference `pi0.init` tree (leaves as numpy arrays), or its
+    `quantize_params` form, onto the port's parameter tree for `cfg`, on
+    `device` (CUDA unless given), float leaves in `dtype`; int8 codes stay
+    int8 and quantization scales fp32."""
     device = cm.resolve_device(device)
     template = pi0.init(cfg, device="meta", dtype=dtype)
-    src = _flatten(tree)
-    want = _flatten(template)
+    src = cm.flatten_paths(tree)
+    if any(path.endswith("/kernel_q") for path in src):
+        template = cm.quantize_params(template)
+    want = cm.flatten_paths(template)
     missing = sorted(set(want) - set(src))
     extra = sorted(set(src) - set(want))
     if missing or extra:
@@ -49,7 +47,12 @@ def from_jax_params(tree, cfg: Pi0Config, device=None, dtype=torch.float32) -> c
         leaf = np.asarray(src[prefix])
         if tuple(leaf.shape) != tuple(node.shape):
             raise ValueError(f"{prefix}: reference shape {leaf.shape} != port shape {tuple(node.shape)}")
-        return torch.from_numpy(np.array(leaf, np.float32)).to(device=device, dtype=dtype)
+        if node.dtype == torch.int8:
+            if leaf.dtype != np.int8:
+                raise ValueError(f"{prefix}: int8 codes expected, got {leaf.dtype}")
+            return torch.from_numpy(leaf.copy()).to(device)
+        want = torch.float32 if prefix.endswith(("/kernel_scale", "/embed_scale")) else dtype
+        return torch.from_numpy(np.array(leaf, np.float32)).to(device=device, dtype=want)
 
     return fill(template)
 
@@ -81,12 +84,12 @@ def from_jax_fused_state(state, cfg: Pi0Config, seed: int, device=None, block_si
 
     device = cm.resolve_device(device)
     src = _numpy_tree(state.params)
-    bf16 = all(x.dtype.name == "bfloat16" for x in _flatten(src).values())
+    bf16 = all(x.dtype.name == "bfloat16" for x in cm.flatten_paths(src).values())
     params = from_jax_params(src, cfg, device, torch.bfloat16 if bf16 else torch.float32)
     fresh = init_fused_state(params, seed, block_size=block_size, min_quant_elems=min_quant_elems)
     for name in ("mu", "nu"):
-        src = _flatten(_numpy_tree(getattr(state, name)))
-        want = _flatten(getattr(fresh, name))
+        src = cm.flatten_paths(_numpy_tree(getattr(state, name)))
+        want = cm.flatten_paths(getattr(fresh, name))
         missing, extra = sorted(set(want) - set(src)), sorted(set(src) - set(want))
         if missing or extra:
             raise ValueError(f"{name} trees differ: missing {missing}, unconsumed {extra}")

@@ -1,4 +1,4 @@
-"""Action/proprio normalization, the data pipeline's half of
+"""Action/proprio normalization and its inverse, from
 intact_tpu/data/normalize.py (reference `src/data/utils/data_utils.py:250-302`
 and env-adapter math `env_adapters/base.py:8-49`).
 
@@ -26,10 +26,27 @@ def normalize_normal(x, mean, std, mask=None):
     return out.astype(np.float32)
 
 
+def denormalize_normal(x, mean, std, mask=None):
+    x = np.asarray(x, np.float32)
+    out = x * (np.asarray(std) + EPS) + mean
+    if mask is not None:
+        out = np.where(mask, out, x)
+    return out.astype(np.float32)
+
+
 def normalize_bounds(x, low, high, mask=None, clip=(-1.0, 1.0)):
     x = np.asarray(x, np.float32)
     out = 2.0 * (x - low) / (np.asarray(high) - np.asarray(low) + EPS) - 1.0
     out = np.clip(out, *clip)
+    if mask is not None:
+        out = np.where(mask, out, x)
+    return out.astype(np.float32)
+
+
+def denormalize_bounds(x, low, high, mask=None, clip=(-1.0, 1.0)):
+    x = np.asarray(x, np.float32)
+    clip_min, clip_max = clip
+    out = (x - clip_min) / (clip_max - clip_min) * (np.asarray(high) - np.asarray(low)) + low
     if mask is not None:
         out = np.where(mask, out, x)
     return out.astype(np.float32)

@@ -1,0 +1,130 @@
+"""SimplerEnv (ManiSkill2 real2sim) adapters for the Bridge (WidowX) robot,
+copied from intact_tpu/envs/adapters/simpler.py (the Google-robot, Octo and
+SpatialVLA adapters wait for their families):
+  * preprocess: cv2 Lanczos resize -> [-1,1] float image; robot-specific
+    proprio construction; bound/gaussian state normalization against dataset
+    statistics (gripper dim included for proprio)
+  * postprocess: denormalize all but the gripper dim, euler -> axis-angle
+    rotation, the Bridge gripper threshold
+
+Resize fidelity matters: each adapter reproduces the interpolation its
+model family was evaluated with upstream (cv2 INTER_LANCZOS4 here). cv2 is
+imported by the functions that resize, so the module imports without it.
+"""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+
+from intact_tpu_torch.envs.adapters.base import BaseEnvAdapter
+from intact_tpu_torch.utils.device import normalize_u8
+from intact_tpu_torch.utils.geometry import euler2axangle, mat2euler, quat2mat
+
+
+class SimplerAdapter(BaseEnvAdapter):
+    def __init__(self, config):
+        super().__init__()
+        env_cfg = config.env
+        self.image_size = tuple(env_cfg.image_size)
+        self.action_normalization_type = env_cfg.action_normalization_type
+        self.state_normalization_type = env_cfg.state_normalization_type
+        assert self.action_normalization_type in ("bound", "gaussian")
+        assert self.state_normalization_type in ("bound", "gaussian")
+
+        with open(env_cfg.dataset_statistics_path) as f:
+            self.dataset_statistics = json.load(f)
+        self.seed = config.seed
+
+    def reset(self):
+        pass
+
+    # ---- obs -> model inputs ------------------------------------------
+
+    # serving wrappers set this True (PolicySession): the policy normalizes
+    # uint8 frames on the device, so emitting uint8 here skips a whole
+    # normalize-then-requantize pass per request. Other callers keep the
+    # [-1, 1] float contract by default.
+    output_uint8: bool = False
+
+    def preprocess(self, obs: dict) -> dict:
+        import cv2
+
+        image = cv2.resize(
+            obs["observation.images.top"], self.image_size,
+            interpolation=cv2.INTER_LANCZOS4,
+        )
+        if self.output_uint8:
+            image = image[None]
+        else:
+            image = normalize_u8(image)[None]  # [1, H, W, 3] in [-1, 1]
+
+        # "observation.state" carries the raw env obs (nested agent dict)
+        raw_proprio = self.preprocess_proprio(obs["observation.state"])
+        stats = self.dataset_statistics["proprio"]
+        if self.state_normalization_type == "bound":
+            proprio = self.normalize_bound(
+                raw_proprio, np.asarray(stats["p01"]), np.asarray(stats["p99"])
+            )
+        else:
+            proprio = self.normalize_gaussian(
+                raw_proprio, np.asarray(stats["mean"]), np.asarray(stats["std"])
+            )
+
+        return {
+            "image": image,
+            "state": proprio[None].astype(np.float32),
+            "task": [obs["task"]],
+        }
+
+    # ---- model actions -> sim actions ---------------------------------
+
+    def postprocess(self, actions: np.ndarray) -> np.ndarray:
+        """[T, 7] normalized (xyz delta, rpy delta, gripper) ->
+        [T, 7] simpler actions (xyz, axis-angle, gripper +-1)."""
+        actions = np.asarray(actions, np.float32)
+        stats = self.dataset_statistics["action"]
+        if self.action_normalization_type == "bound":
+            body = self.denormalize_bound(
+                actions[:, :-1], np.asarray(stats["p01"])[:-1], np.asarray(stats["p99"])[:-1]
+            )
+        else:
+            body = self.denormalize_gaussian(
+                actions[:, :-1], np.asarray(stats["mean"])[:-1], np.asarray(stats["std"])[:-1]
+            )
+
+        out = np.zeros((len(actions), 7), np.float64)
+        for i in range(len(actions)):
+            roll, pitch, yaw = body[i, 3:6]
+            axis, angle = euler2axangle(roll, pitch, yaw)
+            out[i, :3] = body[i, :3]
+            out[i, 3:6] = axis * angle
+            out[i, 6] = self.postprocess_gripper(float(actions[i, -1]))
+        return out
+
+    def preprocess_proprio(self, obs: dict) -> np.ndarray:
+        raise NotImplementedError
+
+    def postprocess_gripper(self, action: float) -> float:
+        raise NotImplementedError
+
+
+class BridgeSimplerAdapter(SimplerAdapter):
+    """WidowX / BridgeV2: proprio euler is expressed relative to a top-down
+    default rotation (the Bridge data convention,
+    reference simpler.py:154-190)."""
+
+    # bridge EE frame: rotation mapping base frame -> top-down
+    DEFAULT_ROT = np.array([[0, 0, 1.0], [0, 1.0, 0], [-1.0, 0, 0]])
+
+    def preprocess_proprio(self, obs: dict) -> np.ndarray:
+        proprio = np.asarray(obs["agent"]["eef_pos"], np.float64)
+        rm = quat2mat(proprio[3:7])  # wxyz
+        rpy = mat2euler(rm @ self.DEFAULT_ROT.T)
+        return np.concatenate([proprio[:3], rpy, [proprio[7]]])
+
+    def postprocess_gripper(self, action: float, binarize: bool = False) -> float:
+        # trained with [0,1] (0 close, 1 open) -> simpler wants -1 close / +1 open
+        g = 2.0 * (action > 0.5) - 1.0
+        return float(np.sign(g)) if binarize else float(g)

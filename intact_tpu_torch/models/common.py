@@ -1,15 +1,19 @@
-"""Functional layer library: dense / norm / embed / MLP + init helpers.
+"""Functional layer library: dense / norm / embed / MLP + init helpers, and
+the int8 (W8A8) serving form of the dense layers.
 
 Parameters are nested dicts of tensors laid out as in the reference: dense
 kernels [in, out], per-layer block weights stacked [L, ...]. The dtype
 policy keeps parameters in `param_dtype` and computes in `compute_dtype`;
-norm statistics are taken in fp32.
+norm statistics are taken in fp32. A quantized dense node holds int8
+`kernel_q` [..., in, out] and fp32 `kernel_scale` [..., out] (per output
+channel, per layer when stacked); `dense` sends it through the W8A8 kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from typing import Callable
 
 import torch
@@ -103,16 +107,55 @@ def layernorm_init(init: Initializer, dim: int, lead: tuple = ()) -> Params:
 # ---------------------------------------------------------------------------
 
 def dense(p: Params, x: torch.Tensor, policy: DtypePolicy = DEFAULT_POLICY) -> torch.Tensor:
+    if "kernel_q" in p:
+        return _dense_int8(p, x, policy)
     y = policy.cast(x) @ p["kernel"].to(policy.compute_dtype)
     if "bias" in p:
         y = y + p["bias"].to(policy.compute_dtype)
     return y
 
 
+def _dense_int8(p: Params, x: torch.Tensor, policy: DtypePolicy) -> torch.Tensor:
+    """W8A8 dynamic-quant matmul with the reference's per-row semantics
+    (activations quantized per row over the whole K, int32 product, fp32
+    rescale by the activation and weight scales, fp32 bias), cast to the
+    compute dtype. x is taken in its own dtype, as in the reference. On CUDA
+    tensors this launches the W8A8 kernel (ops/w8a8.py) or raises; on CPU
+    tensors it runs the kernel's plain version."""
+    from intact_tpu_torch.ops.w8a8 import w8a8_matmul
+
+    if p["kernel_q"].ndim != 2:
+        raise ValueError(f"_dense_int8 takes one layer's kernel [in, out]; got {tuple(p['kernel_q'].shape)}")
+    return w8a8_matmul(x, p["kernel_q"], p["kernel_scale"], p.get("bias"), out_dtype=policy.compute_dtype)
+
+
 def embed_lookup(p: Params, ids: torch.Tensor, policy: DtypePolicy = DEFAULT_POLICY) -> torch.Tensor:
     # out-of-range ids clip to the table (never index past it)
+    if "embedding_q" in p:  # int8 rows + per-row scale (quantize_embed)
+        idx = ids.long().clamp(0, p["embedding_q"].shape[0] - 1)
+        rows = p["embedding_q"][idx].to(torch.float32)
+        return (rows * p["embed_scale"][idx].to(torch.float32)[..., None]).to(policy.compute_dtype)
     table = p["embedding"]
     return table[ids.long().clamp(0, table.shape[0] - 1)].to(policy.compute_dtype)
+
+
+def unembed_logits(p: Params, hidden: torch.Tensor, policy: DtypePolicy | None = None) -> torch.Tensor:
+    """Tied unembedding: hidden [..., D] x embed [V, D]^T -> fp32 [..., V].
+    A quantized table takes the W8A8 per-row path. That path runs on the CPU
+    only: on the card the W8A8 kernel reads weights as [in, out], the
+    table is [out, in], and the AR families that use it are not ported."""
+    policy = policy or DEFAULT_POLICY
+    if "embedding_q" not in p:
+        emb = p["embedding"].to(policy.compute_dtype)
+        return (hidden.to(policy.compute_dtype) @ emb.T).to(torch.float32)
+    if hidden.device.type != "cpu":
+        raise NotImplementedError("the int8 unembedding has no CUDA kernel yet (the AR families, ROADMAP A9)")
+    from intact_tpu_torch.ops.w8a8 import int_product, quantize_reference
+
+    lead, d = hidden.shape[:-1], hidden.shape[-1]
+    xq, xs = quantize_reference(hidden.reshape(-1, d))
+    y = int_product(xq, p["embedding_q"].T) * xs * p["embed_scale"].to(torch.float32)
+    return y.reshape(*lead, -1)
 
 
 def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -174,6 +217,143 @@ def tree_leaves(tree) -> list[torch.Tensor]:
     return [tree]
 
 
+def flatten_paths(tree, prefix: str = "") -> dict:
+    """Nested dict -> {"a/b/c": leaf}."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flatten_paths(v, f"{prefix}/{k}" if prefix else str(k)))
+        return out
+    return {prefix: tree}
+
+
+def unflatten_paths(flat: dict) -> dict:
+    """{"a/b/c": leaf} -> nested dict."""
+    tree: dict = {}
+    for path, leaf in flat.items():
+        node = tree
+        *parents, last = path.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return tree
+
+
 def layer(blocks: Params, i: int) -> Params:
     """Layer i of a stacked [L, ...] block tree (views, no copy)."""
     return tree_map(lambda a: a[i], blocks)
+
+
+# ---------------------------------------------------------------------------
+# int8 serving form
+# ---------------------------------------------------------------------------
+
+# the default int8 coverage: every kernel under a "blocks" subtree (and the
+# mvla expert's self/cross pair stacks) plus the multimodal projector and an
+# AR unembedding (`lm_head`); norms stay fp
+QUANTIZE_DEFAULT_PATTERN = (
+    r".*((blocks|pairs/(self|cross))/(attn|mlp)/[a-z0-9_]+|img_proj|lm_head)$"
+)
+
+# AR-family tied embeddings ("lm/embed"), quantized to int8 rows; pi0's
+# vlm_embed stays fp
+UNEMBED_QUANT_PATTERN = r".*lm/embed$"
+
+
+def _absmax_quantize(w: torch.Tensor, dim: int, floor: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """round(w / s) as int8 with s = max(max|w| over `dim` * fl(1/127),
+    floor), in fp32, keeping `dim` as size 1 in s. The reference's `/ 127.0`
+    runs compiled (jax.jit(quantize_params)), where XLA multiplies by the
+    reciprocal instead."""
+    from intact_tpu_torch.ops.w8a8 import INV127
+
+    w = w.to(torch.float32)
+    scale = w.abs().amax(dim=dim, keepdim=True)  # NaN propagates, as in jnp.max
+    scale = torch.maximum(scale * torch.full_like(scale, INV127), torch.full_like(scale, floor))
+    return torch.round(w / scale).to(torch.int8), scale
+
+
+def quantize_dense(p: Params) -> Params:
+    """fp kernel [..., in, out] -> int8 `kernel_q` + fp32 per-output-channel
+    `kernel_scale` [..., out] (stacked layers keep per-(layer, out) scales).
+    Stacked kernels are quantized one layer at a time, so the fp32
+    temporaries hold one layer."""
+    kernel = p["kernel"]
+    lead, (din, dout) = kernel.shape[:-2], kernel.shape[-2:]
+    flat = kernel.reshape(-1, din, dout)
+    kq = torch.empty(flat.shape, dtype=torch.int8, device=kernel.device)
+    scale = torch.empty((flat.shape[0], dout), dtype=torch.float32, device=kernel.device)
+    for i in range(flat.shape[0]):
+        q, s = _absmax_quantize(flat[i], dim=-2, floor=1e-12)
+        kq[i], scale[i] = q, s[0]
+    out = {"kernel_q": kq.reshape(*lead, din, dout), "kernel_scale": scale.reshape(*lead, dout)}
+    if "bias" in p:
+        out["bias"] = p["bias"]
+    return out
+
+
+def quantize_embed(p: Params) -> Params:
+    """Embedding table [V, D] -> int8 rows `embedding_q` + fp32 per-row
+    `embed_scale` [V]."""
+    q, s = _absmax_quantize(p["embedding"], dim=-1, floor=1e-12)
+    return {"embedding_q": q, "embed_scale": s[:, 0]}
+
+
+def quantize_params(params: Params, consume: bool = False) -> Params:
+    """Quantize the FLOP-heavy kernels (transformer block matmuls, the
+    projector; QUANTIZE_DEFAULT_PATTERN) and tied AR embeddings
+    (UNEMBED_QUANT_PATTERN) to int8, leaf by leaf.
+
+    consume=True empties `params` as it goes, so each fp node is released
+    once its int8 form exists: the whole fp tree and the whole int8 tree
+    never coexist. Other leaves move into the result as they are.
+    """
+    default = re.compile(QUANTIZE_DEFAULT_PATTERN)
+    embed_re = re.compile(UNEMBED_QUANT_PATTERN)
+
+    def walk(node, path=""):
+        if not isinstance(node, dict):
+            return node
+        if "kernel" in node and default.match(path):
+            return quantize_dense(node)
+        if "embedding" in node and embed_re.match(path):
+            return quantize_embed(node)
+        out = {}
+        for k in list(node):
+            out[k] = walk(node[k], f"{path}/{k}" if path else k)
+            if consume:
+                del node[k]
+        return out
+
+    return walk(params)
+
+
+def quantize_host_tree(raw: Params, policy: DtypePolicy = SERVING_POLICY, device=None) -> Params:
+    """A host (CPU tensor or numpy) parameter tree -> the serving-int8 tree on
+    `device` (CUDA unless given), one leaf at a time: the device holds the
+    int8 tree and one fp leaf at most. Quantized kernels are cast to the
+    compute dtype first, biases and other leaves to the param dtype, as in
+    the reference's checkpoint-load path."""
+    import numpy as np
+
+    device = resolve_device(device)
+    default = re.compile(QUANTIZE_DEFAULT_PATTERN)
+    embed_re = re.compile(UNEMBED_QUANT_PATTERN)
+
+    def put(leaf, dtype):
+        t = torch.from_numpy(np.asarray(leaf)) if not isinstance(leaf, torch.Tensor) else leaf
+        return t.to(device=device, dtype=dtype)
+
+    def walk(node, path=""):
+        if not isinstance(node, dict):
+            return put(node, policy.param_dtype)
+        if "kernel" in node and default.match(path):
+            out = quantize_dense({"kernel": put(node["kernel"], policy.compute_dtype)})
+            if "bias" in node:
+                out["bias"] = put(node["bias"], policy.param_dtype)
+            return out
+        if "embedding" in node and embed_re.match(path):
+            return quantize_embed({"embedding": put(node["embedding"], policy.compute_dtype)})
+        return {k: walk(v, f"{path}/{k}" if path else k) for k, v in node.items()}
+
+    return walk(raw)

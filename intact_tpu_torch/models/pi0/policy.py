@@ -1,9 +1,9 @@
 """Pi0Policy: the host-side policy interface around the model.
 
 The surface the serving stack consumes: language tokenization, state/image
-padding to model dims, and an action queue that re-infers every
-n_action_steps. Device work is `model.sample_actions`; everything else is
-numpy.
+padding to model dims, an action queue that re-infers every n_action_steps,
+checkpoint load, and int8 (W8A8) serving. Device work is
+`model.sample_actions`; everything else is numpy.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from intact_tpu_torch.models import common as cm
 from intact_tpu_torch.models.pi0 import model as pi0
 from intact_tpu_torch.models.pi0.config import Pi0Config
 from intact_tpu_torch.models.tokenizer import make_tokenizer
+from intact_tpu_torch.train import checkpoint as ckpt_lib
 
 
 class Pi0Policy:
@@ -29,24 +30,54 @@ class Pi0Policy:
         use_bf16: bool = True,
         tokenizer_path: str | None = None,
         device=None,
+        quantize: bool = False,
     ):
         """device: CUDA unless given (raises without a CUDA device).
         params: a param tree on that device (e.g. from convert.py); random
         weights from `seed` when omitted. use_bf16: bf16 params and compute
         (SERVING_POLICY), else fp32. tokenizer_path: HF tokenizer asset
         ("hash" for the hermetic fallback); ignored when a tokenizer object
-        is passed."""
+        is passed. quantize: int8 W8A8 serving of the transformer-block
+        matmuls and the projector (`cm.quantize_params`, leaf by leaf)."""
         self.cfg = cfg
         self.device = cm.resolve_device(device)
         self.policy = cm.SERVING_POLICY if use_bf16 else cm.FP32_POLICY
+        self._quantize = quantize
         self.tokenizer = tokenizer or make_tokenizer(
             tokenizer_path, cfg.tokenizer_max_length, vocab_size=cfg.vlm.vocab_size
         )
         if params is None:
             params = pi0.init(cfg, seed, self.device, self.policy.param_dtype)
+            if quantize:  # the freshly made tree is ours to empty as it quantizes
+                params = cm.quantize_params(params, consume=True)
+        elif quantize:
+            params = cm.quantize_params(params)
         self.params = params
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._queue: deque = deque()
+
+    # ------------------------------------------------------------------
+    # checkpoints (step_{n} contract, hot-swappable)
+    # ------------------------------------------------------------------
+
+    @classmethod
+    def from_checkpoint(cls, path: str, cfg: Pi0Config, **kwargs) -> "Pi0Policy":
+        policy = cls(cfg, **kwargs)
+        policy.load(path)
+        return policy
+
+    def load(self, path: str) -> None:
+        """Restore params from a step dir (or the newest committed step under
+        a root). Checkpoints hold fp params: they stream to the device one
+        leaf at a time in the param dtype, quantized on the way when the
+        policy serves int8, and replace the old tree once complete."""
+        restored = ckpt_lib.restore_params(path, pi0.init(self.cfg, device="meta"))
+        if self._quantize:
+            params = cm.quantize_host_tree(restored, self.policy, self.device)
+        else:
+            params = cm.tree_map(lambda x: x.to(device=self.device, dtype=self.policy.param_dtype), restored)
+        self.params = params
+        self.reset()
 
     def reset(self) -> None:
         self._queue.clear()

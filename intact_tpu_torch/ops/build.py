@@ -26,7 +26,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("flash_attention", "fused_adam_rows")
+SOURCES = ("flash_attention", "fused_adam_rows", "w8a8_matmul")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,10 +1,12 @@
-"""Serve a Pi0 policy over the websocket protocol.
+"""Serve a bare Pi0 policy over the websocket protocol, without a config file.
 
     python -m intact_tpu_torch.serve --port 8000 [--tiny] [--device cpu] [--seed 0]
 
 Builds `Pi0Policy` (random weights from `--seed`; bridge config unless
-`--tiny`) on the CUDA device unless `--device` names another, and serves it
-with `WebsocketPolicyServer` until interrupted.
+`--tiny`) on the CUDA device unless `--device` names
+another, and serves it with `WebsocketPolicyServer` until interrupted. The
+configured server role (env adapter, batching, checkpoints) runs through
+`python -m intact_tpu_torch.run --config_path <yaml> --eval_cfg.role server`.
 """
 
 from __future__ import annotations
@@ -38,6 +40,3 @@ def main(argv=None) -> None:
     server = build_server(cfg, args.host, args.port, args.device, args.seed, args.tokenizer_path)
     server.serve_forever()
 
-
-if __name__ == "__main__":
-    main()

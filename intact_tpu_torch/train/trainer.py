@@ -3,10 +3,12 @@
 The `fused_update` path of intact_tpu/train/trainer.py: config -> random
 parameters from the seed -> fused 8-bit-state AdamW state -> a loop of
 `fused_joint` steps over synthetic batches, logging the reference's train line
-(update count, loss, grad norm, lr, time). It keeps the JAX trainer's
-refusals for settings the fused step cannot honour. Not ported yet, and
-refused: the standard (unfused) step, checkpoints, validation, meshes and
-gradient accumulation, W&B, task paraphrasing.
+(update count, loss, grad norm, lr, time), and saving the parameters every
+`save_model_freq` updates under <log_dir>/<name>/checkpoint/step_{n}/
+(train/checkpoint.py). It keeps the JAX trainer's refusals for settings the
+fused step cannot honour. Not ported yet, and refused: the standard (unfused)
+step, loading a checkpoint and resuming (optimizer state), validation,
+meshes and gradient accumulation, W&B, task paraphrasing.
 
 Runs on the CUDA device unless the caller passes device="cpu".
 """
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 import logging
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -24,6 +27,7 @@ from intact_tpu_torch.data.dataset import InterleavedDataset
 from intact_tpu_torch.models import common as cm
 from intact_tpu_torch.models.pi0 import model as pi0
 from intact_tpu_torch.models.tokenizer import make_tokenizer
+from intact_tpu_torch.train import checkpoint as ckpt
 from intact_tpu_torch.train import fused_joint as fj
 from intact_tpu_torch.train.optim import cosine_warmup_restarts
 
@@ -172,6 +176,7 @@ class Trainer:
             cfg.data, self.micro_batch_size, split="train", stats=norm_stats, normalization_type=norm_type,
             seed=cfg.seed, image_size=self.model_cfg.vision.image_size)
         self.cnt_update = 0
+        self.ckpt_root = Path(cfg.log_dir) / (cfg.name or "run") / "checkpoint"
 
     @staticmethod
     def _refuse_unported(cfg: TrainPipelineConfig) -> None:
@@ -205,7 +210,15 @@ class Trainer:
                 now = time.time()
                 self._log_training(window, now - last)
                 window, last = [], now
+            if self.cnt_update % cfg.save_model_freq == 0:
+                self.save()
         self.logger.info("training done at update %d in %.2f s", self.cnt_update, time.time() - start)
+
+    def save(self) -> Path:
+        """Parameters at the current update count (the step_{n} contract)."""
+        path = ckpt.save_checkpoint(self.ckpt_root, self.state.params, self.cnt_update, aux={"name": self.cfg.name})
+        self.logger.info("saved checkpoint %s", path)
+        return path
 
     def _log_training(self, window: list[dict], seconds: float) -> None:
         mean = {k: float(np.mean([float(m[k]) for m in window]))

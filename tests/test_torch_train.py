@@ -107,7 +107,7 @@ def flat(tree) -> dict:
             return v.view(torch.uint8).numpy()
         return v.float().numpy()
 
-    return {k: np_(v) for k, v in convert._flatten(tree).items()}
+    return {k: np_(v) for k, v in tcm.flatten_paths(tree).items()}
 
 
 def fp8_index(x: np.ndarray) -> np.ndarray:
@@ -189,7 +189,7 @@ class TestJointAndLoss:
                                        noise=torch.from_numpy(noise), time=torch.from_numpy(time))
         assert aux["losses"].shape == batch["actions"].shape
         np.testing.assert_allclose(tloss.item(), float(jloss), rtol=1e-5)
-        leaves = convert._flatten(tp)
+        leaves = tcm.flatten_paths(tp)
         tgrads = torch.autograd.grad(tloss, list(leaves.values()), allow_unused=True, materialize_grads=True)
         want = flat(jgrads)
         for path, got in zip(leaves, tgrads):

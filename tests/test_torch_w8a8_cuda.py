@@ -1,0 +1,77 @@
+"""The W8A8 CUDA kernel (csrc/w8a8_matmul.cu) against its plain version, on the card.
+
+Marked `cuda`: each test skips inside a fixture where there is no CUDA device
+(the kernel has no CPU mode). The file imports no JAX, so it runs on a
+machine with a card and PyTorch alone: `python -m pytest --noconftest
+tests/test_torch_w8a8_cuda.py -q` (tests/conftest.py sets up JAX).
+
+Tolerance: codes and scales equal; outputs within one bf16 ulp of the row's
+largest |y|, because the plain version forms its fused multiply-adds in
+float64 and may round once more than the kernel where a value lands on an
+fp32 tie (about 2^-29 of values).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from intact_tpu_torch.models import common as tcm
+from intact_tpu_torch.ops import w8a8
+
+ROW_RTOL = 2.0**-8
+
+
+def t_(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the W8A8 kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+class TestW8A8Kernel:
+    @pytest.mark.parametrize("m,k,n,k_chunk,dt", [
+        (5, 1024, 2048, None, torch.bfloat16),  # a batch-1 expert decode
+        (320, 4096, 1024, None, torch.bfloat16),  # the expert down projection at batch 64
+        (257, 4304, 1152, None, torch.bfloat16),  # SigLIP fc2: ragged K
+        (257, 4304, 1152, 2048, torch.bfloat16),  # ... per 2048-chunk (Pallas semantics)
+        (130, 1152, 4304, None, torch.bfloat16),  # SigLIP fc1: ragged N
+        (77, 300, 131, None, torch.float32),  # ragged everything, fp32, unaligned N
+        (45, 1000, 200, 128, torch.float32),  # 8 chunks of 128
+        (1, 64, 8, None, torch.bfloat16),  # one tile, one row
+    ])
+    def test_kernel_matches_reference(self, cuda, m, k, n, k_chunk, dt):
+        rng = np.random.default_rng(m + k + n)
+        x = t_(rng.standard_normal((m, k), dtype=np.float32)).to(cuda, dt)
+        wq = t_(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(cuda)
+        ws = t_((rng.random(n) + 0.5).astype(np.float32) * 1e-3).to(cuda)
+        bias = t_(rng.standard_normal(n).astype(np.float32)).to(cuda)
+        for b in (None, bias):
+            before = w8a8.w8a8_matmul.launches
+            y, xq, xs = w8a8.launch(x, wq, ws, b, k_chunk, dt)
+            torch.cuda.synchronize()
+            assert w8a8.w8a8_matmul.launches == before + 1
+            rq, rs = w8a8.quantize_reference(x, k_chunk)
+            assert torch.equal(xq[:, :k], rq) and not xq[:, k:].any() and torch.equal(xs, rs)
+            ref = w8a8.w8a8_matmul_reference(x, wq, ws, b, k_chunk, dt)
+            tol = ROW_RTOL * ref.float().abs().amax(dim=1, keepdim=True)
+            assert ((y.float() - ref.float()).abs() <= tol).all()
+
+    def test_dense_on_cuda_launches_the_kernel(self, cuda):
+        rng = np.random.default_rng(0)
+        node = tcm.quantize_dense({"kernel": t_((rng.standard_normal((128, 64)) * 0.05).astype(np.float32)).to(cuda)})
+        x = t_(rng.standard_normal((3, 7, 128), dtype=np.float32)).to(cuda, torch.bfloat16)
+        before = w8a8.w8a8_matmul.launches
+        y = tcm.dense(node, x, tcm.SERVING_POLICY)
+        assert w8a8.w8a8_matmul.launches == before + 1 and y.shape == (3, 7, 64)
+        ref = w8a8.w8a8_matmul_reference(x, node["kernel_q"], node["kernel_scale"], out_dtype=torch.bfloat16)
+        assert torch.equal(y, ref)
+
+    def test_kernel_raises_on_fp16(self, cuda):
+        wq = torch.zeros(64, 8, dtype=torch.int8, device=cuda)
+        with pytest.raises(TypeError, match="bf16 or fp32"):
+            w8a8.w8a8_matmul(torch.zeros(2, 64, dtype=torch.float16, device=cuda), wq, torch.ones(8, device=cuda))
