@@ -6,8 +6,11 @@ Phases, each failing loudly (non-zero exit):
   1. build   compile every CUDA kernel of the path from csrc/ (nvcc, sm_90a)
   2. kernels each kernel against its plain PyTorch version on the card, at the
              main path's shapes and at ragged ones, with timings and bounds
-             (w8a8_matmul at every bridge shape, per row and per 2048-chunk,
-             beside torch._int_mm on its codes and the bf16 matmul it replaces)
+             (flash_attention at the serving shape at batch 64 and 1 and at
+             the training shape, each beside SDPA; w8a8_matmul on K-major
+             codes at every bridge shape, per row and per 2048-chunk, beside
+             torch._int_mm on its codes and the bf16 matmul it replaces, with
+             effective rates and device time per call)
   3. serving full-width Pi0 bridge (SigLIP So400m + Gemma-2B + 300M expert,
              random bf16 weights from a seed): requests through
              Pi0Policy.select_action at batch 1 with a reset, and a batch-64
@@ -102,6 +105,23 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 10) -> float:
+    """Device milliseconds of one call of fn: the summed time of the kernels
+    it launches, under torch.profiler, over reps calls. Unlike cuda_ms it
+    excludes the host's time between the launches, which bounds a call of
+    small kernels from an eager host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / reps / 1e3
+
+
 # ---------------------------------------------------------------------------
 # 1. build
 # ---------------------------------------------------------------------------
@@ -113,9 +133,17 @@ def phase_build() -> None:
     build.build_all()
     log(f"# build: {time.perf_counter() - t0:.2f} s for {len(build.SOURCES)} source(s)")
     for name, text in build.ptxas_logs.items():
+        entry = "?"
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"# ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "registers" in line or "spill" in line or "setmaxnreg" in line:
+                log(f"# ptxas {name} {entry[:96]}: {line.strip()}")
+    # dynamic shared memory, which ptxas does not report
+    attn, w8 = build.load("flash_attention"), build.load("w8a8_matmul")
+    log(f"# dynamic shared memory per block: attn_kernel D=64/128/256 "
+        f"{[attn.intact_flash_attention_smem_bytes(d) for d in (64, 128, 256)]} bytes; w8a8 gemm_kernel "
+        f"row/chunk/split {[w8.intact_w8a8_smem_bytes(m) for m in (0, 1, 2)]} bytes")
     log(f"# card: {gpu_name_and_power()}")
 
 
@@ -174,20 +202,37 @@ def phase_kernels() -> list[dict]:
             raise SystemExit(f"flash_attention disagrees with its plain version on {name}")
         max_err = max(max_err, err)
 
-    q, k, v, mask = bridge
-    ms = cuda_ms(lambda: flash_attention(q, k, v, mask))
-    plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, mask), reps=10)
-    qt, kt, vt, mt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask[:, None]
-    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mt, enable_gqa=True))
-    s = k.shape[1]
-    moved = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size() + mask.numel()
-    flops = 4 * b * h * t * s * d
-    bytes_ms, ops_ms = moved / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
-    log(f"# flash_attention bridge timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
-        f"({moved / 1e6:.1f} MB -> {bytes_ms:.4f} ms, {flops / 1e9:.1f} GFLOP -> {ops_ms:.4f} ms)")
+    # the serving shape at batch 64 and 1, and the training forward's shape
+    # (batch 16, 77 language tokens: 333-byte mask rows), each beside SDPA
+    timed = {"bridge": bridge}
+    for name, (b_, n_lang) in {"batch1": (1, 72), "train": (16, 77)}.items():
+        timed[name] = attention_case(rng, b_, 256 + n_lang, 256 + n_lang, h, kvh, d, torch.bfloat16,
+                                     prefix_mask(b_, 256, n_lang, rng))
+    times = {}
+    for name, (q, k, v, mask) in timed.items():
+        b_, t_, s_ = q.shape[0], q.shape[1], k.shape[1]
+        out = flash_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        err = (out.float() - flash_attention_reference(q, k, v, mask).float()).abs().max().item()
+        if name != "bridge" and (err > KERNEL_ATOL or not torch.isfinite(out).all()):
+            raise SystemExit(f"flash_attention disagrees with its plain version on {name}")
+        max_err = max(max_err, err)
+        ms = cuda_ms(lambda: flash_attention(q, k, v, mask))
+        plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, mask), reps=10)
+        qt, kt, vt, mt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask[:, None]
+        library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mt, enable_gqa=True))
+        moved = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size() + mask.numel()
+        flops = 4 * b_ * h * t_ * s_ * d
+        bytes_ms, ops_ms = moved / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
+        times[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bytes_ms=bytes_ms, ops_ms=ops_ms)
+        log(f"# flash_attention {name} timing (B={b_}, T=S={t_}, max_abs_err {err:.3e}): kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+            f"({moved / 1e6:.1f} MB -> {bytes_ms:.4f} ms, {flops / 1e9:.1f} GFLOP -> {ops_ms:.4f} ms), "
+            f"{flops / ms / 1e9:.1f} TFLOP/s, kernel / sdpa {ms / library_ms:.3f}")
     flash_attention.launches = 0  # comparison launches do not count
+    ms, plain_ms, library_ms, bytes_ms, ops_ms = (times["bridge"][k] for k in
+                                                  ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms"))
     return [{
         "name": "flash_attention",
         "route": "cuda",
@@ -200,6 +245,8 @@ def phase_kernels() -> list[dict]:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
+        "batch1_ms": times["batch1"]["ms"], "batch1_library_ms": times["batch1"]["library_ms"],
+        "train_ms": times["train"]["ms"], "train_library_ms": times["train"]["library_ms"],
     }, phase_adam_kernel(), phase_w8a8_kernel()]
 
 
@@ -347,10 +394,11 @@ W8A8_TIMED = "gemma_up"  # the shape of the kernels line
 
 def w8a8_case(gen: torch.Generator, m: int, k: int, n: int):
     """bf16 activations at unit scale with a few large channels, int8 weight
-    codes over the full range, per-channel scales near 1e-3, a bias."""
+    codes over the full range, K-major ([N, K], as the serving tree holds
+    them), per-channel scales near 1e-3, a bias."""
     x = torch.randn(m, k, generator=gen, device="cuda")
     x[:, ::97] *= 8.0  # outlier channels, as real activations have
-    wq = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
     ws = (torch.rand(n, generator=gen, device="cuda") + 0.5) * 1e-3
     bias = torch.randn(n, generator=gen, device="cuda") * 0.1
     return x.to(torch.bfloat16), wq, ws, bias
@@ -367,32 +415,36 @@ def w8a8_bound_ms(m: int, k: int, n: int) -> tuple[float, float, str]:
 
 def phase_w8a8_kernel() -> dict:
     """w8a8_matmul against its plain version on the card at the bridge's
-    shapes, per row and (at K 16384 and 4304) per 2048-chunk: the wrapper's
-    outputs, and the kernel's codes and scales; then times at each per-row shape beside the bound, the plain
+    shapes with K-major codes (the serving tree's), per row and (at K 16384
+    and 4304, and the expert's K 4096) per 2048-chunk, and two ragged cases
+    (one with [K, N] codes): the wrapper's outputs, and the kernel's codes and
+    scales; then times at each per-row shape beside the bound, the plain
     version, torch._int_mm on the same codes (the product only) and the bf16
-    matmul that int8 replaces."""
+    matmul that int8 replaces, with the kernel's effective rates."""
     from intact_tpu_torch.ops import w8a8
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     cases = [(name, m, k, n, None) for name, m, k, n in W8A8_SHAPES]
     cases += [(name + "_chunk2048", m, k, n, w8a8.PALLAS_BLOCK_K)
-              for name, m, k, n in W8A8_SHAPES if k in (16384, 4304)]
+              for name, m, k, n in W8A8_SHAPES if k in (16384, 4304) or name == "expert_down"]
     cases += [("ragged_fp32", 77, 300, 131, None), ("ragged_chunk128", 45, 1000, 200, 128)]
     max_err, rows, timed = 0.0, [], None
     for name, m, k, n, chunk in cases:
-        x, wq, ws, bias = w8a8_case(gen, m, k, n)
+        x, wk, ws, bias = w8a8_case(gen, m, k, n)
+        layout, w_in = "nk", wk
         if name.startswith("ragged_fp32"):
             x, out_dtype = x.float(), torch.float32
+            layout, w_in = "kn", wk.t().contiguous()  # the [K, N] form
         else:
             out_dtype = torch.bfloat16
         n0 = w8a8.w8a8_matmul.launches
-        y = w8a8.w8a8_matmul(x, wq, ws, bias, chunk, out_dtype)  # the wrapper the main path calls
+        y = w8a8.w8a8_matmul(x, w_in, ws, bias, chunk, out_dtype, layout)  # the wrapper the main path calls
         if w8a8.w8a8_matmul.launches != n0 + 1:
             raise SystemExit(f"w8a8_matmul did not launch its kernel on {name}")
-        _, xq, xs = w8a8.launch(x, wq, ws, bias, chunk, out_dtype)  # the same kernel, for its codes and scales
+        _, xq, xs = w8a8.launch(x, w_in, ws, bias, chunk, out_dtype, layout)  # for its codes and scales
         torch.cuda.synchronize()
         rq, rs = w8a8.quantize_reference(x, chunk)
-        ref = w8a8.w8a8_matmul_reference(x, wq, ws, bias, chunk, out_dtype)
+        ref = w8a8.w8a8_matmul_reference(x, wk.t(), ws, bias, chunk, out_dtype)
         same_codes = torch.equal(xq[:, :k], rq) and not xq[:, k:].any().item()
         same_scales = torch.equal(xs, rs)
         diff = (y.float() - ref.float()).abs()
@@ -400,35 +452,41 @@ def phase_w8a8_kernel() -> dict:
         row_tol = W8A8_ROW_RTOL * ref.float().abs().amax(dim=1, keepdim=True)
         unequal = int((y != ref).sum().item())
         ok = same_codes and same_scales and bool((diff <= row_tol).all()) and bool(torch.isfinite(y).all())
-        log(f"# w8a8_matmul {name}: M {m} K {k} N {n} chunk {chunk or 'row'} {x.dtype}->{out_dtype}: codes equal "
+        log(f"# w8a8_matmul {name}: M {m} K {k} N {n} chunk {chunk or 'row'} {x.dtype}->{out_dtype} {layout} "
+            f"{w8a8.plan(m, n, k, chunk)}: codes equal "
             f"{same_codes}, scales equal {same_scales}, outputs unequal {unequal} of {y.numel()}, max abs err "
             f"{err:.3e} (tol {W8A8_ROW_RTOL:.4g} x row max |y|), max |y| {ref.float().abs().max().item():.3e}")
         if not ok:
             raise SystemExit(f"w8a8_matmul disagrees with its plain version on {name}")
         max_err = max(max_err, err)
         if chunk is None and not name.startswith("ragged"):
-            rows.append((name, m, k, n, x, wq, ws, bias, xq))
+            rows.append((name, m, k, n, x, wk, ws, bias, xq))
         del y, ref, rq, rs
-    for name, m, k, n, x, wq, ws, bias, xq in rows:
-        ms = cuda_ms(lambda: w8a8.w8a8_matmul(x, wq, ws, bias, out_dtype=torch.bfloat16))
-        plain_ms = cuda_ms(lambda: w8a8.w8a8_matmul_reference(x, wq, ws, bias, out_dtype=torch.bfloat16),
+    for name, m, k, n, x, wk, ws, bias, xq in rows:
+        ms = cuda_ms(lambda: w8a8.w8a8_matmul(x, wk, ws, bias, out_dtype=torch.bfloat16, weight_layout="nk"))
+        plain_ms = cuda_ms(lambda: w8a8.w8a8_matmul_reference(x, wk.t(), ws, bias, out_dtype=torch.bfloat16),
                            reps=3, warmup=1)
         codes = xq[:, :k].contiguous()
         try:
-            int_mm_ms = cuda_ms(lambda: torch._int_mm(codes, wq))
+            int_mm_ms = cuda_ms(lambda: torch._int_mm(codes, wk.t()))
         except RuntimeError as e:  # _int_mm takes M > 16 only
             int_mm_ms = None
             log(f"#   torch._int_mm refused {name}: {str(e).splitlines()[0][:100]}")
-        wb = wq.to(torch.bfloat16)
+        wb = wk.t().to(torch.bfloat16)
         bf16_ms = cuda_ms(lambda: torch.matmul(x, wb))
+        dev_ms = device_ms(lambda: w8a8.w8a8_matmul(x, wk, ws, bias, out_dtype=torch.bfloat16, weight_layout="nk"))
+        bf16_dev_ms = device_ms(lambda: torch.matmul(x, wb))
         bound, bytes_ms, by = w8a8_bound_ms(m, k, n)
-        log(f"# w8a8_matmul timing {name} (M {m} K {k} N {n}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"torch._int_mm on the same codes (product only) "
-            f"{'n/a' if int_mm_ms is None else f'{int_mm_ms:.4f} ms'}, bf16 torch.matmul {bf16_ms:.4f} ms, "
-            f"bound {bound:.4f} ms by {by} ({2 * m * k * n / 1e12:.3f} T int8 ops, bytes {bytes_ms:.4f} ms), "
-            f"{2 * m * k * n / ms / 1e9:.1f} TOPS")
+        moved = m * k * 2 + k * n + n * 4 + m * n * 2
+        log(f"# w8a8_matmul timing {name} (M {m} K {k} N {n}, {w8a8.plan(m, n, k).mode}): kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, torch._int_mm on the same codes (product only) "
+            f"{'n/a' if int_mm_ms is None else f'{int_mm_ms:.4f} ms'}, bf16 torch.matmul {bf16_ms:.4f} ms "
+            f"(kernel / bf16 {ms / bf16_ms:.3f}), bound {bound:.4f} ms by {by} ({2 * m * k * n / 1e12:.3f} T int8 "
+            f"ops, bytes {bytes_ms:.4f} ms); kernel {2 * m * k * n / ms / 1e9:.1f} TOPS, {moved / ms / 1e6:.1f} GB/s; "
+            f"device time per call (profiler, no host gaps): kernel {dev_ms:.4f} ms, bf16 {bf16_dev_ms:.4f} ms")
         if name == W8A8_TIMED:
-            timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, int_mm_ms=int_mm_ms, bf16_ms=bf16_ms)
+            timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, int_mm_ms=int_mm_ms, bf16_ms=bf16_ms,
+                         device_ms=dev_ms)
         del wb
     rows.clear()
     torch.cuda.empty_cache()
@@ -449,6 +507,7 @@ def phase_w8a8_kernel() -> dict:
         "library_ms": None,
         "int_mm_product_only_ms": timed["int_mm_ms"],
         "bf16_matmul_ms": timed["bf16_ms"],
+        "device_ms": timed["device_ms"],
         "shape": "Gemma-2B up projection, M 20992 K 2048 N 16384 (batch-64 prefill)",
     }
 
@@ -549,7 +608,7 @@ def phase_serving() -> int:
     return launches
 
 
-KERNEL_SYMBOLS = ("attn_kernel", "fused_adam_rows_kernel", "quantize_kernel", "gemm_kernel")
+KERNEL_SYMBOLS = ("attn_kernel", "fused_adam_rows_kernel", "quantize_kernel", "gemm_kernel", "finish_kernel")
 
 
 def profile_pass(label: str, fn) -> None:
@@ -674,7 +733,12 @@ def phase_int8_serving() -> dict:
     a_kernel = pi0.sample_actions(policy.params, None, *inputs, mc, policy.policy, noise=noise)
     n1 = w8a8.w8a8_matmul.launches
     real = w8a8.w8a8_matmul
-    w8a8.w8a8_matmul = w8a8.w8a8_matmul_reference  # the plain W8A8 product, for this comparison only
+
+    def plain_w8a8(x, wq, wscale, bias=None, k_chunk=None, out_dtype=None, weight_layout="kn"):
+        return w8a8.w8a8_matmul_reference(x, wq if weight_layout == "kn" else wq.t(), wscale, bias, k_chunk,
+                                          out_dtype)
+
+    w8a8.w8a8_matmul = plain_w8a8  # the plain W8A8 product, for this comparison only
     try:
         a_w8a8_plain = pi0.sample_actions(policy.params, None, *inputs, mc, policy.policy, noise=noise)
         a_plain = pi0.sample_actions(policy.params, None, *inputs, dataclasses.replace(mc, attention_impl="xla"),

@@ -8,7 +8,9 @@ Leftovers on either side raise.
 
 A quantized reference tree (`quantize_params` of the JAX package) carries
 across the same way against the port's `quantize_params` of the meta-device
-template: int8 `kernel_q` bit for bit, fp32 `kernel_scale` as fp32.
+template: int8 `kernel_q` bit for bit, transposed from the reference's
+[..., in, out] to the port's K-major [..., out, in]; fp32 `kernel_scale` as
+fp32.
 
 `from_jax_fused_state` carries a fused training state across the same way:
 parameters as above, fp8 moment codes bit for bit (numpy's uint8 view of the
@@ -45,12 +47,14 @@ def from_jax_params(tree, cfg: Pi0Config, device=None, dtype=torch.float32) -> c
         if isinstance(node, dict):
             return {k: fill(v, f"{prefix}/{k}" if prefix else k) for k, v in node.items()}
         leaf = np.asarray(src[prefix])
+        if prefix.endswith("/kernel_q"):  # [..., in, out] -> the port's K-major [..., out, in]
+            leaf = np.swapaxes(leaf, -1, -2)
         if tuple(leaf.shape) != tuple(node.shape):
             raise ValueError(f"{prefix}: reference shape {leaf.shape} != port shape {tuple(node.shape)}")
         if node.dtype == torch.int8:
             if leaf.dtype != np.int8:
                 raise ValueError(f"{prefix}: int8 codes expected, got {leaf.dtype}")
-            return torch.from_numpy(leaf.copy()).to(device)
+            return torch.from_numpy(np.ascontiguousarray(leaf)).to(device)
         want = torch.float32 if prefix.endswith(("/kernel_scale", "/embed_scale")) else dtype
         return torch.from_numpy(np.array(leaf, np.float32)).to(device=device, dtype=want)
 

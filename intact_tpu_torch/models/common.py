@@ -5,8 +5,10 @@ Parameters are nested dicts of tensors laid out as in the reference: dense
 kernels [in, out], per-layer block weights stacked [L, ...]. The dtype
 policy keeps parameters in `param_dtype` and computes in `compute_dtype`;
 norm statistics are taken in fp32. A quantized dense node holds int8
-`kernel_q` [..., in, out] and fp32 `kernel_scale` [..., out] (per output
-channel, per layer when stacked); `dense` sends it through the W8A8 kernel.
+`kernel_q` [..., out, in] (K-major: the transpose of the reference's
+[..., in, out] codes, the layout the W8A8 kernel's wgmma reads) and fp32
+`kernel_scale` [..., out] (per output channel, per layer when stacked);
+`dense` sends it through the W8A8 kernel.
 """
 
 from __future__ import annotations
@@ -125,8 +127,9 @@ def _dense_int8(p: Params, x: torch.Tensor, policy: DtypePolicy) -> torch.Tensor
     from intact_tpu_torch.ops.w8a8 import w8a8_matmul
 
     if p["kernel_q"].ndim != 2:
-        raise ValueError(f"_dense_int8 takes one layer's kernel [in, out]; got {tuple(p['kernel_q'].shape)}")
-    return w8a8_matmul(x, p["kernel_q"], p["kernel_scale"], p.get("bias"), out_dtype=policy.compute_dtype)
+        raise ValueError(f"_dense_int8 takes one layer's kernel [out, in]; got {tuple(p['kernel_q'].shape)}")
+    return w8a8_matmul(x, p["kernel_q"], p["kernel_scale"], p.get("bias"), out_dtype=policy.compute_dtype,
+                       weight_layout="nk")
 
 
 def embed_lookup(p: Params, ids: torch.Tensor, policy: DtypePolicy = DEFAULT_POLICY) -> torch.Tensor:
@@ -142,8 +145,8 @@ def embed_lookup(p: Params, ids: torch.Tensor, policy: DtypePolicy = DEFAULT_POL
 def unembed_logits(p: Params, hidden: torch.Tensor, policy: DtypePolicy | None = None) -> torch.Tensor:
     """Tied unembedding: hidden [..., D] x embed [V, D]^T -> fp32 [..., V].
     A quantized table takes the W8A8 per-row path. That path runs on the CPU
-    only: on the card the W8A8 kernel reads weights as [in, out], the
-    table is [out, in], and the AR families that use it are not ported."""
+    only: the AR families that use it are not ported (the table [out, in] is
+    already the K-major layout the W8A8 kernel reads)."""
     policy = policy or DEFAULT_POLICY
     if "embedding_q" not in p:
         emb = p["embedding"].to(policy.compute_dtype)
@@ -274,19 +277,20 @@ def _absmax_quantize(w: torch.Tensor, dim: int, floor: float) -> tuple[torch.Ten
 
 
 def quantize_dense(p: Params) -> Params:
-    """fp kernel [..., in, out] -> int8 `kernel_q` + fp32 per-output-channel
-    `kernel_scale` [..., out] (stacked layers keep per-(layer, out) scales).
-    Stacked kernels are quantized one layer at a time, so the fp32
+    """fp kernel [..., in, out] -> int8 `kernel_q` [..., out, in] (K-major)
+    + fp32 per-output-channel `kernel_scale` [..., out] (stacked layers keep
+    per-(layer, out) scales). The codes are the reference's, transposed once
+    here. Stacked kernels are quantized one layer at a time, so the fp32
     temporaries hold one layer."""
     kernel = p["kernel"]
     lead, (din, dout) = kernel.shape[:-2], kernel.shape[-2:]
     flat = kernel.reshape(-1, din, dout)
-    kq = torch.empty(flat.shape, dtype=torch.int8, device=kernel.device)
+    kq = torch.empty((flat.shape[0], dout, din), dtype=torch.int8, device=kernel.device)
     scale = torch.empty((flat.shape[0], dout), dtype=torch.float32, device=kernel.device)
     for i in range(flat.shape[0]):
         q, s = _absmax_quantize(flat[i], dim=-2, floor=1e-12)
-        kq[i], scale[i] = q, s[0]
-    out = {"kernel_q": kq.reshape(*lead, din, dout), "kernel_scale": scale.reshape(*lead, dout)}
+        kq[i], scale[i] = q.T, s[0]
+    out = {"kernel_q": kq.reshape(*lead, dout, din), "kernel_scale": scale.reshape(*lead, dout)}
     if "bias" in p:
         out["bias"] = p["bias"]
     return out

@@ -5,6 +5,13 @@ fp32 logits `Q K^T * scale`, an arbitrary bool mask (False -> BIG_NEG),
 fp32 softmax with fully masked rows giving 0, probabilities cast to V's dtype,
 P·V accumulated in fp32 and returned in q's dtype; KV head = q_head // group.
 
+The kernel (sm_90a) is warp-specialised: TMA loads of Q and of K/V tiles
+into an mbarrier ring, wgmma for Q K^T and P V with an online softmax over
+key tiles, a persistent grid over 128-row work items of one (batch, KV head),
+and a TMA store of the output. It takes bf16 q/k/v, head_dim 64, 128 or 256,
+any T, S and KVH with a query group H / KVH that divides 64, and contiguous,
+16-byte aligned tensors; `_check` raises on anything else.
+
 `flash_attention` launches the kernel for CUDA tensors (or raises: there is
 no fallback) and runs `flash_attention_reference` for CPU tensors.
 `flash_attention.launches` counts kernel launches, and nothing else.
@@ -21,6 +28,7 @@ from intact_tpu_torch.ops import build
 BIG_NEG = -2.3819763e38  # most negative fp32 that keeps bf16 finite after cast
 
 _HEAD_DIMS = (64, 128, 256)
+_ROWS_PER_TILE = 64  # a warpgroup's Q tile: whole query groups of 64 / G tokens
 
 
 def flash_attention_reference(
@@ -59,6 +67,8 @@ def _check(q, k, v, mask):
         raise TypeError(f"the CUDA kernel takes bf16 q/k/v; got {q.dtype}, {k.dtype}, {v.dtype}")
     if d not in _HEAD_DIMS:
         raise ValueError(f"the CUDA kernel takes head_dim in {_HEAD_DIMS}; got {d}")
+    if _ROWS_PER_TILE % (h // kvh):
+        raise ValueError(f"the CUDA kernel takes a query group H/KVH that divides {_ROWS_PER_TILE}; got {h // kvh}")
     tensors = [q, k, v] + ([mask] if mask is not None else [])
     if any(x.device != q.device for x in tensors):
         raise ValueError("q, k, v and mask must lie on one device")
@@ -76,8 +86,6 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.intact_flash_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
         lib.intact_flash_attention.restype = i
-        lib.intact_flash_attention_smem_bytes.argtypes = [i, i]
-        lib.intact_flash_attention_smem_bytes.restype = ctypes.c_size_t
         lib.intact_cuda_error_string.argtypes = [i]
         lib.intact_cuda_error_string.restype = ctypes.c_char_p
         lib._intact_typed = True
@@ -103,17 +111,14 @@ def flash_attention(
     if out.numel() == 0:
         return out
     lib = _lib()
-    smem = lib.intact_flash_attention_smem_bytes(s, d)
-    limit = torch.cuda.get_device_properties(q.device).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"S={s} needs {smem} bytes of shared memory per block; the device allows {limit}")
-    with torch.cuda.device(q.device):
-        err = lib.intact_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            mask.data_ptr() if mask is not None else None, out.data_ptr(),
-            b, t, s, h, kvh, d, float(scale),
-            torch.cuda.current_stream().cuda_stream,
-        )
+    dev = q.device.index
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr() if mask is not None else None, out.data_ptr(),
+            b, t, s, h, kvh, d, float(scale), torch._C._cuda_getCurrentRawStream(dev))
+    if dev == torch.cuda.current_device():
+        err = lib.intact_flash_attention(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = lib.intact_flash_attention(*args)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: {lib.intact_cuda_error_string(err).decode()}")
     flash_attention.launches += 1

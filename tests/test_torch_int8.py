@@ -5,7 +5,8 @@ JAX side runs compiled (`jax.jit`), as its serving path does: XLA then turns
 the `/ 127.0` of a scale into a multiply by the fp32 reciprocal and contracts
 the bias add and the Pallas kernel's chunk fold into fused multiply-adds,
 and the port reproduces those steps. Tolerances:
-- quantized codes and scales: equal;
+- quantized codes and scales: equal (the port's `kernel_q` is K-major,
+  [..., out, in]: it equals the transpose of the reference's [..., in, out]);
 - one W8A8 product (per row, or per chunk against the Pallas kernel in
   interpret mode): equal;
 - the tiny Pi0 sampler on int8 params: relative L2 2e-2 and max abs 0.1. The
@@ -100,8 +101,28 @@ class TestQuantize:
             + ["img_proj/kernel_q"])
         for k, v in jq.items():
             out = tq[k].numpy()
+            if k.endswith("kernel_q"):  # K-major: the transpose of the reference's codes
+                out = np.swapaxes(out, -1, -2)
             assert out.dtype == v.dtype and out.shape == v.shape, k
             np.testing.assert_array_equal(out, v, err_msg=k)
+
+    @pytest.mark.parametrize("route", ["quantize_host_tree", "convert"])
+    def test_kmajor_codes_are_the_reference_transposed(self, cfgs, jparams, jquant, route):
+        """The serving tree's K-major codes, made on the host leaf by leaf or
+        carried across from the reference's quantized tree, are the transpose
+        of jax.jit(quantize_params)'s, bit for bit, and contiguous."""
+        if route == "quantize_host_tree":
+            tq = flat(tcm.quantize_host_tree(numpy_tree(jparams), tcm.FP32_POLICY, device="cpu"))
+        else:
+            tq = flat(convert.from_jax_params(numpy_tree(jquant), cfgs[1], device="cpu"))
+        jq = flat(numpy_tree(jquant))
+        codes = [k for k in jq if k.endswith("kernel_q")]
+        assert codes and set(tq) == set(jq)
+        for k in codes:
+            assert tq[k].is_contiguous() and tq[k].dtype == torch.int8, k
+            np.testing.assert_array_equal(tq[k].numpy(), np.swapaxes(jq[k], -1, -2), err_msg=k)
+            np.testing.assert_array_equal(tq[k.replace("kernel_q", "kernel_scale")].numpy(),
+                                          jq[k.replace("kernel_q", "kernel_scale")], err_msg=k)
 
     def test_consume_empties_the_source_tree(self, cfgs, jparams):
         tparams = convert.from_jax_params(numpy_tree(jparams), cfgs[1], device="cpu")
@@ -120,7 +141,8 @@ class TestQuantize:
         ref = jax.jit(jcm.quantize_dense)({"kernel": jnp.asarray(k), "bias": jnp.asarray(b)})
         out = tcm.quantize_dense({"kernel": t_(k), "bias": t_(b)})
         assert out["kernel_q"].dtype == torch.int8 and out["kernel_scale"].dtype == torch.float32
-        for name in ("kernel_q", "kernel_scale", "bias"):
+        np.testing.assert_array_equal(out["kernel_q"].numpy(), np.swapaxes(np.asarray(ref["kernel_q"]), -1, -2))
+        for name in ("kernel_scale", "bias"):
             np.testing.assert_array_equal(out[name].numpy(), np.asarray(ref[name]), err_msg=name)
 
     def test_quantize_embed_and_the_lm_embed_pattern(self):
@@ -176,6 +198,9 @@ class TestDenseInt8:
         # quantization differs from per-chunk here (K = 3 chunks)
         assert torch.equal(w8a8.w8a8_matmul(*args, k_chunk=128), out)
         assert not torch.equal(w8a8.w8a8_matmul(*args), out)
+        # ... and the K-major layout gives the same product
+        nk = (args[0], args[1].t().contiguous(), args[2])
+        assert torch.equal(w8a8.w8a8_matmul(*nk, k_chunk=128, weight_layout="nk"), out)
 
     def test_chunk_length(self):
         assert w8a8.chunk_length(16384, None) is None
@@ -183,6 +208,75 @@ class TestDenseInt8:
         assert w8a8.chunk_length(300, 2048) == 384  # Pallas: min(block_k, round_up(K, 128))
         with pytest.raises(ValueError, match="multiple of 64"):
             w8a8.chunk_length(300, 100)
+
+    @pytest.mark.parametrize("m,n,k,k_chunk", [
+        (5, 2048, 1024, None), (5, 1024, 4096, None), (320, 2048, 1024, None), (320, 1024, 4096, None),
+        (320, 1024, 4096, 2048), (5, 1024, 4096, 128), (45, 200, 1000, 128), (45, 200, 1000, 192),
+        (77, 131, 300, None), (20992, 16384, 2048, None), (20992, 2048, 16384, 2048),
+    ])
+    def test_plan_covers_k_and_split_sums_are_exact(self, m, n, k, k_chunk):
+        """The planner's K split covers K_pad in whole pipeline stages, holds
+        whole chunks per split in per-chunk semantics, splits only where the
+        output tiles leave the card idle, and the split's int32 partial sums
+        (the kernel's workspace, in plain torch) add up to the unsplit ones."""
+        p = w8a8.plan(m, n, k, k_chunk)
+        k_pad = -(-k // 64) * 64
+        chunk = w8a8.chunk_length(k, k_chunk)
+        tiles = -(-m // 128) * -(-n // w8a8.BLOCK_N["row" if chunk is None else "chunk"])
+        assert (p.mode == "split") == (tiles < w8a8.NUM_SMS and p.n_splits > 1)
+        if p.mode != "split":
+            assert p == (("row" if chunk is None else "chunk"), k_pad, 1)
+            return
+        assert p.split_len % w8a8.STAGE_K == 0 and (chunk is None or p.split_len % chunk == 0)
+        assert (p.n_splits - 1) * p.split_len < k_pad <= p.n_splits * p.split_len
+        rng = np.random.default_rng(m + n + k)
+        nn = min(n, 24)  # 3 rows and a narrow slice of the columns keep the check fast
+        xq = t_(rng.integers(-127, 128, (3, k)).astype(np.int8))
+        wq = t_(rng.integers(-127, 128, (k, nn)).astype(np.int8))
+        part = w8a8.split_partials(xq, wq, k_chunk, p)
+        c = chunk or k_pad
+        assert part.dtype == torch.int32 and part.shape == (-(-k // c), 3, nn)
+        for i in range(part.shape[0]):
+            whole = xq[:, i * c:(i + 1) * c].to(torch.int64) @ wq[i * c:(i + 1) * c].to(torch.int64)
+            assert torch.equal(part[i].to(torch.int64), whole)
+
+    def test_wrapper_checks_refuse_what_the_kernels_do_not_take(self):
+        from intact_tpu_torch.ops import flash_attention as fa
+
+        x = torch.zeros(4, 64, dtype=torch.bfloat16)
+        ws = torch.ones(8)
+        for wq, layout, exc in [
+            (torch.zeros(64, 8, dtype=torch.int8), "kn_", ValueError),  # unknown layout
+            (torch.zeros(64, 8), "kn", TypeError),  # not int8
+            (torch.zeros(1, 64, 8, dtype=torch.int8), "kn", TypeError),  # not 2-D
+            (torch.zeros(64, 8, dtype=torch.int8), "nk", ValueError),  # [N, K] read as [8, 64]: K mismatch
+            (torch.zeros(64, 16, dtype=torch.int8)[:, ::2], "kn", ValueError),  # [K, N] not contiguous
+            (torch.zeros(64, 16, dtype=torch.int8).t()[::2], "nk", ValueError),  # [N, K] rows not contiguous
+        ]:
+            with pytest.raises(exc):
+                w8a8._check(x, wq, ws, None, torch.bfloat16, layout)
+        wq = torch.zeros(8, 64, dtype=torch.int8)
+        w8a8._check(x, wq, ws, None, torch.bfloat16, "nk")
+        with pytest.raises(TypeError, match="bf16 or fp32"):
+            w8a8._check(x.half(), wq, ws, None, torch.bfloat16, "nk")
+        with pytest.raises(ValueError, match=r"\[N\]"):
+            w8a8._check(x, wq, torch.ones(9), None, torch.bfloat16, "nk")
+        # codes the kernel reads as they are, and K-major copies of the others
+        assert w8a8.kmajor(wq, "nk") == (wq, 64)
+        w, stride = w8a8.kmajor(torch.arange(300 * 8, dtype=torch.int32).to(torch.int8).reshape(300, 8), "kn")
+        assert w.shape == (8, 304) and stride == 304 and not w[:, 300:].any()
+        assert torch.equal(w[:, :300], torch.arange(300 * 8, dtype=torch.int32).to(torch.int8).reshape(300, 8).t())
+        # flash attention: bf16, head_dim 64/128/256, a query group dividing 64
+        q = torch.zeros(1, 4, 8, 64, dtype=torch.bfloat16)
+        kv = torch.zeros(1, 4, 1, 64, dtype=torch.bfloat16)
+        fa._check(q, kv, kv, None)
+        for args, exc in [((q.float(), kv.float(), kv.float(), None), TypeError),
+                          ((q[..., :32], kv[..., :32], kv[..., :32], None), ValueError),
+                          ((torch.zeros(1, 4, 6, 64, dtype=torch.bfloat16), torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16),
+                            torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16), None), ValueError),  # G = 3
+                          ((q, kv, kv, torch.ones(1, 4, 5, dtype=torch.bool)), ValueError)]:
+            with pytest.raises(exc):
+                fa._check(*args)
 
     def test_embed_lookup_and_unembed_logits(self):
         rng = np.random.default_rng(5)

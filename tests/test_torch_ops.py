@@ -314,9 +314,12 @@ def cuda():
 @pytest.mark.cuda
 class TestFlashKernel:
     @pytest.mark.parametrize("b,t,s,h,kvh,d", [
-        (2, 328, 328, 8, 1, 256),
-        (3, 77, 203, 8, 8, 128),
-        (2, 33, 95, 4, 2, 64),
+        (2, 328, 328, 8, 1, 256),  # the serving shape, G = 8
+        (1, 328, 328, 8, 1, 256),  # batch 1: 21 blocks of 128 rows
+        (16, 333, 333, 8, 1, 256),  # the training shape: mask rows of 333 bytes
+        (3, 77, 203, 8, 8, 128),  # G = 1
+        (2, 33, 95, 4, 2, 64),  # G = 2
+        (2, 70, 130, 8, 2, 128),  # G = 4
     ])
     def test_kernel_matches_reference(self, cuda, b, t, s, h, kvh, d):
         rng = np.random.default_rng(8)
@@ -328,6 +331,8 @@ class TestFlashKernel:
         assert flash_attention.launches == before + 1
         ref = flash_attention_reference(q, k, v, mask)
         np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(), atol=BF16_ATOL)
+        dead = ~mask.any(dim=-1)  # fully masked query rows give exact 0
+        assert dead.any() and not out[dead].any()
 
     def test_kernel_raises_on_fp32(self, cuda):
         x = torch.zeros(1, 4, 1, 64, device=cuda)

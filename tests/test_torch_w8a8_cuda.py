@@ -34,25 +34,33 @@ def cuda():
 
 @pytest.mark.cuda
 class TestW8A8Kernel:
-    @pytest.mark.parametrize("m,k,n,k_chunk,dt", [
-        (5, 1024, 2048, None, torch.bfloat16),  # a batch-1 expert decode
-        (320, 4096, 1024, None, torch.bfloat16),  # the expert down projection at batch 64
-        (257, 4304, 1152, None, torch.bfloat16),  # SigLIP fc2: ragged K
-        (257, 4304, 1152, 2048, torch.bfloat16),  # ... per 2048-chunk (Pallas semantics)
-        (130, 1152, 4304, None, torch.bfloat16),  # SigLIP fc1: ragged N
-        (77, 300, 131, None, torch.float32),  # ragged everything, fp32, unaligned N
-        (45, 1000, 200, 128, torch.float32),  # 8 chunks of 128
-        (1, 64, 8, None, torch.bfloat16),  # one tile, one row
+    @pytest.mark.parametrize("m,k,n,k_chunk,dt,layout", [
+        (5, 1024, 2048, None, torch.bfloat16, "nk"),  # a batch-1 expert decode: split K
+        (5, 4096, 1024, None, torch.bfloat16, "nk"),  # ... its down projection: 32 splits
+        (320, 1024, 2048, None, torch.bfloat16, "nk"),  # the expert q projection at batch 64: split K
+        (320, 4096, 1024, None, torch.bfloat16, "nk"),  # the expert down projection at batch 64
+        (320, 4096, 1024, 2048, torch.bfloat16, "nk"),  # ... per 2048-chunk: one chunk per split
+        (5, 4096, 1024, 128, torch.float32, "kn"),  # split per 128-chunk, [K, N] codes
+        (257, 4304, 1152, None, torch.bfloat16, "nk"),  # SigLIP fc2: ragged K
+        (257, 4304, 1152, 2048, torch.bfloat16, "kn"),  # ... per 2048-chunk (Pallas semantics)
+        (130, 1152, 4304, None, torch.bfloat16, "nk"),  # SigLIP fc1: ragged N
+        (2100, 2048, 4304, None, torch.bfloat16, "nk"),  # 128 x 256 tiles (row mode), ragged N
+        (2100, 4304, 2048, 2048, torch.bfloat16, "nk"),  # 128 x 128 tiles (chunk mode), mid-stage chunk ends
+        (2100, 1000, 1100, 192, torch.float32, "kn"),  # chunk mode, chunks of 192 ending mid-stage
+        (77, 300, 131, None, torch.float32, "kn"),  # ragged everything, fp32, odd N
+        (45, 1000, 200, 128, torch.float32, "nk"),  # 8 chunks of 128, K not a multiple of 16
+        (1, 64, 8, None, torch.bfloat16, "nk"),  # one tile, one row
     ])
-    def test_kernel_matches_reference(self, cuda, m, k, n, k_chunk, dt):
+    def test_kernel_matches_reference(self, cuda, m, k, n, k_chunk, dt, layout):
         rng = np.random.default_rng(m + k + n)
         x = t_(rng.standard_normal((m, k), dtype=np.float32)).to(cuda, dt)
         wq = t_(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(cuda)
         ws = t_((rng.random(n) + 0.5).astype(np.float32) * 1e-3).to(cuda)
         bias = t_(rng.standard_normal(n).astype(np.float32)).to(cuda)
+        w_in = wq if layout == "kn" else wq.t().contiguous()
         for b in (None, bias):
             before = w8a8.w8a8_matmul.launches
-            y, xq, xs = w8a8.launch(x, wq, ws, b, k_chunk, dt)
+            y, xq, xs = w8a8.launch(x, w_in, ws, b, k_chunk, dt, layout)
             torch.cuda.synchronize()
             assert w8a8.w8a8_matmul.launches == before + 1
             rq, rs = w8a8.quantize_reference(x, k_chunk)
@@ -68,7 +76,7 @@ class TestW8A8Kernel:
         before = w8a8.w8a8_matmul.launches
         y = tcm.dense(node, x, tcm.SERVING_POLICY)
         assert w8a8.w8a8_matmul.launches == before + 1 and y.shape == (3, 7, 64)
-        ref = w8a8.w8a8_matmul_reference(x, node["kernel_q"], node["kernel_scale"], out_dtype=torch.bfloat16)
+        ref = w8a8.w8a8_matmul_reference(x, node["kernel_q"].t(), node["kernel_scale"], out_dtype=torch.bfloat16)
         assert torch.equal(y, ref)
 
     def test_kernel_raises_on_fp16(self, cuda):
