@@ -10,7 +10,12 @@ Phases, each failing loudly (non-zero exit):
              the training shape, each beside SDPA; w8a8_matmul on K-major
              codes at every bridge shape, per row and per 2048-chunk, beside
              torch._int_mm on its codes and the bf16 matmul it replaces, with
-             effective rates and device time per call)
+             effective rates and device time per call; fused_adam_rows at
+             the Gemma-2B gate leaf in fp8 with and without SR, fp32 moments,
+             fp32 p and g, and two calls back to back, its fast division and
+             square root bit for bit against the correctly rounded ones, its
+             SASS instructions per element, device time, wrapper host time,
+             and the gate leaf with fp32 p)
   3. serving full-width Pi0 bridge (SigLIP So400m + Gemma-2B + 300M expert,
              random bf16 weights from a seed): requests through
              Pi0Policy.select_action at batch 1 with a reset, and a batch-64
@@ -33,8 +38,12 @@ Phases, each failing loudly (non-zero exit):
              batch 16, synthetic data) at full width and depth through the
              Trainer: every step's loss and grad_norm finite and its launches
              of both kernels as expected; median step time, samples/s, peak
-             memory and a profiler pass; then one step through the kernels
-             against one through their plain versions at full width, 4 layers
+             memory and a profiler pass (the row update's device time per
+             step); every distinct row-update leaf shape timed alone beside
+             its bound, summed over the step's launches; one step through the
+             kernels against one through their plain versions at full width,
+             4 layers; and two steps with fp32 masters (master_dtype float32)
+             through the Trainer, the row kernel launched on fp32 p and g
 The second-to-last line is `nvidia-smi`'s card name and power limit; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
@@ -72,6 +81,7 @@ H100_FP32_FLOPS = 67e12  # fp32 outside the tensor cores, H100 SXM data sheet
 # two absmax 2, encode 2)
 ADAM_BYTES_PER_ELEM = 10
 ADAM_FLOPS_PER_ELEM = 25
+ADAM_ELEMS_PER_THREAD = 16  # csrc/fused_adam_rows.cu: two 8-element octets per thread and row (B = 2048)
 # the kernel repeats the plain version's fp32 operations one by one (no fused
 # multiply-adds) and sums ss in another order: scales (one division of equal
 # maxima) agree to an fp32 ulp, ss (16 M squares) to 1e-5
@@ -105,11 +115,14 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 10) -> float:
+def device_ms(fn, reps: int = 10, kernel: str | None = None) -> float:
     """Device milliseconds of one call of fn: the summed time of the kernels
     it launches, under torch.profiler, over reps calls. Unlike cuda_ms it
     excludes the host's time between the launches, which bounds a call of
-    small kernels from an eager host."""
+    small kernels from an eager host. With `kernel`, for a call that launches
+    that one kernel: its mean time over the launches the profiler recorded
+    (late in a long run the profiler has been seen to drop kernel records,
+    which the plain sum over reps would count as time not taken)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -118,8 +131,14 @@ def device_ms(fn, reps: int = 10) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / reps / 1e3
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if kernel is None:
+        return sum(e.self_device_time_total for e in events) / reps / 1e3
+    ours = [e for e in events if kernel in e.key]
+    count = sum(e.count for e in ours)
+    if count != reps:
+        log(f"#   device_ms: the profiler recorded {count} of {reps} launches of {kernel}")
+    return sum(e.self_device_time_total for e in ours) / max(count, 1) / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -145,6 +164,65 @@ def phase_build() -> None:
         f"{[attn.intact_flash_attention_smem_bytes(d) for d in (64, 128, 256)]} bytes; w8a8 gemm_kernel "
         f"row/chunk/split {[w8.intact_w8a8_smem_bytes(m) for m in (0, 1, 2)]} bytes")
     log(f"# card: {gpu_name_and_power()}")
+
+
+def sass_fast_path(so: Path, symbol: str) -> tuple[int, dict]:
+    """SASS instructions one thread issues in one pass of the row loop of
+    the kernel whose mangled name contains `symbol`, on the path every
+    element takes when the operands are in range: from cuobjdump's listing,
+    walking from the loop head (the backward branch around the first
+    mbarrier wait) to the loop's back-edge; conditional forward branches skip
+    the slow paths of the rounded operations and thread 0's ring refill, and
+    otherwise fall through (both octets valid); other backward branches (wait loops) are not taken. The
+    fast path itself calls nothing, so a forward branch over a CALL skips a
+    slow path.
+    -> (instructions, {opcode: count})."""
+    from intact_tpu_torch.ops import build
+
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", str(so)], check=True, capture_output=True, text=True,
+                          timeout=120).stdout
+    return count_fast_path(text, symbol)
+
+
+def count_fast_path(text: str, symbol: str) -> tuple[int, dict]:
+    """sass_fast_path on a cuobjdump -sass listing."""
+    import re
+    from collections import Counter
+
+    ins = None
+    for part in re.split(r"\n\s*Function : ", text)[1:]:
+        if symbol in part.split("\n")[0]:
+            ins = [(int(m.group(1), 16), m.group(2).strip())
+                   for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", part)]
+            break
+    if not ins:
+        raise SystemExit(f"no SASS for {symbol}")
+    at = {a: i for i, (a, _) in enumerate(ins)}
+    branch = re.compile(r"\bBRA(\.\S+)?\s+(?:!?U?P\d,\s*)?0x([0-9a-f]+)")
+    wait = next(a for a, t in ins if "SYNCS.PHASECHK" in t)
+    back = [(a, int(m.group(2), 16)) for a, t in ins if (m := branch.search(t)) and int(m.group(2), 16) <= a]
+    end, head = max(((a, tg) for a, tg in back if tg <= wait < a), key=lambda x: x[0] - x[1])
+    i, n, ops = at[head], 0, Counter()
+    while True:
+        a, t = ins[i]
+        n += 1
+        ops[re.sub(r"^@!?U?P\w+\s+", "", t).split()[0].split(".")[0]] += 1
+        m = branch.search(t)
+        if a == end or n > 20000:
+            break
+        if not m:
+            i += 1
+            continue
+        target = int(m.group(2), 16)
+        if not t.startswith("@"):
+            i = at[target]
+        elif target <= a:
+            i += 1
+        else:
+            skipped = " ".join(x for _, x in ins[i + 1:at[target]])
+            i = at[target] if "CALL" in skipped or "UBLKCP" in skipped else i + 1
+    return n, dict(ops)
 
 
 # ---------------------------------------------------------------------------
@@ -257,15 +335,15 @@ def fp8_index(codes: torch.Tensor) -> torch.Tensor:
     return torch.where(u >= 128, -(u - 128), u)
 
 
-def adam_case(rng: np.random.Generator, L: int, r: int, NB: int, B: int, fp8: bool):
-    """Random p (bf16), g (bf16) and moments at realistic magnitudes."""
+def adam_case(rng: np.random.Generator, L: int, r: int, NB: int, B: int, fp8: bool, p_dtype=torch.bfloat16):
+    """Random p and g (bf16 or fp32) and moments at realistic magnitudes."""
     gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 31)))
 
     def randn(*shape, std=1.0):
         return torch.randn(shape, generator=gen, device="cuda").mul_(std)
 
-    p = randn(L, r, B, std=0.02).to(torch.bfloat16)
-    g = randn(r, B, std=1e-3).to(torch.bfloat16)
+    p = randn(L, r, B, std=0.02).to(p_dtype)
+    g = randn(r, B, std=1e-3).to(p_dtype)
     mu, nu = randn(L, NB, B, std=1e-3), randn(L, NB, B, std=1e-6).square_()
     if not fp8:
         return p, g, mu, torch.zeros(L, NB, device="cuda"), nu, torch.zeros(L, NB, device="cuda")
@@ -277,10 +355,104 @@ def adam_case(rng: np.random.Generator, L: int, r: int, NB: int, B: int, fp8: bo
     return (p, g, *out)
 
 
+def adam_bytes(r: int, B: int, p_dtype, fp8: bool) -> int:
+    """Bytes one call must move: p read and written, g read, the two moment
+    rows read and written, and with fp8 the two scale rows read and written."""
+    p = torch.finfo(p_dtype).bits // 8
+    m = 1 if fp8 else 4
+    return r * B * (3 * p + 4 * m) + (r * 4 * 4 if fp8 else 0)
+
+
+def adam_check_case(name: str, orig, kw: dict, calls: int = 1) -> float:
+    """fused_adam_rows against its plain version on copies of orig; with
+    calls > 1 the kernel runs that many times back to back on its cached
+    workspace and the plain version's last call starts from the kernel's
+    state (ss accumulates every call on both sides). -> max |p difference|."""
+    from intact_tpu_torch.ops.fused_adam import fused_adam_rows, fused_adam_rows_reference
+
+    layer, off = kw["layer"], kw["row_offset"]
+    L, r, B = orig[0].shape
+    kern = [x.clone() for x in orig]
+    ref = [x.clone() for x in orig]
+    ss_k, ss_r = torch.zeros(1, device="cuda"), torch.zeros(1, device="cuda")
+    for c in range(calls):
+        if c == calls - 1:
+            ref = [x.clone() for x in kern]
+        fused_adam_rows(*kern, ss=ss_k, **kw)
+        torch.cuda.synchronize()
+        fused_adam_rows_reference(*ref, ss=ss_r, **kw)
+    rows = slice(off, off + r)
+    fp8 = kern[2].dtype != torch.float32
+    pk, pr = kern[0][layer].float(), ref[0][layer].float()
+    mant = 7 if kern[0].dtype == torch.bfloat16 else 23
+    ulp = torch.exp2(torch.floor(torch.log2(pr.abs().clamp_min(2.0**-126))) - mant)
+    p_ulps = ((pk - pr).abs() / ulp).max().item()
+    if fp8:
+        code_gap = max((fp8_index(kern[i][layer, rows]) - fp8_index(ref[i][layer, rows])).abs().max().item()
+                       for i in (2, 4))
+        scale_rel = max(((kern[i][layer, rows] - ref[i][layer, rows]).abs() / ref[i][layer, rows]).max().item()
+                        for i in (3, 5))
+    else:
+        code_gap = 0
+        scale_rel = max(((kern[i][layer, rows] - ref[i][layer, rows]).abs()
+                         / ref[i][layer, rows].abs().clamp_min(1e-30)).max().item() for i in (2, 4))
+    ss_rel = abs(ss_k.item() - ss_r.item()) / ss_r.item()
+    untouched = all(
+        torch.equal(k[:layer], o[:layer]) and torch.equal(k[layer + 1:], o[layer + 1:])
+        for k, o in zip(kern, orig)
+    ) and all(
+        torch.equal(kern[i][layer, :off], orig[i][layer, :off])
+        and torch.equal(kern[i][layer, off + r:], orig[i][layer, off + r:]) for i in (2, 3, 4, 5))
+    same_p = torch.equal(kern[0], ref[0])
+    log(f"# fused_adam_rows {name}: p [{L}, {r}, {B}] {kern[0].dtype}, moments {list(kern[2].shape)} "
+        f"{kern[2].dtype}/{kern[4].dtype}, layer {layer}, rows [{off}, {off + r}), SR {kw['stochastic']}, "
+        f"{calls} call(s): p max {p_ulps:.3f} ulp (gate: bit-equal {same_p}), codes max {code_gap} apart (tol 1), "
+        f"{'scales' if fp8 else 'fp32 moments'} max rel {scale_rel:.3e} (tol {ADAM_SCALE_RTOL}), "
+        f"ss rel {ss_rel:.3e} (tol {ADAM_SS_RTOL}), outside rows/layers bit-identical {untouched}")
+    if not (same_p and code_gap <= 1 and scale_rel <= ADAM_SCALE_RTOL and ss_rel <= ADAM_SS_RTOL
+            and untouched and all(torch.isfinite(x.float()).all() for x in kern)):
+        raise SystemExit(f"fused_adam_rows disagrees with its plain version on {name}")
+    return (pk - pr).abs().max().item()
+
+
+def adam_math_checks() -> None:
+    """The kernel's fast division, square root and direction against the
+    correctly rounded operations, bit for bit, wherever it takes them."""
+    from intact_tpu_torch.ops.fused_adam import math_check
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n = 1 << 24
+
+    def exp2(lo, hi):
+        return torch.exp2(torch.randint(lo, hi, (n,), generator=gen, device="cuda").float())
+
+    def with_zeros(x):  # a tenth of the values +0 or -0, as moments that never had a gradient
+        zero = torch.rand(n, generator=gen, device="cuda") < 0.1
+        return torch.where(zero, torch.where(torch.rand(n, generator=gen, device="cuda") < 0.5, 0.0, -0.0), x)
+
+    a = (torch.rand(n, generator=gen, device="cuda") * 2 - 1) * exp2(-61, 62)
+    d = (torch.rand(n, generator=gen, device="cuda") + 1) * exp2(-61, 62)
+    results = {"divide": math_check(with_zeros(a), d, "divide"), "sqrt": math_check(a.abs(), d, "sqrt")}
+    for c1, c2 in ((1 - 0.9, 1 - 0.999), (1 - 0.9**3, 1 - 0.999**3), (1.0, 1.0)):
+        for scale in (1e-3, 1e-9):
+            m = with_zeros(torch.randn(n, generator=gen, device="cuda") * scale)
+            v = with_zeros(torch.randn(n, generator=gen, device="cuda").square() * scale**2 + torch.rand(
+                n, generator=gen, device="cuda") * scale)
+            results[f"direction c1 {c1:.3g} c2 {c2:.3g} |mu| ~{scale:g}"] = math_check(m, v, "direction", c1, c2, 1e-8)
+    log("# fused_adam_rows fast paths vs correctly rounded (cases in range, differing): "
+        + ", ".join(f"{k} {t}/{w}" for k, (t, w) in results.items()))
+    if any(w for _, w in results.values()) or any(t < n // 2 for t, _ in results.values()):
+        raise SystemExit("the row kernel's fast division or square root differs from the correctly rounded one")
+
+
 def phase_adam_kernel() -> dict:
     """fused_adam_rows against its plain version on the card: the Gemma-2B
-    gate leaf in the full packed fp8 moments (SR on and off), and an fp32
-    moment case; every row and layer outside the leaf's must stay as it was."""
+    gate leaf in the full packed fp8 moments (SR on and off), an fp32 moment
+    case, fp32 p and g (the fp32-master case) and two calls back to back;
+    every row and layer outside the leaf's must stay as it was. Then the
+    fast-path checks, the SASS instructions per element, and the gate leaf's
+    times beside its bound (bf16 and fp32 p)."""
+    from intact_tpu_torch.ops import build
     from intact_tpu_torch.ops.fused_adam import fused_adam_rows, fused_adam_rows_reference
     from intact_tpu_torch.train.optim import OptimizerConfig
 
@@ -290,71 +462,86 @@ def phase_adam_kernel() -> dict:
     # leaf owns rows [20992, 20992 + 16384) (TrunkPack order: attn k, o, q, v,
     # mlp down, gate, up, then the norms)
     gate = dict(L=18, r=16384, NB=57344, B=2048, off=20992, layer=5)
+    expert_q = dict(L=4, r=1024, NB=4096, B=2048, off=1024, layer=2)
     cases = {
-        "gate_fp8_sr": (gate, True, True),
-        "gate_fp8": (gate, True, False),
-        "expert_q_fp32_sr": (dict(L=4, r=1024, NB=4096, B=2048, off=1024, layer=2), False, True),
+        "gate_fp8_sr": (gate, True, True, torch.bfloat16, 1),
+        "gate_fp8": (gate, True, False, torch.bfloat16, 1),
+        "expert_q_fp32_sr": (expert_q, False, True, torch.bfloat16, 1),
+        "expert_q_fp32_params": (expert_q, True, False, torch.float32, 1),
+        "expert_q_two_calls": (expert_q, True, True, torch.bfloat16, 2),
     }
     hyp = torch.tensor([1 - 0.9**3, 1 - 0.999**3, 5e-5, 0.7], device="cuda")
     max_err = 0.0
     timed = None
-    for name, (sh, fp8, sr) in cases.items():
+    for name, (sh, fp8, sr, p_dtype, calls) in cases.items():
         L, r, NB, B, off, layer = (sh[k] for k in ("L", "r", "NB", "B", "off", "layer"))
-        orig = adam_case(rng, L, r, NB, B, fp8)
-        kern = [x.clone() for x in orig]
-        ref = [x.clone() for x in orig]
+        orig = adam_case(rng, L, r, NB, B, fp8, p_dtype)
         kw = dict(layer=layer, row_offset=off, hyp=hyp, hp=hp, salt=987654321, stochastic=sr)
-        ss_k, ss_r = torch.zeros(1, device="cuda"), torch.zeros(1, device="cuda")
-        fused_adam_rows(*kern, ss=ss_k, **kw)
-        torch.cuda.synchronize()
-        fused_adam_rows_reference(*ref, ss=ss_r, **kw)
-        rows = slice(off, off + r)
-        pk, pr = kern[0][layer].float(), ref[0][layer].float()
-        ulp = torch.exp2(torch.floor(torch.log2(pr.abs().clamp_min(2.0**-126))) - 7)
-        p_ulps = ((pk - pr).abs() / ulp).max().item()
-        if fp8:
-            code_gap = max((fp8_index(kern[i][layer, rows]) - fp8_index(ref[i][layer, rows])).abs().max().item()
-                           for i in (2, 4))
-            scale_rel = max(((kern[i][layer, rows] - ref[i][layer, rows]).abs() / ref[i][layer, rows]).max().item()
-                            for i in (3, 5))
-        else:
-            code_gap = 0
-            scale_rel = max(((kern[i][layer, rows] - ref[i][layer, rows]).abs()
-                             / ref[i][layer, rows].abs().clamp_min(1e-30)).max().item() for i in (2, 4))
-        ss_rel = abs(ss_k.item() - ss_r.item()) / ss_r.item()
-        untouched = all(
-            torch.equal(k[:layer], o[:layer]) and torch.equal(k[layer + 1:], o[layer + 1:])
-            for k, o in zip(kern, orig)
-        ) and all(
-            torch.equal(kern[i][layer, :off], orig[i][layer, :off])
-            and torch.equal(kern[i][layer, off + r:], orig[i][layer, off + r:]) for i in (2, 3, 4, 5))
-        same_p = torch.equal(kern[0], ref[0])
-        log(f"# fused_adam_rows {name}: p [{L}, {r}, {B}] bf16, moments [{L}, {NB}, {B}] "
-            f"{kern[2].dtype}/{kern[4].dtype}, layer {layer}, rows [{off}, {off + r}), SR {sr}: "
-            f"p max {p_ulps:.3f} bf16 ulp (tol 1, bit-equal {same_p}), codes max {code_gap} apart (tol 1), "
-            f"{'scales' if fp8 else 'fp32 moments'} max rel {scale_rel:.3e} (tol {ADAM_SCALE_RTOL}), "
-            f"ss rel {ss_rel:.3e} (tol {ADAM_SS_RTOL}), outside rows/layers bit-identical {untouched}")
-        if not (p_ulps <= 1 and code_gap <= 1 and scale_rel <= ADAM_SCALE_RTOL and ss_rel <= ADAM_SS_RTOL
-                and untouched and all(torch.isfinite(x.float()).all() for x in kern)):
-            raise SystemExit(f"fused_adam_rows disagrees with its plain version on {name}")
-        max_err = max(max_err, (pk - pr).abs().max().item())
+        max_err = max(max_err, adam_check_case(name, orig, kw, calls))
         if name == "gate_fp8_sr":
-            timed = kern, kw
-        del orig, kern, ref
+            timed = [x.clone() for x in orig], kw
+        del orig
+        torch.cuda.empty_cache()
+    adam_math_checks()
+
+    so = build._target("fused_adam_rows")
+    clock_hz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                                    check=True, capture_output=True, text=True, timeout=60).stdout.split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sass = {}
+    for label, symbol in (("bf16 p, fp8, SR", "fused_adam_rows_kernelILb0ELb1ELb1E"),
+                          ("fp32 p, fp8", "fused_adam_rows_kernelILb1ELb1ELb0E")):
+        n_ins, ops = sass_fast_path(so, symbol)
+        sass[label] = n_ins / ADAM_ELEMS_PER_THREAD
+        top = ", ".join(f"{k} {v}" for k, v in sorted(ops.items(), key=lambda x: -x[1])[:10])
+        log(f"# fused_adam_rows SASS ({label}): {n_ins} instructions per thread per row on the in-range path, "
+            f"{sass[label]:.2f} per element ({top})")
 
     args, kw = timed
     L, r, B = args[0].shape
     ss = torch.zeros(1, device="cuda")
-    ms = cuda_ms(lambda: fused_adam_rows(*args, ss=ss, **kw))
+    call = lambda: fused_adam_rows(*args, ss=ss, **kw)  # noqa: E731
+    ms = cuda_ms(call)
+    dev_ms = device_ms(call, kernel="fused_adam_rows_kernel")
     plain_ms = cuda_ms(lambda: fused_adam_rows_reference(*args, ss=ss, **kw), reps=5, warmup=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        call()
+    host_us = (time.perf_counter() - t0) / 50 * 1e6
+    torch.cuda.synchronize()
     n = r * B
-    moved = n * ADAM_BYTES_PER_ELEM + r * 4 * 4  # + the two scale rows, read and written
+    moved = adam_bytes(r, B, torch.bfloat16, True)
     bytes_ms = moved / H100_BYTES_PER_S * 1e3
     ops_ms = n * ADAM_FLOPS_PER_ELEM / H100_FP32_FLOPS * 1e3
-    log(f"# fused_adam_rows gate leaf timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {max(bytes_ms, ops_ms):.4f} ms ({moved / 1e6:.1f} MB -> {bytes_ms:.4f} ms, "
-        f"{n * ADAM_FLOPS_PER_ELEM / 1e9:.2f} GFLOP fp32 -> {ops_ms:.4f} ms), "
-        f"{moved / ms / 1e6:.1f} GB/s; no library call computes this function")
+    issue_ms = n / 32 * sass["bf16 p, fp8, SR"] / (sms * 4 * clock_hz) * 1e3
+    log(f"# fused_adam_rows gate leaf timing: kernel {ms:.4f} ms (CUDA events around the wrapper), device "
+        f"{dev_ms:.4f} ms (profiler), plain {plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+        f"({moved / 1e6:.1f} MB -> {bytes_ms:.4f} ms, {n * ADAM_FLOPS_PER_ELEM / 1e9:.2f} GFLOP fp32 -> "
+        f"{ops_ms:.4f} ms), {moved / dev_ms / 1e6:.1f} GB/s on the device, device / bound "
+        f"{dev_ms / bytes_ms:.3f}; issue time of its SASS at {clock_hz / 1e9:.3f} GHz on {sms} SMs "
+        f"{issue_ms:.4f} ms; wrapper host time {host_us:.1f} us per call; no library call computes this function")
+    del args, timed
+    torch.cuda.empty_cache()
+    # what this card's memory sustains for a plain read-and-write stream of
+    # the gate leaf's size: one device-to-device copy of 336 MB
+    src = torch.empty(moved // 2, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    copy_ms = device_ms(lambda: dst.copy_(src))
+    log(f"# a device copy of {src.numel() / 1e6:.1f} MB (reads and writes {2 * src.numel() / 1e6:.1f} MB): device "
+        f"{copy_ms:.4f} ms, {2 * src.numel() / copy_ms / 1e9:.3f} TB/s; the row kernel moves "
+        f"{moved / dev_ms / 1e9:.3f} TB/s, {copy_ms * moved / (2 * src.numel()) / dev_ms:.3f} of the copy's rate")
+    del src, dst
+    # the fp32-master case at the gate leaf's shape (one layer)
+    args32 = adam_case(rng, 1, 16384, 16384, 2048, True, torch.float32)
+    kw32 = dict(kw, layer=0, row_offset=0, stochastic=False)
+    ms32 = cuda_ms(lambda: fused_adam_rows(*args32, ss=ss, **kw32))
+    dev32 = device_ms(lambda: fused_adam_rows(*args32, ss=ss, **kw32), kernel="fused_adam_rows_kernel")
+    bound32 = adam_bytes(16384, 2048, torch.float32, True) / H100_BYTES_PER_S * 1e3
+    log(f"# fused_adam_rows gate leaf with fp32 p and g: kernel {ms32:.4f} ms, device {dev32:.4f} ms, "
+        f"bound {bound32:.4f} ms (bytes), device / bound {dev32 / bound32:.3f}")
+    del args32
+    torch.cuda.empty_cache()
     fused_adam_rows.launches = 0  # comparison launches do not count
     return {
         "name": "fused_adam_rows",
@@ -370,6 +557,15 @@ def phase_adam_kernel() -> dict:
         # fp8 moments with per-row absmax scales and hash SR: no single
         # PyTorch call computes this update
         "library_ms": None,
+        "device_ms": dev_ms,
+        "host_us_per_call": host_us,
+        "sass_per_element": sass["bf16 p, fp8, SR"],
+        "issue_ms": issue_ms,
+        "fp32_params_ms": ms32,
+        "fp32_params_device_ms": dev32,
+        "fp32_params_bound_ms": bound32,
+        "copy_rate_tb_s": moved / copy_ms / 1e9,
+        "shape": "Gemma-2B gate leaf, 16384 x 2048, fp8 moments, SR",
     }
 
 
@@ -611,10 +807,12 @@ def phase_serving() -> int:
 KERNEL_SYMBOLS = ("attn_kernel", "fused_adam_rows_kernel", "quantize_kernel", "gemm_kernel", "finish_kernel")
 
 
-def profile_pass(label: str, fn) -> None:
+def profile_pass(label: str, fn, in_order: str | None = None):
     """Device busy share and the kernels that take the most device time in
     one call of fn (which ends in a sync), under torch.profiler (which adds
-    host time of its own)."""
+    host time of its own). -> {kernel name: (device ms, launches)} for the
+    kernels of KERNEL_SYMBOLS; with `in_order`, also the device ms of each
+    launch of the kernels whose name holds it, in launch order."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -630,6 +828,17 @@ def profile_pass(label: str, fn) -> None:
     for e in top + ours:
         log(f"#   {e.self_device_time_total / 1e3:8.3f} ms {100 * e.self_device_time_total / busy_us:5.1f}% "
             f"x{e.count:<5d} {e.key[:90]}")
+    totals = {}
+    for e in kernels:
+        for name in KERNEL_SYMBOLS:
+            if name in e.key:
+                ms, n = totals.get(name, (0.0, 0))
+                totals[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    if in_order is None:
+        return totals
+    launches = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                       and in_order in e.name), key=lambda e: e.time_range.start)
+    return totals, [(e.time_range.end - e.time_range.start) / 1e3 for e in launches]
 
 
 # ---------------------------------------------------------------------------
@@ -841,10 +1050,10 @@ def recipe_config():
     return from_dict(TrainPipelineConfig, apply_overrides(load_yaml(RECIPE), overrides))
 
 
-def expected_row_updates(state, block: int = 2048) -> tuple[int, int]:
-    """(fused_adam_rows launches, elements they update) of one step: every
-    kernel-eligible trunk leaf in every layer, and every eligible 8-bit leaf
-    of the head and the embed side."""
+def expected_row_updates(state, block: int = 2048) -> list[int]:
+    """The sizes of the leaves one step updates through fused_adam_rows, one
+    entry per launch: every kernel-eligible trunk leaf in every layer, and
+    every eligible 8-bit leaf of the head and the embed side."""
     from intact_tpu_torch.ops.fused_adam import eligible
     from intact_tpu_torch.train.fused_joint import EMBED_NAMES, TrunkPack, _is_quant_leaf, tree_items
 
@@ -857,13 +1066,52 @@ def expected_row_updates(state, block: int = 2048) -> tuple[int, int]:
         moments = dict(tree_items(state.mu[name], quant_leaves=True))
         sizes += [p.numel() for path, p in tree_items(state.params[name])
                   if _is_quant_leaf(moments[path]) and eligible(p.numel(), block)]
-    return len(sizes), sum(sizes)
+    return sizes
+
+
+def time_row_update_shapes(sizes: list[int], block: int = 2048) -> float:
+    """Each distinct leaf shape of the step (rows of `block`, bf16 p with SR,
+    fp8 moments) timed alone: CUDA events around the wrapper and device time
+    per call, beside its byte bound; then the step's sum of device time over
+    its launches against the bound of all of them. -> that sum, ms. A step
+    touches each leaf once, so the calls cycle through copies of the
+    arguments, 500 MB in all (ten times the 50 MB L2; 200 MB still left
+    the 42 MB leaves partly in L2), and no call finds its bytes there."""
+    import itertools
+    from collections import Counter
+
+    from intact_tpu_torch.ops.fused_adam import fused_adam_rows
+    from intact_tpu_torch.train.optim import OptimizerConfig
+
+    hp = OptimizerConfig(lr=5e-5, weight_decay=0.0)
+    hyp = torch.tensor([1 - 0.9**3, 1 - 0.999**3, 5e-5, 0.7], device="cuda")
+    ss = torch.zeros(1, device="cuda")
+    rng = np.random.default_rng(9)
+    step_ms = step_bound = 0.0
+    for r, count in sorted(Counter(n // block for n in sizes).items()):
+        moved = adam_bytes(r, block, torch.bfloat16, True)
+        copies = [adam_case(rng, 1, r, r, block, True) for _ in range(-(-500_000_000 // moved))]
+        kw = dict(layer=0, row_offset=0, hyp=hyp, hp=hp, salt=5, stochastic=True)
+        cycle = itertools.cycle(copies)
+        call = lambda: fused_adam_rows(*next(cycle), ss=ss, **kw)  # noqa: E731
+        ms, dev = cuda_ms(call, reps=30), device_ms(call, reps=30, kernel="fused_adam_rows_kernel")
+        bound = moved / H100_BYTES_PER_S * 1e3
+        step_ms += dev * count
+        step_bound += bound * count
+        log(f"# fused_adam_rows leaf shape {r} x {block} (x{count} per step): kernel {ms:.4f} ms, device "
+            f"{dev:.4f} ms, bound {bound:.4f} ms, device / bound {dev / bound:.3f} ({len(copies)} argument sets)")
+        del copies, cycle
+    log(f"# fused_adam_rows per training step: {len(sizes)} launches, device time {step_ms:.3f} ms (sum over the "
+        f"shapes above) against a bound of {step_bound:.3f} ms ({step_ms / step_bound:.3f}x)")
+    torch.cuda.empty_cache()
+    return step_ms
 
 
 def phase_training() -> dict:
     """-> {kernel: launches} on the training path."""
     from intact_tpu_torch.ops.flash_attention import flash_attention
     from intact_tpu_torch.ops.fused_adam import fused_adam_rows
+    from intact_tpu_torch.train import fused_joint as fj
     from intact_tpu_torch.train.fused_joint import tree_items
     from intact_tpu_torch.train.trainer import Trainer
 
@@ -873,7 +1121,8 @@ def phase_training() -> dict:
     torch.cuda.synchronize()
     mc = trainer.model_cfg
     n_params = sum(x.numel() for _, x in tree_items(trainer.state.params))
-    want_adam, adam_elems = expected_row_updates(trainer.state)
+    sizes = expected_row_updates(trainer.state)
+    want_adam, adam_elems = len(sizes), sum(sizes)
     want_flash = 2 * (mc.vlm.depth - 1)
     log(f"# training: Pi0 bridge ({mc.vlm.depth}+{mc.expert.depth} trunk layers, SigLIP {mc.vision.depth}), "
         f"{n_params / 1e9:.3f} B params bf16, batch {trainer.micro_batch_size}, init "
@@ -916,11 +1165,82 @@ def phase_training() -> dict:
         f"({[round(s[-1] * 1e3, 2) for s in steps]}), {trainer.micro_batch_size / med:.2f} samples/s; "
         f"loop wall {wall:.2f} s for {TRAIN_STEPS} steps incl. data; peak device memory {peak / 2**30:.2f} GiB")
     batch = trainer.device_batch(next(iter(trainer.train_data)))
-    profile_pass("training step", lambda: (real_step(trainer.state, batch), torch.cuda.synchronize()))
+    rows = []  # the leaf row count of each row-update launch of the profiled step, in order
+    real_update = fj.fused_adam_rows
+
+    def recording(p, *args, **kw):
+        rows.append(p.shape[1])
+        return real_update(p, *args, **kw)
+
+    fj.fused_adam_rows = recording
+    try:
+        totals, per_launch = profile_pass("training step", lambda: (real_step(trainer.state, batch),
+                                                                    torch.cuda.synchronize()),
+                                          in_order="fused_adam_rows_kernel")
+    finally:
+        fj.fused_adam_rows = real_update
+    adam_ms, adam_n = totals.get("fused_adam_rows_kernel", (0.0, 0))
+    log(f"# training profile: fused_adam_rows_kernel {adam_ms:.3f} ms of device time over {adam_n} launches in one "
+        f"step, bound {adam_elems * ADAM_BYTES_PER_ELEM / H100_BYTES_PER_S * 1e3:.3f} ms")
+    if len(rows) == len(per_launch):
+        by_rows = {}
+        for i, (r, ms) in enumerate(zip(rows, per_launch)):
+            by_rows.setdefault(r, []).append((ms, i))
+        for r, entries in sorted(by_rows.items()):
+            times = [ms for ms, _ in entries]
+            bound = adam_bytes(r, 2048, torch.bfloat16, True) / H100_BYTES_PER_S * 1e3
+            slow = ", ".join(f"#{i} {ms:.4f}" for ms, i in sorted(entries, reverse=True)[:4])
+            log(f"#   in the step, leaf shape {r} x 2048: x{len(times)}, {sum(times):.3f} ms, median "
+                f"{statistics.median(times):.4f} ms per launch (min {min(times):.4f}; slowest, by launch index "
+                f"in the step: {slow}), bound {bound:.4f} ms")
+    else:
+        log(f"#   {len(rows)} row-update calls against {len(per_launch)} profiled launches: no per-shape split")
     del trainer, batch
     torch.cuda.empty_cache()
+    time_row_update_shapes(sizes)
     compare_training_paths()
+    train_fp32_masters(want_adam)
     return launches
+
+
+def train_fp32_masters(want_adam: int, steps: int = 2) -> None:
+    """The 1-chip recipe with master_dtype float32 (fp32 trainable
+    parameters, no stochastic rounding; the frozen embedding in bf16) through
+    the Trainer for a few steps: finite loss and grad norm, and the row
+    kernel launched for every eligible leaf, now on fp32 p and g."""
+    from intact_tpu_torch.config import TrainPipelineConfig, apply_overrides, from_dict, load_yaml
+    from intact_tpu_torch.ops.fused_adam import fused_adam_rows
+    from intact_tpu_torch.train.fused_joint import tree_items
+    from intact_tpu_torch.train.trainer import Trainer
+
+    overrides = {"n_updates": str(steps), "log_freq": "1", "tokenizer_path": "hash", "master_dtype": "float32"}
+    cfg = from_dict(TrainPipelineConfig, apply_overrides(load_yaml(RECIPE), overrides))
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, device=DEVICE)
+    dtypes = {str(x.dtype) for path, x in tree_items(trainer.state.params["vlm"]["blocks"])}
+    records = []
+    real_step = trainer.train_step
+
+    def recorded(state, batch):
+        a0 = fused_adam_rows.launches
+        out = real_step(state, batch)
+        torch.cuda.synchronize()
+        records.append((fused_adam_rows.launches - a0, out[1]["l2_loss"].item(), out[1]["grad_norm"].item()))
+        return out
+
+    trainer.train_step = recorded
+    t0 = time.perf_counter()
+    trainer.train()
+    wall = time.perf_counter() - t0
+    log(f"# training with fp32 masters (VLM trunk {sorted(dtypes)}, bf16_masters {trainer.bf16_masters}): "
+        + "; ".join(f"step {i + 1} loss {loss:.6f} grad_norm {gn:.6f} fused_adam_rows {n}"
+                    for i, (n, loss, gn) in enumerate(records))
+        + f"; {wall:.2f} s for {steps} steps; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if (dtypes != {"torch.float32"} or trainer.bf16_masters or len(records) != steps
+            or any(n != want_adam or not (np.isfinite(loss) and np.isfinite(gn)) for n, loss, gn in records)):
+        raise SystemExit("the fp32-master training run did not take its steps through the row kernel")
+    del trainer
+    torch.cuda.empty_cache()
 
 
 def compare_training_paths(depth: int = 4) -> None:

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the kernels of this directory:
-// mbarriers, TMA tile loads, wgmma shared-memory descriptors and fences, and
-// the host-side tensor-map encoder.
+// mbarriers, TMA tile loads and 1-D bulk copies, wgmma shared-memory
+// descriptors and fences, and the host-side tensor-map encoder.
 //
 // cuTensorMapEncodeTiled is a driver API function; it is fetched at run time
 // through the runtime's cudaGetDriverEntryPoint(ByVersion), so the libraries
@@ -97,6 +97,15 @@ __device__ __forceinline__ void tma_store_5d(const CUtensorMap* map, uint32_t sr
       "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
       : "memory");
 }
+// 1-D bulk copy global -> shared of `bytes` contiguous bytes (both addresses
+// and the size multiples of 16), completion reported to the mbarrier as
+// transaction bytes
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+               "l"(src), "r"(bytes), "r"(bar)
+               : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
 // wait until the committed stores have read their shared memory (they complete on their own)
 __device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }

@@ -1,7 +1,8 @@
 """In-place 8-bit-state AdamW row update: the hand-written CUDA kernel (csrc/fused_adam_rows.cu) and its plain version.
 
 Replaces intact_tpu/ops/pallas_adam.py::fused_adam_rows. One call updates one
-parameter leaf `p[L, r, B]` at row `layer`, and its moments: rows
+parameter leaf `p[L, r, B]` (bf16, or fp32 with fp32 masters; the gradient in
+p's dtype) at row `layer`, and its moments: rows
 [row_offset, row_offset + r) of layer `layer` of the packed moment arrays
 qm/qn [L, NB, B] (fp8 e4m3/e5m2 codes with fp32 row scales sm/sn [L, NB], or
 fp32 with the scales left alone). It adds the sum of the squared raw gradient
@@ -15,7 +16,10 @@ uint32 `salt` (`hash_noise_u16` here).
 
 `fused_adam_rows` launches the kernel for CUDA tensors (or raises: there is no
 fallback) and runs `fused_adam_rows_reference` for CPU tensors.
-`fused_adam_rows.launches` counts kernel launches, and nothing else.
+`fused_adam_rows.launches` counts kernel launches, and nothing else. The
+kernel's deterministic ss sum needs a small workspace (`workspace`), allocated
+once per device and stream. `math_check` holds the kernel's fast division and
+square root to the correctly rounded ones on the card.
 """
 
 from __future__ import annotations
@@ -166,8 +170,9 @@ def _check_shapes(p, g, qm, sm, qn, sn, layer, row_offset):
 
 def _check_kernel(p, g, qm, sm, qn, sn, hyp, ss, row_offset):
     L, r, B = p.shape
-    if not p.dtype == g.dtype == torch.bfloat16:
-        raise TypeError(f"the CUDA kernel takes bf16 p and g; got {p.dtype}, {g.dtype}")
+    if p.dtype != g.dtype or p.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the CUDA kernel takes bf16 or fp32 p with a gradient of the same dtype; got {p.dtype}, "
+                        f"{g.dtype}")
     if not sm.dtype == sn.dtype == hyp.dtype == ss.dtype == torch.float32:
         raise TypeError("the CUDA kernel takes fp32 scales, hyp and ss")
     if hyp.numel() != 4 or ss.numel() != 1:
@@ -185,12 +190,32 @@ def _check_kernel(p, g, qm, sm, qn, sn, hyp, ss, row_offset):
         raise ValueError("the CUDA kernel needs 16-byte aligned p, g and moments")
 
 
+MAX_CTAS = 4096  # the persistent grid's cap: one fp32 ss partial per CTA
+_workspaces: dict = {}
+
+
+def workspace(device: torch.device, stream: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(partials, ticket) of the kernel's deterministic ss sum, allocated once
+    per device and stream and reused by every call there: MAX_CTAS fp32
+    partials, and a ticket that starts at 0 and that each launch's last CTA
+    re-arms to 0. Launches on one stream run one after another, so they can
+    share them."""
+    key = (device, stream)
+    ws = _workspaces.get(key)
+    if ws is None:
+        ws = _workspaces[key] = (torch.empty(MAX_CTAS, dtype=torch.float32, device=device),
+                                 torch.zeros(1, dtype=torch.int32, device=device))
+    return ws
+
+
 def _lib():
     lib = build.load("fused_adam_rows")
     if not getattr(lib, "_intact_typed", False):
         v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.intact_fused_adam_rows.argtypes = [v] * 10 + [i] * 5 + [f] * 6 + [ctypes.c_uint, i, i, v]
+        lib.intact_fused_adam_rows.argtypes = [v] * 8 + [i, v, v] + [i] * 5 + [f] * 6 + [ctypes.c_uint, i, i, i, v]
         lib.intact_fused_adam_rows.restype = i
+        lib.intact_fused_adam_math_check.argtypes = [v, v, i, i, f, f, f, v, v]
+        lib.intact_fused_adam_math_check.restype = i
         lib.intact_cuda_error_string.argtypes = [i]
         lib.intact_cuda_error_string.restype = ctypes.c_char_p
         lib._intact_typed = True
@@ -201,9 +226,10 @@ def fused_adam_rows(p, g, qm, sm, qn, sn, *, layer: int, row_offset: int, hyp: t
                     ss: torch.Tensor, hp, salt: int = 0, stochastic: bool = False) -> None:
     """Update p[layer] and its moment rows in place; ss += sum(g**2).
 
-    p [L, r, B], g [r, B]; qm/qn [L, NB, B]; sm/sn [L, NB]; hyp fp32 [4]
-    (c1, c2, lr, clip); ss fp32 accumulator of one element; hp carries
-    betas, eps and weight_decay; salt a uint32 for the SR noise."""
+    p [L, r, B] bf16 or fp32, g [r, B] of p's dtype; qm/qn [L, NB, B]; sm/sn
+    [L, NB]; hyp fp32 [4] (c1, c2, lr, clip); ss fp32 accumulator of one
+    element; hp carries betas, eps and weight_decay; salt a uint32 for the SR
+    noise (bf16 p only)."""
     if p.device.type == "cpu":
         return fused_adam_rows_reference(p, g, qm, sm, qn, sn, layer=layer, row_offset=row_offset,
                                          hyp=hyp, ss=ss, hp=hp, salt=salt, stochastic=stochastic)
@@ -212,22 +238,50 @@ def fused_adam_rows(p, g, qm, sm, qn, sn, *, layer: int, row_offset: int, hyp: t
     _check_shapes(p, g, qm, sm, qn, sn, layer, row_offset)
     _check_kernel(p, g, qm, sm, qn, sn, hyp, ss, row_offset)
     L, r, B = p.shape
-    partials = torch.empty(r, dtype=torch.float32, device=p.device)
-    ticket = torch.zeros(1, dtype=torch.int32, device=p.device)
     b1, b2 = (float(b) for b in hp.betas)
+    device = p.device
+    stream = torch._C._cuda_getCurrentRawStream(device.index)  # what current_stream(device).cuda_stream returns
+    partials, ticket = workspace(device, stream)
+    args = (p.data_ptr(), g.data_ptr(), qm.data_ptr(), sm.data_ptr(), qn.data_ptr(), sn.data_ptr(), hyp.data_ptr(),
+            partials.data_ptr(), MAX_CTAS, ticket.data_ptr(), ss.data_ptr(), r, B, qm.shape[1], layer, row_offset,
+            b1, 1.0 - b1, b2, 1.0 - b2, float(hp.eps), float(hp.weight_decay), int(salt) & _M32,
+            int(bool(stochastic) and p.dtype == torch.bfloat16), int(qm.dtype != torch.float32),
+            int(p.dtype == torch.float32), stream)
     lib = _lib()
-    with torch.cuda.device(p.device):
-        err = lib.intact_fused_adam_rows(
-            p.data_ptr(), g.data_ptr(), qm.data_ptr(), sm.data_ptr(), qn.data_ptr(), sn.data_ptr(),
-            hyp.data_ptr(), partials.data_ptr(), ticket.data_ptr(), ss.data_ptr(),
-            r, B, qm.shape[1], layer, row_offset,
-            b1, 1.0 - b1, b2, 1.0 - b2, float(hp.eps), float(hp.weight_decay),
-            int(salt) & _M32, int(bool(stochastic) and p.dtype == torch.bfloat16),
-            int(qm.dtype != torch.float32), torch.cuda.current_stream().cuda_stream,
-        )
+    if device.index == torch.cuda.current_device():
+        err = lib.intact_fused_adam_rows(*args)
+    else:
+        with torch.cuda.device(device):
+            err = lib.intact_fused_adam_rows(*args)
     if err:
         raise RuntimeError(f"fused_adam_rows kernel launch failed: {lib.intact_cuda_error_string(err).decode()}")
     fused_adam_rows.launches += 1
+
+
+MATH_CHECK_MODES = {"divide": 0, "sqrt": 1, "direction": 2}
+
+
+def math_check(a: torch.Tensor, d: torch.Tensor, mode: str, c1: float = 1.0, c2: float = 1.0,
+               eps: float = 1e-8) -> tuple[int, int]:
+    """Holds the kernel's fast and zero paths to the correctly rounded
+    operations (__fdiv_rn, __fsqrt_rn) on the card, case by case, where the
+    kernel takes them: mode "divide" a / d (shared divisor, hoisted
+    reciprocal; a zero a passes through), "sqrt" sqrt(a), "direction"
+    (a / c1) / (sqrt(d / c2) + eps) for moments a, d (both in range, or both
+    zero). -> (cases in the paths' domain, cases among them that differ in
+    any bit). a and d: fp32 CUDA tensors of one shape."""
+    if a.device.type != "cuda" or a.shape != d.shape or not a.dtype == d.dtype == torch.float32:
+        raise ValueError("math_check takes two fp32 CUDA tensors of one shape")
+    a, d = a.contiguous(), d.contiguous()
+    out = torch.zeros(2, dtype=torch.int32, device=a.device)
+    lib = _lib()
+    with torch.cuda.device(a.device):
+        err = lib.intact_fused_adam_math_check(a.data_ptr(), d.data_ptr(), a.numel(), MATH_CHECK_MODES[mode],
+                                               c1, c2, eps, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"math check launch failed: {lib.intact_cuda_error_string(err).decode()}")
+    tested, wrong = out.tolist()
+    return tested, wrong
 
 
 fused_adam_rows.launches = 0

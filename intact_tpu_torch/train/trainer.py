@@ -142,9 +142,6 @@ class Trainer:
         if cfg.master_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"master_dtype must be float32|bfloat16, got {cfg.master_dtype!r}")
         self.bf16_masters = cfg.master_dtype == "bfloat16" and cfg.use_bf16
-        if self.device.type == "cuda" and not self.bf16_masters:
-            raise ValueError("on CUDA the fused step's row-update kernel takes bf16 parameters: "
-                             "set master_dtype: bfloat16 (with use_bf16: true)")
 
         self.policy = cm.DtypePolicy(param_dtype=torch.float32,
                                      compute_dtype=torch.bfloat16 if cfg.use_bf16 else torch.float32)

@@ -256,6 +256,46 @@ class TestFusedAdamReference:
             tadam.fused_adam_rows(p, g, m[:, :, :8], s, m[:, :, :8], s, row_offset=0, **kw)
 
 
+class TestFusedAdamWrapper:
+    """The wrapper's host side, on the CPU."""
+
+    def test_workspace_is_cached_per_device_and_stream(self):
+        a = tadam.workspace(torch.device("cpu"), 7)
+        assert tadam.workspace(torch.device("cpu"), 7) is a
+        b = tadam.workspace(torch.device("cpu"), 8)
+        assert b is not a and b[0] is not a[0] and b[1] is not a[1]
+        partials, ticket = a
+        assert partials.shape == (tadam.MAX_CTAS,) and partials.dtype == torch.float32
+        assert ticket.dtype == torch.int32 and ticket.tolist() == [0]
+
+    def test_fp32_params_run_the_plain_version_on_the_cpu(self):
+        """fp32 p and g (the fp32-master case the kernel now takes) go
+        through the plain version on CPU tensors and count no launch; the
+        result matches the bf16-free update of fused_rows_update."""
+        rng = np.random.default_rng(14)
+        L, r, B, NB, off, layer = 2, 128, 256, 384, 128, 1
+        p = torch.from_numpy(rng.standard_normal((L, r, B), dtype=np.float32) * 0.02)
+        g = torch.from_numpy(rng.standard_normal((r, B), dtype=np.float32) * 1e-3)
+        qm, sm = (jnp_to_torch(x) for x in moment_rows(rng, (L, NB, B), True, True))
+        qn, sn = (jnp_to_torch(x) for x in moment_rows(rng, (L, NB, B), True, False))
+        hyp = torch.tensor([0.1, 0.001, 1e-3, 0.9])
+        out = [x.clone() for x in (p, g, qm, sm, qn, sn)]
+        launches = tadam.fused_adam_rows.launches
+        tadam.fused_adam_rows(*out, layer=layer, row_offset=off, hyp=hyp, ss=torch.zeros(1), hp=TOPT,
+                              stochastic=True)
+        assert tadam.fused_adam_rows.launches == launches and out[0].dtype == torch.float32
+        rows = slice(off, off + r)
+        want = tadam.fused_rows_update(p[layer], g, qm[layer, rows], sm[layer, rows, None], qn[layer, rows],
+                                       sn[layer, rows, None], c1=hyp[0], c2=hyp[1], lr=hyp[2], clip_factor=hyp[3],
+                                       hp=TOPT, salt=0, stochastic=True, scale_mode="exact")
+        np.testing.assert_array_equal(bits(out[0][layer]), bits(want[0]))
+        np.testing.assert_array_equal(bits(out[2][layer, rows]), bits(want[1]))
+
+    def test_math_check_needs_the_card(self):
+        with pytest.raises(ValueError, match="CUDA"):
+            tadam.math_check(torch.ones(4), torch.ones(4), "divide")
+
+
 class TestStochasticRounding:
     """SR with a uint32 salt: bit for bit the reference's hash-noise path."""
 
@@ -377,9 +417,9 @@ class TestFusedAdamKernel:
         for k, o in zip(kern, args):
             assert torch.equal(k[:layer], o[:layer]) and torch.equal(k[layer + 1:], o[layer + 1:])
 
-    def test_kernel_raises_on_fp32_params(self, cuda):
-        p, g = torch.zeros(1, 128, 256, device=cuda), torch.zeros(128, 256, device=cuda)
+    def test_kernel_raises_on_fp16_params(self, cuda):
+        p, g = (torch.zeros(*shape, device=cuda, dtype=torch.float16) for shape in ((1, 128, 256), (128, 256)))
         m, s = torch.zeros(1, 128, 256, device=cuda), torch.zeros(1, 128, device=cuda)
-        with pytest.raises(TypeError, match="bf16"):
+        with pytest.raises(TypeError, match="bf16 or fp32"):
             tadam.fused_adam_rows(p, g, m, s, m.clone(), s.clone(), layer=0, row_offset=0,
                                   hyp=torch.ones(4, device=cuda), ss=torch.zeros(1, device=cuda), hp=TOPT)

@@ -359,6 +359,27 @@ class TestFusedStep:
         for k, v in flat(state.mu).items():
             np.testing.assert_array_equal(v, mu_before[k])
 
+    def test_fp32_masters_hand_the_row_update_fp32_p_and_g(self, cfgs, tparams, batch, monkeypatch):
+        """With fp32 parameters under bf16 compute (master_dtype float32), every
+        leaf the step sends to fused_adam_rows comes with a gradient of its own
+        dtype, fp32: the pair the CUDA kernel takes."""
+        seen = []
+        real = tfj.fused_adam_rows
+
+        def record(p, g, *args, **kw):
+            seen.append((p.dtype, g.dtype))
+            return real(p, g, *args, **kw)
+
+        monkeypatch.setattr(tfj, "fused_adam_rows", record)
+        tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+        state = tfj.init_fused_state(tcm.tree_map(lambda x: x.clone(), tparams), seed=3, block_size=8,
+                                     min_quant_elems=64)
+        policy = tcm.DtypePolicy(param_dtype=torch.float32, compute_dtype=torch.bfloat16)
+        step = tfj.make_fused_joint_step(cfgs[1], TOpt(**OPT_KW), policy, **FUSED_KW)
+        _, metrics = step(state, tb)
+        assert np.isfinite(metrics["grad_norm"].item())
+        assert seen and set(seen) == {(torch.float32, torch.float32)}
+
     def test_pallas_mode_is_checked(self, cfgs):
         with pytest.raises(ValueError, match="pallas_mode"):
             tfj.make_fused_joint_step(cfgs[1], TOpt(), T32, pallas_mode="interpret")
@@ -417,6 +438,23 @@ class TestTrainer:
         assert not torch.equal(trainer.state.params["vlm"]["blocks"]["attn"]["q"]["kernel"], q0)
         lines = [r.getMessage() for r in caplog.records if r.getMessage().startswith("update")]
         assert len(lines) == 2 and "l2_loss" in lines[0] and "grad_norm" in lines[0] and "lr" in lines[0]
+
+    def test_two_steps_with_fp32_masters(self, tiny_recipe):
+        """master_dtype float32: fp32 trainable parameters (the frozen
+        embedding in bf16), no stochastic rounding; the trainer takes it on
+        any device now that the row kernel takes fp32 p."""
+        from intact_tpu_torch.train.trainer import Trainer
+
+        run, argv = tiny_recipe
+        cfg, _ = run.build_config(argv + ["--master_dtype", "float32"])
+        trainer = Trainer(cfg, device="cpu")
+        assert not trainer.bf16_masters
+        q = trainer.state.params["vlm"]["blocks"]["attn"]["q"]["kernel"]
+        assert q.dtype == torch.float32 and trainer.state.params["vlm_embed"]["embedding"].dtype == torch.bfloat16
+        q0 = q.clone()
+        trainer.train()
+        assert trainer.cnt_update == 2 and torch.isfinite(trainer.state.prev_gnorm)
+        assert not torch.equal(trainer.state.params["vlm"]["blocks"]["attn"]["q"]["kernel"], q0)
 
     def test_trainer_raises_without_cuda_unless_given_cpu(self, tiny_recipe):
         if torch.cuda.is_available():
