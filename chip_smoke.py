@@ -43,7 +43,37 @@ Phases, each failing loudly (non-zero exit):
              its bound, summed over the step's launches; one step through the
              kernels against one through their plain versions at full width,
              4 layers; and two steps with fp32 masters (master_dtype float32)
-             through the Trainer, the row kernel launched on fp32 p and g
+             through the Trainer, the row kernel launched on fp32 p and g. The
+             trainer saves its last update; these full-tower saves are recorded,
+             not written (record_saves)
+  5. standard training through the Trainer's standard step, at full width and
+             depth (random weights from the seed, hash tokenizer, synthetic
+             episodes):
+             expert-only, config/train/pi0_finetune_bridge_expertonly.yaml
+             (frozen int8 prefix, fp32 expert masters, AdamW) with mesh.fsdp 1,
+             micro-batch 96, global 192 (accumulation 2), 3 updates, saves at
+             2 and 3, validation at 3 on one batch of 96: every micro-step's
+             loss, grad_norm and param_norm finite and its launches as counted
+             from the configuration (flash_attention: the kv_only prefill's
+             depth - 1; w8a8_matmul: the int8 nodes quantize_frozen made, from
+             the tree), the validation's too; l1_loss finite and one acc@t per
+             eval_threshold; frozen leaves (int8 codes, scales, bf16) bit-
+             unchanged and the trainable ones moved; step_2 and step_3 written,
+             and a resume from step_3 restoring cnt_update 3 and a state equal
+             to the saved one; each prefill attention launch against its plain
+             version on its own inputs (STD_ATTN_RTOL); the frozen prefix K/V
+             cache bit-equal with only the W8A8 product plain, and within
+             STD_KV_RTOL with only the attention plain; one micro-step's
+             gradient of every trainable leaf and one update through the
+             kernels against through their plain versions (STD_* tolerances);
+             a profiler pass.
+             standard joint, config/train/pi0_finetune_bridge.yaml (bf16
+             masters, 8-bit AdamW, stochastic rounding, remat) with mesh.fsdp
+             1, micro-batch 32, global 64, 2 updates: finite metrics, int8
+             moment codes, flash_attention per micro-step as counted (the
+             forward's depth - 1 and their remat recompute), the last update's
+             save asked; a profiler pass. Both report median micro-step and
+             update times, samples/s and peak memory
 The second-to-last line is `nvidia-smi`'s card name and power limit; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
@@ -51,6 +81,7 @@ line is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -1041,6 +1072,15 @@ TRAIN_UPDATE_RTOL = 0.5  # relative L2 of the parameter change (mostly +-1 bf16 
 TRAIN_CODES_SHARE = 0.05  # share of moment codes more than one code apart
 
 
+def record_saves(trainer) -> list:
+    """Replace trainer.save with a recorder of the update counts it is asked
+    at: a save of the full-tower state writes 13-19 GB, and the expert-only
+    run of phase 5 covers saving and resuming."""
+    saves = []
+    trainer.save = lambda: saves.append(trainer.cnt_update)
+    return saves
+
+
 def recipe_config():
     """The 1-chip recipe (config/train/pi0_finetune_bridge_1chip.yaml) with
     the hash tokenizer and a few logged steps."""
@@ -1144,6 +1184,7 @@ def phase_training() -> dict:
         return out
 
     trainer.train_step = recorded
+    saves = record_saves(trainer)
     torch.cuda.reset_peak_memory_stats()
     # --- the main path: the trainer's loop, as `python -m intact_tpu_torch.run` drives it ---
     flash_attention.launches = fused_adam_rows.launches = 0
@@ -1152,6 +1193,8 @@ def phase_training() -> dict:
     wall = time.perf_counter() - t0
     launches = {"flash_attention": flash_attention.launches, "fused_adam_rows": fused_adam_rows.launches}
     # -------------------------------------------------------------------------------------------
+    if saves != [TRAIN_STEPS]:
+        raise SystemExit(f"the trainer asked to save at updates {saves}, not at its last update {TRAIN_STEPS}")
     peak = torch.cuda.max_memory_allocated()
     for i, (nf, na, loss, gnorm, dt) in enumerate(steps):
         log(f"# training step {i + 1}: loss {loss:.6f}, grad_norm {gnorm:.6f}, {dt * 1e3:.2f} ms, "
@@ -1196,6 +1239,7 @@ def phase_training() -> dict:
     else:
         log(f"#   {len(rows)} row-update calls against {len(per_launch)} profiled launches: no per-shape split")
     del trainer, batch
+    gc.collect()  # the recorders installed on the trainer refer back to it
     torch.cuda.empty_cache()
     time_row_update_shapes(sizes)
     compare_training_paths()
@@ -1229,6 +1273,7 @@ def train_fp32_masters(want_adam: int, steps: int = 2) -> None:
         return out
 
     trainer.train_step = recorded
+    record_saves(trainer)
     t0 = time.perf_counter()
     trainer.train()
     wall = time.perf_counter() - t0
@@ -1240,6 +1285,7 @@ def train_fp32_masters(want_adam: int, steps: int = 2) -> None:
             or any(n != want_adam or not (np.isfinite(loss) and np.isfinite(gn)) for n, loss, gn in records)):
         raise SystemExit("the fp32-master training run did not take its steps through the row kernel")
     del trainer
+    gc.collect()  # the recorders installed on the trainer refer back to it
     torch.cuda.empty_cache()
 
 
@@ -1310,6 +1356,405 @@ def compare_training_paths(depth: int = 4) -> None:
         raise SystemExit("the training step through the kernels disagrees with the plain path")
 
 
+# ---------------------------------------------------------------------------
+# 5. the trainer's standard step: expert-only (frozen int8 prefix) and the
+#    standard joint recipe
+# ---------------------------------------------------------------------------
+
+EXPERT_RECIPE = "config/train/pi0_finetune_bridge_expertonly.yaml"
+JOINT_RECIPE = "config/train/pi0_finetune_bridge.yaml"
+RUN_DIR = Path(".chip_smoke_runs")  # the phase's checkpoints (git-ignored), removed after it
+EXPERT_OVERRIDES = {"mesh.fsdp": 1, "per_device_batch_size": 96, "global_batch_size": 192, "n_updates": 3,
+                    "save_model_freq": 2, "eval_freq": 3, "eval_size": 96}
+JOINT_OVERRIDES = {"mesh.fsdp": 1, "per_device_batch_size": 32, "global_batch_size": 64, "n_updates": 2}
+# the expert-only path through the kernels against its plain versions, from
+# the same resumed state, batches and draws (readings on an H100 80GB HBM3 at
+# 700 W, in PERF.md; they repeat to 3 digits from run to run). The W8A8 products are bit-equal to the
+# plain ones (phase 2; the prefix cache gate here). Each prefill attention
+# launch is within ~1 bf16 ulp of its plain version (rel L2 9.2e-4); the
+# int8 activation codes of the next products flip where that moves a value
+# across a rounding tie, so the prefix K/V with only the attention plain sits
+# at the int8 step's scale (rel L2 1.6e-2 at layer 1, rising to 2.9e-2 at
+# the last, 2.5e-2 in all), and is gated at 2x its reading. The rest are ~10x their readings: one
+# micro-step's gradient of every trainable leaf, then one update of 2
+# micro-steps on loss, grad norm and the trainable update
+STD_ATTN_RTOL = 1e-2  # rel L2 of each prefill attention launch
+STD_KV_RTOL = 5e-2  # rel L2 of the prefix K and V at the unpadded tokens
+STD_GRAD_RTOL = 3e-2  # rel L2 of all trainable gradients (reading 3.6e-3)
+STD_LEAF_RTOL = 0.1  # worst trainable leaf's rel L2 (reading 1.25e-2)
+STD_LOSS_RTOL = 3e-3  # reading 3.0e-4
+STD_GNORM_RTOL = 2e-3  # reading 2.0e-4
+STD_UPDATE_RTOL = 4e-2  # reading 4.2e-3
+
+
+def trainer_config(recipe: str, overrides: dict):
+    """A recipe with the hash tokenizer, a log line per update, checkpoints
+    under RUN_DIR, and `overrides`."""
+    from intact_tpu_torch.config import TrainPipelineConfig, apply_overrides, from_dict, load_yaml
+
+    kw = {"tokenizer_path": "hash", "log_freq": 1, "log_dir": RUN_DIR, **overrides}
+    return from_dict(TrainPipelineConfig, apply_overrides(load_yaml(recipe), {k: str(v) for k, v in kw.items()}))
+
+
+def w8a8_per_prefix(params) -> int:
+    """W8A8 products of one frozen-prefix pass, counted from the tree: every
+    layer of every int8 dense node, less the last VLM layer's nodes other
+    than k and v, which the kv_only prefill does not run."""
+    from intact_tpu_torch.models.common import flatten_paths
+
+    n = 0
+    for path, leaf in flatten_paths(params).items():
+        if path.endswith("/kernel_q"):
+            n += int(np.prod(leaf.shape[:-2]))
+            n -= path.startswith("vlm/blocks/") and not path.startswith(("vlm/blocks/attn/k/", "vlm/blocks/attn/v/"))
+    return n
+
+
+def state_items(state) -> dict:
+    """Every tensor and number of a training state, by path."""
+    from intact_tpu_torch.models.common import flatten_paths
+    from intact_tpu_torch.train.checkpoint import state_fields
+
+    out = {f"params/{k}": v for k, v in flatten_paths(state.params).items()}
+    for name, value in state_fields(state).items():
+        out.update({f"{name}/{k}": v for k, v in flatten_paths(value).items()} if isinstance(value, dict)
+                   else {name: value})
+    return out
+
+
+def record_steps(trainer, counters: dict) -> list:
+    """Wrap trainer.train_step: each micro-step appends (launches per counter,
+    l2_loss, grad_norm, param_norm, seconds), synchronized."""
+    records = []
+    real = trainer.train_step
+
+    def recorded(state, batch):
+        before = {k: c.launches for k, c in counters.items()}
+        t = time.perf_counter()
+        out = real(state, batch)
+        torch.cuda.synchronize()
+        m = out[1]
+        records.append(({k: c.launches - before[k] for k, c in counters.items()}, m["l2_loss"].item(),
+                         m["grad_norm"].item(), m["param_norm"].item(), time.perf_counter() - t))
+        return out
+
+    trainer.train_step = recorded
+    return records
+
+
+def report_steps(label: str, records: list, accum: int, global_batch: int) -> None:
+    for i, (n, loss, gn, pn, dt) in enumerate(records):
+        log(f"# {label} micro-step {i + 1}: loss {loss:.6f}, grad_norm {gn:.6f}, param_norm {pn:.3f}, "
+            f"{dt * 1e3:.2f} ms, launches {n}")
+    micro = [dt for *_, dt in records[1:]]
+    updates = [sum(r[-1] for r in records[i:i + accum]) for i in range(accum, len(records), accum)]
+    med_u = statistics.median(updates)
+    log(f"# {label}: median micro-step {statistics.median(micro) * 1e3:.2f} ms over micro-steps 2..{len(records)}, "
+        f"median update ({accum} micro-steps) {med_u * 1e3:.2f} ms over updates 2..{len(records) // accum}, "
+        f"{global_batch / med_u:.2f} samples/s; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def phase_standard_training() -> dict:
+    """-> {kernel: launches} on the standard step's two recipes."""
+    import shutil
+
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    try:
+        expert = train_expert_only()
+        joint = train_standard_joint()
+    finally:
+        shutil.rmtree(RUN_DIR, ignore_errors=True)
+    return {"flash_attention": expert["flash_attention"] + joint["flash_attention"],
+            "w8a8_matmul": expert["w8a8_matmul"]}
+
+
+def train_expert_only() -> dict:
+    """pi0_finetune_bridge_expertonly.yaml through the Trainer: 3 updates of 2
+    micro-steps of 96, validation at update 3, saves at 2 and 3, then a
+    resume from step_3 and the kernel-vs-plain comparisons."""
+    from intact_tpu_torch.models.common import flatten_paths
+    from intact_tpu_torch.ops import w8a8
+    from intact_tpu_torch.ops.flash_attention import flash_attention
+    from intact_tpu_torch.train import checkpoint as ckpt
+    from intact_tpu_torch.train.trainer import Trainer
+
+    cfg = trainer_config(EXPERT_RECIPE, EXPERT_OVERRIDES)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    mc, accum = trainer.model_cfg, trainer.opt_cfg.grad_accumulation_steps
+    params = flatten_paths(trainer.state.params)
+    frozen = {k for k, t in flatten_paths(trainer.frozen_mask).items() if not t}
+    before = {k: v.clone() for k, v in params.items()}
+    want_w8a8, want_flash = w8a8_per_prefix(trainer.state.params), mc.vlm.depth - 1
+    n_int8 = sum(v.numel() for v in params.values() if v.dtype == torch.int8)
+    n_train = sum(v.numel() for k, v in params.items() if k not in frozen)
+    log(f"# expert-only: {EXPERT_RECIPE} ({mc.vlm.depth}+{mc.expert.depth} trunk layers, SigLIP {mc.vision.depth}), "
+        f"{n_int8 / 1e9:.3f} B int8 frozen weights, {n_train / 1e6:.1f} M trainable fp32 params, micro-batch "
+        f"{trainer.micro_batch_size} x accumulation {accum}, init {time.perf_counter() - t0:.2f} s; per micro-step "
+        f"expect {want_w8a8} w8a8_matmul (counted from the tree) and {want_flash} flash_attention launches")
+
+    counters = {"flash_attention": flash_attention, "w8a8_matmul": w8a8.w8a8_matmul}
+    records = record_steps(trainer, counters)
+    validations = []
+    real_validate = trainer.validate
+
+    def validate():
+        before_n = {k: c.launches for k, c in counters.items()}
+        metrics = real_validate()
+        validations.append((metrics, {k: c.launches - before_n[k] for k, c in counters.items()}))
+        return metrics
+
+    trainer.validate = validate
+    # --- the main path: the trainer's loop, as `python -m intact_tpu_torch.run` drives it ---
+    flash_attention.launches = w8a8.w8a8_matmul.launches = 0
+    t0 = time.perf_counter()
+    trainer.train()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.launches, "w8a8_matmul": w8a8.w8a8_matmul.launches}
+    # -------------------------------------------------------------------------------------------
+    report_steps("expert-only", records, accum, cfg.global_batch_size)
+    log(f"# expert-only: loop wall {wall:.2f} s for {cfg.n_updates} updates incl. data, validation and saves; "
+        f"launches {launches}")
+    n_val = max(1, cfg.eval_size // trainer.micro_batch_size)
+    for metrics, n in validations:
+        log(f"# expert-only validation at update 3: {metrics}, launches {n}")
+    bad = [i + 1 for i, (n, loss, gn, pn, _) in enumerate(records)
+           if not (np.isfinite(loss) and np.isfinite(gn) and np.isfinite(pn))
+           or n != {"flash_attention": want_flash, "w8a8_matmul": want_w8a8}]
+    if bad or len(records) != cfg.n_updates * accum:
+        raise SystemExit(f"expert-only micro-steps {bad}: non-finite metrics or unexpected launches "
+                         f"({len(records)} micro-steps)")
+    if (len(validations) != 1 or validations[0][1] != {"flash_attention": n_val * want_flash,
+                                                       "w8a8_matmul": n_val * want_w8a8}
+            or not np.isfinite(validations[0][0]["l1_loss"])
+            or [k for k in validations[0][0] if k.startswith("acc@")] != [f"acc@{t}" for t in cfg.eval_thresholds]):
+        raise SystemExit(f"expert-only validation: {validations}")
+    after = flatten_paths(trainer.state.params)
+    changed_frozen = [k for k in frozen if not torch.equal(after[k], before[k])]
+    moved = sum(not torch.equal(after[k], before[k]) for k in after if k not in frozen)
+    log(f"# expert-only: {len(frozen)} frozen leaves ({sum(before[k].dtype == torch.int8 for k in frozen)} int8), "
+        f"{len(changed_frozen)} changed; {moved} of {len(after) - len(frozen)} trainable leaves moved")
+    if changed_frozen or moved < (len(after) - len(frozen)) // 2:
+        raise SystemExit(f"expert-only: frozen leaves changed {changed_frozen[:5]} or too few trainable moved ({moved})")
+    del before
+    steps = ckpt.list_steps(trainer.ckpt_root, committed_only=True)
+    resumed = Trainer(trainer_config(EXPERT_RECIPE, {**EXPERT_OVERRIDES,
+                                                     "load_from_checkpoint": trainer.ckpt_root / "step_3"}),
+                      device=DEVICE)
+    ia, ib = state_items(trainer.state), state_items(resumed.state)
+    unequal = [k for k, v in ia.items()
+               if not (torch.equal(v, ib[k]) if isinstance(v, torch.Tensor) else v == ib.get(k))]
+    log(f"# expert-only checkpoints {steps}; resumed from step_3: cnt_update {resumed.cnt_update}, "
+        f"{len(ia)} state entries, {len(unequal)} unequal")
+    if steps != [2, 3] or resumed.cnt_update != 3 or set(ia) != set(ib) or unequal:
+        raise SystemExit(f"expert-only checkpoints {steps} / resume: cnt_update {resumed.cnt_update}, unequal {unequal[:5]}")
+    compare_expert_paths(trainer, resumed)
+    batch = trainer.device_batch(next(iter(trainer.train_data)))
+    profile_pass("expert-only micro-step", lambda: (trainer.train_step(trainer.state, batch), torch.cuda.synchronize()))
+    del trainer, resumed, batch
+    gc.collect()  # the recorders installed on the trainer refer back to it
+    torch.cuda.empty_cache()
+    return launches
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b|| in float64."""
+    den = b.double().norm().item()
+    return (a.double() - b.double()).norm().item() / den if den > 0 else float(a.ne(b).any())
+
+
+def trainable_grads(trainer, cfg, batch) -> dict:
+    """One micro-step's gradient of every trainable leaf at the trainer's
+    state, with that micro-step's draws, as its train_step forms it."""
+    from intact_tpu_torch.models.common import flatten_paths, unflatten_paths
+    from intact_tpu_torch.models.pi0 import model as pi0
+
+    flat = flatten_paths(trainer.state.params)
+    views = {k: flat[k].detach().requires_grad_() for k in trainer.tx.paths(flat)}
+    draws = np.random.default_rng((trainer.state.seed, trainer.state.step))
+    with torch.enable_grad():
+        loss, _ = pi0.compute_loss(unflatten_paths({**flat, **views}), draws, batch, cfg, trainer.policy)
+        grads = torch.autograd.grad(loss, list(views.values()), allow_unused=True, materialize_grads=True)
+    return dict(zip(views, grads))
+
+
+def compare_expert_paths(kernel, plain) -> None:
+    """Two trainers at the same state: the frozen prefix cache with the W8A8
+    kernel against the same pass with only the W8A8 product plain
+    (bit-equal) and with only the attention plain (STD_KV_RTOL); one
+    micro-step's trainable gradients through the kernels against through
+    their plain versions (STD_GRAD_RTOL, STD_LEAF_RTOL); then one update (two
+    micro-steps on the same batches) through the kernels against one through
+    the plain versions (loss, grad norm, update)."""
+    from intact_tpu_torch.models.common import flatten_paths
+    from intact_tpu_torch.models.pi0 import model as pi0
+    from intact_tpu_torch.ops import attention, w8a8
+    from intact_tpu_torch.ops.flash_attention import flash_attention_reference
+    from intact_tpu_torch.train import train_step as ts
+
+    mc = kernel.model_cfg
+    real_attn = attention.flash_attention
+    plain_cfg = dataclasses.replace(mc, attention_impl="xla")
+    data = iter(kernel.train_data)
+    batches = [kernel.device_batch(next(data)) for _ in range(2)]
+    inputs = [batches[0][k] for k in ("images", "img_masks", "lang_tokens", "lang_masks")]
+    real = w8a8.w8a8_matmul
+
+    def plain_w8a8(x, wq, wscale, bias=None, k_chunk=None, out_dtype=None, weight_layout="kn"):
+        return w8a8.w8a8_matmul_reference(x, wq if weight_layout == "kn" else wq.t(), wscale, bias, k_chunk,
+                                          out_dtype)
+
+    attn_errs = []  # each prefill launch against the plain version on its own inputs
+
+    def checked_attention(q, k, v, mask=None, scale=None):
+        out = real_attn(q, k, v, mask, scale)
+        ref = flash_attention_reference(q, k, v, mask, scale)
+        attn_errs.append((rel_l2(out, ref), (out.float() - ref.float()).abs().max().item(),
+                          ref.float().abs().max().item(), bool(torch.isfinite(out).all())))
+        return out
+
+    with torch.no_grad():
+        attention.flash_attention = checked_attention
+        try:
+            (k1, v1), _ = pi0.prefix_cache(kernel.state.params, *inputs, mc, kernel.policy)
+        finally:
+            attention.flash_attention = real_attn
+        worst = max(attn_errs)
+        log(f"# expert-only prefill attention kernel vs its plain version on each launch's own inputs (batch "
+            f"{inputs[0].shape[0]}, {len(attn_errs)} launches): worst rel L2 {worst[0]:.3e} (tol "
+            f"{STD_ATTN_RTOL}), max abs err {max(e[1] for e in attn_errs):.3e} (max |out| "
+            f"{max(e[2] for e in attn_errs):.3e}), per launch {[f'{e[0]:.1e}' for e in attn_errs]}")
+        if len(attn_errs) != mc.vlm.depth - 1 or not all(e[3] for e in attn_errs) or worst[0] > STD_ATTN_RTOL:
+            raise SystemExit(f"the prefill's attention kernel disagrees with its plain version: {attn_errs}")
+        w8a8.w8a8_matmul = plain_w8a8
+        try:
+            (k2, v2), _ = pi0.prefix_cache(kernel.state.params, *inputs, mc, kernel.policy)
+        finally:
+            w8a8.w8a8_matmul = real
+        same = torch.equal(k1, k2) and torch.equal(v1, v2)
+        del k2, v2
+        (k3, v3), pre_pad = pi0.prefix_cache(kernel.state.params, *inputs, plain_cfg, kernel.policy)
+        # [layer, batch, token, kv head, dim] at the tokens a query reads: a
+        # padded token's query row is fully masked, which the kernel answers
+        # with 0 and the plain attention with the mean of V, so its K/V from
+        # the next layer on differ by design and are never read
+        ka, va, kp, vp = (c[:, pre_pad] for c in (k1, v1, k3, v3))
+    kv_rel = {"K": rel_l2(ka, kp), "V": rel_l2(va, vp)}
+    layer_rel = [max(rel_l2(ka[i], kp[i]), rel_l2(va[i], vp[i])) for i in range(ka.shape[0])]
+    kv_abs = {"K": (ka.float() - kp.float()).abs().max().item(), "V": (va.float() - vp.float()).abs().max().item()}
+    log(f"# expert-only prefix K/V cache {tuple(k1.shape)} {k1.dtype}: W8A8 kernel vs plain W8A8 product "
+        f"bit-equal {same} (gate: bit-equal); attention kernel vs plain attention (W8A8 kernel on both sides) "
+        f"at the {int(pre_pad.sum())} unpadded tokens: rel L2 K {kv_rel['K']:.3e} V {kv_rel['V']:.3e} (tol "
+        f"{STD_KV_RTOL}), per layer {[f'{r:.1e}' for r in layer_rel]}, max abs err K {kv_abs['K']:.3e} V "
+        f"{kv_abs['V']:.3e} (max |K| {kp.float().abs().max().item():.3e}, |V| {vp.float().abs().max().item():.3e}); "
+        f"all tokens rel L2 K {rel_l2(k1, k3):.3e} V {rel_l2(v1, v3):.3e}")
+    del k1, v1, k3, v3, ka, va, kp, vp
+    if not same:
+        raise SystemExit("the frozen prefix cache with the W8A8 kernel differs from the one with its plain version")
+    if not max(kv_rel.values()) <= STD_KV_RTOL:
+        raise SystemExit(f"the frozen prefix cache with the attention kernel differs from the plain one: {kv_rel}")
+
+    gk = trainable_grads(kernel, mc, batches[0])
+    w8a8.w8a8_matmul = plain_w8a8
+    try:
+        gp = trainable_grads(plain, plain_cfg, batches[0])
+    finally:
+        w8a8.w8a8_matmul = real
+    num = sum((gk[k].double() - gp[k].double()).square().sum().item() for k in gp)
+    den = sum(g.double().square().sum().item() for g in gp.values())
+    grad_rel = (num / den) ** 0.5 if den > 0 else float("inf")
+    leaf_rel = sorted(((rel_l2(gk[k], gp[k]), k) for k in gp), reverse=True)
+    log(f"# expert-only kernel vs plain path, one micro-step's gradients of the {len(gp)} trainable leaves "
+        f"(resumed state, same batch and draws): rel L2 {grad_rel:.3e} (tol {STD_GRAD_RTOL}), worst leaves "
+        f"{[(k, f'{r:.3e}') for r, k in leaf_rel[:3]]} (tol {STD_LEAF_RTOL}), median leaf "
+        f"{leaf_rel[len(leaf_rel) // 2][0]:.3e}")
+    del gk, gp
+    if not (grad_rel <= STD_GRAD_RTOL and leaf_rel[0][0] <= STD_LEAF_RTOL):
+        raise SystemExit("the expert-only gradients through the kernels disagree with the plain path")
+
+    plain.train_step = ts.make_train_step(
+        lambda p, rng, b, n, t: pi0.compute_loss(p, rng, b, plain_cfg, plain.policy, noise=n, time=t), plain.tx)
+    trainable = [k for k, t in flatten_paths(kernel.frozen_mask).items() if t]
+    before = {k: flatten_paths(kernel.state.params)[k].clone() for k in trainable}
+    out = {}
+    for name, trainer in (("kernel", kernel), ("plain", plain)):
+        metrics = []
+        if name == "plain":
+            w8a8.w8a8_matmul = plain_w8a8
+        try:
+            for b in batches:
+                trainer.state, m = trainer.train_step(trainer.state, b)
+                metrics.append((m["l2_loss"].item(), m["grad_norm"].item()))
+        finally:
+            w8a8.w8a8_matmul = real
+        torch.cuda.synchronize()
+        out[name] = (metrics, flatten_paths(trainer.state.params))
+    (mk, pk), (mp, pp) = out["kernel"], out["plain"]
+    loss_rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(mk, mp))
+    gnorm_rel = max(abs(a[1] - b[1]) / b[1] for a, b in zip(mk, mp))
+    num = sum(((pk[k] - before[k]) - (pp[k] - before[k])).double().square().sum().item() for k in trainable)
+    den = sum((pp[k] - before[k]).double().square().sum().item() for k in trainable)
+    upd_rel = (num / den) ** 0.5 if den > 0 else float("inf")
+    log(f"# expert-only kernel vs plain path (one update of 2 micro-steps from the resumed state, same batches and "
+        f"draws): losses {[round(x[0], 6) for x in mk]} vs {[round(x[0], 6) for x in mp]} (max rel {loss_rel:.3e}, "
+        f"tol {STD_LOSS_RTOL}), grad_norm max rel {gnorm_rel:.3e} (tol {STD_GNORM_RTOL}), trainable update rel L2 "
+        f"{upd_rel:.3e} (tol {STD_UPDATE_RTOL})")
+    if not (loss_rel <= STD_LOSS_RTOL and gnorm_rel <= STD_GNORM_RTOL and upd_rel <= STD_UPDATE_RTOL):
+        raise SystemExit("the expert-only update through the kernels disagrees with the plain path")
+
+
+def train_standard_joint() -> dict:
+    """pi0_finetune_bridge.yaml through the Trainer: bf16 masters, 8-bit
+    AdamW with stochastic rounding, per-layer remat, 2 updates of 2
+    micro-steps of 32. The final save is recorded, not written (record_saves)."""
+    from intact_tpu_torch.models.common import flatten_paths
+    from intact_tpu_torch.ops.flash_attention import flash_attention
+    from intact_tpu_torch.train.trainer import Trainer
+
+    cfg = trainer_config(JOINT_RECIPE, JOINT_OVERRIDES)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    mc, accum = trainer.model_cfg, trainer.opt_cfg.grad_accumulation_steps
+    params = flatten_paths(trainer.state.params)
+    mu = trainer.state.opt_state["mu"]
+    n_q = sum(isinstance(m, dict) for m in mu.values())
+    want_flash = 2 * (mc.vlm.depth - 1)  # the forward's full layers, and their recompute in the backward (remat)
+    log(f"# standard joint: {JOINT_RECIPE}, {sum(v.numel() for v in params.values()) / 1e9:.3f} B params "
+        f"{sorted({str(v.dtype) for v in params.values()})}, remat {cfg.remat}, 8-bit moments on {n_q} of {len(mu)} "
+        f"trainable leaves, micro-batch {trainer.micro_batch_size} x accumulation {accum}, init "
+        f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card; per "
+        f"micro-step expect {want_flash} flash_attention launches")
+    records = record_steps(trainer, {"flash_attention": flash_attention})
+    saves = record_saves(trainer)
+    # --- the main path: the trainer's loop ---
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    trainer.train()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.launches}
+    # -----------------------------------------
+    report_steps("standard joint", records, accum, cfg.global_batch_size)
+    codes = {m["q"].dtype for m in trainer.state.opt_state["mu"].values() if isinstance(m, dict)}
+    log(f"# standard joint: loop wall {wall:.2f} s for {cfg.n_updates} updates; launches {launches}; moment codes "
+        f"{sorted(map(str, codes))}; saves asked at updates {saves}")
+    bad = [i + 1 for i, (n, loss, gn, pn, _) in enumerate(records)
+           if not (np.isfinite(loss) and np.isfinite(gn) and np.isfinite(pn)) or n["flash_attention"] != want_flash]
+    if bad or len(records) != cfg.n_updates * accum or codes != {torch.int8} or not n_q or saves != [cfg.n_updates]:
+        raise SystemExit(f"standard joint: micro-steps {bad} non-finite or unexpected launches, codes {codes}, "
+                         f"saves {saves}")
+    batch = trainer.device_batch(next(iter(trainer.train_data)))
+    profile_pass("standard joint micro-step", lambda: (trainer.train_step(trainer.state, batch),
+                                                       torch.cuda.synchronize()))
+    del trainer, batch
+    gc.collect()  # the recorders installed on the trainer refer back to it
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1326,14 +1771,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     int8 = phase_int8_serving()
     training = phase_training()
-    if not (serving > 0 and all(n > 0 for n in int8.values()) and all(n > 0 for n in training.values())):
-        raise SystemExit(f"a kernel of the path never launched: serving {serving}, int8 {int8}, training {training}")
-    kernels["flash_attention"]["launches"] = serving + int8["flash_attention"] + training["flash_attention"]
+    standard = phase_standard_training()
+    if not (serving > 0 and all(n > 0 for n in int8.values()) and all(n > 0 for n in training.values())
+            and all(n > 0 for n in standard.values())):
+        raise SystemExit(f"a kernel of the path never launched: serving {serving}, int8 {int8}, training {training}, "
+                         f"standard training {standard}")
+    kernels["flash_attention"]["launches"] = (serving + int8["flash_attention"] + training["flash_attention"]
+                                              + standard["flash_attention"])
     kernels["fused_adam_rows"]["launches"] = training["fused_adam_rows"]
-    kernels["w8a8_matmul"]["launches"] = int8["w8a8_matmul"]
+    kernels["w8a8_matmul"]["launches"] = int8["w8a8_matmul"] + standard["w8a8_matmul"]
     log(f"# launches on the main paths: flash_attention {serving} serving + {int8['flash_attention']} int8 "
-        f"serving + {training['flash_attention']} training, fused_adam_rows {training['fused_adam_rows']} "
-        f"training, w8a8_matmul {int8['w8a8_matmul']} int8 serving")
+        f"serving + {training['flash_attention']} fused training + {standard['flash_attention']} standard "
+        f"training, fused_adam_rows {training['fused_adam_rows']} fused training, w8a8_matmul "
+        f"{int8['w8a8_matmul']} int8 serving + {standard['w8a8_matmul']} expert-only training")
     torch.cuda.synchronize()
     log(f"# total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -189,7 +189,8 @@ class TrainPipelineConfig:
     # stochastic rounding (the joint recipe's precision)
     master_dtype: str = "float32"
     # fused backward+optimizer (train/fused_joint.py): the pi0 joint recipe
-    # with one-step-delayed global-norm clipping; no gradient accumulation
+    # with one-step-delayed global-norm clipping; no gradient accumulation.
+    # False: the standard step (train/train_step.py)
     fused_update: bool = False
     quantize_frozen_int8: bool = False
 
@@ -203,6 +204,7 @@ class TrainPipelineConfig:
 
     log_freq: int = 4
     train_log_metrics: list = field(default_factory=lambda: ["l2_loss"])
+    eval_thresholds: list = field(default_factory=lambda: [0.05, 0.1, 0.2, 0.3, 0.5])
     eval_freq: int = 250
     eval_size: int = 1024
 
@@ -245,7 +247,7 @@ class TrainPipelineConfig:
                 raise ValueError("Simulator name is not specified in the config.")
             adapter = self.eval_cfg.env_adapter or "BridgeSimplerAdapter"
             self.eval_cfg.env_adapter_path = f"intact_tpu_torch.envs.adapters.{sim}.{adapter}"
-            # simulator_path stays None: the evaluators are not ported (ROADMAP A9/A10)
+            # simulator_path stays None: the evaluators are not ported (ROADMAP A4)
         return self
 
     def validate_parallel_eval(self):

@@ -28,15 +28,23 @@ from intact_tpu_torch.models.pi0.config import Pi0Config
 
 
 def from_jax_params(tree, cfg: Pi0Config, device=None, dtype=torch.float32) -> cm.Params:
-    """Map the reference `pi0.init` tree (leaves as numpy arrays), or its
-    `quantize_params` form, onto the port's parameter tree for `cfg`, on
-    `device` (CUDA unless given), float leaves in `dtype`; int8 codes stay
-    int8 and quantization scales fp32."""
+    """Map the reference `pi0.init` tree (leaves as numpy arrays), or a form
+    with quantized dense nodes (`quantize_params`, `quantize_frozen`), onto
+    the port's parameter tree for `cfg`, on `device` (CUDA unless given),
+    float leaves in `dtype`; int8 codes stay int8 and quantization scales
+    fp32."""
     device = cm.resolve_device(device)
-    template = pi0.init(cfg, device="meta", dtype=dtype)
     src = cm.flatten_paths(tree)
-    if any(path.endswith("/kernel_q") for path in src):
-        template = cm.quantize_params(template)
+    quantized = {path[:-len("/kernel_q")] for path in src if path.endswith("/kernel_q")}
+
+    def quantize_like_src(node, path=""):
+        if not isinstance(node, dict):
+            return node
+        if "kernel" in node and path in quantized:
+            return cm.quantize_dense(node)
+        return {k: quantize_like_src(v, f"{path}/{k}" if path else k) for k, v in node.items()}
+
+    template = quantize_like_src(pi0.init(cfg, device="meta", dtype=dtype))
     want = cm.flatten_paths(template)
     missing = sorted(set(want) - set(src))
     extra = sorted(set(src) - set(want))

@@ -332,6 +332,25 @@ def quantize_params(params: Params, consume: bool = False) -> Params:
     return walk(params)
 
 
+def quantize_frozen(params: Params, trainable_mask) -> Params:
+    """Quantize the dense nodes that match QUANTIZE_DEFAULT_PATTERN and are
+    wholly frozen (every leaf False in `trainable_mask`, a bool tree like
+    params) to int8 with `quantize_dense`; trainable kernels stay float and
+    every other leaf moves into the result as it is. The trainer's
+    quantize_frozen_int8 mode: the frozen tower's forward goes through the
+    W8A8 kernel while the expert keeps float masters."""
+    default = re.compile(QUANTIZE_DEFAULT_PATTERN)
+
+    def walk(node, mask_node, path=""):
+        if not isinstance(node, dict):
+            return node
+        if "kernel" in node and default.match(path):
+            return node if any(tree_leaves(mask_node)) else quantize_dense(node)
+        return {k: walk(v, mask_node[k], f"{path}/{k}" if path else k) for k, v in node.items()}
+
+    return walk(params, trainable_mask)
+
+
 def quantize_host_tree(raw: Params, policy: DtypePolicy = SERVING_POLICY, device=None) -> Params:
     """A host (CPU tensor or numpy) parameter tree -> the serving-int8 tree on
     `device` (CUDA unless given), one leaf at a time: the device holds the

@@ -148,10 +148,9 @@ def compute_loss(params, rng: np.random.Generator | None, batch: dict, cfg: Pi0C
 
     batch keys: images, img_masks, lang_tokens, lang_masks, state, actions,
     and optionally action_is_pad [B, chunk] bool. `rng` draws the noise and
-    the time unless both are given.
+    the time unless both are given. With `train` and cfg.train_expert_only
+    the velocity comes from the frozen-prefix path.
     """
-    if train and cfg.train_expert_only:
-        raise NotImplementedError("the frozen-prefix (train_expert_only) path is not ported yet")
     actions = batch["actions"].to(torch.float32)
     device = actions.device
     if noise is None:
@@ -163,7 +162,8 @@ def compute_loss(params, rng: np.random.Generator | None, batch: dict, cfg: Pi0C
     x_t = t * noise + (1 - t) * actions
     u_t = noise - actions
 
-    v_t = predict_velocity(
+    predict = predict_velocity_frozen_prefix if (train and cfg.train_expert_only) else predict_velocity
+    v_t = predict(
         params, batch["images"], batch["img_masks"], batch["lang_tokens"],
         batch["lang_masks"], batch["state"], x_t, time, cfg, policy,
     )
@@ -202,6 +202,53 @@ def predict_velocity(params, images, img_masks, lang_tokens, lang_masks, state,
     return cm.dense(params["action_out_proj"], suffix_out, FP32_POLICY)  # fp32 action head
 
 
+def prefix_cache(params, images, img_masks, lang_tokens, lang_masks, cfg: Pi0Config,
+                 policy: DtypePolicy = DEFAULT_POLICY):
+    """The prefix through SigLIP, the projector and `gemma.prefill(kv_only=True)`
+    -> (kv_cache, pre_pad). The caller chooses the grad mode: the sampler
+    runs it under inference_mode, the frozen-prefix training path under
+    no_grad."""
+    pre_embs, pre_pad, pre_att = embed_prefix(params, images, img_masks, lang_tokens, lang_masks, cfg, policy)
+    pre_mask = make_att_2d_masks(pre_pad, pre_att)
+    pre_pos = torch.cumsum(pre_pad.to(torch.int32), dim=1) - 1
+    _, kv_cache = gemma.prefill(
+        params["vlm"], pre_embs, pre_mask, pre_pos, cfg.vlm, policy, cfg.attention_impl, kv_only=True,
+    )
+    return kv_cache, pre_pad
+
+
+def decode_layout(pre_pad: torch.Tensor, cfg: Pi0Config):
+    """The suffix's decode mask [B, S, P+S] against [prefix cache; suffix]
+    and its positions [B, S], continuing after the prefix."""
+    b = pre_pad.shape[0]
+    prefix_count = pre_pad.sum(dim=1, keepdim=True).to(torch.int32)  # [B, 1]
+    suf_pad, suf_att = suffix_layout(b, cfg, pre_pad.device)
+    suf_self = make_att_2d_masks(suf_pad, suf_att)  # [B, S, S]
+    suf_to_pre = pre_pad[:, None, :].expand(b, suf_pad.shape[1], pre_pad.shape[1])
+    dec_mask = torch.cat([suf_to_pre, suf_self], dim=2)
+    suf_pos = prefix_count + torch.cumsum(suf_pad.to(torch.int32), dim=1) - 1
+    return dec_mask, suf_pos
+
+
+def predict_velocity_frozen_prefix(params, images, img_masks, lang_tokens, lang_masks, state, x_t, time,
+                                   cfg: Pi0Config, policy: DtypePolicy = DEFAULT_POLICY):
+    """Expert-only fine-tune path -> v_t [B, chunk, action_dim] (fp32). The
+    prefix tower (SigLIP, projector, VLM) is frozen, so it runs forward-only
+    under no_grad and its K/V cache carries no graph; the expert then runs
+    `gemma.decode` against that cache with autograd. The expert and head
+    gradients equal the joint path's: every gradient path through the prefix
+    K/V leads to frozen parameters only. The prefix's int8 products (a
+    `quantize_frozen` tower) have no gradient, and need none here."""
+    with torch.no_grad():
+        kv_cache, pre_pad = prefix_cache(params, images, img_masks, lang_tokens, lang_masks, cfg, policy)
+    dec_mask, suf_pos = decode_layout(pre_pad, cfg)
+    suf_embs, _, _ = embed_suffix(params, state, x_t, time, cfg, policy)
+    suffix_out = gemma.decode(params["expert"], kv_cache, suf_embs, dec_mask, suf_pos, cfg.expert, policy,
+                              cfg.attention_impl)
+    suffix_out = suffix_out[:, -cfg.chunk_size:].to(torch.float32)
+    return cm.dense(params["action_out_proj"], suffix_out, FP32_POLICY)  # fp32 action head
+
+
 # ---------------------------------------------------------------------------
 # inference
 # ---------------------------------------------------------------------------
@@ -219,24 +266,9 @@ def sample_actions(params, generator, images, img_masks, lang_tokens, lang_masks
     if noise is None:
         noise = sample_noise(generator, (b, cfg.chunk_size, cfg.max_action_dim), device)
 
-    pre_embs, pre_pad, pre_att = embed_prefix(
-        params, images, img_masks, lang_tokens, lang_masks, cfg, policy
-    )
-    pre_mask = make_att_2d_masks(pre_pad, pre_att)
-    pre_pos = torch.cumsum(pre_pad.to(torch.int32), dim=1) - 1
-
-    _, kv_cache = gemma.prefill(
-        params["vlm"], pre_embs, pre_mask, pre_pos, cfg.vlm, policy,
-        cfg.attention_impl, kv_only=True,
-    )
-
+    kv_cache, pre_pad = prefix_cache(params, images, img_masks, lang_tokens, lang_masks, cfg, policy)
     # the suffix attention layout is timestep-independent: build it once
-    prefix_count = pre_pad.sum(dim=1, keepdim=True).to(torch.int32)  # [B, 1]
-    suf_pad, suf_att = suffix_layout(b, cfg, device)
-    suf_self = make_att_2d_masks(suf_pad, suf_att)  # [B, S, S]
-    suf_to_pre = pre_pad[:, None, :].expand(b, suf_pad.shape[1], pre_pad.shape[1])
-    dec_mask = torch.cat([suf_to_pre, suf_self], dim=2)  # [B, S, P+S]
-    suf_pos = prefix_count + torch.cumsum(suf_pad.to(torch.int32), dim=1) - 1
+    dec_mask, suf_pos = decode_layout(pre_pad, cfg)
 
     dt = -1.0 / cfg.num_steps
     # t goes 1.0, 1-1/N, ..., 1/N  (num_steps steps down to 0)

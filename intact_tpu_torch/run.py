@@ -2,6 +2,8 @@
 
     python -m intact_tpu_torch.run --config_path config/train/pi0_finetune_bridge_1chip.yaml \
         --n_updates 3 --log_freq 1 --tokenizer_path hash [--device cpu]
+    python -m intact_tpu_torch.run --config_path config/train/pi0_finetune_bridge_expertonly.yaml \
+        --mesh.fsdp 1 --global_batch_size 192 --n_updates 3 --tokenizer_path hash [--device cpu]
     python -m intact_tpu_torch.run --config_path config/experiment/simpler/pi0_finetune_bridge_ev.yaml \
         --eval_cfg.role server --eval_cfg.quantize_int8 true [--eval_cfg.pretrained_model_path null] \
         [--tokenizer_path hash] [--device cpu]
@@ -10,7 +12,7 @@ Any config field is overridable with --dotted.path value. --device picks the
 device (CUDA unless given). Without `eval_cfg` the config trains; with it,
 `eval_cfg.role` server serves the configured policy over the websocket
 protocol. The client role drives the simulator evaluators, which are not
-ported yet (ROADMAP A9/A10) and raises.
+ported yet (ROADMAP A4) and raises.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ def main(argv: list[str] | None = None) -> int:
         return 0
 
     if cfg.eval_cfg.role == "client":
-        raise NotImplementedError("the client role (simulator evaluators) is not ported yet; see ROADMAP A9/A10")
+        raise NotImplementedError("the client role (simulator evaluators) is not ported yet; see ROADMAP A4")
 
     raise ValueError(f"unknown role {cfg.eval_cfg.role!r}")
 

@@ -1,16 +1,24 @@
-"""Parameter checkpoints in a torch format, with the reference's directory contract.
+"""Checkpoints in a torch format, with the reference's directory contract.
 
 <ckpt_root>/step_{n}/ per save (n = the gradient-update count), holding
 `params.pt` (the parameter tree flattened to {"a/b/c": tensor} on the host,
-written with torch.save) and `auxiliary_data.json`, written last: its
-presence is the commit marker, so a crash mid-save leaves a step dir that
+written with torch.save), for a training state `train_state.pt` (every field
+of the state but its params: the optimizer state with its moments,
+accumulator and counts, the micro-step or update count, the seed), and
+`auxiliary_data.json` (cnt_update and the caller's fields), written last:
+its presence is the commit marker, so a crash mid-save leaves a step dir that
 restore skips. A root dir resolves to its newest committed step; a step dir
-is restored as given. As intact_tpu/train/checkpoint.py, params only: the
-optimizer state and resuming a run are not ported yet.
+is restored as given.
+
+`restore_train_state` restores params only (resume_run=False) or the whole
+state; a params_template/params_transform pair loads a checkpoint whose
+parameter tree differs from the live one (float pretrained params into a
+quantize_frozen_int8 run), as intact_tpu/train/checkpoint.py does.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import shutil
@@ -21,6 +29,7 @@ import torch
 from intact_tpu_torch.models.common import flatten_paths, unflatten_paths
 
 PARAMS_FILE = "params.pt"
+STATE_FILE = "train_state.pt"
 AUX_FILE = "auxiliary_data.json"
 
 
@@ -47,10 +56,18 @@ def list_steps(ckpt_root: str | Path, committed_only: bool = False) -> list[int]
     return sorted(out)
 
 
-def save_checkpoint(ckpt_root: str | Path, params, step: int, aux: dict | None = None) -> Path:
-    """Write step_{step}/params.pt, then auxiliary_data.json as the commit
-    marker. A committed step is never overwritten (raises); the leftovers of
-    a crash mid-save at this step are cleared first."""
+def _to_host(node):
+    if isinstance(node, dict):
+        return {k: _to_host(v) for k, v in node.items()}
+    return node.detach().to("cpu") if isinstance(node, torch.Tensor) else node
+
+
+def save_checkpoint(ckpt_root: str | Path, params, step: int, aux: dict | None = None,
+                    train_state: dict | None = None) -> Path:
+    """Write step_{step}/params.pt, then train_state.pt when a training state
+    is given ({field: tensor tree or number}), then auxiliary_data.json as
+    the commit marker. A committed step is never overwritten (raises); the
+    leftovers of a crash mid-save at this step are cleared first."""
     path = step_dir(ckpt_root, int(step)).resolve()
     if (path / AUX_FILE).exists():
         raise FileExistsError(
@@ -62,6 +79,8 @@ def save_checkpoint(ckpt_root: str | Path, params, step: int, aux: dict | None =
     path.mkdir(parents=True, exist_ok=True)
     host = {k: v.detach().to("cpu") for k, v in flatten_paths(params).items()}
     torch.save(host, path / PARAMS_FILE)
+    if train_state is not None:
+        torch.save(_to_host(train_state), path / STATE_FILE)
     auxiliary = {"cnt_update": int(step)}
     auxiliary.update(aux or {})
     (path / AUX_FILE).write_text(json.dumps(auxiliary, indent=2))
@@ -99,3 +118,67 @@ def restore_params(ckpt_path: str | Path, template=None) -> dict:
             if tuple(flat[k].shape) != tuple(t.shape):
                 raise ValueError(f"{k}: checkpoint shape {tuple(flat[k].shape)} != {tuple(t.shape)}")
     return unflatten_paths(flat)
+
+
+def state_fields(state) -> dict:
+    """A training state dataclass (TrainState, FusedTrainState) minus its
+    params: what a save holds besides the parameters."""
+    return {f.name: getattr(state, f.name) for f in dataclasses.fields(state) if f.name != "params"}
+
+
+def _load_into(live, saved, where: str):
+    """Copy a saved tree into the live one of the same structure, tensor by
+    tensor in place (shape and dtype must match); numbers are taken as saved."""
+    if isinstance(live, dict):
+        if not isinstance(saved, dict) or set(live) != set(saved):
+            have = sorted(saved) if isinstance(saved, dict) else type(saved).__name__
+            raise ValueError(f"{where}: saved keys {have} do not match the live state's {sorted(live)}")
+        for k in live:
+            live[k] = _load_into(live[k], saved[k], f"{where}/{k}")
+        return live
+    if isinstance(live, torch.Tensor):
+        if not isinstance(saved, torch.Tensor) or saved.shape != live.shape or saved.dtype != live.dtype:
+            got = (tuple(saved.shape), saved.dtype) if isinstance(saved, torch.Tensor) else type(saved).__name__
+            raise ValueError(f"{where}: saved {got} does not fit the live {(tuple(live.shape), live.dtype)}")
+        return live.copy_(saved)
+    if type(saved) is not type(live):
+        raise ValueError(f"{where}: saved {type(saved).__name__}, live {type(live).__name__}")
+    return saved
+
+
+def restore_train_state(ckpt_path: str | Path, template, resume_run: bool = True, params_template=None,
+                        params_transform=None):
+    """-> (state, aux). `template` is the live training state (TrainState or
+    FusedTrainState); restored values are copied into its tensors. With
+    resume_run=False only the params load (the optimizer, counters and seed
+    stay the template's, aux is {}); otherwise the saved state fields load
+    too, or, for a params-only checkpoint, the template's stay with a
+    warning. With params_template (a tree of tensors or meta tensors giving
+    paths, shapes and dtypes) the params restore into that structure on the
+    template's device and `params_transform` maps them into the live one."""
+    path = Path(ckpt_path)
+    if not (path / PARAMS_FILE).exists():
+        path = _resolve_latest_step(path)
+    live = flatten_paths(template.params)
+    device = next(iter(live.values())).device
+    if params_template is None:
+        saved = flatten_paths(restore_params(path, template.params))
+        params = unflatten_paths({k: v.copy_(saved[k]) for k, v in live.items()})  # cast to the live dtype
+    else:
+        saved = flatten_paths(restore_params(path, params_template))
+        params = unflatten_paths({k: saved[k].to(device=device, dtype=t.dtype)
+                                  for k, t in flatten_paths(params_template).items()})
+        if params_transform is not None:
+            params = params_transform(params)
+    if not resume_run:
+        return dataclasses.replace(template, params=params), {}
+    aux_file = path / AUX_FILE
+    aux = json.loads(aux_file.read_text()) if aux_file.exists() else {}
+    if not (path / STATE_FILE).exists():
+        logging.getLogger("intact_tpu_torch.checkpoint").warning(
+            "resume_run=True but %s holds no training state (params only); continuing with a fresh "
+            "optimizer and counters", path)
+        return dataclasses.replace(template, params=params), aux
+    fields = torch.load(path / STATE_FILE, map_location="cpu", weights_only=True)
+    restored = _load_into(state_fields(template), fields, STATE_FILE)
+    return dataclasses.replace(template, params=params, **restored), aux

@@ -1,20 +1,37 @@
-"""Single-card trainer for the Pi0 joint recipe with the fused step.
+"""Single-card Pi0 trainer: the fused joint step or the standard step.
 
-The `fused_update` path of intact_tpu/train/trainer.py: config -> random
-parameters from the seed -> fused 8-bit-state AdamW state -> a loop of
-`fused_joint` steps over synthetic batches, logging the reference's train line
-(update count, loss, grad norm, lr, time), and saving the parameters every
-`save_model_freq` updates under <log_dir>/<name>/checkpoint/step_{n}/
-(train/checkpoint.py). It keeps the JAX trainer's refusals for settings the
-fused step cannot honour. Not ported yet, and refused: the standard (unfused)
-step, loading a checkpoint and resuming (optimizer state), validation,
-meshes and gradient accumulation, W&B, task paraphrasing.
+intact_tpu/train/trainer.py on one card: config -> parameters from the seed
+-> training state -> a loop of micro-steps over synthetic batches, prepared
+one batch ahead on a worker thread (utils/prefetch.py), logging the
+reference's train line (update count, loss, grad norm, lr, time), validating
+every `eval_freq` updates (sampled actions against the val split's: l1_loss
+and acc@t for each of `eval_thresholds`), saving the state every
+`save_model_freq` updates and after the last one under
+<log_dir>/<name>/checkpoint/step_{n}/ (train/checkpoint.py), and loading a
+checkpoint at start: params only (resume_run false), or the whole state to
+resume the run.
 
-Runs on the CUDA device unless the caller passes device="cpu".
+Two steps, as in the reference:
+  * fused_update: train/fused_joint.py, the joint recipe with its update
+    inside the backward (no accumulation, no freeze set beyond the embedding);
+  * standard: train/train_step.py with make_optimizer (AdamW or 8-bit AdamW,
+    fp32 clip, gradient accumulation) over the freeze partition
+    (`_freeze_mask`); frozen leaves are stored in bf16 under fp32 masters,
+    bf16 masters update with stochastic rounding, and quantize_frozen_int8
+    stores the frozen tower in int8 (pi0 expert-only only: the W8A8 product
+    has no gradient). The joint path recomputes each layer in the backward
+    (per-layer torch.utils.checkpoint), as every joint recipe's `remat: true`
+    asks; the expert-only path has no tower backward, and its recipe's
+    `remat: false`.
+
+Not ported yet, and refused: meshes (the trainer runs on one card), W&B,
+task paraphrasing. Runs on the CUDA device unless the caller passes
+device="cpu".
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from pathlib import Path
@@ -29,7 +46,10 @@ from intact_tpu_torch.models.pi0 import model as pi0
 from intact_tpu_torch.models.tokenizer import make_tokenizer
 from intact_tpu_torch.train import checkpoint as ckpt
 from intact_tpu_torch.train import fused_joint as fj
-from intact_tpu_torch.train.optim import cosine_warmup_restarts
+from intact_tpu_torch.train import train_step as ts
+from intact_tpu_torch.train.optim import cosine_warmup_restarts, make_optimizer
+from intact_tpu_torch.utils.metric import get_action_accuracy, l1_error
+from intact_tpu_torch.utils.prefetch import PrefetchIterator
 
 CAMERA_KEYS = ("image_primary", "image_secondary", "image_wrist")
 
@@ -109,8 +129,14 @@ def preprocess_batch(batch: dict, tokenizer, model_cfg) -> dict:
     return out
 
 
+# model types whose compute_loss never differentiates through the frozen
+# tower (pi0's train_expert_only path runs the prefix under no_grad): the only
+# ones where quantize_frozen_int8 is sound
+_QUANTIZE_FROZEN_SAFE = {"pi0"}
+
+
 class Trainer:
-    """Pi0 joint-recipe trainer on one card (fused_update)."""
+    """Pi0 trainer on one card (fused joint step or standard step)."""
 
     def __init__(self, cfg: TrainPipelineConfig, device=None):
         self.cfg = cfg
@@ -118,48 +144,25 @@ class Trainer:
         self.logger = logging.getLogger("intact_tpu_torch.trainer")
         self.model_cfg = cfg.make_model_config()
         self._refuse_unported(cfg)
-
-        # ---- the fused step's refusals (as the JAX trainer's) ----
-        if cfg.model_type != "pi0" or self.model_cfg.train_expert_only:
-            raise ValueError("fused_update is the pi0 joint-recipe step (full-tower gradients); use the "
-                             "standard path for expert-only or other families")
-        if cfg.quantize_frozen_int8:
-            raise ValueError("fused_update trains the tower; quantize_frozen_int8 is unsound with it")
-        if cfg.freeze_vlm or self.model_cfg.freeze_vision_encoder:
-            raise ValueError("fused_update implements the joint recipe's freeze set (embedding only); "
-                             "freeze_vlm/freeze_vision_encoder need the standard path")
+        if cfg.master_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"master_dtype must be float32|bfloat16, got {cfg.master_dtype!r}")
+        self.bf16_masters = cfg.master_dtype == "bfloat16" and cfg.use_bf16
         accum = max(1, cfg.global_batch_size // cfg.per_device_batch_size)
         if accum * cfg.per_device_batch_size != cfg.global_batch_size:
             raise ValueError(
                 f"global_batch_size={cfg.global_batch_size} is not a multiple of the micro batch "
                 f"{cfg.per_device_batch_size} (per_device_batch_size on one device); training would "
                 f"silently run at effective global batch {accum * cfg.per_device_batch_size}.")
-        if accum > 1:
-            raise ValueError(
-                "fused_update applies each layer's update inside the backward — gradient accumulation "
-                "would need the full gradient tree the mode exists to avoid "
-                f"(global_batch_size={cfg.global_batch_size} needs accumulation {accum} on one device).")
-        if cfg.master_dtype not in ("float32", "bfloat16"):
-            raise ValueError(f"master_dtype must be float32|bfloat16, got {cfg.master_dtype!r}")
-        self.bf16_masters = cfg.master_dtype == "bfloat16" and cfg.use_bf16
-
+        self.micro_batch_size = cfg.per_device_batch_size
         self.policy = cm.DtypePolicy(param_dtype=torch.float32,
                                      compute_dtype=torch.bfloat16 if cfg.use_bf16 else torch.float32)
-        self.opt_cfg = optimizer_config_from_model_json(cfg.model_cfg, cfg)
-        self.lr_schedule = cosine_warmup_restarts(
-            max_lr=self.opt_cfg.lr, first_cycle_steps=self.opt_cfg.first_cycle_steps,
-            warmup_steps=self.opt_cfg.warmup_steps, min_lr=self.opt_cfg.min_lr,
-            cycle_mult=self.opt_cfg.cycle_mult, gamma=self.opt_cfg.gamma)
-
-        # parameters: all bf16 (the joint recipe's precision, stochastic
-        # rounding), or fp32 trainable leaves with the frozen embedding in bf16
-        params = pi0.init(self.model_cfg, cfg.seed, self.device,
-                          torch.bfloat16 if self.bf16_masters else torch.float32)
-        if not self.bf16_masters and cfg.use_bf16:
-            params["vlm_embed"] = cm.tree_map(lambda x: x.to(torch.bfloat16), params["vlm_embed"])
-        self.state = fj.init_fused_state(params, cfg.seed)
-        self.train_step = fj.make_fused_joint_step(
-            self.model_cfg, self.opt_cfg, self.policy, stochastic_rounding=self.bf16_masters)
+        self.opt_cfg = dataclasses.replace(optimizer_config_from_model_json(cfg.model_cfg, cfg),
+                                           grad_accumulation_steps=accum)
+        self._prequant = None  # (float params template, frozen mask) under quantize_frozen_int8
+        if cfg.fused_update:
+            self._init_fused(accum)
+        else:
+            self._init_standard()
 
         # ---- data ----
         self.tokenizer = make_tokenizer(cfg.resolve_tokenizer_path(), self.model_cfg.tokenizer_max_length,
@@ -168,18 +171,115 @@ class Trainer:
         norm_stats = {"action": stats.get("action"), "proprio": stats.get("observation.state")} if stats else None
         # the scheme the serving adapters invert ("gaussian" there is "normal" here)
         norm_type = "normal" if cfg.env.action_normalization_type == "gaussian" else "bound"
-        self.micro_batch_size = cfg.per_device_batch_size
-        self.train_data = InterleavedDataset(
-            cfg.data, self.micro_batch_size, split="train", stats=norm_stats, normalization_type=norm_type,
-            seed=cfg.seed, image_size=self.model_cfg.vision.image_size)
+        data_kw = dict(stats=norm_stats, normalization_type=norm_type, image_size=self.model_cfg.vision.image_size)
+        self.train_data = InterleavedDataset(cfg.data, self.micro_batch_size, split="train", seed=cfg.seed, **data_kw)
+        self.val_data = InterleavedDataset(cfg.data, self.micro_batch_size, split="val", seed=cfg.seed + 1,
+                                           **data_kw)
         self.cnt_update = 0
+        self._last_saved_update = -1
         self.ckpt_root = Path(cfg.log_dir) / (cfg.name or "run") / "checkpoint"
+        if cfg.load_from_checkpoint:
+            self._load(cfg.load_from_checkpoint, cfg.resume_run)
+
+    def _init_fused(self, accum: int) -> None:
+        """The fused joint step and its refusals (as the JAX trainer's)."""
+        cfg = self.cfg
+        if cfg.model_type != "pi0" or self.model_cfg.train_expert_only:
+            raise ValueError("fused_update is the pi0 joint-recipe step (full-tower gradients); use the "
+                             "standard path for expert-only or other families")
+        if cfg.quantize_frozen_int8:
+            raise ValueError("fused_update trains the tower; quantize_frozen_int8 is unsound with it (the "
+                             "standard step takes it with train_expert_only)")
+        if cfg.freeze_vlm or self.model_cfg.freeze_vision_encoder:
+            raise ValueError("fused_update implements the joint recipe's freeze set (embedding only); "
+                             "freeze_vlm/freeze_vision_encoder need the standard path")
+        if accum > 1:
+            raise ValueError(
+                "fused_update applies each layer's update inside the backward — gradient accumulation "
+                "would need the full gradient tree the mode exists to avoid "
+                f"(global_batch_size={cfg.global_batch_size} needs accumulation {accum} on one device).")
+        # parameters: all bf16 (the joint recipe's precision, stochastic
+        # rounding), or fp32 trainable leaves with the frozen embedding in bf16
+        params = pi0.init(self.model_cfg, cfg.seed, self.device,
+                          torch.bfloat16 if self.bf16_masters else torch.float32)
+        if not self.bf16_masters and cfg.use_bf16:
+            params["vlm_embed"] = cm.tree_map(lambda x: x.to(torch.bfloat16), params["vlm_embed"])
+        self.state = fj.init_fused_state(params, cfg.seed)
+        oc = self.opt_cfg
+        self.lr_schedule = cosine_warmup_restarts(
+            max_lr=oc.lr, first_cycle_steps=oc.first_cycle_steps, warmup_steps=oc.warmup_steps,
+            min_lr=oc.min_lr, cycle_mult=oc.cycle_mult, gamma=oc.gamma)
+        self.train_step = fj.make_fused_joint_step(
+            self.model_cfg, self.opt_cfg, self.policy, stochastic_rounding=self.bf16_masters)
+
+    def _init_standard(self) -> None:
+        """The standard step over the freeze partition."""
+        cfg, mc = self.cfg, self.model_cfg
+        frozen_mask = self._freeze_mask(pi0.init(mc, device="meta"))
+        if cfg.quantize_frozen_int8 and (cfg.model_type not in _QUANTIZE_FROZEN_SAFE or not mc.train_expert_only):
+            # the W8A8 product has no gradient: a loss that differentiates
+            # through the frozen tower would silently lose its signal there
+            raise ValueError(
+                "quantize_frozen_int8 requires a model whose loss never differentiates through the frozen "
+                f"tower (supported: {sorted(_QUANTIZE_FROZEN_SAFE)} with train_expert_only=true); got "
+                f"model_type={cfg.model_type!r}, train_expert_only={mc.train_expert_only}")
+
+        def float_params(device):
+            # bf16 masters: every leaf bf16 (updates round stochastically);
+            # else fp32, with frozen leaves in bf16: they never update
+            params = pi0.init(mc, cfg.seed, device, torch.bfloat16 if self.bf16_masters else torch.float32)
+            if not self.bf16_masters and frozen_mask is not None and cfg.use_bf16:
+                flat, mask = cm.flatten_paths(params), cm.flatten_paths(frozen_mask)
+                params = cm.unflatten_paths({k: v if mask[k] else v.to(torch.bfloat16) for k, v in flat.items()})
+            return params
+
+        params = float_params(self.device)
+        if cfg.quantize_frozen_int8:
+            # the tree changes (kernel -> kernel_q/kernel_scale under frozen
+            # nodes), so the mask and optimizer are built on the quantized tree
+            self._prequant = (float_params("meta"), frozen_mask)
+            params = cm.quantize_frozen(params, frozen_mask)
+            frozen_mask = self._freeze_mask(params)
+        self.frozen_mask = frozen_mask
+        self.tx, self.lr_schedule = make_optimizer(self.opt_cfg, frozen_mask)
+        self.state = ts.init_train_state(params, self.tx, seed=cfg.seed)
+
+        policy = self.policy  # not self: a step holding the trainer would keep it alive after `del`
+
+        def loss_fn(p, rng, batch, noise, time_):
+            return pi0.compute_loss(p, rng, batch, mc, policy, noise=noise, time=time_)
+
+        self.train_step = ts.make_train_step(loss_fn, self.tx, stochastic_rounding=self.bf16_masters)
+
+    def _freeze_mask(self, params):
+        """True = trainable; None when nothing is frozen. The reference's
+        freeze flags (intact_tpu/train/trainer.py::_freeze_mask):
+        freeze_lm_head freezes pi0's token embedding; freeze_vision_encoder
+        SigLIP; freeze_vlm the VLM and embedding; train_expert_only all of
+        them and the projector."""
+        cfg, mc = self.cfg, self.model_cfg
+        freeze_embed = cfg.freeze_lm_head and cfg.model_type == "pi0" and "vlm_embed" in params
+        if not (mc.freeze_vision_encoder or cfg.freeze_vlm or mc.train_expert_only or freeze_embed):
+            return None
+        mask = cm.tree_map(lambda _: True, params)
+
+        def freeze(name):
+            mask[name] = cm.tree_map(lambda _: False, mask[name])
+
+        if freeze_embed:
+            freeze("vlm_embed")
+        if mc.freeze_vision_encoder or mc.train_expert_only:
+            freeze("siglip")
+        if cfg.freeze_vlm or mc.train_expert_only:
+            freeze("vlm")
+            freeze("vlm_embed")
+            if mc.freeze_vision_encoder or mc.train_expert_only:
+                freeze("img_proj")
+        return mask
 
     @staticmethod
     def _refuse_unported(cfg: TrainPipelineConfig) -> None:
         unported = {
-            "the standard (unfused) training step": not cfg.fused_update,
-            "checkpoint loading": bool(cfg.load_from_checkpoint),
             "meshes (the trainer runs on one card)": (cfg.mesh.data not in (-1, 1) or cfg.mesh.fsdp != 1
                                                       or cfg.mesh.tensor != 1),
             "W&B logging": cfg.use_wandb,
@@ -193,29 +293,91 @@ class Trainer:
         batch = preprocess_batch(raw, self.tokenizer, self.model_cfg)
         return {k: torch.from_numpy(np.asarray(v)).to(self.device) for k, v in batch.items()}
 
+    # ------------------------------------------------------------------
+    # main loop
+    # ------------------------------------------------------------------
+
     def train(self) -> None:
         cfg = self.cfg
-        start = last = time.time()
+        accum = self.opt_cfg.grad_accumulation_steps
+        start, start_update = time.time(), self.cnt_update
+        last = start
         window: list[dict] = []
-        self.logger.info("training: %d updates, batch %d on %s", cfg.n_updates, self.micro_batch_size, self.device)
-        data = iter(self.train_data)
-        while self.cnt_update < cfg.n_updates:
-            self.state, metrics = self.train_step(self.state, self.device_batch(next(data)))
-            window.append(metrics)
-            self.cnt_update += 1
-            if self.cnt_update % cfg.log_freq == 0:
-                now = time.time()
-                self._log_training(window, now - last)
-                window, last = [], now
-            if self.cnt_update % cfg.save_model_freq == 0:
-                self.save()
+        self.logger.info("training: %d updates x %d accumulation (micro-batch %d, global %d) on %s",
+                         cfg.n_updates, accum, self.micro_batch_size, cfg.global_batch_size, self.device)
+        # the host side (data, preprocess, host-to-device copy) runs a batch ahead
+        data = PrefetchIterator(iter(self.train_data), prepare=self.device_batch, depth=2)
+        try:
+            micro = 0
+            while self.cnt_update < cfg.n_updates:
+                self.state, metrics = self.train_step(self.state, next(data))
+                window.append(metrics)
+                micro += 1
+                if micro % accum:
+                    continue
+                self.cnt_update += 1  # an emitted update
+                if self.cnt_update % cfg.log_freq == 0:
+                    now = time.time()
+                    self._log_training(window, now - last)
+                    window, last = [], now
+                if self.cnt_update % cfg.eval_freq == 0:
+                    self.validate()
+                if self.cnt_update % cfg.save_model_freq == 0:
+                    self.save()
+        finally:
+            data.close()
+        if self.cnt_update > start_update and self._last_saved_update != self.cnt_update:
+            self.save()  # the last update, when the loop did not just save it
         self.logger.info("training done at update %d in %.2f s", self.cnt_update, time.time() - start)
 
+    def validate(self) -> dict:
+        """Sampled actions (sample_actions, noise from generators seeded 1000 +
+        i) against eval_size // micro_batch val batches: mean l1_loss and
+        acc@t for each of cfg.eval_thresholds."""
+        cfg, mc = self.cfg, self.model_cfg
+        n_batches = max(1, cfg.eval_size // self.micro_batch_size)
+        accs, l1s = [], []
+        val_iter = iter(self.val_data)
+        for i in range(n_batches):
+            batch = self.device_batch(next(val_iter))
+            gt = batch.pop("actions")
+            batch.pop("action_is_pad", None)
+            generator = torch.Generator(device=self.device).manual_seed(1000 + i)
+            pred = pi0.sample_actions(self.state.params, generator, batch["images"], batch["img_masks"],
+                                      batch["lang_tokens"], batch["lang_masks"], batch["state"], mc, self.policy)
+            accs.append(get_action_accuracy(gt, pred, cfg.eval_thresholds))
+            l1s.append(l1_error(gt, pred))
+        acc = torch.stack(accs).mean(dim=0).tolist()
+        metrics = {"l1_loss": torch.stack(l1s).mean().item(), **{f"acc@{t}": a for t, a in zip(cfg.eval_thresholds, acc)}}
+        self.logger.info("val @ update %d | %s", self.cnt_update,
+                         " | ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
+        return metrics
+
+    # ------------------------------------------------------------------
+    # checkpoints
+    # ------------------------------------------------------------------
+
     def save(self) -> Path:
-        """Parameters at the current update count (the step_{n} contract)."""
-        path = ckpt.save_checkpoint(self.ckpt_root, self.state.params, self.cnt_update, aux={"name": self.cfg.name})
+        """The training state at the current update count (the step_{n} contract)."""
+        path = ckpt.save_checkpoint(self.ckpt_root, self.state.params, self.cnt_update, aux={"name": self.cfg.name},
+                                    train_state=ckpt.state_fields(self.state))
+        self._last_saved_update = self.cnt_update
         self.logger.info("saved checkpoint %s", path)
         return path
+
+    def _load(self, path: str, resume_run: bool) -> None:
+        if self._prequant is not None and not resume_run:
+            # quantize_frozen_int8 with a fresh fine-tune: the checkpoint holds
+            # float params; restore them into the float template, then
+            # quantize the frozen tower (a resume checkpoint is quantized)
+            fp_template, mask = self._prequant
+            self.state, aux = ckpt.restore_train_state(
+                path, self.state, resume_run=False, params_template=fp_template,
+                params_transform=lambda p: cm.quantize_frozen(p, mask))
+        else:
+            self.state, aux = ckpt.restore_train_state(path, self.state, resume_run=resume_run)
+        self.cnt_update = int(aux.get("cnt_update", 0)) if resume_run else 0
+        self.logger.info("restored %s (resume=%s, update=%d)", path, resume_run, self.cnt_update)
 
     def _log_training(self, window: list[dict], seconds: float) -> None:
         mean = {k: float(np.mean([float(m[k]) for m in window]))

@@ -56,6 +56,27 @@ def test_config_fields_and_defaults_match():
         assert (tc.prefix_len, tc.suffix_len, tc.proj_width) == (jc.prefix_len, jc.suffix_len, jc.proj_width)
 
 
+def test_pipeline_config_fields_and_defaults_match():
+    """The port's TrainPipelineConfig has the reference's fields, with equal
+    defaults where they are plain values (eval_thresholds among them), but
+    for `reference_only`: fields that nothing in the reference reads."""
+    from intact_tpu.config.pipeline import TrainPipelineConfig as J
+    from intact_tpu_torch.config.pipeline import TrainPipelineConfig as T
+
+    def defaults(cls):
+        out = {}
+        for f in dataclasses.fields(cls):
+            value = f.default_factory() if f.default is dataclasses.MISSING else f.default
+            out[f.name] = value if type(value).__module__ == "builtins" else type(value).__name__
+        return out
+
+    reference_only = {"eval_log_metrics"}
+    want = {k: v for k, v in defaults(J).items() if k not in reference_only}
+    assert reference_only <= set(defaults(J)) and not reference_only & set(defaults(T))
+    assert defaults(T) == want
+    assert defaults(T)["eval_thresholds"] == [0.05, 0.1, 0.2, 0.3, 0.5]
+
+
 @pytest.mark.parametrize("entry", ["policy", "init", "server"])
 def test_entry_points_raise_without_cuda_unless_given_cpu(entry):
     if torch.cuda.is_available():

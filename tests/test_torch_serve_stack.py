@@ -355,6 +355,28 @@ class TestCheckpoint:
         for k, v in cm.flatten_paths(trainer.state.params).items():
             assert torch.equal(last[k], v), k
 
+    def test_trainer_saves_its_last_update(self, tmp_path, monkeypatch):
+        """n_updates not a multiple of save_model_freq: the last update is
+        saved too, after the periodic step_2, with the state it reached."""
+        from intact_tpu_torch.config import pipeline
+        from intact_tpu_torch.models import common as cm
+        from intact_tpu_torch.models.pi0.config import Pi0Config
+        from intact_tpu_torch.train import checkpoint as ckpt
+        from intact_tpu_torch.train.trainer import Trainer
+
+        monkeypatch.setattr(pipeline, "pi0_config_from_json", lambda d: Pi0Config.tiny())
+        cfg = TrainPipelineConfig(
+            name="ckpt_run", log_dir=tmp_path, fused_update=True, master_dtype="bfloat16", global_batch_size=2,
+            per_device_batch_size=2, n_updates=3, save_model_freq=2, log_freq=1, tokenizer_path="hash",
+            model_cfg={"type": "pi0"})
+        trainer = Trainer(cfg, device="cpu")
+        trainer.train()
+        root = tmp_path / "ckpt_run" / "checkpoint"
+        assert ckpt.list_steps(root, committed_only=True) == [2, 3]
+        last = cm.flatten_paths(ckpt.restore_params(root))
+        for k, v in cm.flatten_paths(trainer.state.params).items():
+            assert torch.equal(last[k], v), k
+
 
 # ---------------------------------------------------------------------------
 # the batching server and the run CLI over loopback websockets

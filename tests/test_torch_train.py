@@ -207,10 +207,14 @@ class TestJointAndLoss:
         assert abs(t.mean() - mean) < 0.01  # Beta(1.5, 1): std 0.24, se of the mean 0.0017
 
     def test_expert_only_path_not_ported(self, cfgs, tparams, batch):
+        """The name is historical: the frozen-prefix (train_expert_only) path
+        is ported now, and this checks that its loss equals the joint path's
+        on the same noise and time (the expert sees the same prefix K/V)."""
         cfg = dataclasses.replace(cfgs[1], train_expert_only=True)
-        with pytest.raises(NotImplementedError, match="frozen-prefix"):
-            tpi0.compute_loss(tparams, np.random.default_rng(0), {k: torch.from_numpy(v) for k, v in batch.items()},
-                              cfg, T32)
+        tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+        losses = [tpi0.compute_loss(tparams, np.random.default_rng(0), tb, cfg, T32, train=train)[0].item()
+                  for train in (True, False)]
+        np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
 
 
 @pytest.fixture(scope="module")
@@ -395,7 +399,9 @@ TINY_OVERRIDES = {"global_batch_size": "2", "per_device_batch_size": "2", "n_upd
 
 
 @pytest.fixture
-def tiny_recipe(monkeypatch, cfgs):
+def tiny_recipe(monkeypatch, cfgs, tmp_path):
+    """The 1-chip recipe at tiny(), its checkpoints under tmp_path (the
+    trainer saves its last update)."""
     from intact_tpu_torch.config import pipeline
 
     monkeypatch.setattr(pipeline, "pi0_config_from_json", lambda d: cfgs[1])
@@ -406,6 +412,7 @@ def tiny_recipe(monkeypatch, cfgs):
     argv = ["--config_path", str(Path(__file__).resolve().parent.parent / RECIPE)]
     for k, v in TINY_OVERRIDES.items():
         argv += [f"--{k}", v]
+    argv += ["--log_dir", str(tmp_path)]
     return run, argv
 
 
@@ -467,7 +474,7 @@ class TestTrainer:
 
     @pytest.mark.parametrize("override,error", [
         ({"global_batch_size": "4"}, "accumulation"),
-        ({"fused_update": "false"}, "standard"),
+        ({"quantize_frozen_int8": "true"}, "standard"),
         ({"data.backend": "rlds"}, "RLDS"),
         ({"freeze_vlm": "true"}, "freeze"),
     ])
