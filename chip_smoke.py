@@ -74,6 +74,37 @@ Phases, each failing loudly (non-zero exit):
              forward's depth - 1 and their remat recompute), the last update's
              save asked; a profiler pass. Both report median micro-step and
              update times, samples/s and peak memory
+  6. Pi0FAST serving: the server role's Pi0PolicyWrapper from
+             config/experiment/simplerMS3/pi0fast_finetune_bridge_ev.yaml
+             (SigLIP So400m + Gemma-2B, 329-token prefix, 28 greedy
+             single-token steps of the whole trunk against a growing K/V
+             cache; random weights from the seed, hash tokenizer) with
+             quantize_int8 on: requests through infer_batch at batch 1 and at
+             bucket 64 (one request of the sweep's n_parallel_eval 60 rows, as
+             one ManiSkill3 client sends them), with 17 flash_attention and the tree's count of
+             w8a8_matmul launches per inference checked; env actions finite and
+             of the right shape; every token in the vocabulary tail window; the
+             int8 tokens, every step's window logits and the actions bit-equal
+             with only the W8A8 product plain, and the served env actions
+             equal to those tokens postprocessed; then in bf16 (the same weights,
+             quantize_int8 off) the kernel path against the plain-attention
+             path three ways (the prefix K/V cache, every step's window logits
+             with the kernel path's tokens forced into the plain path, and the
+             plain logit of each kernel token within a margin of the plain
+             maximum; the share of agreeing tokens is reported); latency at
+             batch 1 and 64 (int8 beside bf16 through the same wrapper), peak
+             memory and one profiler pass each
+  7. Pi0FAST training: config/train/pi0fast_finetune_bridge.yaml through
+             the Trainer's standard step at full width and depth (fp32 masters,
+             AdamW, per-layer recompute) with mesh.fsdp 1, micro-batch 16, global 32
+             (accumulation 2), 2 updates, validation once on one batch, the
+             last save recorded: every micro-step's loss, token accuracy and
+             grad norm finite, flash_attention launches per micro-step as
+             counted (the prefill's layers and their recompute), the
+             validation's too; micro-step and update time, samples/s, peak
+             memory and a profiler pass; one micro-step's gradient of every
+             leaf through the kernel against through plain attention at full
+             width and 4 layers
 The second-to-last line is `nvidia-smi`'s card name and power limit; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
@@ -273,6 +304,21 @@ def prefix_mask(b: int, n_img: int, n_lang: int, rng: np.random.Generator) -> to
     return make_att_2d_masks(pad, torch.zeros_like(pad, dtype=torch.int32))
 
 
+def fast_mask(b: int, n_suffix: int, rng: np.random.Generator) -> torch.Tensor:
+    """The Pi0FAST mask: 256 image tokens, a ragged number of the 72 language
+    tokens and the state token as one full-attention block, then n_suffix
+    causal action tokens (the serving prefill has none, training 28)."""
+    from intact_tpu_torch.ops.masks import make_att_2d_masks
+
+    n = 256 + 72 + 1
+    pad = np.ones((b, n + n_suffix), bool)
+    for i, k in enumerate(rng.integers(4, 73, size=b)):
+        pad[i, 256 + k:256 + 72] = False
+    att = np.zeros(pad.shape, np.int32)
+    att[:, n:] = 1
+    return make_att_2d_masks(torch.from_numpy(pad).cuda(), torch.from_numpy(att).cuda())
+
+
 def attention_case(rng, b, t, s, h, kvh, d, dtype, mask):
     def rnd(*shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to("cuda", dtype)
@@ -312,11 +358,16 @@ def phase_kernels() -> list[dict]:
         max_err = max(max_err, err)
 
     # the serving shape at batch 64 and 1, and the training forward's shape
-    # (batch 16, 77 language tokens: 333-byte mask rows), each beside SDPA
+    # (batch 16, 77 language tokens: 333-byte mask rows), each beside SDPA;
+    # then Pi0FAST's: the serving prefill at batch 64 over 329 tokens and the
+    # training prefill at batch 16 over 357 (the prefix and 28 causal tokens)
     timed = {"bridge": bridge}
     for name, (b_, n_lang) in {"batch1": (1, 72), "train": (16, 77)}.items():
         timed[name] = attention_case(rng, b_, 256 + n_lang, 256 + n_lang, h, kvh, d, torch.bfloat16,
                                      prefix_mask(b_, 256, n_lang, rng))
+    for name, (b_, n_suffix) in {"fast_serve": (64, 0), "fast_train": (16, 28)}.items():
+        n = 329 + n_suffix
+        timed[name] = attention_case(rng, b_, n, n, h, kvh, d, torch.bfloat16, fast_mask(b_, n_suffix, rng))
     times = {}
     for name, (q, k, v, mask) in timed.items():
         b_, t_, s_ = q.shape[0], q.shape[1], k.shape[1]
@@ -356,6 +407,9 @@ def phase_kernels() -> list[dict]:
         "library_ms": library_ms,
         "batch1_ms": times["batch1"]["ms"], "batch1_library_ms": times["batch1"]["library_ms"],
         "train_ms": times["train"]["ms"], "train_library_ms": times["train"]["library_ms"],
+        **{f"{name}_{key}": (max(times[name]["bytes_ms"], times[name]["ops_ms"]) if key == "bound_ms"
+                             else times[name][key])
+           for name in ("fast_serve", "fast_train") for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
     }, phase_adam_kernel(), phase_w8a8_kernel()]
 
 
@@ -609,14 +663,18 @@ H100_INT8_OPS = 1979e12  # dense int8 tensor-core peak, H100 SXM data sheet
 # one bf16 ulp of the row's largest |y| per element
 W8A8_ROW_RTOL = 2.0**-8
 # the bridge's W8A8 products: (name, M, K, N); M = B*256 (SigLIP, img_proj),
-# B*328 (Gemma prefill), B*5 (expert decode) at batch 64, and a batch-1 decode
+# B*328 (Gemma prefill), B*5 (expert decode) at batch 64, and a batch-1 decode;
+# Pi0FAST's greedy decode runs every Gemma-2B product at M = B (64 and 1)
 W8A8_SHAPES = (
     ("gemma_q", 20992, 2048, 2048), ("gemma_k", 20992, 2048, 256), ("gemma_up", 20992, 2048, 16384),
     ("gemma_down", 20992, 16384, 2048), ("siglip_fc1", 16384, 1152, 4304), ("siglip_fc2", 16384, 4304, 1152),
     ("img_proj", 16384, 1152, 2048), ("expert_q", 320, 1024, 2048), ("expert_down", 320, 4096, 1024),
     ("expert_q_b1", 5, 1024, 2048), ("expert_down_b1", 5, 4096, 1024),
+    ("fast_decode_q", 64, 2048, 2048), ("fast_decode_k", 64, 2048, 256), ("fast_decode_up", 64, 2048, 16384),
+    ("fast_decode_down", 64, 16384, 2048), ("fast_decode_k_b1", 1, 2048, 256),
 )
 W8A8_TIMED = "gemma_up"  # the shape of the kernels line
+W8A8_DECODE = "fast_decode_k"  # Pi0FAST's decode shape the kernels line reports beside it
 
 
 def w8a8_case(gen: torch.Generator, m: int, k: int, n: int):
@@ -629,6 +687,14 @@ def w8a8_case(gen: torch.Generator, m: int, k: int, n: int):
     ws = (torch.rand(n, generator=gen, device="cuda") + 0.5) * 1e-3
     bias = torch.randn(n, generator=gen, device="cuda") * 0.1
     return x.to(torch.bfloat16), wq, ws, bias
+
+
+def plain_w8a8(x, wq, wscale, bias=None, k_chunk=None, out_dtype=None, weight_layout="kn"):
+    """The W8A8 wrapper's signature over its plain version: swapped in for
+    the wrapper where a comparison needs the plain product on the main path."""
+    from intact_tpu_torch.ops import w8a8
+
+    return w8a8.w8a8_matmul_reference(x, wq if weight_layout == "kn" else wq.t(), wscale, bias, k_chunk, out_dtype)
 
 
 def w8a8_bound_ms(m: int, k: int, n: int) -> tuple[float, float, str]:
@@ -655,7 +721,7 @@ def phase_w8a8_kernel() -> dict:
     cases += [(name + "_chunk2048", m, k, n, w8a8.PALLAS_BLOCK_K)
               for name, m, k, n in W8A8_SHAPES if k in (16384, 4304) or name == "expert_down"]
     cases += [("ragged_fp32", 77, 300, 131, None), ("ragged_chunk128", 45, 1000, 200, 128)]
-    max_err, rows, timed = 0.0, [], None
+    max_err, rows, timed = 0.0, [], {}
     for name, m, k, n, chunk in cases:
         x, wk, ws, bias = w8a8_case(gen, m, k, n)
         layout, w_in = "nk", wk
@@ -711,13 +777,14 @@ def phase_w8a8_kernel() -> dict:
             f"(kernel / bf16 {ms / bf16_ms:.3f}), bound {bound:.4f} ms by {by} ({2 * m * k * n / 1e12:.3f} T int8 "
             f"ops, bytes {bytes_ms:.4f} ms); kernel {2 * m * k * n / ms / 1e9:.1f} TOPS, {moved / ms / 1e6:.1f} GB/s; "
             f"device time per call (profiler, no host gaps): kernel {dev_ms:.4f} ms, bf16 {bf16_dev_ms:.4f} ms")
-        if name == W8A8_TIMED:
-            timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, int_mm_ms=int_mm_ms, bf16_ms=bf16_ms,
-                         device_ms=dev_ms)
+        if name in (W8A8_TIMED, W8A8_DECODE):
+            timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, int_mm_ms=int_mm_ms,
+                               bf16_ms=bf16_ms, device_ms=dev_ms)
         del wb
     rows.clear()
     torch.cuda.empty_cache()
     w8a8.w8a8_matmul.launches = 0  # comparison launches do not count
+    decode, timed = timed[W8A8_DECODE], timed[W8A8_TIMED]
     return {
         "name": "w8a8_matmul",
         "route": "cuda",
@@ -736,6 +803,8 @@ def phase_w8a8_kernel() -> dict:
         "bf16_matmul_ms": timed["bf16_ms"],
         "device_ms": timed["device_ms"],
         "shape": "Gemma-2B up projection, M 20992 K 2048 N 16384 (batch-64 prefill)",
+        "fast_decode_shape": "Gemma-2B k projection of a Pi0FAST decode step, M 64 K 2048 N 256",
+        **{f"fast_decode_{k}": decode[k] for k in ("ms", "plain_ms", "bound_ms", "bf16_ms", "device_ms")},
     }
 
 
@@ -880,15 +949,15 @@ EV_CONFIG = "config/experiment/simpler/pi0_finetune_bridge_ev.yaml"
 SERVING_SEED = 0  # the bf16 serving phase's weights, quantized
 
 
-def ev_config(quantize: bool = True):
-    """The server role's config (config/experiment/simpler/pi0_finetune_bridge_ev.yaml)
+def ev_config(quantize: bool = True, path: str = EV_CONFIG):
+    """The server role's config (by default config/experiment/simpler/pi0_finetune_bridge_ev.yaml)
     with int8 on (or off), random weights from the bf16 phase's seed (no
     checkpoint) and the hash tokenizer."""
     from intact_tpu_torch.config import TrainPipelineConfig, apply_overrides, from_dict, load_yaml
 
     overrides = {"eval_cfg.role": "server", "eval_cfg.quantize_int8": json.dumps(quantize),
                  "eval_cfg.pretrained_model_path": "null", "tokenizer_path": "hash", "seed": str(SERVING_SEED)}
-    return from_dict(TrainPipelineConfig, apply_overrides(load_yaml(EV_CONFIG), overrides))
+    return from_dict(TrainPipelineConfig, apply_overrides(load_yaml(path), overrides))
 
 
 def w8a8_per_inference(cfg) -> int:
@@ -973,10 +1042,6 @@ def phase_int8_serving() -> dict:
     a_kernel = pi0.sample_actions(policy.params, None, *inputs, mc, policy.policy, noise=noise)
     n1 = w8a8.w8a8_matmul.launches
     real = w8a8.w8a8_matmul
-
-    def plain_w8a8(x, wq, wscale, bias=None, k_chunk=None, out_dtype=None, weight_layout="kn"):
-        return w8a8.w8a8_matmul_reference(x, wq if weight_layout == "kn" else wq.t(), wscale, bias, k_chunk,
-                                          out_dtype)
 
     w8a8.w8a8_matmul = plain_w8a8  # the plain W8A8 product, for this comparison only
     try:
@@ -1602,10 +1667,6 @@ def compare_expert_paths(kernel, plain) -> None:
     inputs = [batches[0][k] for k in ("images", "img_masks", "lang_tokens", "lang_masks")]
     real = w8a8.w8a8_matmul
 
-    def plain_w8a8(x, wq, wscale, bias=None, k_chunk=None, out_dtype=None, weight_layout="kn"):
-        return w8a8.w8a8_matmul_reference(x, wq if weight_layout == "kn" else wq.t(), wscale, bias, k_chunk,
-                                          out_dtype)
-
     attn_errs = []  # each prefill launch against the plain version on its own inputs
 
     def checked_attention(q, k, v, mask=None, scale=None):
@@ -1755,6 +1816,384 @@ def train_standard_joint() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 6. Pi0FAST serving through the server role's wrapper: bf16 and int8
+# ---------------------------------------------------------------------------
+
+FAST_EV_CONFIG = "config/experiment/simplerMS3/pi0fast_finetune_bridge_ev.yaml"
+# Pi0FAST's bf16 kernel path against its plain-attention path. Greedy decoding
+# is discontinuous (one flipped token changes every later one), so the actions
+# cannot hold the attention kernel; it is held three ways instead: the prefix
+# K/V cache at the unpadded tokens; every step's window logits with the kernel
+# path's tokens fed to the plain path (teacher forcing); and at every step the
+# plain logit of the kernel's token within FAST_MARGIN of the plain maximum,
+# in units of the plain window logits' standard deviation. Readings on an H100
+# 80GB HBM3 at 700 W (PERF.md): K/V rel L2 9.1e-3 (0 at layer 0, rising to
+# 1.2e-2 at the last: bf16 ulps of P carried through the layers), logits 9.8e-3,
+# margin 2.9e-2 at 1 of 1792 steps and rows; gates 3.5-5.5x the readings
+FAST_KV_RTOL = 5e-2
+FAST_LOGITS_RTOL = 5e-2
+FAST_MARGIN = 0.1
+
+
+def w8a8_per_fast_inference(cfg) -> int:
+    """W8A8 products of one Pi0FAST inference: SigLIP 6 per layer, img_proj, the
+    kv_only prefill's 7 per full layer and the last layer's k and v, and 7 per
+    trunk layer in each of the n_action_tokens decode steps (state_proj and the
+    tied logits stay bf16, as in the reference)."""
+    return cfg.vision.depth * 6 + 1 + (cfg.vlm.depth - 1) * 7 + 2 + cfg.n_action_tokens * cfg.vlm.depth * 7
+
+
+def fast_request(rng: np.random.Generator, b: int, size: int) -> dict:
+    """One request of b rows as the batched ManiSkill3 adapter's preprocess
+    emits it on the uint8 wire (resized uint8 frames, the normalized 7-d
+    proprio, a task per row)."""
+    obs = make_obs(rng, b, size)
+    return {"image": obs["image"], "state": np.clip(obs["state"], -1.0, 1.0), "task": list(obs["task"])}
+
+
+def greedy_logits(params, inputs, cfg, policy, forced=None):
+    """`pi0fast.sample_actions`' decode step by step from its own pieces ->
+    (tokens [B, T], window logits [T, B, window] fp32); with `forced` [B, T]
+    the given tokens are fed back in place of the argmax (teacher forcing)."""
+    from intact_tpu_torch.models.pi0fast import model as fast
+
+    with torch.inference_mode():
+        (ck, cv), pre_pad = fast.prefix_cache(params, *inputs, cfg, policy)
+        b, p_len = pre_pad.shape
+        first = cfg.vlm.vocab_size - (cfg.action_vocab_size or cfg.n_action_bins)
+        key_valid = torch.cat([pre_pad, pre_pad.new_zeros((b, cfg.n_action_tokens))], dim=1)
+        count = pre_pad.sum(dim=1, keepdim=True).to(torch.int32)
+        x = policy.cast(params["action_start"]).expand(b, 1, cfg.vlm.width)
+        tokens, logits = [], []
+        for s in range(cfg.n_action_tokens):
+            key_valid[:, p_len + s] = True
+            h = fast.decode_token(params, x, (ck, cv), p_len + s, key_valid, count + s, cfg, policy)
+            logits.append(fast._logits(params, h, policy, first))
+            tokens.append(first + logits[-1].argmax(dim=-1))
+            x = fast.embed_tokens(params, (tokens[-1] if forced is None else forced[:, s])[:, None], cfg, policy)
+        return torch.stack(tokens, dim=1), torch.stack(logits)
+
+
+def phase_fast_serving() -> dict:
+    """-> {kernel: launches} on Pi0FAST's serving path."""
+    from intact_tpu_torch.models import common as cm
+    from intact_tpu_torch.models.pi0fast import model as fast
+    from intact_tpu_torch.ops import w8a8
+    from intact_tpu_torch.ops.flash_attention import flash_attention
+    from intact_tpu_torch.serve.policy_wrapper import make_policy_wrapper
+
+    cfg = ev_config(path=FAST_EV_CONFIG)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wrapper = make_policy_wrapper(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    mc, policy = wrapper.model_cfg, wrapper.policy
+    leaves = cm.tree_leaves(policy.params)
+    per_inference, flash_per = w8a8_per_fast_inference(mc), mc.vlm.depth - 1
+    first = mc.vlm.vocab_size - (mc.action_vocab_size or mc.n_action_bins)
+    log(f"# Pi0FAST serving: Pi0PolicyWrapper from {FAST_EV_CONFIG} ({cfg.model_type}, model {policy.model.__name__}, "
+        f"adapter {cfg.eval_cfg.env_adapter}, quantize_int8 {cfg.eval_cfg.quantize_int8}, seed {cfg.seed}): "
+        f"{sum(x.numel() for x in leaves if x.dtype == torch.int8) / 1e9:.3f} B int8 weights + "
+        f"{sum(x.numel() for x in leaves if x.dtype != torch.int8) / 1e9:.3f} B bf16/fp32 values, init "
+        f"{time.perf_counter() - t0:.2f} s; prefix "
+        f"{mc.num_cameras * mc.vision.num_patches + mc.tokenizer_max_length + 1} tokens, {mc.n_action_tokens} greedy steps over the last {mc.vlm.vocab_size - first} ids; expect "
+        f"{per_inference} w8a8_matmul and {flash_per} flash_attention launches per inference")
+
+    rng = np.random.default_rng(3)
+    size = mc.vision.image_size
+    # batch 64: one request of the sweep's n_parallel_eval rows (60: one
+    # ManiSkill3 client's vectorized envs), which the wrapper pads to bucket 64
+    n_env = int(cfg.eval_cfg.n_parallel_eval)
+    if wrapper.bucket_size(n_env) != 64:
+        raise SystemExit(f"n_parallel_eval {n_env} pads to bucket {wrapper.bucket_size(n_env)}, not 64")
+    req1, req64 = fast_request(rng, 1, size), fast_request(rng, n_env, size)
+    sessions = [wrapper.new_session(), wrapper.new_session()]  # the batch-1 client's and the sweep client's
+
+    # --- the main path: fused multi-row requests through the wrapper, as the batching server calls it ---
+    w8a8.w8a8_matmul.launches = flash_attention.launches = 0
+    inferences = 0
+
+    def fused(items):
+        nonlocal inferences
+        w0, f0 = w8a8.w8a8_matmul.launches, flash_attention.launches
+        out = wrapper.infer_batch(items)
+        dw, df = w8a8.w8a8_matmul.launches - w0, flash_attention.launches - f0
+        if dw != per_inference or df != flash_per:
+            raise SystemExit(f"one fused Pi0FAST inference launched w8a8_matmul {dw} and flash_attention {df} "
+                             f"times; expected {per_inference} and {flash_per}")
+        inferences += 1
+        return out
+
+    out1 = [fused([(req1, sessions[0])]) for _ in range(2)]
+    out64 = fused([(req64, sessions[1])])
+    launches = {"w8a8_matmul": w8a8.w8a8_matmul.launches, "flash_attention": flash_attention.launches}
+    # -------------------------------------------------------------------------------------------------
+    results = [o[0] for o in out1] + out64
+    rows = [1, 1, n_env]
+    for a, r in zip(results, rows):
+        if isinstance(a, Exception) or a.shape != (r, cfg.eval_cfg.action_step, 7) or not np.isfinite(a).all():
+            raise SystemExit(f"bad Pi0FAST serving result {a!r:.200}")
+    log(f"# Pi0FAST serving: {inferences} fused inferences (batch 1, 1, and one request of {n_env} rows padded to "
+        f"bucket 64), launches {launches}, env actions of shape {results[-1].shape} per request, finite")
+
+    pad = 64 - n_env  # the wrapper's padding: the last row repeated up to the bucket
+    batch = {"image": np.concatenate([req64["image"], np.repeat(req64["image"][-1:], pad, axis=0)]),
+             "state": np.concatenate([req64["state"], np.repeat(req64["state"][-1:], pad, axis=0)]),
+             "task": req64["task"] + [req64["task"][-1]] * pad}
+    inputs = policy.device_inputs(batch)
+    # int8: the tokens and actions with the W8A8 kernel against those with only its product plain
+    tokens, log_k = greedy_logits(policy.params, inputs, mc, policy.policy)
+    in_window = bool(((tokens >= first) & (tokens < mc.vlm.vocab_size)).all())
+    actions = fast.detokenize_actions(tokens, mc)
+    env = sessions[1].adapter.postprocess_batch(actions[:n_env, :cfg.eval_cfg.action_step, :7].cpu().numpy())
+    same_as_served = bool(np.array_equal(env, out64[0]))
+    real = w8a8.w8a8_matmul
+    n0 = w8a8.w8a8_matmul.launches
+    w8a8.w8a8_matmul = plain_w8a8  # the plain W8A8 product, for this comparison only
+    try:
+        tok_w, log_w = greedy_logits(policy.params, inputs, mc, policy.policy)
+    finally:
+        w8a8.w8a8_matmul = real
+    # the actions are the detokenized tokens, so equal tokens give equal actions
+    same = (torch.equal(tok_w, tokens) and torch.equal(log_k, log_w)
+            and torch.equal(fast.detokenize_actions(tok_w, mc), actions))
+    log(f"# Pi0FAST int8, batch 64: {tokens.numel()} tokens, all in the window [{first}, {mc.vlm.vocab_size}) "
+        f"{in_window}, {tokens.unique().numel()} distinct; the served env actions equal the postprocessed "
+        f"detokenized tokens {same_as_served}; with only the W8A8 product plain: tokens, every step's window "
+        f"logits and the actions bit-equal {same} (gates: both bit-equal; plain runs launched w8a8_matmul "
+        f"{w8a8.w8a8_matmul.launches - n0} times)")
+    if not in_window or not same or not same_as_served or w8a8.w8a8_matmul.launches != n0:
+        raise SystemExit("Pi0FAST int8 tokens outside the window, the W8A8 kernel's tokens differ from its plain "
+                         "version's, or the served actions differ from the checked tokens'")
+    del log_k, log_w
+    torch.cuda.reset_peak_memory_stats()
+    for items in ([(req1, sessions[0])], [(req64, sessions[1])]):
+        wrapper.infer_batch(items)
+    int8_peak = torch.cuda.max_memory_allocated()
+
+    # bf16: the same random weights behind the same wrapper, quantize_int8 off
+    bf16_wrapper = make_policy_wrapper(ev_config(quantize=False, path=FAST_EV_CONFIG), device=DEVICE)
+    bf16_sessions = [bf16_wrapper.new_session(), bf16_wrapper.new_session()]
+    bp, bpol = bf16_wrapper.policy.params, bf16_wrapper.policy.policy
+    plain_cfg = dataclasses.replace(mc, attention_impl="xla")
+    with torch.inference_mode():
+        (k1, v1), pre_pad = fast.prefix_cache(bp, *inputs, mc, bpol)
+        (k3, v3), _ = fast.prefix_cache(bp, *inputs, plain_cfg, bpol)
+        p_len = pre_pad.shape[1]
+        ka, va, kp, vp = (c[:, :, :p_len][:, pre_pad] for c in (k1, v1, k3, v3))
+    kv_rel = {"K": rel_l2(ka, kp), "V": rel_l2(va, vp)}
+    layer_rel = [max(rel_l2(ka[i], kp[i]), rel_l2(va[i], vp[i])) for i in range(ka.shape[0])]
+    del k1, v1, k3, v3, ka, va, kp, vp
+    tok_b, log_b = greedy_logits(bp, inputs, mc, bpol)
+    tok_bs = fast.sample_actions(bp, None, *inputs, mc, bpol, return_tokens=True)
+    _, log_pf = greedy_logits(bp, inputs, plain_cfg, bpol, forced=tok_b)  # teacher-forced plain path
+    tok_p, _ = greedy_logits(bp, inputs, plain_cfg, bpol)  # the plain path's own greedy decode
+    logits_rel = rel_l2(log_b, log_pf)
+    step_rel = [rel_l2(log_b[s], log_pf[s]) for s in range(log_b.shape[0])]
+    chosen = log_pf.gather(-1, (tok_b.T - first)[..., None])[..., 0]  # [T, B]
+    margin = (log_pf.amax(dim=-1) - chosen) / log_pf.std()
+    agree = (tok_b == tok_p).float().mean().item()
+    int8_bf16 = (tokens == tok_b).float().mean().item()
+    log(f"# Pi0FAST bf16 kernel vs plain attention, batch 64: prefix K/V {tuple(pre_pad.shape)} at the "
+        f"{int(pre_pad.sum())} unpadded tokens rel L2 K {kv_rel['K']:.3e} V {kv_rel['V']:.3e} (tol {FAST_KV_RTOL}), "
+        f"per layer {[f'{r:.1e}' for r in layer_rel]}; teacher-forced window logits rel L2 {logits_rel:.3e} (tol "
+        f"{FAST_LOGITS_RTOL}), per step max {max(step_rel):.3e}, max abs {(log_b - log_pf).abs().max().item():.3e} "
+        f"(logits std {log_pf.std().item():.3e}); plain logit of the kernel's token below the plain maximum by at most "
+        f"{margin.max().item():.3e} std (tol {FAST_MARGIN}), at {int((margin > 0).sum())} of {margin.numel()} "
+        f"steps and rows; tokens equal to the plain path's own greedy decode {agree:.4f} (no gate); the stepwise "
+        f"decode equals sample_actions {torch.equal(tok_b, tok_bs)}; int8 tokens equal to bf16's {int8_bf16:.4f}")
+    if not (max(kv_rel.values()) <= FAST_KV_RTOL and logits_rel <= FAST_LOGITS_RTOL
+            and margin.max().item() <= FAST_MARGIN and torch.equal(tok_b, tok_bs)
+            and bool(((tok_b >= first) & (tok_b < mc.vlm.vocab_size)).all())):
+        raise SystemExit("Pi0FAST's bf16 kernel path disagrees with its plain-attention path")
+    del log_b, log_pf, inputs
+    torch.cuda.empty_cache()
+
+    runs = {"int8": (wrapper, sessions), "bf16": (bf16_wrapper, bf16_sessions)}
+    torch.cuda.reset_peak_memory_stats()
+    for b, i, n in ((1, 0, 1), (64, 1, n_env)):
+        req = req1 if b == 1 else req64
+        times = {k: [] for k in runs}
+        calls = {k: [(req, ss[i])] for k, (w, ss) in runs.items()}
+        for k, (w, _) in runs.items():
+            w.infer_batch(calls[k])  # warm
+        for _ in range(5):
+            for k, (w, _) in runs.items():
+                t0 = time.perf_counter()
+                w.infer_batch(calls[k])  # ends in a device->host copy and the adapters' postprocess
+                times[k].append(time.perf_counter() - t0)
+        med = {k: statistics.median(v) for k, v in times.items()}
+        for k in runs:
+            log(f"# Pi0FAST {k} serving batch {b} ({n} rows; Pi0PolicyWrapper.infer_batch): median fused "
+                f"inference {med[k] * 1e3:.2f} ms over 5 ({[round(x * 1e3, 2) for x in times[k]]}), "
+                f"{n * mc.n_action_steps / med[k]:.2f} policy steps/s")
+        log(f"# Pi0FAST serving batch {b} through the wrapper: int8 / bf16 latency {med['int8'] / med['bf16']:.3f}")
+    log(f"# Pi0FAST peak device memory: int8 wrapper alone {int8_peak / 2**30:.2f} GiB (batch 1 and 64); both "
+        f"wrappers during the timing {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for b, i, req in ((1, 0, req1), (64, 1, req64)):
+        for k, (w, ss) in runs.items():
+            calls = [(req, ss[i])]
+            profile_pass(f"Pi0FAST {k} wrapper batch {b}", lambda: w.infer_batch(calls))
+    del wrapper, policy, bf16_wrapper, runs, bp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 7. Pi0FAST training: the full tower through the trainer's standard step
+# ---------------------------------------------------------------------------
+
+FAST_RECIPE = "config/train/pi0fast_finetune_bridge.yaml"
+FAST_OVERRIDES = {"mesh.fsdp": 1, "per_device_batch_size": 16, "global_batch_size": 32, "n_updates": 2,
+                  "eval_freq": 2, "eval_size": 16}
+# one micro-step's gradient of every leaf through the attention kernel against
+# through the plain attention, at full width and 4 layers (SigLIP and Gemma).
+# SigLIP's key biases are left out of the per-leaf gate: a key bias shifts a
+# query row's logits by a constant the softmax cancels, so their exact
+# gradient is 0 and both sides hold rounding noise. Readings on an H100 80GB
+# HBM3 at 700 W: 1.9e-3 overall, worst leaf 3.3e-3; gates ~10x
+FAST_GRAD_RTOL = 2e-2
+FAST_LEAF_RTOL = 3e-2
+
+
+def phase_fast_training() -> dict:
+    """pi0fast_finetune_bridge.yaml through the Trainer: 2 updates of 2
+    micro-steps of 16, validation at update 2 on one batch, the last save
+    recorded. -> {kernel: launches} on the path."""
+    from intact_tpu_torch.models.common import tree_leaves
+    from intact_tpu_torch.ops.flash_attention import flash_attention
+    from intact_tpu_torch.train.trainer import Trainer
+
+    cfg = trainer_config(FAST_RECIPE, FAST_OVERRIDES)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    mc, accum = trainer.model_cfg, trainer.opt_cfg.grad_accumulation_steps
+    n_params = sum(x.numel() for x in tree_leaves(trainer.state.params))
+    # the prefill's full layers, and their recompute in the backward (every
+    # layer is checkpointed under autograd, as the reference's prefill)
+    want_flash = 2 * mc.vlm.depth
+    log(f"# Pi0FAST training: {FAST_RECIPE} ({cfg.model_type}, SigLIP {mc.vision.depth} + Gemma {mc.vlm.depth} "
+        f"layers, {n_params / 1e9:.3f} B params {trainer.cfg.master_dtype}, trainable all: "
+        f"{trainer.frozen_mask is None}), micro-batch {trainer.micro_batch_size} x accumulation "
+        f"{accum}, {mc.tokenizer_max_length + mc.vision.num_patches + 1 + mc.n_action_tokens} tokens, init "
+        f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card; per "
+        f"micro-step expect {want_flash} flash_attention launches")
+    records = []
+    real_step = trainer.train_step
+
+    def recorded(state, batch):
+        f0 = flash_attention.launches
+        t = time.perf_counter()
+        out = real_step(state, batch)
+        torch.cuda.synchronize()
+        m = out[1]
+        records.append((flash_attention.launches - f0, m["l2_loss"].item(), m["token_accuracy"].item(),
+                         m["grad_norm"].item(), time.perf_counter() - t))
+        return out
+
+    trainer.train_step = recorded
+    validations = []
+    real_validate = trainer.validate
+
+    def validate():
+        f0 = flash_attention.launches
+        metrics = real_validate()
+        validations.append((metrics, flash_attention.launches - f0))
+        return metrics
+
+    trainer.validate = validate
+    saves = record_saves(trainer)
+    # --- the main path: the trainer's loop, as `python -m intact_tpu_torch.run` drives it ---
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    trainer.train()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.launches}
+    # -------------------------------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    for i, (n, loss, acc, gn, dt) in enumerate(records):
+        log(f"# Pi0FAST micro-step {i + 1}: loss {loss:.6f}, token_accuracy {acc:.4f}, grad_norm {gn:.6f}, "
+            f"{dt * 1e3:.2f} ms, flash_attention {n}")
+    micro = [r[-1] for r in records[1:]]
+    updates = [sum(r[-1] for r in records[i:i + accum]) for i in range(accum, len(records), accum)]
+    med_u = statistics.median(updates)
+    log(f"# Pi0FAST training: median micro-step {statistics.median(micro) * 1e3:.2f} ms over micro-steps 2.."
+        f"{len(records)}, update ({accum} micro-steps) {med_u * 1e3:.2f} ms over updates 2..{len(records) // accum}, "
+        f"{cfg.global_batch_size / med_u:.2f} samples/s; loop wall {wall:.2f} s for {cfg.n_updates} updates incl. data "
+        f"and validation; peak device memory {peak / 2**30:.2f} GiB; launches {launches}; saves asked at {saves}")
+    n_val = max(1, cfg.eval_size // trainer.micro_batch_size)
+    for metrics, n in validations:
+        log(f"# Pi0FAST validation at update {cfg.n_updates}: {metrics}, flash_attention {n}")
+    bad = [i + 1 for i, (n, loss, acc, gn, _) in enumerate(records)
+           if not (np.isfinite(loss) and np.isfinite(acc) and np.isfinite(gn)) or n != want_flash]
+    if bad or len(records) != cfg.n_updates * accum or saves != [cfg.n_updates]:
+        raise SystemExit(f"Pi0FAST micro-steps {bad}: non-finite metrics or unexpected launches "
+                         f"({len(records)} micro-steps, saves {saves})")
+    if (len(validations) != 1 or validations[0][1] != n_val * (mc.vlm.depth - 1)
+            or not np.isfinite(validations[0][0]["l1_loss"])):
+        raise SystemExit(f"Pi0FAST validation: {validations}")
+    batch = trainer.device_batch(next(iter(trainer.train_data)))
+    profile_pass("Pi0FAST micro-step", lambda: (real_step(trainer.state, batch), torch.cuda.synchronize()))
+    del trainer, batch
+    gc.collect()  # the recorders installed on the trainer refer back to it
+    torch.cuda.empty_cache()
+    compare_fast_grads()
+    return {"flash_attention": launches["flash_attention"]}
+
+
+def compare_fast_grads(depth: int = 4) -> None:
+    """One micro-step's gradient of every parameter of the Pi0FAST recipe's
+    model at full width and `depth` layers, through the attention kernel
+    (each layer recomputed in the backward) and through the plain attention, from the
+    same params and batch."""
+    from intact_tpu_torch.data.dataset import InterleavedDataset
+    from intact_tpu_torch.models import common as cm
+    from intact_tpu_torch.models.pi0fast import model as fast
+    from intact_tpu_torch.models.tokenizer import HashTokenizer
+    from intact_tpu_torch.ops.flash_attention import flash_attention
+    from intact_tpu_torch.train.trainer import preprocess_batch
+
+    cfg = trainer_config(FAST_RECIPE, FAST_OVERRIDES)
+    full = cfg.make_model_config()
+    mc = dataclasses.replace(full, vlm=dataclasses.replace(full.vlm, depth=depth),
+                             vision=dataclasses.replace(full.vision, depth=depth))
+    policy = cm.DtypePolicy(param_dtype=torch.float32, compute_dtype=torch.bfloat16)
+    data = InterleavedDataset(cfg.data, 16, seed=7, image_size=mc.vision.image_size)
+    raw = preprocess_batch(next(iter(data)), HashTokenizer(mc.vlm.vocab_size, mc.tokenizer_max_length), mc)
+    batch = {k: torch.from_numpy(np.asarray(v)).to(DEVICE) for k, v in raw.items()}
+    params = cm.flatten_paths(fast.init(mc, seed=1, device=DEVICE))
+    out = {}
+    for name, attn in (("kernel", "pallas"), ("plain", "xla")):
+        views = {k: v.detach().requires_grad_() for k, v in params.items()}
+        f0 = flash_attention.launches
+        loss, aux = fast.compute_loss(cm.unflatten_paths(views), None, batch,
+                                      dataclasses.replace(mc, attention_impl=attn), policy)
+        grads = torch.autograd.grad(loss, list(views.values()))
+        out[name] = (loss.item(), aux["token_accuracy"].item(), dict(zip(views, grads)), flash_attention.launches - f0)
+        del views, grads
+    (lk, ak, gk, nk), (lp, ap, gp, np_) = out["kernel"], out["plain"]
+    shift = [k for k in gp if k.endswith("attn/k/bias")]
+    num = sum((gk[k].double() - gp[k].double()).square().sum().item() for k in gp)
+    den = sum(g.double().square().sum().item() for g in gp.values())
+    grad_rel = (num / den) ** 0.5
+    leaf_rel = sorted(((rel_l2(gk[k], gp[k]), k) for k in gp if k not in shift), reverse=True)
+    log(f"# Pi0FAST kernel vs plain attention, one micro-step at full width and {depth} layers (batch 16, per-layer recompute): "
+        f"loss {lk:.6f} vs {lp:.6f}, token_accuracy {ak:.4f} vs {ap:.4f}; gradients of the {len(gp)} leaves rel L2 "
+        f"{grad_rel:.3e} (tol {FAST_GRAD_RTOL}), worst leaves {[(k, f'{r:.3e}') for r, k in leaf_rel[:3]]} (tol "
+        f"{FAST_LEAF_RTOL}), median leaf {leaf_rel[len(leaf_rel) // 2][0]:.3e}; key biases (exact gradient 0) "
+        f"|g| {max(gk[k].norm().item() for k in shift):.3e} / {max(gp[k].norm().item() for k in shift):.3e} of a "
+        f"total {den ** 0.5:.3e}; flash_attention launches {nk} / {np_} (expect {2 * depth} / 0)")
+    if not (grad_rel <= FAST_GRAD_RTOL and leaf_rel[0][0] <= FAST_LEAF_RTOL and nk == 2 * depth and np_ == 0
+            and np.isfinite(lk)):
+        raise SystemExit("Pi0FAST gradients through the attention kernel disagree with the plain path")
+    del out, gk, gp, params
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1772,18 +2211,20 @@ def main() -> int:
     int8 = phase_int8_serving()
     training = phase_training()
     standard = phase_standard_training()
-    if not (serving > 0 and all(n > 0 for n in int8.values()) and all(n > 0 for n in training.values())
-            and all(n > 0 for n in standard.values())):
-        raise SystemExit(f"a kernel of the path never launched: serving {serving}, int8 {int8}, training {training}, "
-                         f"standard training {standard}")
-    kernels["flash_attention"]["launches"] = (serving + int8["flash_attention"] + training["flash_attention"]
-                                              + standard["flash_attention"])
-    kernels["fused_adam_rows"]["launches"] = training["fused_adam_rows"]
-    kernels["w8a8_matmul"]["launches"] = int8["w8a8_matmul"] + standard["w8a8_matmul"]
+    fast_serving = phase_fast_serving()
+    fast_training = phase_fast_training()
+    paths = {"serving": {"flash_attention": serving}, "int8": int8, "training": training, "standard": standard,
+             "fast_serving": fast_serving, "fast_training": fast_training}
+    if not all(n > 0 for counts in paths.values() for n in counts.values()):
+        raise SystemExit(f"a kernel of the path never launched: {paths}")
+    for name in kernels:
+        kernels[name]["launches"] = sum(counts.get(name, 0) for counts in paths.values())
     log(f"# launches on the main paths: flash_attention {serving} serving + {int8['flash_attention']} int8 "
         f"serving + {training['flash_attention']} fused training + {standard['flash_attention']} standard "
+        f"training + {fast_serving['flash_attention']} Pi0FAST serving + {fast_training['flash_attention']} Pi0FAST "
         f"training, fused_adam_rows {training['fused_adam_rows']} fused training, w8a8_matmul "
-        f"{int8['w8a8_matmul']} int8 serving + {standard['w8a8_matmul']} expert-only training")
+        f"{int8['w8a8_matmul']} int8 serving + {standard['w8a8_matmul']} expert-only training + "
+        f"{fast_serving['w8a8_matmul']} Pi0FAST int8 serving")
     torch.cuda.synchronize()
     log(f"# total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -247,7 +247,8 @@ class TrainPipelineConfig:
                 raise ValueError("Simulator name is not specified in the config.")
             adapter = self.eval_cfg.env_adapter or "BridgeSimplerAdapter"
             self.eval_cfg.env_adapter_path = f"intact_tpu_torch.envs.adapters.{sim}.{adapter}"
-            # simulator_path stays None: the evaluators are not ported (ROADMAP A4)
+            # simulator_path stays None: the evaluators are not ported (ROADMAP: the client role and the
+            # simulator evaluators)
         return self
 
     def validate_parallel_eval(self):
@@ -267,15 +268,17 @@ class TrainPipelineConfig:
             raise ValueError("n_parallel_eval should be set for simplerMS3")
 
     def make_model_config(self):
-        """model_cfg dict -> Pi0Config: "pi0" from the model JSON, "pi0_tiny"
-        the CPU-testable config (the only family ported)."""
-        if self.model_type == "pi0_tiny":
-            from intact_tpu_torch.models.pi0.config import Pi0Config
+        """model_cfg dict -> the model config through the registry: "pi0"
+        from the model JSON, "pi0fast" the bridge config with the JSON's
+        common fields, the tiny types their CPU-testable configs."""
+        from intact_tpu_torch.models import registry
 
-            return Pi0Config.tiny()
-        if self.model_type != "pi0":
-            raise NotImplementedError(f"model type {self.model_type!r} is not ported yet (ROADMAP A9)")
-        return pi0_config_from_json(self.model_cfg)
+        entry = registry.get(self.model_type)
+        if self.model_type == "pi0":
+            return pi0_config_from_json(self.model_cfg)
+        if self.model_type == "pi0fast":
+            return _replace_common_fields(entry["default_config"](), self.model_cfg)
+        return entry["default_config"]()
 
     @property
     def model_type(self) -> str:
@@ -288,6 +291,16 @@ class TrainPipelineConfig:
             or self.model_cfg.get("tokenizer_path")
             or None
         )
+
+
+def _replace_common_fields(base, d: dict):
+    """Overlay the model-JSON fields every family shares onto a config."""
+    common = [
+        "chunk_size", "n_action_steps", "max_state_dim", "max_action_dim",
+        "tokenizer_max_length", "num_steps", "num_metaqueries", "n_action_bins",
+    ]
+    updates = {k: type(getattr(base, k))(d[k]) for k in common if k in d and hasattr(base, k)}
+    return dataclasses.replace(base, **updates) if updates else base
 
 
 def pi0_config_from_json(d: dict):

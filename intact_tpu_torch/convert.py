@@ -1,4 +1,4 @@
-"""Weight bridge: the reference's Pi0 parameter tree (as numpy) -> the port's tensors.
+"""Weight bridge: the reference's Pi0 or Pi0FAST parameter tree (as numpy) -> the port's tensors.
 
 Both packages lay their parameters out the same way (nested dicts, dense
 kernels [in, out], per-layer weights stacked [L, ...] under "blocks"), so the
@@ -23,16 +23,16 @@ import numpy as np
 import torch
 
 from intact_tpu_torch.models import common as cm
-from intact_tpu_torch.models.pi0 import model as pi0
+from intact_tpu_torch.models import registry
 from intact_tpu_torch.models.pi0.config import Pi0Config
 
 
-def from_jax_params(tree, cfg: Pi0Config, device=None, dtype=torch.float32) -> cm.Params:
-    """Map the reference `pi0.init` tree (leaves as numpy arrays), or a form
-    with quantized dense nodes (`quantize_params`, `quantize_frozen`), onto
-    the port's parameter tree for `cfg`, on `device` (CUDA unless given),
-    float leaves in `dtype`; int8 codes stay int8 and quantization scales
-    fp32."""
+def from_jax_params(tree, cfg, device=None, dtype=torch.float32) -> cm.Params:
+    """Map the reference `init` tree of the model `cfg` configures (pi0 or
+    pi0fast; leaves as numpy arrays), or a form with quantized dense nodes
+    (`quantize_params`, `quantize_frozen`), onto the port's parameter tree
+    for `cfg`, on `device` (CUDA unless given), float leaves in `dtype`; int8
+    codes stay int8 and quantization scales fp32."""
     device = cm.resolve_device(device)
     src = cm.flatten_paths(tree)
     quantized = {path[:-len("/kernel_q")] for path in src if path.endswith("/kernel_q")}
@@ -44,7 +44,7 @@ def from_jax_params(tree, cfg: Pi0Config, device=None, dtype=torch.float32) -> c
             return cm.quantize_dense(node)
         return {k: quantize_like_src(v, f"{path}/{k}" if path else k) for k, v in node.items()}
 
-    template = quantize_like_src(pi0.init(cfg, device="meta", dtype=dtype))
+    template = quantize_like_src(registry.module_for_config(cfg).init(cfg, device="meta", dtype=dtype))
     want = cm.flatten_paths(template)
     missing = sorted(set(want) - set(src))
     extra = sorted(set(src) - set(want))

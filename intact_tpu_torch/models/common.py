@@ -145,14 +145,15 @@ def embed_lookup(p: Params, ids: torch.Tensor, policy: DtypePolicy = DEFAULT_POL
 def unembed_logits(p: Params, hidden: torch.Tensor, policy: DtypePolicy | None = None) -> torch.Tensor:
     """Tied unembedding: hidden [..., D] x embed [V, D]^T -> fp32 [..., V].
     A quantized table takes the W8A8 per-row path. That path runs on the CPU
-    only: the AR families that use it are not ported (the table [out, in] is
-    already the K-major layout the W8A8 kernel reads)."""
+    only: the families whose `lm/embed` table is quantized (SpatialVLA,
+    Magma) are not ported; Pi0FAST's `vlm_embed` stays fp (the table
+    [out, in] is already the K-major layout the W8A8 kernel reads)."""
     policy = policy or DEFAULT_POLICY
     if "embedding_q" not in p:
         emb = p["embedding"].to(policy.compute_dtype)
         return (hidden.to(policy.compute_dtype) @ emb.T).to(torch.float32)
     if hidden.device.type != "cpu":
-        raise NotImplementedError("the int8 unembedding has no CUDA kernel yet (the AR families, ROADMAP A9)")
+        raise NotImplementedError("the int8 unembedding has no CUDA path yet (ROADMAP: the SpatialVLA and Magma ports)")
     from intact_tpu_torch.ops.w8a8 import int_product, quantize_reference
 
     lead, d = hidden.shape[:-1], hidden.shape[-1]

@@ -4,7 +4,8 @@ smaller action-expert stream, which attends over the VLM's prefix K/V cache.
 Entry points:
   forward_joint   training: prefix+suffix in one pass (no cache), the two
                   streams sharing one attention per layer
-  prefill         the prefix through the VLM, emitting the K/V cache
+  prefill         the prefix through the VLM, emitting the K/V cache; under
+                  autograd the prefix output alone (Pi0FAST training)
   decode          the suffix through the expert against the cached prefix K/V
                   (called once per Euler step)
 
@@ -19,6 +20,7 @@ layer of the joint pass stay on the plain path.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -238,40 +240,63 @@ def prefill(
     policy: DtypePolicy = DEFAULT_POLICY,
     attention_impl: str = "xla",
     kv_only: bool = False,
+    cache_len: int | None = None,
 ):
     """Prefix-only pass; returns (prefix_out, kv_cache).
 
-    kv_cache = (k, v) each [L, B, P, KVH, head_dim], K cached WITH RoPE
-    applied, so decode never re-rotates prefix keys.
+    kv_cache = (k, v) each [L, B, cache_len, KVH, head_dim] (cache_len P by
+    default), K cached WITH RoPE applied, so decode never re-rotates prefix
+    keys. Slots past the prefix are zeros, for a decoder that appends to the
+    cache (Pi0FAST's greedy decode) and masks what it has not written.
 
     kv_only=True is for callers that consume only the cache (Pi0
     sample_actions): the last layer's attention output, out-projection, MLP
     and the final norm feed only prefix_out, so the pass runs depth-1 full
     layers and then only the last layer's ln1 + K/V projection (depth-1
     attention calls); returns (None, kv_cache).
+
+    Under autograd (grad enabled and x_pre or a block weight requiring grad:
+    Pi0FAST's training loss) the pass builds no cache, whose in-place writes
+    no gradient reaches, runs each layer under `torch.utils.checkpoint`, so
+    the backward recomputes one layer at a time, as the reference's per-layer
+    remat does, and returns (prefix_out, None).
     """
     scale = cfg.head_dim**-0.5
     blocks = vlm_params["blocks"]
+
+    def layer(x, bp):
+        y = cm.rms_norm(bp["ln1"], x, cfg.norm_eps)
+        q, k, v = _qkv(bp, y, positions, cfg, policy)
+        att = multi_head_attention(q, k, v, mask=mask, impl=attention_impl, scale=scale)
+        return _post_attention(bp, x, att, cfg, policy), k, v
+
+    if torch.is_grad_enabled() and (x_pre.requires_grad or any(w.requires_grad for w in cm.tree_leaves(blocks))):
+        if kv_only or cache_len is not None:
+            raise ValueError("prefill under autograd returns prefix_out and builds no cache")
+        for i in range(cfg.depth):
+            body = functools.partial(lambda x, bp: layer(x, bp)[0], bp=cm.layer(blocks, i))
+            x_pre = checkpoint(body, x_pre, use_reentrant=False)
+        return cm.rms_norm(vlm_params["final_norm"], x_pre, cfg.norm_eps), None
+
     b, p_len, _ = x_pre.shape
-    shape = (cfg.depth, b, p_len, cfg.num_kv_heads, cfg.head_dim)
+    slots = p_len if cache_len is None else cache_len
+    shape = (cfg.depth, b, slots, cfg.num_kv_heads, cfg.head_dim)
     cache_k = torch.empty(shape, dtype=policy.compute_dtype, device=x_pre.device)
     cache_v = torch.empty_like(cache_k)
+    if slots > p_len:
+        cache_k[:, :, p_len:].zero_()
+        cache_v[:, :, p_len:].zero_()
 
     full_layers = cfg.depth - 1 if kv_only else cfg.depth
     for i in range(full_layers):
-        bp = cm.layer(blocks, i)
-        y = cm.rms_norm(bp["ln1"], x_pre, cfg.norm_eps)
-        q, k, v = _qkv(bp, y, positions, cfg, policy)
-        att = multi_head_attention(q, k, v, mask=mask, impl=attention_impl, scale=scale)
-        x_pre = _post_attention(bp, x_pre, att, cfg, policy)
-        cache_k[i], cache_v[i] = k, v
+        x_pre, cache_k[i, :, :p_len], cache_v[i, :, :p_len] = layer(x_pre, cm.layer(blocks, i))
 
     if not kv_only:
         return cm.rms_norm(vlm_params["final_norm"], x_pre, cfg.norm_eps), (cache_k, cache_v)
 
     last = cm.layer(blocks, cfg.depth - 1)
     y = cm.rms_norm(last["ln1"], x_pre, cfg.norm_eps)
-    cache_k[-1], cache_v[-1] = _kv(last, y, positions, cfg, policy)
+    cache_k[-1, :, :p_len], cache_v[-1, :, :p_len] = _kv(last, y, positions, cfg, policy)
     return None, (cache_k, cache_v)
 
 

@@ -1,9 +1,10 @@
-"""Pi0Policy: the host-side policy interface around the model.
+"""Pi0Policy: the host-side policy interface around a model module.
 
 The surface the serving stack consumes: language tokenization, state/image
 padding to model dims, an action queue that re-infers every n_action_steps,
-checkpoint load, and int8 (W8A8) serving. Device work is
-`model.sample_actions`; everything else is numpy.
+checkpoint load, and int8 (W8A8) serving. Device work is the model module's
+`sample_actions` (pi0 by default; pi0fast takes the same signature);
+everything else is numpy.
 """
 
 from __future__ import annotations
@@ -15,7 +16,6 @@ import torch
 
 from intact_tpu_torch.models import common as cm
 from intact_tpu_torch.models.pi0 import model as pi0
-from intact_tpu_torch.models.pi0.config import Pi0Config
 from intact_tpu_torch.models.tokenizer import make_tokenizer
 from intact_tpu_torch.train import checkpoint as ckpt_lib
 
@@ -23,7 +23,7 @@ from intact_tpu_torch.train import checkpoint as ckpt_lib
 class Pi0Policy:
     def __init__(
         self,
-        cfg: Pi0Config,
+        cfg,
         params=None,
         tokenizer=None,
         seed: int = 0,
@@ -31,6 +31,7 @@ class Pi0Policy:
         tokenizer_path: str | None = None,
         device=None,
         quantize: bool = False,
+        model_module=None,
     ):
         """device: CUDA unless given (raises without a CUDA device).
         params: a param tree on that device (e.g. from convert.py); random
@@ -38,8 +39,11 @@ class Pi0Policy:
         (SERVING_POLICY), else fp32. tokenizer_path: HF tokenizer asset
         ("hash" for the hermetic fallback); ignored when a tokenizer object
         is passed. quantize: int8 W8A8 serving of the transformer-block
-        matmuls and the projector (`cm.quantize_params`, leaf by leaf)."""
+        matmuls and the projector (`cm.quantize_params`, leaf by leaf).
+        model_module: a module with pi0's init / sample_actions signatures
+        (pi0 by default; pi0fast)."""
         self.cfg = cfg
+        self.model = model_module or pi0
         self.device = cm.resolve_device(device)
         self.policy = cm.SERVING_POLICY if use_bf16 else cm.FP32_POLICY
         self._quantize = quantize
@@ -47,7 +51,7 @@ class Pi0Policy:
             tokenizer_path, cfg.tokenizer_max_length, vocab_size=cfg.vlm.vocab_size
         )
         if params is None:
-            params = pi0.init(cfg, seed, self.device, self.policy.param_dtype)
+            params = self.model.init(cfg, seed, self.device, self.policy.param_dtype)
             if quantize:  # the freshly made tree is ours to empty as it quantizes
                 params = cm.quantize_params(params, consume=True)
         elif quantize:
@@ -61,7 +65,7 @@ class Pi0Policy:
     # ------------------------------------------------------------------
 
     @classmethod
-    def from_checkpoint(cls, path: str, cfg: Pi0Config, **kwargs) -> "Pi0Policy":
+    def from_checkpoint(cls, path: str, cfg, **kwargs) -> "Pi0Policy":
         policy = cls(cfg, **kwargs)
         policy.load(path)
         return policy
@@ -71,7 +75,7 @@ class Pi0Policy:
         a root). Checkpoints hold fp params: they stream to the device one
         leaf at a time in the param dtype, quantized on the way when the
         policy serves int8, and replace the old tree once complete."""
-        restored = ckpt_lib.restore_params(path, pi0.init(self.cfg, device="meta"))
+        restored = ckpt_lib.restore_params(path, self.model.init(self.cfg, device="meta"))
         if self._quantize:
             params = cm.quantize_host_tree(restored, self.policy, self.device)
         else:
@@ -120,7 +124,7 @@ class Pi0Policy:
 
     def sample_action_chunk(self, batch: dict) -> np.ndarray:
         """One inference -> [B, chunk_size, max_action_dim] float32."""
-        actions = pi0.sample_actions(
+        actions = self.model.sample_actions(
             self.params, self._generator, *self.device_inputs(batch), self.cfg, self.policy
         )
         return actions.cpu().numpy()

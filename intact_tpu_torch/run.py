@@ -12,7 +12,7 @@ Any config field is overridable with --dotted.path value. --device picks the
 device (CUDA unless given). Without `eval_cfg` the config trains; with it,
 `eval_cfg.role` server serves the configured policy over the websocket
 protocol. The client role drives the simulator evaluators, which are not
-ported yet (ROADMAP A4) and raises.
+ported yet (ROADMAP: the client role and the simulator evaluators) and raises.
 """
 
 from __future__ import annotations
@@ -53,7 +53,9 @@ def main(argv: list[str] | None = None) -> int:
         return 0
 
     if cfg.eval_cfg.role == "client":
-        raise NotImplementedError("the client role (simulator evaluators) is not ported yet; see ROADMAP A4")
+        raise NotImplementedError(
+            "the client role (simulator evaluators) is not ported yet; see the ROADMAP item 'the client role and "
+            "the simulator evaluators'")
 
     raise ValueError(f"unknown role {cfg.eval_cfg.role!r}")
 

@@ -10,8 +10,9 @@ Per-connection episode state (the env adapter's episode state) lives in a
 `PolicySession`, created per websocket connection by the batching server via
 `new_session()`; the shared policy on the card stays stateless across
 co-batched clients. The wrapper serves one card (CUDA unless the caller
-passes device="cpu"); serving over several cards is ROADMAP A10, the other
-model families ROADMAP A9.
+passes device="cpu"); serving over several cards and the families other than
+Pi0 and Pi0FAST are ROADMAP items ("serving and training over several
+cards", "the other model families and their wrappers").
 """
 
 from __future__ import annotations
@@ -201,21 +202,23 @@ class Pi0Session(PolicySession):
 
 
 class Pi0PolicyWrapper(BasePolicyWrapper):
-    """Serves Pi0 checkpoints of the port (bf16, or int8 with
-    eval_cfg.quantize_int8) on one card."""
+    """Serves Pi0 and Pi0FAST checkpoints of the port (bf16, or int8 with
+    eval_cfg.quantize_int8) on one card; the model module comes from the
+    registry by model type."""
 
     session_cls = Pi0Session
 
     def __init__(self, config, device=None):
         """device: CUDA unless given (raises without a CUDA device)."""
         super().__init__(config)
+        from intact_tpu_torch.models import registry
         from intact_tpu_torch.models.pi0.policy import Pi0Policy
 
         self.model_cfg = config.make_model_config()
         self.policy = Pi0Policy(
             self.model_cfg, seed=config.seed, use_bf16=config.use_bf16,
             tokenizer_path=config.resolve_tokenizer_path(), device=device,
-            quantize=config.eval_cfg.quantize_int8,
+            quantize=config.eval_cfg.quantize_int8, model_module=registry.module(config.model_type),
         )
         path = config.eval_cfg.pretrained_model_path
         if path:
@@ -281,14 +284,10 @@ class Pi0PolicyWrapper(BasePolicyWrapper):
 
 
 def make_policy_wrapper(config, device=None):
-    """Model type -> wrapper; device: CUDA unless given. Only the Pi0 family
-    is ported; the others (octo, spatialvla, magma, pi0fast, mvla) are
-    ROADMAP A9."""
-    mtype = config.model_cfg.get("type", "pi0")
-    wrappers = {"pi0": Pi0PolicyWrapper, "pi0_tiny": Pi0PolicyWrapper}
-    if mtype not in wrappers:
-        raise NotImplementedError(
-            f"no policy wrapper for model type {mtype!r} in the port (available: {sorted(wrappers)}); "
-            "the other families are ROADMAP A9"
-        )
-    return wrappers[mtype](config, device=device)
+    """Model type -> its wrapper from the registry; device: CUDA unless
+    given. An unported type (octo, spatialvla, magma, mvla) raises there:
+    the ROADMAP item "the other model families and their wrappers"."""
+    from intact_tpu_torch.models import registry
+
+    wrapper = get_class_from_path(registry.get(config.model_cfg.get("type", "pi0"))["wrapper"])
+    return wrapper(config, device=device)

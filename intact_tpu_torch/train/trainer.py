@@ -1,6 +1,7 @@
-"""Single-card Pi0 trainer: the fused joint step or the standard step.
+"""Single-card Pi0 and Pi0FAST trainer: the fused joint step or the standard step.
 
-intact_tpu/train/trainer.py on one card: config -> parameters from the seed
+intact_tpu/train/trainer.py on one card: config -> the model module from the
+registry -> parameters from the seed
 -> training state -> a loop of micro-steps over synthetic batches, prepared
 one batch ahead on a worker thread (utils/prefetch.py), logging the
 reference's train line (update count, loss, grad norm, lr, time), validating
@@ -22,7 +23,8 @@ Two steps, as in the reference:
     has no gradient). The joint path recomputes each layer in the backward
     (per-layer torch.utils.checkpoint), as every joint recipe's `remat: true`
     asks; the expert-only path has no tower backward, and its recipe's
-    `remat: false`.
+    `remat: false`. Pi0FAST's loss draws nothing; its prefill recomputes each
+    layer in the backward, as the reference's does.
 
 Not ported yet, and refused: meshes (the trainer runs on one card), W&B,
 task paraphrasing. Runs on the CUDA device unless the caller passes
@@ -42,7 +44,7 @@ import torch
 from intact_tpu_torch.config.pipeline import TrainPipelineConfig, optimizer_config_from_model_json
 from intact_tpu_torch.data.dataset import InterleavedDataset
 from intact_tpu_torch.models import common as cm
-from intact_tpu_torch.models.pi0 import model as pi0
+from intact_tpu_torch.models import registry
 from intact_tpu_torch.models.tokenizer import make_tokenizer
 from intact_tpu_torch.train import checkpoint as ckpt
 from intact_tpu_torch.train import fused_joint as fj
@@ -136,13 +138,14 @@ _QUANTIZE_FROZEN_SAFE = {"pi0"}
 
 
 class Trainer:
-    """Pi0 trainer on one card (fused joint step or standard step)."""
+    """Pi0 / Pi0FAST trainer on one card (fused joint step or standard step)."""
 
     def __init__(self, cfg: TrainPipelineConfig, device=None):
         self.cfg = cfg
         self.device = cm.resolve_device(device)
         self.logger = logging.getLogger("intact_tpu_torch.trainer")
         self.model_cfg = cfg.make_model_config()
+        self.model = registry.module(cfg.model_type)
         self._refuse_unported(cfg)
         if cfg.master_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"master_dtype must be float32|bfloat16, got {cfg.master_dtype!r}")
@@ -200,8 +203,8 @@ class Trainer:
                 f"(global_batch_size={cfg.global_batch_size} needs accumulation {accum} on one device).")
         # parameters: all bf16 (the joint recipe's precision, stochastic
         # rounding), or fp32 trainable leaves with the frozen embedding in bf16
-        params = pi0.init(self.model_cfg, cfg.seed, self.device,
-                          torch.bfloat16 if self.bf16_masters else torch.float32)
+        params = self.model.init(self.model_cfg, cfg.seed, self.device,
+                                 torch.bfloat16 if self.bf16_masters else torch.float32)
         if not self.bf16_masters and cfg.use_bf16:
             params["vlm_embed"] = cm.tree_map(lambda x: x.to(torch.bfloat16), params["vlm_embed"])
         self.state = fj.init_fused_state(params, cfg.seed)
@@ -215,7 +218,8 @@ class Trainer:
     def _init_standard(self) -> None:
         """The standard step over the freeze partition."""
         cfg, mc = self.cfg, self.model_cfg
-        frozen_mask = self._freeze_mask(pi0.init(mc, device="meta"))
+        model = self.model
+        frozen_mask = self._freeze_mask(model.init(mc, device="meta"))
         if cfg.quantize_frozen_int8 and (cfg.model_type not in _QUANTIZE_FROZEN_SAFE or not mc.train_expert_only):
             # the W8A8 product has no gradient: a loss that differentiates
             # through the frozen tower would silently lose its signal there
@@ -227,7 +231,7 @@ class Trainer:
         def float_params(device):
             # bf16 masters: every leaf bf16 (updates round stochastically);
             # else fp32, with frozen leaves in bf16: they never update
-            params = pi0.init(mc, cfg.seed, device, torch.bfloat16 if self.bf16_masters else torch.float32)
+            params = model.init(mc, cfg.seed, device, torch.bfloat16 if self.bf16_masters else torch.float32)
             if not self.bf16_masters and frozen_mask is not None and cfg.use_bf16:
                 flat, mask = cm.flatten_paths(params), cm.flatten_paths(frozen_mask)
                 params = cm.unflatten_paths({k: v if mask[k] else v.to(torch.bfloat16) for k, v in flat.items()})
@@ -247,7 +251,7 @@ class Trainer:
         policy = self.policy  # not self: a step holding the trainer would keep it alive after `del`
 
         def loss_fn(p, rng, batch, noise, time_):
-            return pi0.compute_loss(p, rng, batch, mc, policy, noise=noise, time=time_)
+            return model.compute_loss(p, rng, batch, mc, policy, noise=noise, time=time_)
 
         self.train_step = ts.make_train_step(loss_fn, self.tx, stochastic_rounding=self.bf16_masters)
 
@@ -343,7 +347,7 @@ class Trainer:
             gt = batch.pop("actions")
             batch.pop("action_is_pad", None)
             generator = torch.Generator(device=self.device).manual_seed(1000 + i)
-            pred = pi0.sample_actions(self.state.params, generator, batch["images"], batch["img_masks"],
+            pred = self.model.sample_actions(self.state.params, generator, batch["images"], batch["img_masks"],
                                       batch["lang_tokens"], batch["lang_masks"], batch["state"], mc, self.policy)
             accs.append(get_action_accuracy(gt, pred, cfg.eval_thresholds))
             l1s.append(l1_error(gt, pred))
@@ -380,8 +384,9 @@ class Trainer:
         self.logger.info("restored %s (resume=%s, update=%d)", path, resume_run, self.cnt_update)
 
     def _log_training(self, window: list[dict], seconds: float) -> None:
+        # the configured metrics the family's loss reports, Pi0FAST's token accuracy, the grad norm
         mean = {k: float(np.mean([float(m[k]) for m in window]))
-                for k in self.cfg.train_log_metrics + ["grad_norm"] if k in window[-1]}
+                for k in self.cfg.train_log_metrics + ["token_accuracy", "grad_norm"] if k in window[-1]}
         # the schedule is indexed by emitted updates
         lr = self.lr_schedule(self.cnt_update)
         line = " | ".join(f"{k} {v:8.5f}" for k, v in mean.items())

@@ -55,6 +55,15 @@ def test_config_fields_and_defaults_match():
         assert dataclasses.asdict(tc) == dataclasses.asdict(jc), make
         assert (tc.prefix_len, tc.suffix_len, tc.proj_width) == (jc.prefix_len, jc.suffix_len, jc.proj_width)
 
+    from intact_tpu.models.pi0fast.config import Pi0FASTConfig as JF
+    from intact_tpu_torch.models.pi0fast.config import Pi0FASTConfig as TF
+
+    assert _fields(TF) == _fields(JF)
+    for make in ("bridge", "tiny"):
+        jc, tc = getattr(JF, make)(), getattr(TF, make)()
+        assert dataclasses.asdict(tc) == dataclasses.asdict(jc), make
+        assert tc.n_action_tokens == jc.n_action_tokens, make
+
 
 def test_pipeline_config_fields_and_defaults_match():
     """The port's TrainPipelineConfig has the reference's fields, with equal
@@ -77,7 +86,7 @@ def test_pipeline_config_fields_and_defaults_match():
     assert defaults(T)["eval_thresholds"] == [0.05, 0.1, 0.2, 0.3, 0.5]
 
 
-@pytest.mark.parametrize("entry", ["policy", "init", "server"])
+@pytest.mark.parametrize("entry", ["policy", "init", "server", "pi0fast_policy", "pi0fast_init"])
 def test_entry_points_raise_without_cuda_unless_given_cpu(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
@@ -85,12 +94,16 @@ def test_entry_points_raise_without_cuda_unless_given_cpu(entry):
     from intact_tpu_torch.models.pi0 import model
     from intact_tpu_torch.models.pi0.config import Pi0Config
     from intact_tpu_torch.models.pi0.policy import Pi0Policy
+    from intact_tpu_torch.models.pi0fast import Pi0FASTConfig
+    from intact_tpu_torch.models.pi0fast import model as fast
 
-    cfg = Pi0Config.tiny()
+    cfg, fcfg = Pi0Config.tiny(), Pi0FASTConfig.tiny()
     call = {
         "policy": lambda **kw: Pi0Policy(cfg, tokenizer_path="hash", **kw),
         "init": lambda **kw: model.init(cfg, **kw),
         "server": lambda **kw: serve.build_server(cfg, port=0, **kw),
+        "pi0fast_policy": lambda **kw: Pi0Policy(fcfg, tokenizer_path="hash", model_module=fast, **kw),
+        "pi0fast_init": lambda **kw: fast.init(fcfg, **kw),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

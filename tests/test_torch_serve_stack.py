@@ -576,7 +576,7 @@ class TestRunCLIServerRole:
                           "--eval_cfg.role", "client", "--device", "cpu"])
         cfg = make_cfg()
         cfg.model_cfg = {"type": "octo_tiny"}
-        with pytest.raises(NotImplementedError, match="A9"):
+        with pytest.raises(NotImplementedError, match="the other model families"):
             make_policy_wrapper(cfg, device="cpu")
 
     def test_wrapper_raises_without_cuda_unless_given_cpu(self):
