@@ -7,8 +7,10 @@ Phases, each failing loudly (non-zero exit):
   2. kernels each kernel against its plain PyTorch version on the card, at the
              main path's shapes and at ragged ones, with timings and bounds
              (flash_attention at the serving shape at batch 64 and 1 and at
-             the training shape, each beside SDPA; w8a8_matmul on K-major
-             codes at every bridge shape, per row and per 2048-chunk, beside
+             the training shape, and at MVLA's batch-64 prefix (T = S = 436),
+             expert suffix (51) and joint prompt (108, with its all-true
+             mask and without one), each beside SDPA; w8a8_matmul on K-major
+             codes at every bridge and MVLA shape, per row and per 2048-chunk, beside
              torch._int_mm on its codes and the bf16 matmul it replaces, with
              effective rates and device time per call; fused_adam_rows at
              the Gemma-2B gate leaf in fp8 with and without SR, fp32 moments,
@@ -105,6 +107,34 @@ Phases, each failing loudly (non-zero exit):
              memory and a profiler pass; one micro-step's gradient of every
              leaf through the kernel against through plain attention at full
              width and 4 layers
+  8. MVLA serving: the server role's Pi0PolicyWrapper from
+             config/experiment/simpler/pi0_finetune_bridge_ev.yaml with
+             config/models/mvla_bridge.json as its model (SigLIP So400m,
+             Gemma-2B over a 436-token prefix with 108 metaqueries, the
+             12-layer connector, the 18-layer self/cross expert, chunk 50, 10
+             Euler steps; random weights from the seed, hash tokenizer): int8
+             at batch 1 and 64 with the launches of both kernels per
+             inference checked against the count from the configuration
+             (108 flash_attention, 1471 w8a8_matmul); env actions finite and
+             of the right shape; the int8 actions bit-equal with only the W8A8
+             product plain; then bf16 behind the same wrapper (the connector
+             prompt within MVLA_PROMPT_RTOL and the actions within
+             ACTIONS_RTOL of the plain-attention path); latency at batch 1
+             and 64 (int8 beside bf16), peak memory and profiles; then
+             mmmvla (the joint expert, 35 attention launches) in bf16 at
+             batch 64, and the DiT head (action_head "dit", its zero-init
+             leaves drawn from the seed) through sample_actions at batch 64,
+             each against its plain-attention path
+  9. MVLA training: config/train/pi0_finetune_bridge.yaml with
+             mvla_bridge.json (bf16 masters, 8-bit AdamW, SR, remat, the
+             full tower; the recipe freezes nothing for mvla) through the
+             Trainer at micro-batch 16 x 2, 2 updates, validation on one
+             batch, a save at update 2 and a resume equal to it: every
+             micro-step's metrics finite and its 45 flash_attention launches
+             (18 prefill layers, their recompute, 9 expert self layers), 108
+             per validation batch; update time, samples/s, peak memory and a
+             profile; one micro-step's gradient of every leaf through the
+             kernel against through plain attention at full width, 4 layers
 The second-to-last line is `nvidia-smi`'s card name and power limit; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
@@ -118,6 +148,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -319,6 +350,31 @@ def fast_mask(b: int, n_suffix: int, rng: np.random.Generator) -> torch.Tensor:
     return make_att_2d_masks(torch.from_numpy(pad).cuda(), torch.from_numpy(att).cuda())
 
 
+def mvla_prefix_mask(b: int, rng: np.random.Generator) -> torch.Tensor:
+    """MVLA's prefix mask: 256 image tokens and a ragged number of the 72
+    language tokens as one full-attention block, then the 108 metaqueries as
+    a block of their own (they see everything before them; nothing before
+    sees them)."""
+    from intact_tpu_torch.ops.masks import make_att_2d_masks
+
+    pad = np.ones((b, 256 + 72 + 108), bool)
+    for i, k in enumerate(rng.integers(4, 73, size=b)):
+        pad[i, 256 + k:256 + 72] = False
+    att = np.zeros(pad.shape, np.int32)
+    att[:, 256 + 72] = 1
+    return make_att_2d_masks(torch.from_numpy(pad).cuda(), torch.from_numpy(att).cuda())
+
+
+def suffix_mask(b: int, chunk: int) -> torch.Tensor:
+    """The flow suffix's mask: the state token, then the action chunk, each
+    a block of its own (models/pi0/model.py::suffix_layout)."""
+    from intact_tpu_torch.models.pi0.model import suffix_layout
+    from intact_tpu_torch.ops.masks import make_att_2d_masks
+
+    pad, att = suffix_layout(b, types.SimpleNamespace(chunk_size=chunk), "cuda")
+    return make_att_2d_masks(pad, att)
+
+
 def attention_case(rng, b, t, s, h, kvh, d, dtype, mask):
     def rnd(*shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to("cuda", dtype)
@@ -368,6 +424,21 @@ def phase_kernels() -> list[dict]:
     for name, (b_, n_suffix) in {"fast_serve": (64, 0), "fast_train": (16, 28)}.items():
         n = 329 + n_suffix
         timed[name] = attention_case(rng, b_, n, n, h, kvh, d, torch.bfloat16, fast_mask(b_, n_suffix, rng))
+    # MVLA's at batch 64: the prefill over 256 image + 72 language + 108
+    # metaquery tokens, the expert's self-attention over the 51-token suffix
+    # (every self layer of every Euler step), and the joint expert's prompt
+    # prefill over the 108 metaqueries (the all-true mask the path builds;
+    # held without a mask as well)
+    timed["mvla_prefix"] = attention_case(rng, 64, 436, 436, h, kvh, d, torch.bfloat16, mvla_prefix_mask(64, rng))
+    timed["mvla_suffix"] = attention_case(rng, 64, 51, 51, h, kvh, d, torch.bfloat16, suffix_mask(64, 50))
+    timed["mvla_joint"] = attention_case(rng, 64, 108, 108, h, kvh, d, torch.bfloat16,
+                                         torch.ones((64, 108, 108), dtype=torch.bool, device="cuda"))
+    q, k, v, _ = timed["mvla_joint"]
+    err = (flash_attention(q, k, v, None).float() - flash_attention_reference(q, k, v, None).float()).abs().max().item()
+    log(f"# flash_attention mvla_joint without a mask: max_abs_err {err:.3e} (atol {KERNEL_ATOL})")
+    if not err <= KERNEL_ATOL:
+        raise SystemExit("flash_attention disagrees with its plain version on mvla_joint without a mask")
+    max_err = max(max_err, err)
     times = {}
     for name, (q, k, v, mask) in timed.items():
         b_, t_, s_ = q.shape[0], q.shape[1], k.shape[1]
@@ -383,7 +454,7 @@ def phase_kernels() -> list[dict]:
         library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mt, enable_gqa=True))
         moved = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size() + mask.numel()
-        flops = 4 * b_ * h * t_ * s_ * d
+        flops = 4 * h * d * int(mask.sum())  # QK^T and P.V over the live (query, key) pairs only
         bytes_ms, ops_ms = moved / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
         times[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bytes_ms=bytes_ms, ops_ms=ops_ms)
         log(f"# flash_attention {name} timing (B={b_}, T=S={t_}, max_abs_err {err:.3e}): kernel {ms:.4f} ms, "
@@ -409,7 +480,8 @@ def phase_kernels() -> list[dict]:
         "train_ms": times["train"]["ms"], "train_library_ms": times["train"]["library_ms"],
         **{f"{name}_{key}": (max(times[name]["bytes_ms"], times[name]["ops_ms"]) if key == "bound_ms"
                              else times[name][key])
-           for name in ("fast_serve", "fast_train") for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+           for name in ("fast_serve", "fast_train", "mvla_prefix", "mvla_suffix", "mvla_joint")
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
     }, phase_adam_kernel(), phase_w8a8_kernel()]
 
 
@@ -672,9 +744,13 @@ W8A8_SHAPES = (
     ("expert_q_b1", 5, 1024, 2048), ("expert_down_b1", 5, 4096, 1024),
     ("fast_decode_q", 64, 2048, 2048), ("fast_decode_k", 64, 2048, 256), ("fast_decode_up", 64, 2048, 16384),
     ("fast_decode_down", 64, 16384, 2048), ("fast_decode_k_b1", 1, 2048, 256),
+    ("mvla_conn_up", 6912, 1024, 4096), ("mvla_cross_k", 6912, 1024, 256), ("mvla_expert_q", 3264, 1024, 2048),
 )
 W8A8_TIMED = "gemma_up"  # the shape of the kernels line
 W8A8_DECODE = "fast_decode_k"  # Pi0FAST's decode shape the kernels line reports beside it
+# MVLA's at batch 64, reported beside it: the connector's up projection
+# (M = 64 x 108 metaqueries), a cross layer's prompt k, the expert's q (M = 64 x 51)
+W8A8_MVLA = ("mvla_conn_up", "mvla_cross_k", "mvla_expert_q")
 
 
 def w8a8_case(gen: torch.Generator, m: int, k: int, n: int):
@@ -777,14 +853,14 @@ def phase_w8a8_kernel() -> dict:
             f"(kernel / bf16 {ms / bf16_ms:.3f}), bound {bound:.4f} ms by {by} ({2 * m * k * n / 1e12:.3f} T int8 "
             f"ops, bytes {bytes_ms:.4f} ms); kernel {2 * m * k * n / ms / 1e9:.1f} TOPS, {moved / ms / 1e6:.1f} GB/s; "
             f"device time per call (profiler, no host gaps): kernel {dev_ms:.4f} ms, bf16 {bf16_dev_ms:.4f} ms")
-        if name in (W8A8_TIMED, W8A8_DECODE):
+        if name in (W8A8_TIMED, W8A8_DECODE) + W8A8_MVLA:
             timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, int_mm_ms=int_mm_ms,
                                bf16_ms=bf16_ms, device_ms=dev_ms)
         del wb
     rows.clear()
     torch.cuda.empty_cache()
     w8a8.w8a8_matmul.launches = 0  # comparison launches do not count
-    decode, timed = timed[W8A8_DECODE], timed[W8A8_TIMED]
+    decode, mvla, timed = timed[W8A8_DECODE], {n: timed[n] for n in W8A8_MVLA}, timed[W8A8_TIMED]
     return {
         "name": "w8a8_matmul",
         "route": "cuda",
@@ -805,6 +881,7 @@ def phase_w8a8_kernel() -> dict:
         "shape": "Gemma-2B up projection, M 20992 K 2048 N 16384 (batch-64 prefill)",
         "fast_decode_shape": "Gemma-2B k projection of a Pi0FAST decode step, M 64 K 2048 N 256",
         **{f"fast_decode_{k}": decode[k] for k in ("ms", "plain_ms", "bound_ms", "bf16_ms", "device_ms")},
+        **{f"{n}_{k}": mvla[n][k] for n in W8A8_MVLA for k in ("ms", "plain_ms", "bound_ms", "bf16_ms", "device_ms")},
     }
 
 
@@ -949,15 +1026,19 @@ EV_CONFIG = "config/experiment/simpler/pi0_finetune_bridge_ev.yaml"
 SERVING_SEED = 0  # the bf16 serving phase's weights, quantized
 
 
-def ev_config(quantize: bool = True, path: str = EV_CONFIG):
+def ev_config(quantize: bool = True, path: str = EV_CONFIG, model_cfg: dict | None = None):
     """The server role's config (by default config/experiment/simpler/pi0_finetune_bridge_ev.yaml)
     with int8 on (or off), random weights from the bf16 phase's seed (no
-    checkpoint) and the hash tokenizer."""
+    checkpoint) and the hash tokenizer; `model_cfg` replaces the yaml's model
+    JSON."""
     from intact_tpu_torch.config import TrainPipelineConfig, apply_overrides, from_dict, load_yaml
 
     overrides = {"eval_cfg.role": "server", "eval_cfg.quantize_int8": json.dumps(quantize),
                  "eval_cfg.pretrained_model_path": "null", "tokenizer_path": "hash", "seed": str(SERVING_SEED)}
-    return from_dict(TrainPipelineConfig, apply_overrides(load_yaml(path), overrides))
+    d = load_yaml(path)
+    if model_cfg is not None:
+        d["model_cfg"] = dict(model_cfg)
+    return from_dict(TrainPipelineConfig, apply_overrides(d, overrides))
 
 
 def w8a8_per_inference(cfg) -> int:
@@ -1093,26 +1174,7 @@ def phase_int8_serving() -> dict:
 
     # latency through infer_batch, int8 and bf16 wrappers alternating call by call
     runs = {"int8": (wrapper, sessions), "bf16": (bf16_wrapper, bf16_sessions)}
-    for b, reps in ((1, 5), (64, 3)):
-        times = {k: [] for k in runs}
-        calls = {k: [(req, ss[i]) for i, req in enumerate(req1 if b == 1 else req64)] for k, (w, ss) in runs.items()}
-        for k, (w, _) in runs.items():
-            w.infer_batch(calls[k])  # warm
-        for _ in range(reps):
-            for k, (w, _) in runs.items():
-                t0 = time.perf_counter()
-                w.infer_batch(calls[k])  # ends in a device->host copy and the adapters' postprocess
-                times[k].append(time.perf_counter() - t0)
-        med = {k: statistics.median(v) for k, v in times.items()}
-        for k in runs:
-            log(f"# {k} serving batch {b} (Pi0PolicyWrapper.infer_batch): median fused inference "
-                f"{med[k] * 1e3:.2f} ms over {reps} ({[round(x * 1e3, 2) for x in times[k]]}), "
-                f"{b * mc.n_action_steps / med[k]:.2f} policy steps/s")
-        log(f"# serving batch {b} through the wrapper: int8 / bf16 latency {med['int8'] / med['bf16']:.3f}")
-    for b in (1, 64):
-        for k, (w, ss) in runs.items():
-            calls = [(req, ss[i]) for i, req in enumerate(req1 if b == 1 else req64)]
-            profile_pass(f"{k} wrapper batch {b}", lambda: w.infer_batch(calls))
+    time_wrappers("Pi0", runs, {1: req1, 64: req64}, mc.n_action_steps, {1: 5, 64: 3})
     del wrapper, policy, bf16_wrapper, runs
     torch.cuda.empty_cache()
     return launches
@@ -1452,13 +1514,16 @@ STD_GNORM_RTOL = 2e-3  # reading 2.0e-4
 STD_UPDATE_RTOL = 4e-2  # reading 4.2e-3
 
 
-def trainer_config(recipe: str, overrides: dict):
+def trainer_config(recipe: str, overrides: dict, model_cfg: dict | None = None):
     """A recipe with the hash tokenizer, a log line per update, checkpoints
-    under RUN_DIR, and `overrides`."""
+    under RUN_DIR, and `overrides`; `model_cfg` replaces its model JSON."""
     from intact_tpu_torch.config import TrainPipelineConfig, apply_overrides, from_dict, load_yaml
 
     kw = {"tokenizer_path": "hash", "log_freq": 1, "log_dir": RUN_DIR, **overrides}
-    return from_dict(TrainPipelineConfig, apply_overrides(load_yaml(recipe), {k: str(v) for k, v in kw.items()}))
+    d = load_yaml(recipe)
+    if model_cfg is not None:
+        d["model_cfg"] = dict(model_cfg)
+    return from_dict(TrainPipelineConfig, apply_overrides(d, {k: str(v) for k, v in kw.items()}))
 
 
 def w8a8_per_prefix(params) -> int:
@@ -1618,7 +1683,7 @@ def train_expert_only() -> dict:
     compare_expert_paths(trainer, resumed)
     batch = trainer.device_batch(next(iter(trainer.train_data)))
     profile_pass("expert-only micro-step", lambda: (trainer.train_step(trainer.state, batch), torch.cuda.synchronize()))
-    del trainer, resumed, batch
+    del trainer, resumed, batch, real_validate  # the bound validate would keep the trainer past gc.collect
     gc.collect()  # the recorders installed on the trainer refer back to it
     torch.cuda.empty_cache()
     return launches
@@ -2138,7 +2203,7 @@ def phase_fast_training() -> dict:
         raise SystemExit(f"Pi0FAST validation: {validations}")
     batch = trainer.device_batch(next(iter(trainer.train_data)))
     profile_pass("Pi0FAST micro-step", lambda: (real_step(trainer.state, batch), torch.cuda.synchronize()))
-    del trainer, batch
+    del trainer, batch, real_validate  # the bound validate would keep the trainer past gc.collect
     gc.collect()  # the recorders installed on the trainer refer back to it
     torch.cuda.empty_cache()
     compare_fast_grads()
@@ -2194,6 +2259,437 @@ def compare_fast_grads(depth: int = 4) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 8. MVLA serving through the server role's wrapper: int8, bf16, mmmvla, DiT
+# ---------------------------------------------------------------------------
+
+MVLA_JSON = "config/models/mvla_bridge.json"
+# the connector prompt (the 18-layer prefill over 436 tokens, then 12
+# connector layers) through the attention kernel against through the plain
+# attention, in bf16: relative L2
+MVLA_PROMPT_RTOL = 5e-2
+
+
+def mvla_model_cfg(model_type: str = "mvla") -> dict:
+    return {**json.loads(Path(MVLA_JSON).read_text()), "type": model_type}
+
+
+def mvla_per_inference(cfg) -> dict:
+    """Kernel launches of one MVLA inference, counted from the configuration:
+    the full prefill's attention in every VLM layer, then the expert's (the
+    self layers of every Euler step; the joint expert's kv_only prompt
+    prefill; none for the DiT head, whose attention is plain). W8A8 is
+    counted for the int8 self/cross model, the one served in int8 here:
+    SigLIP 6 per layer, img_proj, the prefill's 7 per layer, the connector's
+    7 per layer, the cross layers' prompt k and v, and per Euler step 7 per
+    self and 5 per cross layer; the joint expert and the DiT head are served
+    in bf16 and launch none."""
+    e, steps = cfg.expert, cfg.num_steps
+    if cfg.action_head == "dit":
+        return {"flash_attention": cfg.vlm.depth, "w8a8_matmul": 0}
+    if cfg.alternate_pattern == "joint":
+        return {"flash_attention": cfg.vlm.depth + e.depth - 1, "w8a8_matmul": 0}
+    prefix_w8a8 = cfg.vision.depth * 6 + 1 + cfg.vlm.depth * 7 + cfg.connector.depth * 7
+    return {"flash_attention": cfg.vlm.depth + steps * e.depth // 2,
+            "w8a8_matmul": prefix_w8a8 + e.depth + steps * (e.depth // 2) * (7 + 5)}
+
+
+def mvla_kernel_vs_plain(label: str, params, inputs, cfg, policy, noise) -> None:
+    """The actions through the attention kernel against through the plain
+    attention, same params, inputs and noise (ACTIONS_RTOL)."""
+    from intact_tpu_torch.models.mvla import model as mvla
+
+    a_kernel = mvla.sample_actions(params, None, *inputs, cfg, policy, noise=noise)
+    a_plain = mvla.sample_actions(params, None, *inputs, dataclasses.replace(cfg, attention_impl="xla"), policy,
+                                  noise=noise)
+    rel = rel_l2(a_kernel, a_plain)
+    log(f"# {label}: kernel vs plain attention, batch {noise.shape[0]} actions: rel L2 {rel:.3e} (rtol "
+        f"{ACTIONS_RTOL}), max abs {(a_kernel - a_plain).abs().max().item():.3e}, max |a| "
+        f"{a_plain.abs().max().item():.3e}")
+    if not rel <= ACTIONS_RTOL:
+        raise SystemExit(f"{label}: actions through the attention kernel disagree with the plain path")
+
+
+def time_wrappers(label: str, runs: dict, requests: dict, steps: int, reps: dict) -> None:
+    """Median latency of infer_batch per wrapper, the wrappers alternating
+    call by call, at each batch of `requests` ({batch: [request, ...]}, one
+    single-row request per session); then one profiler pass each."""
+    for b, reqs in requests.items():
+        times = {k: [] for k in runs}
+        calls = {k: [(r, ss[i]) for i, r in enumerate(reqs)] for k, (w, ss) in runs.items()}
+        for k, (w, _) in runs.items():
+            w.infer_batch(calls[k])  # warm
+        for _ in range(reps[b]):
+            for k, (w, _) in runs.items():
+                t0 = time.perf_counter()
+                w.infer_batch(calls[k])  # ends in a device->host copy and the adapters' postprocess
+                times[k].append(time.perf_counter() - t0)
+        med = {k: statistics.median(v) for k, v in times.items()}
+        for k in runs:
+            log(f"# {label} {k} serving batch {b} (Pi0PolicyWrapper.infer_batch): median fused inference "
+                f"{med[k] * 1e3:.2f} ms over {reps[b]} ({[round(x * 1e3, 2) for x in times[k]]}), "
+                f"{b * steps / med[k]:.2f} policy steps/s")
+        if len(runs) == 2:
+            a, c = runs
+            log(f"# {label} serving batch {b} through the wrapper: {a} / {c} latency {med[a] / med[c]:.3f}")
+    for b, reqs in requests.items():
+        for k, (w, ss) in runs.items():
+            calls = [(r, ss[i]) for i, r in enumerate(reqs)]
+            profile_pass(f"{label} {k} wrapper batch {b}", lambda: w.infer_batch(calls))
+
+
+def phase_mvla_serving() -> dict:
+    """-> {kernel: launches} on MVLA's serving paths (int8 mvla, bf16
+    mmmvla, the DiT head), each path's counts set to 0 just before it."""
+    from intact_tpu_torch.models import common as cm
+    from intact_tpu_torch.models.mvla import model as mvla
+    from intact_tpu_torch.models.pi0 import model as pi0
+    from intact_tpu_torch.ops import w8a8
+    from intact_tpu_torch.ops.flash_attention import flash_attention
+    from intact_tpu_torch.serve.policy_wrapper import make_policy_wrapper
+
+    cfg = ev_config(model_cfg=mvla_model_cfg())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wrapper = make_policy_wrapper(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    mc, policy = wrapper.model_cfg, wrapper.policy
+    leaves = cm.tree_leaves(policy.params)
+    want = mvla_per_inference(mc)
+    log(f"# MVLA serving: Pi0PolicyWrapper from {EV_CONFIG} with {MVLA_JSON} ({cfg.model_type}, model "
+        f"{policy.model.__name__}, quantize_int8 {cfg.eval_cfg.quantize_int8}, seed {cfg.seed}): "
+        f"{sum(x.numel() for x in leaves if x.dtype == torch.int8) / 1e9:.3f} B int8 weights + "
+        f"{sum(x.numel() for x in leaves if x.dtype != torch.int8) / 1e9:.3f} B bf16/fp32 values, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, init {time.perf_counter() - t0:.2f} s; prefix "
+        f"{mc.vision.num_patches + mc.tokenizer_max_length + mc.num_metaqueries} tokens, connector "
+        f"{mc.connector.depth} layers, expert {mc.expert.depth} layers ({mc.alternate_pattern}), chunk "
+        f"{mc.chunk_size}, {mc.num_steps} Euler steps; expect {want} launches per inference")
+
+    rng = np.random.default_rng(4)
+    size = mc.vision.image_size
+    sessions = [wrapper.new_session() for _ in range(64)]
+    req1, req64 = wire_inputs(rng, 1, size), wire_inputs(rng, 64, size)
+    counters = {"flash_attention": flash_attention, "w8a8_matmul": w8a8.w8a8_matmul}
+
+    def fused(w, items, expect, label):
+        before = {k: c.launches for k, c in counters.items()}
+        out = w.infer_batch(items)
+        grew = {k: c.launches - before[k] for k, c in counters.items()}
+        if grew != expect:
+            raise SystemExit(f"one fused {label} inference launched {grew}; expected {expect}")
+        for a in out:
+            if isinstance(a, Exception) or a.shape != (cfg.eval_cfg.action_step, 7) or not np.isfinite(a).all():
+                raise SystemExit(f"bad {label} serving result {a!r:.200}")
+        return out
+
+    # --- the main path: fused requests through the wrapper, as the batching server calls it ---
+    flash_attention.launches = w8a8.w8a8_matmul.launches = 0
+    for _ in range(2):
+        fused(wrapper, [(req1[0], sessions[0])], want, "int8 MVLA")
+    fused(wrapper, list(zip(req64, sessions)), want, "int8 MVLA")
+    launches = {k: c.launches for k, c in counters.items()}
+    # -------------------------------------------------------------------------------------------
+    log(f"# MVLA int8 serving: 3 fused inferences (batch 1, 1, 64), launches {launches}, env actions of shape "
+        f"({cfg.eval_cfg.action_step}, 7), finite")
+
+    # int8: the actions with the W8A8 kernel against those with only its product plain
+    batch = {"image": np.concatenate([r["image"] for r in req64]),
+             "state": np.concatenate([r["state"] for r in req64]), "task": [r["task"][0] for r in req64]}
+    inputs = policy.device_inputs(batch)
+    noise = pi0.sample_noise(torch.Generator(device=DEVICE).manual_seed(5), (64, mc.chunk_size, mc.max_action_dim),
+                             DEVICE)
+    n0 = w8a8.w8a8_matmul.launches
+    a_kernel = mvla.sample_actions(policy.params, None, *inputs, mc, policy.policy, noise=noise)
+    n1 = w8a8.w8a8_matmul.launches
+    real = w8a8.w8a8_matmul
+    w8a8.w8a8_matmul = plain_w8a8  # the plain W8A8 product, for this comparison only
+    try:
+        a_w8a8_plain = mvla.sample_actions(policy.params, None, *inputs, mc, policy.policy, noise=noise)
+    finally:
+        w8a8.w8a8_matmul = real
+    same = torch.equal(a_kernel, a_w8a8_plain)
+    log(f"# MVLA int8, batch 64: actions with only the W8A8 product plain bit-equal {same} (gate: bit-equal; "
+        f"kernel run {n1 - n0} w8a8_matmul launches, plain run {w8a8.w8a8_matmul.launches - n1})")
+    if not same or n1 - n0 != want["w8a8_matmul"] or w8a8.w8a8_matmul.launches != n1:
+        raise SystemExit("int8 MVLA actions with the W8A8 kernel differ from those with its plain version")
+    mvla_kernel_vs_plain("MVLA int8", policy.params, inputs, mc, policy.policy, noise)
+    del a_w8a8_plain
+    torch.cuda.reset_peak_memory_stats()
+    for items in ([(req1[0], sessions[0])], list(zip(req64, sessions))):
+        wrapper.infer_batch(items)
+    int8_peak = torch.cuda.max_memory_allocated()
+
+    # bf16: the same random weights behind the same wrapper, quantize_int8 off
+    bf16_wrapper = make_policy_wrapper(ev_config(quantize=False, model_cfg=mvla_model_cfg()), device=DEVICE)
+    bf16_sessions = [bf16_wrapper.new_session() for _ in range(64)]
+    bp, bpol = bf16_wrapper.policy.params, bf16_wrapper.policy.policy
+    with torch.inference_mode():
+        p_kernel = mvla.compute_prompt(bp, *inputs[:4], mc, bpol)
+        p_plain = mvla.compute_prompt(bp, *inputs[:4], dataclasses.replace(mc, attention_impl="xla"), bpol)
+    prompt_rel = rel_l2(p_kernel, p_plain)
+    log(f"# MVLA bf16, batch 64: connector prompt {tuple(p_kernel.shape)} through the attention kernel vs plain "
+        f"attention rel L2 {prompt_rel:.3e} (tol {MVLA_PROMPT_RTOL}), max abs "
+        f"{(p_kernel - p_plain).abs().max().item():.3e} (max |prompt| {p_plain.abs().max().item():.3e})")
+    if not prompt_rel <= MVLA_PROMPT_RTOL:
+        raise SystemExit("the MVLA connector prompt through the attention kernel disagrees with the plain path")
+    del p_kernel, p_plain
+    mvla_kernel_vs_plain("MVLA bf16", bp, inputs, mc, bpol, noise)
+    a_bf16 = mvla.sample_actions(bp, None, *inputs, mc, bpol, noise=noise)
+    log(f"# MVLA int8 vs bf16 actions (same random weights, inputs and noise, batch 64): rel L2 "
+        f"{rel_l2(a_kernel, a_bf16):.3e} (no gate on random weights)")
+    del a_kernel, a_bf16
+    torch.cuda.empty_cache()
+
+    runs = {"int8": (wrapper, sessions), "bf16": (bf16_wrapper, bf16_sessions)}
+    torch.cuda.reset_peak_memory_stats()
+    # policy steps: the eval_cfg.action_step actions each row's answer carries
+    time_wrappers("MVLA", runs, {1: req1, 64: req64}, cfg.eval_cfg.action_step, {1: 5, 64: 3})
+    log(f"# MVLA peak device memory: int8 wrapper alone {int8_peak / 2**30:.2f} GiB (batch 1 and 64); both wrappers "
+        f"during the timing {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del wrapper, policy, bf16_wrapper, runs, bp, sessions, bf16_sessions
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # mmmvla: the joint expert in bf16, batch 64
+    jwrapper = make_policy_wrapper(ev_config(quantize=False, model_cfg=mvla_model_cfg("mmmvla")), device=DEVICE)
+    jmc, jpol = jwrapper.model_cfg, jwrapper.policy
+    jwant = mvla_per_inference(jmc)
+    jsessions = [jwrapper.new_session() for _ in range(64)]
+    # --- the main path: one fused batch-64 inference of the joint expert ---
+    flash_attention.launches = w8a8.w8a8_matmul.launches = 0
+    fused(jwrapper, list(zip(req64, jsessions)), jwant, "bf16 mmmvla")
+    joint = {k: c.launches for k, c in counters.items()}
+    # ------------------------------------------------------------------------
+    log(f"# mmmvla bf16 serving ({jmc.alternate_pattern} expert, {jmc.expert.depth} layers over [108 prompt | "
+        f"{1 + jmc.chunk_size} suffix]): 1 fused batch-64 inference, launches {joint} (expect {jwant})")
+    mvla_kernel_vs_plain("mmmvla bf16", jpol.params, inputs, jmc, jpol.policy, noise)
+    torch.cuda.reset_peak_memory_stats()
+    time_wrappers("mmmvla", {"bf16": (jwrapper, jsessions)}, {64: req64}, cfg.eval_cfg.action_step, {64: 3})
+    log(f"# mmmvla peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del jwrapper, jpol, jsessions
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the DiT head (action_head "dit") in bf16 through sample_actions at batch 64; its
+    # adaLN-Zero leaves and output projection start at 0 (eps = 0 whatever the
+    # prompt), so they are drawn from the seed as well
+    dmc = dataclasses.replace(mc, action_head="dit")
+    dparams = mvla.init(dmc, SERVING_SEED, DEVICE, torch.bfloat16)
+    gen = torch.Generator(device=DEVICE).manual_seed(SERVING_SEED + 1)
+    for leaf in cm.tree_leaves(dparams["dit"]):
+        if not leaf.any():
+            leaf.copy_(torch.randn(leaf.shape, generator=gen, device=DEVICE) * 0.02)
+    dwant = mvla_per_inference(dmc)
+    # --- the main path: sample_actions with the DiT head, batch 64 ---
+    flash_attention.launches = w8a8.w8a8_matmul.launches = 0
+    a_dit = mvla.sample_actions(dparams, torch.Generator(device=DEVICE).manual_seed(6), *inputs, dmc, cm.SERVING_POLICY)
+    dit = {k: c.launches for k, c in counters.items()}
+    # ------------------------------------------------------------------
+    log(f"# MVLA DiT head (DiT {dmc.dit_depth} layers x {dmc.dit_width}, {dmc.num_steps} DDIM steps of "
+        f"{dmc.diffusion_steps}), batch 64: actions {tuple(a_dit.shape)}, finite {bool(torch.isfinite(a_dit).all())}, "
+        f"max |a| {a_dit.abs().max().item():.3e}, launches {dit} (expect {dwant})")
+    if dit != dwant or a_dit.shape != (64, dmc.chunk_size, dmc.max_action_dim) or not torch.isfinite(a_dit).all():
+        raise SystemExit("the MVLA DiT head's sampler launched unexpectedly or gave bad actions")
+    mvla_kernel_vs_plain("MVLA DiT bf16", dparams, inputs, dmc, cm.SERVING_POLICY, noise)
+    ms = cuda_ms(lambda: mvla.sample_actions(dparams, None, *inputs, dmc, cm.SERVING_POLICY, noise=noise), reps=3,
+                 warmup=1)
+    log(f"# MVLA DiT head batch 64: median sample_actions {ms:.2f} ms over 3 (CUDA events)")
+    del dparams, a_dit, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: launches[k] + joint[k] + dit[k] for k in counters}
+
+
+# ---------------------------------------------------------------------------
+# 9. MVLA training: the full tower through the trainer's standard step
+# ---------------------------------------------------------------------------
+
+MVLA_OVERRIDES = {"mesh.fsdp": 1, "per_device_batch_size": 32, "global_batch_size": 64, "n_updates": 2,
+                  "eval_freq": 2, "eval_size": 32, "save_model_freq": 2}
+# one micro-step's gradient of every leaf through the attention kernel
+# against through the plain attention, at full width and 4 layers of each
+# tower (SigLIP, Gemma, connector, expert); SigLIP's key biases (exact
+# gradient 0) are left out of the per-leaf gate
+MVLA_GRAD_RTOL = 2e-2
+MVLA_LEAF_RTOL = 5e-2
+
+
+def phase_mvla_training() -> dict:
+    """config/train/pi0_finetune_bridge.yaml with mvla_bridge.json as its
+    model (bf16 masters, 8-bit AdamW, SR, remat, the full tower) through the
+    Trainer: 2 updates of 2 micro-steps of 32 (the recipe's per-device
+    batch), validation at update 2 on one batch, a save at update 2 and a
+    resume from it; then the gradients against the plain attention and the
+    frozen leaves of a freeze_vlm run. -> {kernel: launches}."""
+    import shutil
+
+    from intact_tpu_torch.models.common import flatten_paths
+    from intact_tpu_torch.ops.flash_attention import flash_attention
+    from intact_tpu_torch.train import checkpoint as ckpt
+    from intact_tpu_torch.train.trainer import Trainer
+
+    cfg = trainer_config(JOINT_RECIPE, MVLA_OVERRIDES, model_cfg=mvla_model_cfg())
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    mc, accum = trainer.model_cfg, trainer.opt_cfg.grad_accumulation_steps
+    params = flatten_paths(trainer.state.params)
+    mu = trainer.state.opt_state["mu"]
+    # the prefill's layers and their recompute in the backward, and the
+    # expert's self layers (the expert runs without recompute, as the reference's)
+    want = 2 * mc.vlm.depth + mc.expert.depth // 2
+    want_val = mvla_per_inference(mc)["flash_attention"]
+    log(f"# MVLA training: {JOINT_RECIPE} with {MVLA_JSON} ({cfg.model_type}), "
+        f"{sum(v.numel() for v in params.values()) / 1e9:.3f} B params {sorted({str(v.dtype) for v in params.values()})}"
+        f", frozen set {'none' if trainer.frozen_mask is None else 'some'} (freeze_lm_head freezes pi0's embedding "
+        f"only), 8-bit moments on {sum(isinstance(m, dict) for m in mu.values())} of {len(mu)} leaves, micro-batch "
+        f"{trainer.micro_batch_size} x accumulation {accum}, init {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card; per micro-step expect {want} flash_attention "
+        f"launches, {want_val} per validation batch")
+    counters = {"flash_attention": flash_attention}
+    records = record_steps(trainer, counters)
+    validations = []
+    real_validate = trainer.validate
+
+    def validate():
+        f0 = flash_attention.launches
+        metrics = real_validate()
+        validations.append((metrics, flash_attention.launches - f0))
+        return metrics
+
+    trainer.validate = validate
+    # --- the main path: the trainer's loop, as `python -m intact_tpu_torch.run` drives it ---
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    trainer.train()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.launches}
+    # -------------------------------------------------------------------------------------------
+    report_steps("MVLA", records, accum, cfg.global_batch_size)
+    log(f"# MVLA training: loop wall {wall:.2f} s for {cfg.n_updates} updates incl. data, validation and the save; "
+        f"launches {launches}")
+    for metrics, n in validations:
+        log(f"# MVLA validation at update {cfg.n_updates}: {metrics}, flash_attention {n}")
+    n_val = max(1, cfg.eval_size // trainer.micro_batch_size)
+    codes = {m["q"].dtype for m in trainer.state.opt_state["mu"].values() if isinstance(m, dict)}
+    bad = [i + 1 for i, (n, loss, gn, pn, _) in enumerate(records)
+           if not (np.isfinite(loss) and np.isfinite(gn) and np.isfinite(pn)) or n["flash_attention"] != want]
+    if (bad or len(records) != cfg.n_updates * accum or codes != {torch.int8} or trainer.frozen_mask is not None
+            or len(validations) != 1 or validations[0][1] != n_val * want_val
+            or not np.isfinite(validations[0][0]["l1_loss"])):
+        raise SystemExit(f"MVLA training: micro-steps {bad} non-finite or unexpected launches, codes {codes}, "
+                         f"frozen set {trainer.frozen_mask is not None}, validations {validations}")
+    steps = ckpt.list_steps(trainer.ckpt_root, committed_only=True)
+    resumed = Trainer(trainer_config(JOINT_RECIPE, {**MVLA_OVERRIDES, "load_from_checkpoint": trainer.ckpt_root / "step_2"},
+                                     model_cfg=mvla_model_cfg()), device=DEVICE)
+    ia, ib = state_items(trainer.state), state_items(resumed.state)
+    unequal = [k for k, v in ia.items()
+               if not (torch.equal(v, ib[k]) if isinstance(v, torch.Tensor) else v == ib.get(k))]
+    log(f"# MVLA checkpoints {steps}; resumed from step_2: cnt_update {resumed.cnt_update}, {len(ia)} state entries, "
+        f"{len(unequal)} unequal")
+    if steps != [2] or resumed.cnt_update != 2 or set(ia) != set(ib) or unequal:
+        raise SystemExit(f"MVLA checkpoints {steps} / resume: cnt_update {resumed.cnt_update}, unequal {unequal[:5]}")
+    del resumed, ia, ib
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    batch = trainer.device_batch(next(iter(trainer.train_data)))
+    profile_pass("MVLA micro-step", lambda: (trainer.train_step(trainer.state, batch), torch.cuda.synchronize()))
+    del trainer, batch, real_validate  # the bound validate would keep the trainer past gc.collect
+    gc.collect()  # the recorders installed on the trainer refer back to it
+    torch.cuda.empty_cache()
+    compare_mvla_grads()
+    mvla_frozen_vlm()
+    return launches
+
+
+def mvla_frozen_vlm() -> None:
+    """One update of the MVLA recipe with freeze_vlm (the VLM and its
+    embedding frozen; the metaqueries train through it), at lr 1e-2 and no
+    warmup so that a trainable leaf moves by far more than a bf16 ulp:
+    every frozen leaf stays bit-equal, the metaqueries move."""
+    import shutil
+
+    from intact_tpu_torch.models.common import flatten_paths
+    from intact_tpu_torch.train.trainer import Trainer
+
+    overrides = {**MVLA_OVERRIDES, "per_device_batch_size": 16, "global_batch_size": 16, "n_updates": 1,
+                 "eval_freq": 100, "save_model_freq": 100, "freeze_vlm": True, "model_cfg.optimizer_lr": 1e-2,
+                 "model_cfg.scheduler_warmup_steps": 0}
+    trainer = Trainer(trainer_config(JOINT_RECIPE, overrides, model_cfg=mvla_model_cfg()), device=DEVICE)
+    params = flatten_paths(trainer.state.params)
+    frozen = {k for k, t in flatten_paths(trainer.frozen_mask).items() if not t}
+    before = {k: v.clone() for k, v in params.items()}
+    trainer.train()
+    after = flatten_paths(trainer.state.params)
+    changed_frozen = [k for k in frozen if not torch.equal(after[k], before[k])]
+    moved = {k for k in after if k not in frozen and not torch.equal(after[k], before[k])}
+    log(f"# MVLA freeze_vlm, 1 update of 16: {len(frozen)} frozen leaves "
+        f"({sum(before[k].numel() for k in frozen) / 1e9:.3f} B values, all under vlm/ and vlm_embed/: "
+        f"{all(k.startswith(('vlm/', 'vlm_embed/')) for k in frozen)}), {len(changed_frozen)} changed; {len(moved)} of "
+        f"{len(after) - len(frozen)} trainable leaves moved, metaquery moved {'metaquery' in moved}")
+    if (trainer.cnt_update != 1 or not frozen or changed_frozen or "metaquery" not in moved
+            or not all(k.startswith(("vlm/", "vlm_embed/")) for k in frozen)
+            or len(moved) < (len(after) - len(frozen)) // 2):
+        raise SystemExit(f"MVLA freeze_vlm: frozen leaves changed {changed_frozen[:5]} or too few trainable "
+                         f"leaves moved ({len(moved)})")
+    del trainer, params, before, after
+    shutil.rmtree(RUN_DIR, ignore_errors=True)  # the trainer saves its last update
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def compare_mvla_grads(depth: int = 4) -> None:
+    """One micro-step's gradient of every leaf of the MVLA recipe's model at
+    full width and `depth` layers of SigLIP, Gemma, the connector and the
+    expert, through the attention kernel and through the plain attention,
+    from the same params, batch and draws."""
+    from intact_tpu_torch.data.dataset import InterleavedDataset
+    from intact_tpu_torch.models import common as cm
+    from intact_tpu_torch.models.mvla import model as mvla
+    from intact_tpu_torch.models.tokenizer import HashTokenizer
+    from intact_tpu_torch.ops.flash_attention import flash_attention
+    from intact_tpu_torch.train.trainer import preprocess_batch
+
+    cfg = trainer_config(JOINT_RECIPE, MVLA_OVERRIDES, model_cfg=mvla_model_cfg())
+    full = cfg.make_model_config()
+    mc = dataclasses.replace(full, vlm=dataclasses.replace(full.vlm, depth=depth),
+                             vision=dataclasses.replace(full.vision, depth=depth),
+                             expert=dataclasses.replace(full.expert, depth=depth),
+                             connector=dataclasses.replace(full.connector, depth=depth))
+    policy = cm.DtypePolicy(param_dtype=torch.float32, compute_dtype=torch.bfloat16)
+    data = InterleavedDataset(cfg.data, 16, seed=7, image_size=mc.vision.image_size)
+    raw = preprocess_batch(next(iter(data)), HashTokenizer(mc.vlm.vocab_size, mc.tokenizer_max_length), mc)
+    batch = {k: torch.from_numpy(np.asarray(v)).to(DEVICE) for k, v in raw.items()}
+    params = cm.flatten_paths(mvla.init(mc, seed=1, device=DEVICE))
+    out = {}
+    for name, attn in (("kernel", "pallas"), ("plain", "xla")):
+        views = {k: v.detach().requires_grad_() for k, v in params.items()}
+        f0 = flash_attention.launches
+        loss, _ = mvla.compute_loss(cm.unflatten_paths(views), np.random.default_rng(3), batch,
+                                    dataclasses.replace(mc, attention_impl=attn), policy)
+        grads = torch.autograd.grad(loss, list(views.values()))
+        out[name] = (loss.item(), dict(zip(views, grads)), flash_attention.launches - f0)
+        del views, grads
+    (lk, gk, nk), (lp, gp, np_) = out["kernel"], out["plain"]
+    shift = [k for k in gp if k.endswith("attn/k/bias")]
+    num = sum((gk[k].double() - gp[k].double()).square().sum().item() for k in gp)
+    den = sum(g.double().square().sum().item() for g in gp.values())
+    grad_rel = (num / den) ** 0.5
+    leaf_rel = sorted(((rel_l2(gk[k], gp[k]), k) for k in gp if k not in shift), reverse=True)
+    want = 2 * depth + depth // 2
+    log(f"# MVLA kernel vs plain attention, one micro-step at full width and {depth} layers per tower (batch 16): "
+        f"loss {lk:.6f} vs {lp:.6f}; gradients of the {len(gp)} leaves rel L2 {grad_rel:.3e} (tol {MVLA_GRAD_RTOL}), "
+        f"worst leaves {[(k, f'{r:.3e}') for r, k in leaf_rel[:3]]} (tol {MVLA_LEAF_RTOL}), median leaf "
+        f"{leaf_rel[len(leaf_rel) // 2][0]:.3e}, metaquery {rel_l2(gk['metaquery'], gp['metaquery']):.3e}; "
+        f"flash_attention launches {nk} / {np_} (expect {want} / 0)")
+    if not (grad_rel <= MVLA_GRAD_RTOL and leaf_rel[0][0] <= MVLA_LEAF_RTOL and nk == want and np_ == 0
+            and np.isfinite(lk)):
+        raise SystemExit("MVLA gradients through the attention kernel disagree with the plain path")
+    del out, gk, gp, params
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2213,8 +2709,11 @@ def main() -> int:
     standard = phase_standard_training()
     fast_serving = phase_fast_serving()
     fast_training = phase_fast_training()
+    mvla_serving = phase_mvla_serving()
+    mvla_training = phase_mvla_training()
     paths = {"serving": {"flash_attention": serving}, "int8": int8, "training": training, "standard": standard,
-             "fast_serving": fast_serving, "fast_training": fast_training}
+             "fast_serving": fast_serving, "fast_training": fast_training, "mvla_serving": mvla_serving,
+             "mvla_training": mvla_training}
     if not all(n > 0 for counts in paths.values() for n in counts.values()):
         raise SystemExit(f"a kernel of the path never launched: {paths}")
     for name in kernels:
@@ -2224,7 +2723,8 @@ def main() -> int:
         f"training + {fast_serving['flash_attention']} Pi0FAST serving + {fast_training['flash_attention']} Pi0FAST "
         f"training, fused_adam_rows {training['fused_adam_rows']} fused training, w8a8_matmul "
         f"{int8['w8a8_matmul']} int8 serving + {standard['w8a8_matmul']} expert-only training + "
-        f"{fast_serving['w8a8_matmul']} Pi0FAST int8 serving")
+        f"{fast_serving['w8a8_matmul']} Pi0FAST int8 serving + {mvla_serving['w8a8_matmul']} MVLA int8 serving; "
+        f"MVLA flash_attention {mvla_serving['flash_attention']} serving + {mvla_training['flash_attention']} training")
     torch.cuda.synchronize()
     log(f"# total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))

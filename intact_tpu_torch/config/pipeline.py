@@ -268,15 +268,16 @@ class TrainPipelineConfig:
             raise ValueError("n_parallel_eval should be set for simplerMS3")
 
     def make_model_config(self):
-        """model_cfg dict -> the model config through the registry: "pi0"
-        from the model JSON, "pi0fast" the bridge config with the JSON's
-        common fields, the tiny types their CPU-testable configs."""
+        """model_cfg dict -> the model config, built as the type's registry
+        entry says (`model_json`): from the whole model JSON ("pi0"), its
+        default config with the JSON's common fields ("pi0fast", "mvla",
+        "mmmvla"), or its default as is (the tiny, CPU-testable types)."""
         from intact_tpu_torch.models import registry
 
         entry = registry.get(self.model_type)
-        if self.model_type == "pi0":
+        if entry["model_json"] == "json":
             return pi0_config_from_json(self.model_cfg)
-        if self.model_type == "pi0fast":
+        if entry["model_json"] == "common":
             return _replace_common_fields(entry["default_config"](), self.model_cfg)
         return entry["default_config"]()
 

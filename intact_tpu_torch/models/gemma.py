@@ -65,28 +65,30 @@ def tiny_test_config(width: int = 32, depth: int = 2) -> GemmaConfig:
 # init
 # ---------------------------------------------------------------------------
 
-def init_blocks_params(init: cm.Initializer, cfg: GemmaConfig) -> cm.Params:
-    d, m, lead = cfg.width, cfg.mlp_dim, (cfg.depth,)
+def init_block_params(init: cm.Initializer, cfg: GemmaConfig, lead: tuple) -> cm.Params:
+    """One Gemma block's weights, stacked over the `lead` axes."""
+    d, m = cfg.width, cfg.mlp_dim
     qdim = cfg.num_heads * cfg.head_dim
     kvdim = cfg.num_kv_heads * cfg.head_dim
     return {
-        "blocks": {
-            "ln1": cm.rmsnorm_init(init, d, lead),
-            "attn": {
-                "q": cm.dense_init(init, d, qdim, use_bias=False, lead=lead),
-                "k": cm.dense_init(init, d, kvdim, use_bias=False, lead=lead),
-                "v": cm.dense_init(init, d, kvdim, use_bias=False, lead=lead),
-                "o": cm.dense_init(init, qdim, d, use_bias=False, lead=lead),
-            },
-            "ln2": cm.rmsnorm_init(init, d, lead),
-            "mlp": {
-                "gate": cm.dense_init(init, d, m, use_bias=False, lead=lead),
-                "up": cm.dense_init(init, d, m, use_bias=False, lead=lead),
-                "down": cm.dense_init(init, m, d, use_bias=False, lead=lead),
-            },
+        "ln1": cm.rmsnorm_init(init, d, lead),
+        "attn": {
+            "q": cm.dense_init(init, d, qdim, use_bias=False, lead=lead),
+            "k": cm.dense_init(init, d, kvdim, use_bias=False, lead=lead),
+            "v": cm.dense_init(init, d, kvdim, use_bias=False, lead=lead),
+            "o": cm.dense_init(init, qdim, d, use_bias=False, lead=lead),
         },
-        "final_norm": cm.rmsnorm_init(init, d),
+        "ln2": cm.rmsnorm_init(init, d, lead),
+        "mlp": {
+            "gate": cm.dense_init(init, d, m, use_bias=False, lead=lead),
+            "up": cm.dense_init(init, d, m, use_bias=False, lead=lead),
+            "down": cm.dense_init(init, m, d, use_bias=False, lead=lead),
+        },
     }
+
+
+def init_blocks_params(init: cm.Initializer, cfg: GemmaConfig) -> cm.Params:
+    return {"blocks": init_block_params(init, cfg, (cfg.depth,)), "final_norm": cm.rmsnorm_init(init, cfg.width)}
 
 
 def init_embed_params(init: cm.Initializer, cfg: GemmaConfig) -> cm.Params:

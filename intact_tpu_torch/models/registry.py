@@ -3,7 +3,10 @@ types the port has (intact_tpu/models/registry.py, cut to them).
 
 A model module exposes init / compute_loss / sample_actions; the policy, the
 serving wrapper, the trainer and the weight bridge resolve it from here, and
-`make_policy_wrapper` the type's wrapper class (its `wrapper` path).
+`make_policy_wrapper` the type's wrapper class (its `wrapper` path). An
+entry's `model_json` says how `make_model_config` builds the type's config
+from the model JSON: "json" reads the whole config from it, "common" lays its
+common fields over the default config, "default" takes the default as is.
 """
 
 from __future__ import annotations
@@ -43,17 +46,26 @@ def module_for_config(cfg):
 
 
 def _register_builtin() -> None:
+    import dataclasses
+
+    from intact_tpu_torch.models.mvla.config import MVLAConfig
     from intact_tpu_torch.models.pi0.config import Pi0Config
     from intact_tpu_torch.models.pi0fast.config import Pi0FASTConfig
 
-    wrapper = "intact_tpu_torch.serve.policy_wrapper.Pi0PolicyWrapper"  # both families, as in the reference
-    for name, cls, factory, mod in (
-        ("pi0", Pi0Config, Pi0Config.bridge, "intact_tpu_torch.models.pi0.model"),
-        ("pi0_tiny", Pi0Config, Pi0Config.tiny, "intact_tpu_torch.models.pi0.model"),
-        ("pi0fast", Pi0FASTConfig, Pi0FASTConfig.bridge, "intact_tpu_torch.models.pi0fast.model"),
-        ("pi0fast_tiny", Pi0FASTConfig, Pi0FASTConfig.tiny, "intact_tpu_torch.models.pi0fast.model"),
+    wrapper = "intact_tpu_torch.serve.policy_wrapper.Pi0PolicyWrapper"  # every family here, as in the reference
+    mvla = "intact_tpu_torch.models.mvla.model"
+    for name, cls, factory, model_json, mod in (
+        ("pi0", Pi0Config, Pi0Config.bridge, "json", "intact_tpu_torch.models.pi0.model"),
+        ("pi0_tiny", Pi0Config, Pi0Config.tiny, "default", "intact_tpu_torch.models.pi0.model"),
+        ("pi0fast", Pi0FASTConfig, Pi0FASTConfig.bridge, "common", "intact_tpu_torch.models.pi0fast.model"),
+        ("pi0fast_tiny", Pi0FASTConfig, Pi0FASTConfig.tiny, "default", "intact_tpu_torch.models.pi0fast.model"),
+        ("mvla", MVLAConfig, MVLAConfig, "common", mvla),
+        ("mvla_tiny", MVLAConfig, MVLAConfig.tiny, "default", mvla),
+        ("mmmvla", MVLAConfig, lambda: dataclasses.replace(MVLAConfig(), alternate_pattern="joint"), "common", mvla),
+        ("mmmvla_tiny", MVLAConfig, lambda: dataclasses.replace(MVLAConfig.tiny(), alternate_pattern="joint"),
+         "default", mvla),
     ):
-        register(name, config_cls=cls, default_config=factory, module=mod, wrapper=wrapper)
+        register(name, config_cls=cls, default_config=factory, model_json=model_json, module=mod, wrapper=wrapper)
 
 
 _register_builtin()

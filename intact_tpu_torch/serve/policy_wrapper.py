@@ -11,7 +11,7 @@ Per-connection episode state (the env adapter's episode state) lives in a
 `new_session()`; the shared policy on the card stays stateless across
 co-batched clients. The wrapper serves one card (CUDA unless the caller
 passes device="cpu"); serving over several cards and the families other than
-Pi0 and Pi0FAST are ROADMAP items ("serving and training over several
+Pi0, Pi0FAST and MVLA are ROADMAP items ("serving and training over several
 cards", "the other model families and their wrappers").
 """
 
@@ -202,9 +202,9 @@ class Pi0Session(PolicySession):
 
 
 class Pi0PolicyWrapper(BasePolicyWrapper):
-    """Serves Pi0 and Pi0FAST checkpoints of the port (bf16, or int8 with
-    eval_cfg.quantize_int8) on one card; the model module comes from the
-    registry by model type."""
+    """Serves Pi0, Pi0FAST and MVLA (mvla, mmmvla) checkpoints of the port
+    (bf16, or int8 with eval_cfg.quantize_int8) on one card; the model
+    module comes from the registry by model type."""
 
     session_cls = Pi0Session
 
@@ -285,8 +285,8 @@ class Pi0PolicyWrapper(BasePolicyWrapper):
 
 def make_policy_wrapper(config, device=None):
     """Model type -> its wrapper from the registry; device: CUDA unless
-    given. An unported type (octo, spatialvla, magma, mvla) raises there:
-    the ROADMAP item "the other model families and their wrappers"."""
+    given. An unported type (octo, spatialvla, magma, dreamvla) raises
+    there: the ROADMAP item "the other model families and their wrappers"."""
     from intact_tpu_torch.models import registry
 
     wrapper = get_class_from_path(registry.get(config.model_cfg.get("type", "pi0"))["wrapper"])

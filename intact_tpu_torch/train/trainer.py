@@ -1,4 +1,4 @@
-"""Single-card Pi0 and Pi0FAST trainer: the fused joint step or the standard step.
+"""Single-card Pi0, Pi0FAST and MVLA trainer: the fused joint step or the standard step.
 
 intact_tpu/train/trainer.py on one card: config -> the model module from the
 registry -> parameters from the seed
@@ -24,7 +24,8 @@ Two steps, as in the reference:
     (per-layer torch.utils.checkpoint), as every joint recipe's `remat: true`
     asks; the expert-only path has no tower backward, and its recipe's
     `remat: false`. Pi0FAST's loss draws nothing; its prefill recomputes each
-    layer in the backward, as the reference's does.
+    layer in the backward, as the reference's does. MVLA's loss runs the
+    same prefill under autograd (the metaqueries train through the VLM).
 
 Not ported yet, and refused: meshes (the trainer runs on one card), W&B,
 task paraphrasing. Runs on the CUDA device unless the caller passes
@@ -138,7 +139,7 @@ _QUANTIZE_FROZEN_SAFE = {"pi0"}
 
 
 class Trainer:
-    """Pi0 / Pi0FAST trainer on one card (fused joint step or standard step)."""
+    """Pi0 / Pi0FAST / MVLA trainer on one card (fused joint step or standard step)."""
 
     def __init__(self, cfg: TrainPipelineConfig, device=None):
         self.cfg = cfg
@@ -279,6 +280,11 @@ class Trainer:
             freeze("vlm_embed")
             if mc.freeze_vision_encoder or mc.train_expert_only:
                 freeze("img_proj")
+        # MVLA: the metaqueries stay trainable (their gradient flows back
+        # through the frozen VLM) unless freeze_metaqueries, which also cuts
+        # the model's backward at the VLM boundary
+        if getattr(mc, "freeze_metaqueries", False) and "metaquery" in mask:
+            freeze("metaquery")
         return mask
 
     @staticmethod

@@ -64,6 +64,26 @@ def test_config_fields_and_defaults_match():
         assert dataclasses.asdict(tc) == dataclasses.asdict(jc), make
         assert tc.n_action_tokens == jc.n_action_tokens, make
 
+    from intact_tpu.models.connector import ConnectorConfig as JC
+    from intact_tpu.models.connector import tiny_test_config as jc_tiny
+    from intact_tpu.models.dit import DiTConfig as JD
+    from intact_tpu.models.dit import tiny_test_config as jd_tiny
+    from intact_tpu.models.mvla.config import MVLAConfig as JM
+    from intact_tpu.models.mvla.model import _dit_config as j_dit_config
+    from intact_tpu_torch.models.connector import ConnectorConfig as TC
+    from intact_tpu_torch.models.connector import tiny_test_config as tc_tiny
+    from intact_tpu_torch.models.dit import DiTConfig as TD
+    from intact_tpu_torch.models.dit import tiny_test_config as td_tiny
+    from intact_tpu_torch.models.mvla.config import MVLAConfig as TM
+    from intact_tpu_torch.models.mvla.model import dit_config as t_dit_config
+
+    for j, t in ((JC, TC), (JD, TD), (JM, TM)):
+        assert _fields(t) == _fields(j), t.__name__
+    for jc, tc in ((JM(), TM()), (JM.tiny(), TM.tiny()), (jc_tiny(), tc_tiny()), (jd_tiny(), td_tiny()),
+                   (j_dit_config(JM()), t_dit_config(TM()))):
+        assert dataclasses.asdict(tc) == dataclasses.asdict(jc), type(tc).__name__
+    assert TM().proj_width == JM().proj_width == 1024 and TM.tiny().proj_width == JM.tiny().proj_width
+
 
 def test_pipeline_config_fields_and_defaults_match():
     """The port's TrainPipelineConfig has the reference's fields, with equal
@@ -86,7 +106,8 @@ def test_pipeline_config_fields_and_defaults_match():
     assert defaults(T)["eval_thresholds"] == [0.05, 0.1, 0.2, 0.3, 0.5]
 
 
-@pytest.mark.parametrize("entry", ["policy", "init", "server", "pi0fast_policy", "pi0fast_init"])
+@pytest.mark.parametrize("entry", ["policy", "init", "server", "pi0fast_policy", "pi0fast_init", "mvla_policy",
+                                   "mvla_init"])
 def test_entry_points_raise_without_cuda_unless_given_cpu(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
@@ -96,14 +117,18 @@ def test_entry_points_raise_without_cuda_unless_given_cpu(entry):
     from intact_tpu_torch.models.pi0.policy import Pi0Policy
     from intact_tpu_torch.models.pi0fast import Pi0FASTConfig
     from intact_tpu_torch.models.pi0fast import model as fast
+    from intact_tpu_torch.models.mvla import MVLAConfig
+    from intact_tpu_torch.models.mvla import model as mvla
 
-    cfg, fcfg = Pi0Config.tiny(), Pi0FASTConfig.tiny()
+    cfg, fcfg, mcfg = Pi0Config.tiny(), Pi0FASTConfig.tiny(), MVLAConfig.tiny()
     call = {
         "policy": lambda **kw: Pi0Policy(cfg, tokenizer_path="hash", **kw),
         "init": lambda **kw: model.init(cfg, **kw),
         "server": lambda **kw: serve.build_server(cfg, port=0, **kw),
         "pi0fast_policy": lambda **kw: Pi0Policy(fcfg, tokenizer_path="hash", model_module=fast, **kw),
         "pi0fast_init": lambda **kw: fast.init(fcfg, **kw),
+        "mvla_policy": lambda **kw: Pi0Policy(mcfg, tokenizer_path="hash", model_module=mvla, **kw),
+        "mvla_init": lambda **kw: mvla.init(mcfg, **kw),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

@@ -521,42 +521,55 @@ class TestBatchingServerEndToEnd:
             st.stop()
 
 
+def serve_role(argv, monkeypatch):
+    """python -m intact_tpu_torch.run with `argv` (a server role), its server
+    bound to an ephemeral port on a ServerThread -> (the served wrapper, the
+    thread)."""
+    from intact_tpu_torch import run as run_mod
+    from intact_tpu_torch.protocol.websocket_policy_server import WebsocketPolicyServer
+    from intact_tpu_torch.serve import server as server_mod
+
+    captured = {}
+
+    def fake_serve(policy, config):  # bind an ephemeral port, stop through the loop
+        captured["policy"] = policy
+        ws_server = WebsocketPolicyServer(policy, host="127.0.0.1", port=0, metadata={"model": config.model_type})
+
+        async def factory(st):
+            import websockets.asyncio.server
+
+            async with websockets.asyncio.server.serve(ws_server._handler, "127.0.0.1", 0, compression=None,
+                                                       max_size=None) as ws:
+                st.started(ws.sockets[0].getsockname()[1])
+                await st._stop.wait()
+
+        captured["thread"] = ServerThread(factory)
+
+    monkeypatch.setattr(server_mod, "serve", fake_serve)
+    assert run_mod.main(argv) == 0
+    return captured["policy"], captured["thread"]
+
+
+def server_argv(model_type: str, quantize: bool) -> list[str]:
+    return ["--config_path", str(REPO / "config/experiment/simpler/pi0_finetune_bridge_ev.yaml"),
+            "--eval_cfg.role", "server", "--eval_cfg.quantize_int8", str(quantize).lower(),
+            "--eval_cfg.pretrained_model_path", "null", "--eval_cfg.max_batch_size", "1",
+            "--model_cfg.type", model_type, "--tokenizer_path", "hash", "--use_bf16", "false",
+            "--env.image_size", "[28, 28]", "--env.dataset_statistics_path", STATS, "--device", "cpu"]
+
+
 class TestRunCLIServerRole:
     def test_server_dispatch_serves_int8_over_websocket(self, tmp_path, monkeypatch):
         """python -m intact_tpu_torch.run --eval_cfg.role server, end to end:
         config -> wrapper (int8) -> per-request websocket server -> client."""
         from intact_tpu_torch import run as run_mod
-        from intact_tpu_torch.protocol.websocket_policy_server import WebsocketPolicyServer
-        from intact_tpu_torch.serve import server as server_mod
 
-        argv = ["--config_path", str(REPO / "config/experiment/simpler/pi0_finetune_bridge_ev.yaml"),
-                "--eval_cfg.role", "server", "--eval_cfg.quantize_int8", "true",
-                "--eval_cfg.pretrained_model_path", "null", "--eval_cfg.max_batch_size", "1",
-                "--model_cfg.type", "pi0_tiny", "--tokenizer_path", "hash", "--use_bf16", "false",
-                "--env.image_size", "[28, 28]", "--env.dataset_statistics_path", STATS, "--device", "cpu"]
+        argv = server_argv("pi0_tiny", quantize=True)
         cfg, device = run_mod.build_config(argv)
         assert cfg.eval_cfg.quantize_int8 and device == "cpu" and cfg.wandb.project == "vla_benchmark"
-        captured = {}
-
-        def fake_serve(policy, config):  # bind an ephemeral port, stop through the loop
-            captured["policy"] = policy
-            ws_server = WebsocketPolicyServer(policy, host="127.0.0.1", port=0, metadata={"model": "pi0_tiny"})
-
-            async def factory(st):
-                import websockets.asyncio.server
-
-                async with websockets.asyncio.server.serve(ws_server._handler, "127.0.0.1", 0, compression=None,
-                                                           max_size=None) as ws:
-                    st.started(ws.sockets[0].getsockname()[1])
-                    await st._stop.wait()
-
-            captured["thread"] = ServerThread(factory)
-
-        monkeypatch.setattr(server_mod, "serve", fake_serve)
-        assert run_mod.main(argv) == 0
-        st = captured["thread"]
+        policy, st = serve_role(argv, monkeypatch)
         try:
-            assert "kernel_q" in captured["policy"].policy.params["vlm"]["blocks"]["mlp"]["up"]
+            assert "kernel_q" in policy.policy.params["vlm"]["blocks"]["mlp"]["up"]
             c = Client(st.port)
             try:
                 action = np.asarray(c.send(OBS))
@@ -564,6 +577,42 @@ class TestRunCLIServerRole:
                 assert c.send({"reset": True}) == {"status": "reset"}
             finally:
                 c.close()
+        finally:
+            st.stop()
+
+    @pytest.mark.parametrize("model_type,quantize", [("mvla_tiny", True), ("mmmvla_tiny", False)])
+    def test_server_role_serves_mvla_over_websocket(self, monkeypatch, model_type, quantize):
+        """The server role for the MVLA types: the registry's wrapper serves
+        the mvla model module (self/cross pairs int8 for mvla_tiny, the joint
+        expert in fp32 for mmmvla_tiny); a client's action equals the model's
+        sample_actions on the same inputs and noise draw, through the
+        adapter's postprocess."""
+        from intact_tpu_torch.models.mvla import model as tmvla
+        from intact_tpu_torch.serve.policy_wrapper import Pi0PolicyWrapper
+
+        wrapper, st = serve_role(server_argv(model_type, quantize), monkeypatch)
+        try:
+            assert type(wrapper) is Pi0PolicyWrapper and wrapper.policy.model is tmvla
+            mc, params = wrapper.model_cfg, wrapper.policy.params
+            assert mc.alternate_pattern == ("joint" if model_type.startswith("mmmvla") else "self_cross")
+            if quantize:
+                assert params["expert"]["pairs"]["cross"]["attn"]["k"]["kernel_q"].dtype == torch.int8
+                assert params["connector"]["blocks"]["mlp"]["up"]["kernel_q"].dtype == torch.int8
+            else:
+                assert "kernel" in params["expert"]["blocks"]["attn"]["q"]
+            c = Client(st.port)
+            try:
+                assert c.metadata == {"model": model_type}
+                action = np.asarray(c.send(OBS))
+                assert c.send({"reset": True}) == {"status": "reset"}
+            finally:
+                c.close()
+            assert action.shape == (4, 7) and np.isfinite(action).all()
+            inputs = wrapper.new_session().preprocess(OBS)
+            gen = torch.Generator().manual_seed(wrapper.config.seed)  # the policy's first draw
+            chunk = tmvla.sample_actions(params, gen, *wrapper.policy.device_inputs(inputs), mc, wrapper.policy.policy)
+            want = wrapper.env_adapter.postprocess(chunk[0, :wrapper.action_step, :7].numpy())
+            np.testing.assert_array_equal(action, want)
         finally:
             st.stop()
 

@@ -412,3 +412,38 @@ def test_refusals(make_cfg, recipe, overrides, error):
 
     with pytest.raises((ValueError, NotImplementedError), match=error):
         Trainer(make_cfg(recipe, **overrides), device="cpu")
+
+
+@pytest.mark.parametrize("freeze_metaqueries", [False, True])
+def test_mvla_trains_through_the_standard_step(make_cfg, monkeypatch, freeze_metaqueries):
+    """A tiny mvla (train_expert_only) runs the joint recipe's standard step
+    (bf16 masters, 8-bit moments, remat) for two updates through the Trainer.
+    The freeze set is the reference's: SigLIP, the projector, the VLM and its
+    embedding, and the metaqueries only under freeze_metaqueries (otherwise
+    they train through the frozen VLM). Frozen leaves stay bit-equal, the
+    metaqueries, the connector and the expert move; quantize_frozen_int8 is
+    refused (the metaqueries' gradient passes through the frozen tower)."""
+    from intact_tpu_torch.models import registry
+    from intact_tpu_torch.models.mvla.config import MVLAConfig
+    from intact_tpu_torch.train.trainer import Trainer
+
+    mc = dataclasses.replace(MVLAConfig.tiny(), train_expert_only=True, freeze_metaqueries=freeze_metaqueries)
+    monkeypatch.setitem(registry.get("mvla_tiny"), "default_config", lambda: mc)
+    with pytest.raises(ValueError, match="quantize_frozen_int8 requires"):
+        Trainer(make_cfg("joint", **{"model_cfg.type": "mvla_tiny", "quantize_frozen_int8": "true"}), device="cpu")
+    # lr 1e-2 from the first update: every trainable element moves by far more
+    # than a bf16 ulp, so which leaves move does not hang on stochastic rounding
+    trainer = Trainer(make_cfg("joint", **{"model_cfg.type": "mvla_tiny", "model_cfg.optimizer_lr": 1e-2,
+                                           "model_cfg.scheduler_warmup_steps": 0}), device="cpu")
+    frozen = {k for k, t in tcm.flatten_paths(trainer.frozen_mask).items() if not t}
+    want = ("siglip/", "img_proj/", "vlm/", "vlm_embed/") + (("metaquery",) if freeze_metaqueries else ())
+    assert frozen == {k for k in tcm.flatten_paths(trainer.state.params) if k.startswith(want)}
+    before = {k: v.clone() for k, v in tcm.flatten_paths(trainer.state.params).items()}
+    trainer.train()
+    assert trainer.cnt_update == 2 and trainer.state.step == 4
+    after = tcm.flatten_paths(trainer.state.params)
+    assert all(torch.equal(after[k], before[k]) for k in frozen)
+    moved = {k for k in after if not torch.equal(after[k], before[k])}
+    assert moved == set(after) - frozen
+    assert ("metaquery" in moved) == (not freeze_metaqueries)
+    assert {"connector/blocks/mlp/up/kernel", "expert/pairs/cross/attn/k/kernel"} <= moved
