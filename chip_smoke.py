@@ -10,7 +10,10 @@ Phases, each failing loudly (non-zero exit):
              the training shape, and at MVLA's batch-64 prefix (T = S = 436),
              expert suffix (51) and joint prompt (108, with its all-true
              mask and without one), each beside SDPA; w8a8_matmul on K-major
-             codes at every bridge and MVLA shape, per row and per 2048-chunk, beside
+             codes at every bridge, MVLA and SpatialVLA shape (the tied
+             unembedding at N 259,714 with fp32 out, batch 64 and 1, the
+             Gemma2 prefill at M 19,456 and a decode product; bit-equal),
+             per row and per 2048-chunk, beside
              torch._int_mm on its codes and the bf16 matmul it replaces, with
              effective rates and device time per call; fused_adam_rows at
              the Gemma-2B gate leaf in fp8 with and without SR, fp32 moments,
@@ -135,6 +138,22 @@ Phases, each failing loudly (non-zero exit):
              per validation batch; update time, samples/s, peak memory and a
              profile; one micro-step's gradient of every leaf through the
              kernel against through plain attention at full width, 4 layers
+  10. SpatialVLA serving: the server role's SpatialVLANativePolicyWrapper from
+             config/experiment/simpler/spatialvla_finetune_bridge_ev.yaml with
+             model_cfg {"type": "spatialvla_native"} (SigLIP So400m, Ego3D,
+             Gemma2-2B over a 304-token bidirectional prefix, 12 greedy
+             spatial tokens against its K/V cache, the tied 259,714-row
+             vocabulary; random weights from the seed, hash tokenizer, the Bridge
+             adapter in place of the yaml's undefined one): int8 at batch 1 and
+             64 with the W8A8 launches per inference counted from the
+             configuration (the tied unembedding among them) and no attention
+             kernel launch; ensembled env actions finite, (1, 7); the served
+             actions equal to the decoded tokens'; the int8 tokens and every
+             step's teacher-forced logits bit-equal with only the W8A8 product
+             plain; then bf16 behind the same wrapper against an fp32 run of
+             the same weights (token agreement and logit margins, reported);
+             latency at batch 1 and 64 (int8 beside bf16), peak memory, profiles
+             and the unembedding's share of device time
 The second-to-last line is `nvidia-smi`'s card name and power limit; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
@@ -745,12 +764,21 @@ W8A8_SHAPES = (
     ("fast_decode_q", 64, 2048, 2048), ("fast_decode_k", 64, 2048, 256), ("fast_decode_up", 64, 2048, 16384),
     ("fast_decode_down", 64, 16384, 2048), ("fast_decode_k_b1", 1, 2048, 256),
     ("mvla_conn_up", 6912, 1024, 4096), ("mvla_cross_k", 6912, 1024, 256), ("mvla_expert_q", 3264, 1024, 2048),
+    # SpatialVLA-4B: the tied unembedding (fp32 out) at batch 64 and 1, the
+    # Gemma2 prefill at M = 64 x 304, and a decode product at M = 64; no bias,
+    # as the model's products have none
+    ("svla_unembed", 64, 2304, 259_714), ("svla_unembed_b1", 1, 2304, 259_714), ("svla_q", 19456, 2304, 2048),
+    ("svla_k", 19456, 2304, 1024), ("svla_gate", 19456, 2304, 9216), ("svla_down", 19456, 9216, 2304),
+    ("svla_decode_gate", 64, 2304, 9216),
 )
 W8A8_TIMED = "gemma_up"  # the shape of the kernels line
 W8A8_DECODE = "fast_decode_k"  # Pi0FAST's decode shape the kernels line reports beside it
 # MVLA's at batch 64, reported beside it: the connector's up projection
 # (M = 64 x 108 metaqueries), a cross layer's prompt k, the expert's q (M = 64 x 51)
 W8A8_MVLA = ("mvla_conn_up", "mvla_cross_k", "mvla_expert_q")
+# SpatialVLA's, reported beside it; held bit-equal to the plain version (no
+# bias: each output is round(round(float(sum) * xs) * ws) on both sides)
+W8A8_SVLA = ("svla_unembed", "svla_unembed_b1", "svla_q", "svla_k", "svla_gate", "svla_down", "svla_decode_gate")
 
 
 def w8a8_case(gen: torch.Generator, m: int, k: int, n: int):
@@ -773,10 +801,16 @@ def plain_w8a8(x, wq, wscale, bias=None, k_chunk=None, out_dtype=None, weight_la
     return w8a8.w8a8_matmul_reference(x, wq if weight_layout == "kn" else wq.t(), wscale, bias, k_chunk, out_dtype)
 
 
-def w8a8_bound_ms(m: int, k: int, n: int) -> tuple[float, float, str]:
-    """(bound ms, bytes ms, what bounds it): x bf16 read once, w int8 and its
-    fp32 scales read once, y bf16 written once; 2*M*K*N int8 operations."""
-    moved = m * k * 2 + k * n + n * 4 + m * n * 2
+def w8a8_moved(m: int, k: int, n: int, out_bytes: int = 2) -> int:
+    """Bytes of one product: x bf16 read once, w int8 and its fp32 scales read
+    once, y (bf16, or fp32 for the unembedding) written once."""
+    return m * k * 2 + k * n + n * 4 + m * n * out_bytes
+
+
+def w8a8_bound_ms(m: int, k: int, n: int, out_bytes: int = 2) -> tuple[float, float, str]:
+    """(bound ms, bytes ms, what bounds it): the bytes of w8a8_moved over the
+    memory rate, 2*M*K*N int8 operations over the int8 peak."""
+    moved = w8a8_moved(m, k, n, out_bytes)
     bytes_ms = moved / H100_BYTES_PER_S * 1e3
     ops_ms = 2 * m * k * n / H100_INT8_OPS * 1e3
     return max(bytes_ms, ops_ms), bytes_ms, "bytes" if bytes_ms >= ops_ms else "operations"
@@ -787,7 +821,9 @@ def phase_w8a8_kernel() -> dict:
     shapes with K-major codes (the serving tree's), per row and (at K 16384
     and 4304, and the expert's K 4096) per 2048-chunk, and two ragged cases
     (one with [K, N] codes): the wrapper's outputs, and the kernel's codes and
-    scales; then times at each per-row shape beside the bound, the plain
+    scales (SpatialVLA's shapes, without a bias, bit-equal: the tied
+    unembedding with fp32 out among them); then times at each per-row shape
+    beside the bound, the plain
     version, torch._int_mm on the same codes (the product only) and the bf16
     matmul that int8 replaces, with the kernel's effective rates."""
     from intact_tpu_torch.ops import w8a8
@@ -805,7 +841,9 @@ def phase_w8a8_kernel() -> dict:
             x, out_dtype = x.float(), torch.float32
             layout, w_in = "kn", wk.t().contiguous()  # the [K, N] form
         else:
-            out_dtype = torch.bfloat16
+            out_dtype = torch.float32 if name.startswith("svla_unembed") else torch.bfloat16
+        if name.startswith("svla"):
+            bias = None
         n0 = w8a8.w8a8_matmul.launches
         y = w8a8.w8a8_matmul(x, w_in, ws, bias, chunk, out_dtype, layout)  # the wrapper the main path calls
         if w8a8.w8a8_matmul.launches != n0 + 1:
@@ -821,19 +859,21 @@ def phase_w8a8_kernel() -> dict:
         row_tol = W8A8_ROW_RTOL * ref.float().abs().amax(dim=1, keepdim=True)
         unequal = int((y != ref).sum().item())
         ok = same_codes and same_scales and bool((diff <= row_tol).all()) and bool(torch.isfinite(y).all())
+        ok = ok and (unequal == 0 or not name.startswith("svla"))
         log(f"# w8a8_matmul {name}: M {m} K {k} N {n} chunk {chunk or 'row'} {x.dtype}->{out_dtype} {layout} "
             f"{w8a8.plan(m, n, k, chunk)}: codes equal "
             f"{same_codes}, scales equal {same_scales}, outputs unequal {unequal} of {y.numel()}, max abs err "
-            f"{err:.3e} (tol {W8A8_ROW_RTOL:.4g} x row max |y|), max |y| {ref.float().abs().max().item():.3e}")
+            f"{err:.3e} (tol {'bit-equal' if name.startswith('svla') else f'{W8A8_ROW_RTOL:.4g} x row max |y|'}), "
+            f"max |y| {ref.float().abs().max().item():.3e}")
         if not ok:
             raise SystemExit(f"w8a8_matmul disagrees with its plain version on {name}")
         max_err = max(max_err, err)
         if chunk is None and not name.startswith("ragged"):
-            rows.append((name, m, k, n, x, wk, ws, bias, xq))
+            rows.append((name, m, k, n, x, wk, ws, bias, xq, out_dtype))
         del y, ref, rq, rs
-    for name, m, k, n, x, wk, ws, bias, xq in rows:
-        ms = cuda_ms(lambda: w8a8.w8a8_matmul(x, wk, ws, bias, out_dtype=torch.bfloat16, weight_layout="nk"))
-        plain_ms = cuda_ms(lambda: w8a8.w8a8_matmul_reference(x, wk.t(), ws, bias, out_dtype=torch.bfloat16),
+    for name, m, k, n, x, wk, ws, bias, xq, out_dtype in rows:
+        ms = cuda_ms(lambda: w8a8.w8a8_matmul(x, wk, ws, bias, out_dtype=out_dtype, weight_layout="nk"))
+        plain_ms = cuda_ms(lambda: w8a8.w8a8_matmul_reference(x, wk.t(), ws, bias, out_dtype=out_dtype),
                            reps=3, warmup=1)
         codes = xq[:, :k].contiguous()
         try:
@@ -843,24 +883,26 @@ def phase_w8a8_kernel() -> dict:
             log(f"#   torch._int_mm refused {name}: {str(e).splitlines()[0][:100]}")
         wb = wk.t().to(torch.bfloat16)
         bf16_ms = cuda_ms(lambda: torch.matmul(x, wb))
-        dev_ms = device_ms(lambda: w8a8.w8a8_matmul(x, wk, ws, bias, out_dtype=torch.bfloat16, weight_layout="nk"))
+        dev_ms = device_ms(lambda: w8a8.w8a8_matmul(x, wk, ws, bias, out_dtype=out_dtype, weight_layout="nk"))
         bf16_dev_ms = device_ms(lambda: torch.matmul(x, wb))
-        bound, bytes_ms, by = w8a8_bound_ms(m, k, n)
-        moved = m * k * 2 + k * n + n * 4 + m * n * 2
+        out_bytes = out_dtype.itemsize
+        bound, bytes_ms, by = w8a8_bound_ms(m, k, n, out_bytes)
+        moved = w8a8_moved(m, k, n, out_bytes)
         log(f"# w8a8_matmul timing {name} (M {m} K {k} N {n}, {w8a8.plan(m, n, k).mode}): kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, torch._int_mm on the same codes (product only) "
             f"{'n/a' if int_mm_ms is None else f'{int_mm_ms:.4f} ms'}, bf16 torch.matmul {bf16_ms:.4f} ms "
             f"(kernel / bf16 {ms / bf16_ms:.3f}), bound {bound:.4f} ms by {by} ({2 * m * k * n / 1e12:.3f} T int8 "
             f"ops, bytes {bytes_ms:.4f} ms); kernel {2 * m * k * n / ms / 1e9:.1f} TOPS, {moved / ms / 1e6:.1f} GB/s; "
             f"device time per call (profiler, no host gaps): kernel {dev_ms:.4f} ms, bf16 {bf16_dev_ms:.4f} ms")
-        if name in (W8A8_TIMED, W8A8_DECODE) + W8A8_MVLA:
+        if name in (W8A8_TIMED, W8A8_DECODE) + W8A8_MVLA + W8A8_SVLA:
             timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, int_mm_ms=int_mm_ms,
-                               bf16_ms=bf16_ms, device_ms=dev_ms)
+                               bf16_ms=bf16_ms, device_ms=dev_ms, bf16_device_ms=bf16_dev_ms)
         del wb
     rows.clear()
     torch.cuda.empty_cache()
     w8a8.w8a8_matmul.launches = 0  # comparison launches do not count
-    decode, mvla, timed = timed[W8A8_DECODE], {n: timed[n] for n in W8A8_MVLA}, timed[W8A8_TIMED]
+    decode, mvla, svla = timed[W8A8_DECODE], {n: timed[n] for n in W8A8_MVLA}, {n: timed[n] for n in W8A8_SVLA}
+    timed = timed[W8A8_TIMED]
     return {
         "name": "w8a8_matmul",
         "route": "cuda",
@@ -882,6 +924,9 @@ def phase_w8a8_kernel() -> dict:
         "fast_decode_shape": "Gemma-2B k projection of a Pi0FAST decode step, M 64 K 2048 N 256",
         **{f"fast_decode_{k}": decode[k] for k in ("ms", "plain_ms", "bound_ms", "bf16_ms", "device_ms")},
         **{f"{n}_{k}": mvla[n][k] for n in W8A8_MVLA for k in ("ms", "plain_ms", "bound_ms", "bf16_ms", "device_ms")},
+        "svla_unembed_shape": "SpatialVLA-4B tied unembedding, M 64 (and 1) K 2304 N 259714, fp32 out",
+        **{f"{n}_{k}": svla[n][k] for n in W8A8_SVLA
+           for k in ("ms", "plain_ms", "bound_ms", "bf16_ms", "device_ms", "bf16_device_ms")},
     }
 
 
@@ -989,7 +1034,8 @@ def profile_pass(label: str, fn, in_order: str | None = None):
     one call of fn (which ends in a sync), under torch.profiler (which adds
     host time of its own). -> {kernel name: (device ms, launches)} for the
     kernels of KERNEL_SYMBOLS; with `in_order`, also the device ms of each
-    launch of the kernels whose name holds it, in launch order."""
+    launch of the kernels whose name holds it, in launch order, and the
+    device busy ms."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1015,7 +1061,7 @@ def profile_pass(label: str, fn, in_order: str | None = None):
         return totals
     launches = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                        and in_order in e.name), key=lambda e: e.time_range.start)
-    return totals, [(e.time_range.end - e.time_range.start) / 1e3 for e in launches]
+    return totals, [(e.time_range.end - e.time_range.start) / 1e3 for e in launches], busy_us / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -1026,15 +1072,17 @@ EV_CONFIG = "config/experiment/simpler/pi0_finetune_bridge_ev.yaml"
 SERVING_SEED = 0  # the bf16 serving phase's weights, quantized
 
 
-def ev_config(quantize: bool = True, path: str = EV_CONFIG, model_cfg: dict | None = None):
+def ev_config(quantize: bool = True, path: str = EV_CONFIG, model_cfg: dict | None = None,
+              overrides: dict | None = None):
     """The server role's config (by default config/experiment/simpler/pi0_finetune_bridge_ev.yaml)
     with int8 on (or off), random weights from the bf16 phase's seed (no
     checkpoint) and the hash tokenizer; `model_cfg` replaces the yaml's model
-    JSON."""
+    JSON, `overrides` ({dotted.path: value}) go on top."""
     from intact_tpu_torch.config import TrainPipelineConfig, apply_overrides, from_dict, load_yaml
 
     overrides = {"eval_cfg.role": "server", "eval_cfg.quantize_int8": json.dumps(quantize),
-                 "eval_cfg.pretrained_model_path": "null", "tokenizer_path": "hash", "seed": str(SERVING_SEED)}
+                 "eval_cfg.pretrained_model_path": "null", "tokenizer_path": "hash", "seed": str(SERVING_SEED),
+                 **(overrides or {})}
     d = load_yaml(path)
     if model_cfg is not None:
         d["model_cfg"] = dict(model_cfg)
@@ -1344,7 +1392,7 @@ def phase_training() -> dict:
 
     fj.fused_adam_rows = recording
     try:
-        totals, per_launch = profile_pass("training step", lambda: (real_step(trainer.state, batch),
+        totals, per_launch, _ = profile_pass("training step", lambda: (real_step(trainer.state, batch),
                                                                     torch.cuda.synchronize()),
                                           in_order="fused_adam_rows_kernel")
     finally:
@@ -2310,10 +2358,11 @@ def mvla_kernel_vs_plain(label: str, params, inputs, cfg, policy, noise) -> None
         raise SystemExit(f"{label}: actions through the attention kernel disagree with the plain path")
 
 
-def time_wrappers(label: str, runs: dict, requests: dict, steps: int, reps: dict) -> None:
+def time_wrappers(label: str, runs: dict, requests: dict, steps: int, reps: dict, in_order: str | None = None):
     """Median latency of infer_batch per wrapper, the wrappers alternating
     call by call, at each batch of `requests` ({batch: [request, ...]}, one
-    single-row request per session); then one profiler pass each."""
+    single-row request per session); then one profiler pass each -> {(wrapper
+    key, batch): profile_pass's result (with `in_order`, its launch times)}."""
     for b, reqs in requests.items():
         times = {k: [] for k in runs}
         calls = {k: [(r, ss[i]) for i, r in enumerate(reqs)] for k, (w, ss) in runs.items()}
@@ -2326,16 +2375,18 @@ def time_wrappers(label: str, runs: dict, requests: dict, steps: int, reps: dict
                 times[k].append(time.perf_counter() - t0)
         med = {k: statistics.median(v) for k, v in times.items()}
         for k in runs:
-            log(f"# {label} {k} serving batch {b} (Pi0PolicyWrapper.infer_batch): median fused inference "
+            log(f"# {label} {k} serving batch {b} ({type(runs[k][0]).__name__}.infer_batch): median fused inference "
                 f"{med[k] * 1e3:.2f} ms over {reps[b]} ({[round(x * 1e3, 2) for x in times[k]]}), "
                 f"{b * steps / med[k]:.2f} policy steps/s")
         if len(runs) == 2:
             a, c = runs
             log(f"# {label} serving batch {b} through the wrapper: {a} / {c} latency {med[a] / med[c]:.3f}")
+    profiles = {}
     for b, reqs in requests.items():
         for k, (w, ss) in runs.items():
             calls = [(r, ss[i]) for i, r in enumerate(reqs)]
-            profile_pass(f"{label} {k} wrapper batch {b}", lambda: w.infer_batch(calls))
+            profiles[k, b] = profile_pass(f"{label} {k} wrapper batch {b}", lambda: w.infer_batch(calls), in_order)
+    return profiles
 
 
 def phase_mvla_serving() -> dict:
@@ -2690,6 +2741,215 @@ def compare_mvla_grads(depth: int = 4) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 10. SpatialVLA serving: the native wrapper in int8 and bf16
+# ---------------------------------------------------------------------------
+
+SVLA_EV_CONFIG = "config/experiment/simpler/spatialvla_finetune_bridge_ev.yaml"
+# the yaml's adapter, BridgeSimplerSpatialVLAAdapter, is defined in neither
+# package (scripts/gen_experiment_configs.py makes up the name): the Bridge
+# adapter serves in its place
+SVLA_OVERRIDES = {"eval_cfg.env_adapter": "BridgeSimplerAdapter"}
+
+
+def svla_config(quantize: bool):
+    """The server role's config from the SpatialVLA yaml: model_cfg
+    {"type": "spatialvla_native"}, no checkpoint (random weights from the
+    seed), the hash tokenizer."""
+    return ev_config(quantize, path=SVLA_EV_CONFIG, model_cfg={"type": "spatialvla_native"}, overrides=SVLA_OVERRIDES)
+
+
+def svla_per_inference(cfg) -> int:
+    """W8A8 launches of one int8 SpatialVLA inference, from the configuration:
+    SigLIP 6 per layer, img_proj, the Gemma2 prefill's 7 per layer and the
+    first token's unembedding, then for each token fed back (all but the
+    last) 7 per layer and the unembedding. The Ego3D MLP and the patch
+    embedding stay fp."""
+    step = cfg.lm.depth * 7 + 1
+    return cfg.vision.depth * 6 + 1 + step * cfg.tokens_per_action * cfg.n_action_steps
+
+
+def svla_requests(rng: np.random.Generator, cfg, b: int) -> list[dict]:
+    """b single-row requests as SpatialVLASession.preprocess emits them: a
+    resized uint8 frame, the flat-depth prior, one task string."""
+    from intact_tpu_torch.models.spatialvla import model as svla
+
+    obs = make_obs(rng, b, cfg.vision.image_size)
+    return [{"image": obs["image"][i:i + 1], "depth": svla.flat_depth(1, cfg), "task": [obs["task"][i]]}
+            for i in range(b)]
+
+
+def svla_inputs(wrapper, reqs: list[dict]) -> tuple:
+    """The wrapper's device inputs for the fused requests (images normalized)."""
+    cfg = wrapper.model_cfg
+    lang, masks = wrapper.tokenizer([r["task"][0] for r in reqs], cfg.tokenizer_max_length)
+    images = np.concatenate([r["image"] for r in reqs])
+    return (wrapper.model.normalize_images(wrapper._put(images)), wrapper._put(np.concatenate([r["depth"] for r in reqs])),
+            wrapper._put(lang), wrapper._put(masks))
+
+
+def svla_greedy_logits(params, inputs, cfg, policy, forced=None):
+    """`predict_action_tokens` step by step from its own pieces -> (tokens
+    [B, T], softcapped logits [T, B, V] fp32); with `forced` [B, T] the given
+    tokens are fed back in place of the argmax (teacher forcing)."""
+    from intact_tpu_torch.models import gemma2
+    from intact_tpu_torch.models.spatialvla import model as svla
+
+    n = cfg.tokens_per_action * cfg.n_action_steps
+    with torch.inference_mode():
+        embeds, mask = svla.embed_prefix(params, *inputs, cfg, policy)
+        last, cache, key_valid, key_pos, pos = gemma2.prefill(params["lm"], embeds, mask, n, cfg.lm, policy,
+                                                              prefix_full_attention=True)
+        p_len = embeds.shape[1]
+        logits = [gemma2.logits(params["lm"], last, cfg.lm, policy)]
+        tokens = [logits[-1].argmax(dim=-1)]
+        for s in range(n - 1):
+            feed = tokens[-1] if forced is None else forced[:, s]
+            h = gemma2.decode_step(params["lm"], feed, cache, p_len + s, key_valid, key_pos, pos + s, cfg.lm, policy)
+            logits.append(gemma2.logits(params["lm"], h, cfg.lm, policy))
+            tokens.append(logits[-1].argmax(dim=-1))
+        return torch.stack(tokens, dim=1), torch.stack(logits)
+
+
+def phase_svla_serving() -> dict:
+    """-> {kernel: launches} on SpatialVLA's int8 serving path (the bf16 path
+    launches none of the three kernels: SigLIP and Gemma2 attention are
+    plain, as in the reference)."""
+    from intact_tpu_torch.models import common as cm
+    from intact_tpu_torch.ops import w8a8
+    from intact_tpu_torch.ops.flash_attention import flash_attention
+    from intact_tpu_torch.serve.policy_wrapper import make_policy_wrapper
+
+    cfg = svla_config(quantize=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wrapper = make_policy_wrapper(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    mc = wrapper.model_cfg
+    leaves = cm.tree_leaves(wrapper.params)
+    want = {"flash_attention": 0, "w8a8_matmul": svla_per_inference(mc)}
+    n_tok, vocab, offset = mc.tokens_per_action * mc.n_action_steps, mc.lm.vocab_size, mc.spatial_offset
+    log(f"# SpatialVLA serving: {type(wrapper).__name__} from {SVLA_EV_CONFIG} ({cfg.model_type}, adapter "
+        f"{cfg.eval_cfg.env_adapter}, quantize_int8 {cfg.eval_cfg.quantize_int8}, seed {cfg.seed}): "
+        f"{sum(x.numel() for x in leaves if x.dtype == torch.int8) / 1e9:.3f} B int8 weights + "
+        f"{sum(x.numel() for x in leaves if x.dtype != torch.int8) / 1e9:.3f} B bf16/fp32 values, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, init {time.perf_counter() - t0:.2f} s; prefix "
+        f"{mc.vision.num_patches} image + {mc.tokenizer_max_length} language tokens, {n_tok} greedy tokens over a "
+        f"vocabulary of {vocab} (spatial from {offset}); expect {want} launches per inference")
+
+    rng = np.random.default_rng(5)
+    req1, req64 = svla_requests(rng, mc, 1), svla_requests(rng, mc, 64)
+    s1, sessions = wrapper.new_session(), [wrapper.new_session() for _ in range(64)]
+    counters = {"flash_attention": flash_attention, "w8a8_matmul": w8a8.w8a8_matmul}
+
+    def fused(w, items, expect, label):
+        before = {k: c.launches for k, c in counters.items()}
+        out = w.infer_batch(items)
+        grew = {k: c.launches - before[k] for k, c in counters.items()}
+        if grew != expect:
+            raise SystemExit(f"one fused {label} inference launched {grew}; expected {expect}")
+        for a in out:
+            if isinstance(a, Exception) or a.shape != (1, 7) or not np.isfinite(a).all():
+                raise SystemExit(f"bad {label} serving result {a!r:.200}")
+        return out
+
+    # --- the main path: fused requests through the wrapper, as the batching server calls it ---
+    flash_attention.launches = w8a8.w8a8_matmul.launches = 0
+    for _ in range(2):
+        fused(wrapper, [(req1[0], s1)], want, "int8 SpatialVLA")
+    out64 = fused(wrapper, list(zip(req64, sessions)), want, "int8 SpatialVLA")
+    launches = {k: c.launches for k, c in counters.items()}
+    # -------------------------------------------------------------------------------------------
+    log(f"# SpatialVLA int8 serving: 3 fused inferences (batch 1, 1, 64), launches {launches}, ensembled env "
+        f"actions of shape (1, 7), finite")
+
+    # int8: the tokens and every step's logits with the W8A8 kernel against with only its product plain
+    inputs = svla_inputs(wrapper, req64)
+    images, depth = np.concatenate([r["image"] for r in req64]), np.concatenate([r["depth"] for r in req64])
+    tasks = [r["task"][0] for r in req64]
+    ids = wrapper.predict_tokens(images, depth, tasks)  # the wrapper's device call
+    tokens, log_k = svla_greedy_logits(wrapper.params, inputs, mc, wrapper.policy)
+    stepwise = np.array_equal(tokens.cpu().numpy(), ids)
+    in_vocab = bool(((tokens >= 0) & (tokens < vocab)).all())
+    spatial = ((tokens >= offset) & (tokens < vocab)).float().mean().item()
+    # the batch-64 sessions were fresh: each env action is its chunk's first action, postprocessed
+    env = [sessions[i].adapter.postprocess(
+        wrapper.action_tokenizer.decode(ids[i].reshape(mc.n_action_steps, mc.tokens_per_action))[:1]) for i in range(64)]
+    same_as_served = all(np.array_equal(e, o) for e, o in zip(env, out64))
+    real = w8a8.w8a8_matmul
+    n0 = w8a8.w8a8_matmul.launches
+    w8a8.w8a8_matmul = plain_w8a8  # the plain W8A8 product, for this comparison only
+    try:
+        ids_plain = wrapper.predict_tokens(images, depth, tasks)
+        tok_p, log_p = svla_greedy_logits(wrapper.params, inputs, mc, wrapper.policy, forced=tokens)
+    finally:
+        w8a8.w8a8_matmul = real
+    same = np.array_equal(ids_plain, ids) and torch.equal(tok_p, tokens) and torch.equal(log_p, log_k)
+    log(f"# SpatialVLA int8, batch 64: {tokens.numel()} tokens in [0, {vocab}) {in_vocab}, "
+        f"{tokens.unique().numel()} distinct, spatial share {spatial:.4f} (random weights: the greedy argmax runs over "
+        f"the whole vocabulary, as in the reference, and the spatial rows are "
+        f"{(vocab - offset) / vocab:.4f} of it; not gated); the stepwise decode equals the wrapper's {stepwise}; the "
+        f"served env actions equal the decoded tokens' {same_as_served}; with only the W8A8 product plain (the "
+        f"unembedding included): tokens and every step's teacher-forced logits bit-equal {same} (gates: all; plain "
+        f"runs launched w8a8_matmul {w8a8.w8a8_matmul.launches - n0} times)")
+    if not (in_vocab and stepwise and same_as_served and same and w8a8.w8a8_matmul.launches == n0):
+        raise SystemExit("SpatialVLA int8: tokens outside the vocabulary, the W8A8 kernel's tokens or logits differ "
+                         "from its plain version's, or the served actions differ from the checked tokens'")
+    del log_p, tok_p
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for items in ([(req1[0], s1)], list(zip(req64, sessions))):
+        wrapper.infer_batch(items)
+    int8_peak = torch.cuda.max_memory_allocated()
+
+    # bf16: the same random weights behind the same wrapper, quantize_int8 off; against an fp32 run of them
+    bf16_wrapper = make_policy_wrapper(svla_config(quantize=False), device=DEVICE)
+    bf16_sessions = [bf16_wrapper.new_session() for _ in range(64)]
+    bp, bpol = bf16_wrapper.params, bf16_wrapper.policy
+    tok_b, log_b = svla_greedy_logits(bp, inputs, mc, bpol)
+    ids_b = bf16_wrapper.predict_tokens(images, depth, tasks)
+    fp32 = cm.tree_map(lambda x: x.float(), bp)
+    tok_f, _ = svla_greedy_logits(fp32, inputs, mc, cm.FP32_POLICY)
+    _, log_ff = svla_greedy_logits(fp32, inputs, mc, cm.FP32_POLICY, forced=tok_b)  # teacher-forced fp32
+    del fp32
+    chosen = log_ff.gather(-1, tok_b.T[..., None])[..., 0]  # [T, B]
+    below = (log_ff.amax(dim=-1) - chosen) / log_ff.std()
+    top2 = log_b.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]).flatten()
+    log(f"# SpatialVLA bf16, batch 64: the stepwise decode equals the wrapper's {np.array_equal(tok_b.cpu().numpy(), ids_b)}; "
+        f"tokens equal to an fp32 run of the same weights on the card {(tok_b == tok_f).float().mean().item():.4f}; "
+        f"teacher-forced fp32 logits rel L2 {rel_l2(log_b, log_ff):.3e}, fp32 logit of the bf16 token below the fp32 "
+        f"maximum by at most {below.max().item():.3e} std (at {int((below > 0).sum())} of {below.numel()} steps and "
+        f"rows); bf16 top-2 logit margin median {gap.median().item():.3e}, min {gap.min().item():.3e} (logits std "
+        f"{log_b.std().item():.3e}); int8 tokens equal to bf16's {(tokens == tok_b).float().mean().item():.4f} "
+        f"(reported, no gate)")
+    if not bool(((tok_b >= 0) & (tok_b < vocab)).all()) or not np.array_equal(tok_b.cpu().numpy(), ids_b):
+        raise SystemExit("SpatialVLA bf16: the wrapper's tokens differ from the stepwise decode's")
+    del log_b, log_ff, log_k, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    runs = {"int8": (wrapper, sessions), "bf16": (bf16_wrapper, bf16_sessions)}
+    torch.cuda.reset_peak_memory_stats()
+    # one ensembled env action per inference: 1 policy step per row
+    # the unembedding is the path's only W8A8 product with fp32 out: its gemm_kernel<0, float> launches
+    profiles = time_wrappers("SpatialVLA", runs, {1: req1, 64: req64}, 1, {1: 5, 64: 5},
+                             in_order="gemm_kernel<0, float>")
+    log(f"# SpatialVLA peak device memory: int8 wrapper alone {int8_peak / 2**30:.2f} GiB (batch 1 and 64); both "
+        f"wrappers during the timing {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for b in (1, 64):
+        totals, unembed, busy = profiles["int8", b]
+        w8 = totals.get("gemm_kernel", (0.0, 0))[0]
+        log(f"# SpatialVLA int8 batch {b}: the unembedding products (the profiler recorded {len(unembed)} of "
+            f"{n_tok}) take {sum(unembed):.3f} ms of device time (each {[round(u, 4) for u in unembed[:3]]}... ms), "
+            f"{100 * sum(unembed) / busy:.1f}% of the device busy time {busy:.3f} ms and "
+            f"{100 * sum(unembed) / w8:.1f}% of the W8A8 products' gemm_kernel time {w8:.3f} ms")
+    del wrapper, bf16_wrapper, runs, bp, sessions, bf16_sessions
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2700,21 +2960,30 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     log(f"# torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
-    phase_build()
-    kernels = {k["name"]: k for k in phase_kernels()}
-    serving = phase_serving()
+    def run(phase):  # each phase's wall time, to budget the script's time limit
+        t = time.perf_counter()
+        out = phase()
+        log(f"# {phase.__name__}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    run(phase_build)
+    kernels = {k["name"]: k for k in run(phase_kernels)}
+    serving = run(phase_serving)
     torch.cuda.empty_cache()
-    int8 = phase_int8_serving()
-    training = phase_training()
-    standard = phase_standard_training()
-    fast_serving = phase_fast_serving()
-    fast_training = phase_fast_training()
-    mvla_serving = phase_mvla_serving()
-    mvla_training = phase_mvla_training()
+    int8 = run(phase_int8_serving)
+    training = run(phase_training)
+    standard = run(phase_standard_training)
+    fast_serving = run(phase_fast_serving)
+    fast_training = run(phase_fast_training)
+    mvla_serving = run(phase_mvla_serving)
+    mvla_training = run(phase_mvla_training)
+    svla_serving = run(phase_svla_serving)
     paths = {"serving": {"flash_attention": serving}, "int8": int8, "training": training, "standard": standard,
              "fast_serving": fast_serving, "fast_training": fast_training, "mvla_serving": mvla_serving,
-             "mvla_training": mvla_training}
-    if not all(n > 0 for counts in paths.values() for n in counts.values()):
+             "mvla_training": mvla_training, "svla_serving": svla_serving}
+    # SpatialVLA launches no attention kernel (head_dim 72 and the softcap keep it plain), by design
+    if not all(n > 0 for counts in paths.values() for name, n in counts.items()
+               if (counts is not svla_serving or name == "w8a8_matmul")):
         raise SystemExit(f"a kernel of the path never launched: {paths}")
     for name in kernels:
         kernels[name]["launches"] = sum(counts.get(name, 0) for counts in paths.values())
@@ -2724,7 +2993,9 @@ def main() -> int:
         f"training, fused_adam_rows {training['fused_adam_rows']} fused training, w8a8_matmul "
         f"{int8['w8a8_matmul']} int8 serving + {standard['w8a8_matmul']} expert-only training + "
         f"{fast_serving['w8a8_matmul']} Pi0FAST int8 serving + {mvla_serving['w8a8_matmul']} MVLA int8 serving; "
-        f"MVLA flash_attention {mvla_serving['flash_attention']} serving + {mvla_training['flash_attention']} training")
+        f"MVLA flash_attention {mvla_serving['flash_attention']} serving + {mvla_training['flash_attention']} training; "
+        f"SpatialVLA w8a8_matmul {svla_serving['w8a8_matmul']} int8 serving (flash_attention "
+        f"{svla_serving['flash_attention']})")
     torch.cuda.synchronize()
     log(f"# total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))

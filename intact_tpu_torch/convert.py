@@ -1,4 +1,4 @@
-"""Weight bridge: the reference's Pi0 or Pi0FAST parameter tree (as numpy) -> the port's tensors.
+"""Weight bridge: the reference's parameter tree of a ported model (as numpy) -> the port's tensors.
 
 Both packages lay their parameters out the same way (nested dicts, dense
 kernels [in, out], per-layer weights stacked [L, ...] under "blocks"), so the
@@ -10,7 +10,9 @@ A quantized reference tree (`quantize_params` of the JAX package) carries
 across the same way against the port's `quantize_params` of the meta-device
 template: int8 `kernel_q` bit for bit, transposed from the reference's
 [..., in, out] to the port's K-major [..., out, in]; fp32 `kernel_scale` as
-fp32.
+fp32. A quantized tied table (`quantize_embed`: int8 `embedding_q` [V, D]
+rows, fp32 `embed_scale` [V]) carries across as it is: its rows are already
+the K-major codes the port's W8A8 kernel reads.
 
 `from_jax_fused_state` carries a fused training state across the same way:
 parameters as above, fp8 moment codes bit for bit (numpy's uint8 view of the
@@ -28,20 +30,24 @@ from intact_tpu_torch.models.pi0.config import Pi0Config
 
 
 def from_jax_params(tree, cfg, device=None, dtype=torch.float32) -> cm.Params:
-    """Map the reference `init` tree of the model `cfg` configures (pi0 or
-    pi0fast; leaves as numpy arrays), or a form with quantized dense nodes
-    (`quantize_params`, `quantize_frozen`), onto the port's parameter tree
-    for `cfg`, on `device` (CUDA unless given), float leaves in `dtype`; int8
-    codes stay int8 and quantization scales fp32."""
+    """Map the reference `init` tree of the model `cfg` configures (any
+    registered config class; leaves as numpy arrays), or a form with
+    quantized dense nodes and tied tables (`quantize_params`,
+    `quantize_frozen`), onto the port's parameter tree for `cfg`, on
+    `device` (CUDA unless given), float leaves in `dtype`; int8 codes stay
+    int8 and quantization scales fp32."""
     device = cm.resolve_device(device)
     src = cm.flatten_paths(tree)
     quantized = {path[:-len("/kernel_q")] for path in src if path.endswith("/kernel_q")}
+    quantized_tables = {path[:-len("/embedding_q")] for path in src if path.endswith("/embedding_q")}
 
     def quantize_like_src(node, path=""):
         if not isinstance(node, dict):
             return node
         if "kernel" in node and path in quantized:
             return cm.quantize_dense(node)
+        if "embedding" in node and path in quantized_tables:
+            return cm.quantize_embed(node)
         return {k: quantize_like_src(v, f"{path}/{k}" if path else k) for k, v in node.items()}
 
     template = quantize_like_src(registry.module_for_config(cfg).init(cfg, device="meta", dtype=dtype))

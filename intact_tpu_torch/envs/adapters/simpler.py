@@ -1,6 +1,6 @@
 """SimplerEnv (ManiSkill2 real2sim) adapters for the Bridge (WidowX) robot,
-copied from intact_tpu/envs/adapters/simpler.py (the Google-robot, Octo and
-SpatialVLA adapters wait for their families):
+copied from intact_tpu/envs/adapters/simpler.py (the Google-robot and Octo
+adapters wait for their families), and SpatialVLA's chunk ensembler:
   * preprocess: cv2 Lanczos resize -> [-1,1] float image; robot-specific
     proprio construction; bound/gaussian state normalization against dataset
     statistics (gripper dim included for proprio)
@@ -128,3 +128,30 @@ class BridgeSimplerAdapter(SimplerAdapter):
         # trained with [0,1] (0 close, 1 open) -> simpler wants -1 close / +1 open
         g = 2.0 * (action > 0.5) - 1.0
         return float(np.sign(g)) if binarize else float(g)
+
+
+class ActionEnsembler:
+    """Exponentially weighted ensemble over overlapping action chunks (the
+    SpatialVLA serving rule, reference simpler.py:492-519)."""
+
+    def __init__(self, pred_horizon: int, ensemble_temp: float = -0.8):
+        self.pred_horizon = pred_horizon
+        self.ensemble_temp = ensemble_temp
+        self.history: list[np.ndarray] = []
+
+    def reset(self):
+        self.history.clear()
+
+    def ensemble(self, chunk: np.ndarray) -> np.ndarray:
+        """chunk [horizon, dim] -> the ensembled current action [dim]."""
+        self.history.append(np.asarray(chunk))
+        if len(self.history) > self.pred_horizon:
+            self.history.pop(0)
+        n = len(self.history)
+        # the i-th oldest chunk contributes its (n-1-i)-th action
+        preds = np.stack([self.history[i][n - 1 - i] for i in range(n)])
+        # weights exp(-temp * i) with i = 0 the oldest chunk: the default
+        # temp -0.8 weights the newest prediction most
+        weights = np.exp(-self.ensemble_temp * np.arange(n))
+        weights /= weights.sum()
+        return (weights[:, None] * preds).sum(axis=0)

@@ -144,22 +144,20 @@ def embed_lookup(p: Params, ids: torch.Tensor, policy: DtypePolicy = DEFAULT_POL
 
 def unembed_logits(p: Params, hidden: torch.Tensor, policy: DtypePolicy | None = None) -> torch.Tensor:
     """Tied unembedding: hidden [..., D] x embed [V, D]^T -> fp32 [..., V].
-    A quantized table takes the W8A8 per-row path. That path runs on the CPU
-    only: the families whose `lm/embed` table is quantized (SpatialVLA,
-    Magma) are not ported; Pi0FAST's `vlm_embed` stays fp (the table
-    [out, in] is already the K-major layout the W8A8 kernel reads)."""
+
+    A quantized table (`quantize_embed`: int8 rows [V, D], already the
+    K-major [N, K] codes the W8A8 kernel reads, and fp32 per-row scales)
+    goes through `w8a8_matmul` with the per-row semantics: the reference's
+    (float(int32 sum) * x_scale) * embed_scale, x_scale = max(amax, 1e-6) *
+    fl(1/127). On CUDA tensors that launches the W8A8 kernel (or raises); on
+    CPU tensors it runs the kernel's plain version."""
     policy = policy or DEFAULT_POLICY
     if "embedding_q" not in p:
         emb = p["embedding"].to(policy.compute_dtype)
         return (hidden.to(policy.compute_dtype) @ emb.T).to(torch.float32)
-    if hidden.device.type != "cpu":
-        raise NotImplementedError("the int8 unembedding has no CUDA path yet (ROADMAP: the SpatialVLA and Magma ports)")
-    from intact_tpu_torch.ops.w8a8 import int_product, quantize_reference
+    from intact_tpu_torch.ops.w8a8 import w8a8_matmul
 
-    lead, d = hidden.shape[:-1], hidden.shape[-1]
-    xq, xs = quantize_reference(hidden.reshape(-1, d))
-    y = int_product(xq, p["embedding_q"].T) * xs * p["embed_scale"].to(torch.float32)
-    return y.reshape(*lead, -1)
+    return w8a8_matmul(hidden, p["embedding_q"], p["embed_scale"], out_dtype=torch.float32, weight_layout="nk")
 
 
 def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Model registry: type string -> config factory and model module, for the
 types the port has (intact_tpu/models/registry.py, cut to them).
 
-A model module exposes init / compute_loss / sample_actions; the policy, the
-serving wrapper, the trainer and the weight bridge resolve it from here, and
+A model module exposes init / compute_loss / sample_actions (SpatialVLA,
+serving only: init / predict_action_tokens); the policy, the serving
+wrapper, the trainer and the weight bridge resolve it from here, and
 `make_policy_wrapper` the type's wrapper class (its `wrapper` path). An
 entry's `model_json` says how `make_model_config` builds the type's config
 from the model JSON: "json" reads the whole config from it, "common" lays its
@@ -51,8 +52,9 @@ def _register_builtin() -> None:
     from intact_tpu_torch.models.mvla.config import MVLAConfig
     from intact_tpu_torch.models.pi0.config import Pi0Config
     from intact_tpu_torch.models.pi0fast.config import Pi0FASTConfig
+    from intact_tpu_torch.models.spatialvla.config import SpatialVLAConfig
 
-    wrapper = "intact_tpu_torch.serve.policy_wrapper.Pi0PolicyWrapper"  # every family here, as in the reference
+    wrapper = "intact_tpu_torch.serve.policy_wrapper.Pi0PolicyWrapper"  # the Pi0-shaped families, as in the reference
     mvla = "intact_tpu_torch.models.mvla.model"
     for name, cls, factory, model_json, mod in (
         ("pi0", Pi0Config, Pi0Config.bridge, "json", "intact_tpu_torch.models.pi0.model"),
@@ -66,6 +68,12 @@ def _register_builtin() -> None:
          "default", mvla),
     ):
         register(name, config_cls=cls, default_config=factory, model_json=model_json, module=mod, wrapper=wrapper)
+    # native SpatialVLA-4B (SigLIP + Ego3D + Gemma2, HF-checkpoint import)
+    for name, factory in (("spatialvla_native", SpatialVLAConfig.spatialvla_4b),
+                          ("spatialvla_native_tiny", SpatialVLAConfig.tiny)):
+        register(name, config_cls=SpatialVLAConfig, default_config=factory, model_json="default",
+                 module="intact_tpu_torch.models.spatialvla.model",
+                 wrapper="intact_tpu_torch.serve.policy_wrapper.SpatialVLANativePolicyWrapper")
 
 
 _register_builtin()

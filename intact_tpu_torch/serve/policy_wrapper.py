@@ -1,7 +1,7 @@
 """Policy wrappers: glue between the wire protocol, env adapters and the model.
 
-The Pi0 part of intact_tpu/serve/policy_wrapper.py: `select_action(obs) ->
-np.ndarray [action_step, dim]`, `reset()`, `switch_model(path)` (hot
+The Pi0 and native SpatialVLA parts of intact_tpu/serve/policy_wrapper.py:
+`select_action(obs) -> np.ndarray [action_step, dim]`, `reset()`, `switch_model(path)` (hot
 checkpoint swap for checkpoint sweeps), and ONE fused-batch contract,
 `infer_batch(items)`, that both the per-request path (`select_action`) and
 the continuous-batching server route through.
@@ -11,13 +11,15 @@ Per-connection episode state (the env adapter's episode state) lives in a
 `new_session()`; the shared policy on the card stays stateless across
 co-batched clients. The wrapper serves one card (CUDA unless the caller
 passes device="cpu"); serving over several cards and the families other than
-Pi0, Pi0FAST and MVLA are ROADMAP items ("serving and training over several
-cards", "the other model families and their wrappers").
+Pi0, Pi0FAST, MVLA and native SpatialVLA are ROADMAP items ("serving and
+training over several cards", "the other model families and their
+wrappers").
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from intact_tpu_torch.utils.monitor import setup_logger
 from intact_tpu_torch.utils.pipeline import get_class_from_path, set_seed_everywhere
@@ -283,10 +285,180 @@ class Pi0PolicyWrapper(BasePolicyWrapper):
         return out
 
 
+class SpatialVLASession(PolicySession):
+    """SpatialVLA's per-connection state: its exponentially weighted chunk
+    ensembler (reference simpler.py:492-519). preprocess does the host-side
+    resize and depth preparation, so the fused device call sees model-shaped
+    arrays; frames ship as uint8 and normalize on the card."""
+
+    wants_uint8 = True
+
+    def __init__(self, wrapper, adapter):
+        super().__init__(wrapper, adapter)
+        from intact_tpu_torch.envs.adapters.simpler import ActionEnsembler
+
+        self.ensembler = ActionEnsembler(pred_horizon=wrapper.model_cfg.n_action_steps)
+
+    def preprocess(self, obs: dict) -> dict:
+        import cv2
+
+        from intact_tpu_torch.utils.device import float_to_u8
+
+        cfg = self.wrapper.model_cfg
+        inputs = self.adapter.preprocess(obs)
+        if inputs["image"].shape[0] != 1:
+            # the ensembler is one episode's state: a vectorized request has no meaning through it
+            raise ValueError(f"spatialvla serving is single-env per connection; adapter produced a "
+                             f"{inputs['image'].shape[0]}-row request")
+        image = float_to_u8(np.asarray(inputs["image"]))  # [1, H, W, 3] uint8
+        s = cfg.vision.image_size
+        if image.shape[1] != s or image.shape[2] != s:
+            image = np.stack([cv2.resize(im, (s, s), interpolation=cv2.INTER_LINEAR) for im in image])
+        depth = obs.get("observation.depth")
+        if depth is None:
+            # no depth estimator on the serving host: the flat-plane prior
+            depth = self.wrapper.model.flat_depth(image.shape[0], cfg)
+        else:
+            g = cfg.vision.grid
+            d = np.asarray(depth, np.float32)
+            if d.ndim == 2:
+                d = d[None]
+            depth = np.stack([cv2.resize(di, (g, g), interpolation=cv2.INTER_AREA) for di in d])
+        return {"image": image, "depth": np.asarray(depth, np.float32), "task": inputs["task"]}
+
+    def reset(self) -> None:
+        super().reset()
+        self.ensembler.reset()
+
+
+def _init_native_serving(mod, cfg, config, policy, device, materialize: bool = True):
+    """The parameter tree of a native AR wrapper on one card -> (params,
+    quantize). Random weights from config.seed, made on the device in the
+    param dtype; with eval_cfg.quantize_int8 they are quantized leaf by leaf
+    (`cm.quantize_params(consume=True)`), so the fp tree and the int8 tree
+    never coexist whole. materialize=False makes the tree on the meta device
+    (shapes only), for a wrapper about to load a checkpoint."""
+    from intact_tpu_torch.models import common as cm
+
+    quantize = bool(getattr(config.eval_cfg, "quantize_int8", False))
+    params = mod.init(cfg, config.seed, device if materialize else "meta", policy.param_dtype)
+    if quantize:
+        params = cm.quantize_params(params, consume=True)
+    return params, quantize
+
+
+def _put_native_checkpoint(raw, policy, quantize: bool, device):
+    """A host parameter tree (an importer's or a restored step's) -> the
+    serving tree on the device: int8 through `cm.quantize_host_tree` (the fp
+    tree never lands on the device whole), else the param dtype."""
+    from intact_tpu_torch.models import common as cm
+
+    if quantize:
+        return cm.quantize_host_tree(raw, policy, device)
+    return cm.tree_map(lambda x: torch.as_tensor(x).to(device=device, dtype=policy.param_dtype), raw)
+
+
+def _native_switch_model(wrapper, mod, load_fn, new_model_path) -> None:
+    """switch_model of the native AR wrappers: an HF snapshot directory (with
+    `*.safetensors`) goes to the family's importer `load_fn`, anything else
+    to the port's step_{n} parameter checkpoints. A `*.safetensors` file
+    raises: the importer reads the snapshot directory (index and shards)."""
+    import os
+
+    from intact_tpu_torch.train import checkpoint as ckpt_lib
+
+    if str(new_model_path).endswith(".safetensors"):
+        raise ValueError(f"{new_model_path} is a safetensors FILE; pass its snapshot directory (the importer "
+                         "reads the index and every shard)")
+    if os.path.isdir(new_model_path) and any(f.endswith(".safetensors") for f in os.listdir(new_model_path)):
+        raw = load_fn(new_model_path, wrapper.model_cfg)
+    else:
+        raw = ckpt_lib.restore_params(new_model_path, mod.init(wrapper.model_cfg, device="meta"))
+    wrapper.params = _put_native_checkpoint(raw, wrapper.policy, wrapper.quantize, wrapper.device)
+    wrapper.model_generation += 1
+
+
+class SpatialVLANativePolicyWrapper(BasePolicyWrapper):
+    """Native SpatialVLA serving (models/spatialvla): SigLIP + Ego3D + Gemma2
+    spatial-token decode on one card, in bf16 (use_bf16) or with the W8A8
+    kernel (eval_cfg.quantize_int8: every block product, the projector and
+    the tied unembedding). Each session ensembles the decoded chunk into one
+    env action per inference (reference simpler.py:492-519)."""
+
+    session_cls = SpatialVLASession
+
+    def __init__(self, config, device=None):
+        """device: CUDA unless given (raises without a CUDA device)."""
+        super().__init__(config)
+        from intact_tpu_torch.models import common as cm
+        from intact_tpu_torch.models.spatialvla import model as svla
+        from intact_tpu_torch.models.tokenizer import make_tokenizer
+
+        self.model = svla
+        self.model_cfg = cfg = config.make_model_config()
+        self.device = cm.resolve_device(device)
+        self.policy = cm.SERVING_POLICY if config.use_bf16 else cm.DEFAULT_POLICY
+        path = config.eval_cfg.pretrained_model_path
+        self.params, self.quantize = _init_native_serving(svla, cfg, config, self.policy, self.device,
+                                                          materialize=not path)
+        # the PaliGemma2 tokenizer (spatial tokens appended at the tail), or the hash fallback
+        self.tokenizer = make_tokenizer(config.resolve_tokenizer_path(), cfg.tokenizer_max_length,
+                                        vocab_size=cfg.spatial_offset)
+        self.action_tokenizer = svla.make_action_tokenizer(cfg)
+        if path:
+            self.switch_model(path)
+            self.logger.info("loaded checkpoint %s", path)
+
+    def switch_model(self, new_model_path: str) -> None:
+        _native_switch_model(self, self.model, self.model.load_spatialvla_checkpoint, new_model_path)
+        self.reset()
+
+    def warmup_inputs(self) -> dict:
+        s = self.model_cfg.vision.image_size
+        return {"image": np.zeros((1, s, s, 3), np.uint8), "depth": self.model.flat_depth(1, self.model_cfg),
+                "task": ["warmup"]}
+
+    def _put(self, x: np.ndarray):
+        return torch.from_numpy(np.array(x)).to(self.device)  # np.array: a writable copy
+
+    def predict_tokens(self, images_u8: np.ndarray, depth: np.ndarray, tasks: list[str]) -> np.ndarray:
+        """One device call: uint8 frames [B, s, s, 3], depth [B, g, g] and B
+        task strings -> spatial token ids [B, 3 * n_action_steps]."""
+        cfg = self.model_cfg
+        lang_tokens, lang_masks = self.tokenizer(tasks, cfg.tokenizer_max_length)
+        ids = self.model.predict_action_tokens(
+            self.params, self.model.normalize_images(self._put(images_u8)), self._put(depth), self._put(lang_tokens),
+            self._put(lang_masks), cfg, self.policy)
+        return ids.cpu().numpy()
+
+    def _infer_fused(self, items):
+        """Fuse N single-row requests into one decode (the last row repeated up
+        to the bucket), then decode each item's tokens, ensemble them in its
+        session and postprocess."""
+        cfg = self.model_cfg
+        n = len(items)
+        pad = self.bucket_size(n) - n
+        arrays = {}
+        for key in ("image", "depth"):
+            arr = np.concatenate([it[0][key] for it in items])
+            arrays[key] = np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)]) if pad else arr
+        tasks = [it[0]["task"][0] for it in items]
+        ids = self.predict_tokens(arrays["image"], arrays["depth"], tasks + [tasks[-1]] * pad)
+        out = []
+        for i, (_, session) in enumerate(items):
+            try:
+                chunk = self.action_tokenizer.decode(ids[i].reshape(cfg.n_action_steps, cfg.tokens_per_action))
+                out.append(session.adapter.postprocess(session.ensembler.ensemble(chunk)[None]))
+            except Exception as e:  # noqa: BLE001 — isolated per request
+                out.append(e)
+        return out
+
+
 def make_policy_wrapper(config, device=None):
     """Model type -> its wrapper from the registry; device: CUDA unless
-    given. An unported type (octo, spatialvla, magma, dreamvla) raises
-    there: the ROADMAP item "the other model families and their wrappers"."""
+    given. An unported type (octo, the HF-scaffold spatialvla, magma,
+    dreamvla) raises there: the ROADMAP item "the other model families and
+    their wrappers"."""
     from intact_tpu_torch.models import registry
 
     wrapper = get_class_from_path(registry.get(config.model_cfg.get("type", "pi0"))["wrapper"])

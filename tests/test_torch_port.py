@@ -84,6 +84,20 @@ def test_config_fields_and_defaults_match():
         assert dataclasses.asdict(tc) == dataclasses.asdict(jc), type(tc).__name__
     assert TM().proj_width == JM().proj_width == 1024 and TM.tiny().proj_width == JM.tiny().proj_width
 
+    from intact_tpu.models import gemma2 as jg2
+    from intact_tpu.models.spatialvla.config import SpatialVLAConfig as JV
+    from intact_tpu_torch.models import gemma2 as tg2
+    from intact_tpu_torch.models.spatialvla.config import SpatialVLAConfig as TV
+
+    for j, t in ((jg2.Gemma2Config, tg2.Gemma2Config), (JV, TV)):
+        assert _fields(t) == _fields(j), t.__name__
+    for jc, tc in ((jg2.gemma2_2b(), tg2.gemma2_2b()), (jg2.tiny_test_config(), tg2.tiny_test_config()),
+                   (JV.spatialvla_4b(), TV.spatialvla_4b()), (JV.tiny(), TV.tiny())):
+        assert dataclasses.asdict(tc) == dataclasses.asdict(jc), type(tc).__name__
+    for jc, tc in ((JV.spatialvla_4b(), TV.spatialvla_4b()), (JV.tiny(), TV.tiny())):
+        assert (tc.n_spatial_tokens, tc.spatial_offset, tc.tokens_per_action) == (
+            jc.n_spatial_tokens, jc.spatial_offset, jc.tokens_per_action)
+
 
 def test_pipeline_config_fields_and_defaults_match():
     """The port's TrainPipelineConfig has the reference's fields, with equal
@@ -107,7 +121,7 @@ def test_pipeline_config_fields_and_defaults_match():
 
 
 @pytest.mark.parametrize("entry", ["policy", "init", "server", "pi0fast_policy", "pi0fast_init", "mvla_policy",
-                                   "mvla_init"])
+                                   "mvla_init", "spatialvla_init", "spatialvla_wrapper"])
 def test_entry_points_raise_without_cuda_unless_given_cpu(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
@@ -120,7 +134,18 @@ def test_entry_points_raise_without_cuda_unless_given_cpu(entry):
     from intact_tpu_torch.models.mvla import MVLAConfig
     from intact_tpu_torch.models.mvla import model as mvla
 
+    from intact_tpu_torch.config.pipeline import EnvConfig, EvalConfig, TrainPipelineConfig
+    from intact_tpu_torch.models.spatialvla import SpatialVLAConfig
+    from intact_tpu_torch.models.spatialvla import model as svla
+    from intact_tpu_torch.serve.policy_wrapper import SpatialVLANativePolicyWrapper
+
     cfg, fcfg, mcfg = Pi0Config.tiny(), Pi0FASTConfig.tiny(), MVLAConfig.tiny()
+    pipe = TrainPipelineConfig(
+        name="spatialvla", model_cfg={"type": "spatialvla_native_tiny"}, tokenizer_path="hash",
+        eval_cfg=EvalConfig(simulator_name="simpler", env_adapter="BridgeSimplerAdapter", task_list=["t"],
+                            n_eval_episode=1, n_video=0, recording=False, role="server"),
+        env=EnvConfig(dataset_statistics_path=str(REPO / "config/dataset/bridge_statistics.json"),
+                      image_size=(28, 28)))
     call = {
         "policy": lambda **kw: Pi0Policy(cfg, tokenizer_path="hash", **kw),
         "init": lambda **kw: model.init(cfg, **kw),
@@ -129,6 +154,8 @@ def test_entry_points_raise_without_cuda_unless_given_cpu(entry):
         "pi0fast_init": lambda **kw: fast.init(fcfg, **kw),
         "mvla_policy": lambda **kw: Pi0Policy(mcfg, tokenizer_path="hash", model_module=mvla, **kw),
         "mvla_init": lambda **kw: mvla.init(mcfg, **kw),
+        "spatialvla_init": lambda **kw: svla.init(SpatialVLAConfig.tiny(), **kw),
+        "spatialvla_wrapper": lambda **kw: SpatialVLANativePolicyWrapper(pipe, **kw),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

@@ -79,6 +79,26 @@ class TestW8A8Kernel:
         ref = w8a8.w8a8_matmul_reference(x, node["kernel_q"].t(), node["kernel_scale"], out_dtype=torch.bfloat16)
         assert torch.equal(y, ref)
 
+    @pytest.mark.parametrize("m,n", [(64, 33922), (1, 33922), (64, 4098)])
+    def test_int8_unembedding_launches_the_kernel(self, cuda, m, n):
+        """The tied unembedding's shape at a reduced vocabulary: K 2304, N = 2
+        mod 8 (fp32 rows not 16-byte aligned: the stores from registers) and
+        130 live columns in the last 256-wide tile, as at N = 259,714; 133
+        tiles keep the row mode of the full shape, N 4098 takes the split
+        mode. Bit-equal to the plain version: without a bias each output is
+        round(round(float(sum) * xs) * ws) on both sides."""
+        rng = np.random.default_rng(n + m)
+        table = tcm.quantize_embed({"embedding": t_((rng.standard_normal((n, 2304)) * 0.02).astype(np.float32))
+                                    .to(cuda)})
+        assert n % 8 == 2 and n % 256 == 130 or w8a8.plan(m, n, 2304).mode == "split"
+        hidden = t_(rng.standard_normal((m, 2304), dtype=np.float32)).to(cuda, torch.bfloat16)
+        before = w8a8.w8a8_matmul.launches
+        y = tcm.unembed_logits(table, hidden, tcm.SERVING_POLICY)
+        torch.cuda.synchronize()
+        assert w8a8.w8a8_matmul.launches == before + 1 and y.dtype == torch.float32 and y.shape == (m, n)
+        ref = w8a8.w8a8_matmul_reference(hidden, table["embedding_q"].t(), table["embed_scale"], out_dtype=torch.float32)
+        assert torch.equal(y, ref)
+
     def test_kernel_raises_on_fp16(self, cuda):
         wq = torch.zeros(64, 8, dtype=torch.int8, device=cuda)
         with pytest.raises(TypeError, match="bf16 or fp32"):
