@@ -12,7 +12,10 @@ Phases, each failing loudly (non-zero exit):
              mask and without one), each beside SDPA; w8a8_matmul on K-major
              codes at every bridge, MVLA and SpatialVLA shape (the tied
              unembedding at N 259,714 with fp32 out, batch 64 and 1, the
-             Gemma2 prefill at M 19,456 and a decode product; bit-equal),
+             Gemma2 prefill at M 19,456 and a decode product; Magma's untied
+             lm_head at N 128,256 with bf16 out, batch 64 and 1, the LLaMA
+             prefill's down (K 14,336), gate and k at M 20,544 and the
+             decode's down at M 64; bit-equal),
              per row and per 2048-chunk, beside
              torch._int_mm on its codes and the bf16 matmul it replaces, with
              effective rates and device time per call; fused_adam_rows at
@@ -154,6 +157,23 @@ Phases, each failing loudly (non-zero exit):
              the same weights (token agreement and logit margins, reported);
              latency at batch 1 and 64 (int8 beside bf16), peak memory, profiles
              and the unembedding's share of device time
+  11. Magma serving: the server role's MagmaNativePolicyWrapper from
+             config/experiment/simpler/magma_bridge_ev.yaml with model_cfg
+             {"type": "magma_native"} (ConvNeXt-XXLarge at 512 px, the
+             2-layer projector, LLaMA-3-8B over a 321-token prompt with 256
+             image placeholders, 8 greedy tokens against its K/V cache, the
+             untied 128,256-row lm_head; random weights from the seed, hash
+             tokenizer, the Bridge adapter in place of the yaml's undefined
+             one): int8 at batch 1 and 64 with the W8A8 launches per
+             inference counted from the configuration (1,800: 7 per layer and
+             the lm_head per step) and no attention kernel launch; env
+             actions finite, (1, 7); the served actions equal to the decoded
+             tokens'; the int8 tokens and every step's teacher-forced logits
+             bit-equal with only the W8A8 product plain; then bf16 behind the
+             same wrapper, and bf16 against fp32 at full width and 4 LLaMA
+             layers (token agreement and logits rel L2, reported); latency at
+             batch 1 and 64 (int8 beside bf16), peak memory, profiles and the
+             lm_head's share of device time
 The second-to-last line is `nvidia-smi`'s card name and power limit; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
@@ -770,6 +790,12 @@ W8A8_SHAPES = (
     ("svla_unembed", 64, 2304, 259_714), ("svla_unembed_b1", 1, 2304, 259_714), ("svla_q", 19456, 2304, 2048),
     ("svla_k", 19456, 2304, 1024), ("svla_gate", 19456, 2304, 9216), ("svla_down", 19456, 9216, 2304),
     ("svla_decode_gate", 64, 2304, 9216),
+    # Magma-8B (LLaMA-3-8B): the untied lm_head (bf16 out, cast to fp32 after)
+    # at batch 64 and 1, the prefill at M = 64 x 321 (down at K 14,336, the
+    # largest K of any path; gate; the GQA k), and the decode's down at M = 64
+    ("magma_lm_head", 64, 4096, 128_256), ("magma_lm_head_b1", 1, 4096, 128_256),
+    ("magma_down", 20544, 14336, 4096), ("magma_gate", 20544, 4096, 14336), ("magma_k", 20544, 4096, 1024),
+    ("magma_decode_down", 64, 14336, 4096),
 )
 W8A8_TIMED = "gemma_up"  # the shape of the kernels line
 W8A8_DECODE = "fast_decode_k"  # Pi0FAST's decode shape the kernels line reports beside it
@@ -779,6 +805,9 @@ W8A8_MVLA = ("mvla_conn_up", "mvla_cross_k", "mvla_expert_q")
 # SpatialVLA's, reported beside it; held bit-equal to the plain version (no
 # bias: each output is round(round(float(sum) * xs) * ws) on both sides)
 W8A8_SVLA = ("svla_unembed", "svla_unembed_b1", "svla_q", "svla_k", "svla_gate", "svla_down", "svla_decode_gate")
+# Magma's, reported beside it and held bit-equal the same way (no bias)
+W8A8_MAGMA = ("magma_lm_head", "magma_lm_head_b1", "magma_down", "magma_gate", "magma_k", "magma_decode_down")
+W8A8_EXACT = ("svla", "magma")  # the name prefixes of the shapes held bit-equal
 
 
 def w8a8_case(gen: torch.Generator, m: int, k: int, n: int):
@@ -821,8 +850,9 @@ def phase_w8a8_kernel() -> dict:
     shapes with K-major codes (the serving tree's), per row and (at K 16384
     and 4304, and the expert's K 4096) per 2048-chunk, and two ragged cases
     (one with [K, N] codes): the wrapper's outputs, and the kernel's codes and
-    scales (SpatialVLA's shapes, without a bias, bit-equal: the tied
-    unembedding with fp32 out among them); then times at each per-row shape
+    scales (SpatialVLA's and Magma's shapes, without a bias, bit-equal: the
+    tied unembedding with fp32 out, Magma's lm_head at N 128,256 and its down
+    projection at K 14,336 among them); then times at each per-row shape
     beside the bound, the plain
     version, torch._int_mm on the same codes (the product only) and the bf16
     matmul that int8 replaces, with the kernel's effective rates."""
@@ -842,7 +872,7 @@ def phase_w8a8_kernel() -> dict:
             layout, w_in = "kn", wk.t().contiguous()  # the [K, N] form
         else:
             out_dtype = torch.float32 if name.startswith("svla_unembed") else torch.bfloat16
-        if name.startswith("svla"):
+        if name.startswith(W8A8_EXACT):
             bias = None
         n0 = w8a8.w8a8_matmul.launches
         y = w8a8.w8a8_matmul(x, w_in, ws, bias, chunk, out_dtype, layout)  # the wrapper the main path calls
@@ -859,11 +889,11 @@ def phase_w8a8_kernel() -> dict:
         row_tol = W8A8_ROW_RTOL * ref.float().abs().amax(dim=1, keepdim=True)
         unequal = int((y != ref).sum().item())
         ok = same_codes and same_scales and bool((diff <= row_tol).all()) and bool(torch.isfinite(y).all())
-        ok = ok and (unequal == 0 or not name.startswith("svla"))
+        ok = ok and (unequal == 0 or not name.startswith(W8A8_EXACT))
         log(f"# w8a8_matmul {name}: M {m} K {k} N {n} chunk {chunk or 'row'} {x.dtype}->{out_dtype} {layout} "
             f"{w8a8.plan(m, n, k, chunk)}: codes equal "
             f"{same_codes}, scales equal {same_scales}, outputs unequal {unequal} of {y.numel()}, max abs err "
-            f"{err:.3e} (tol {'bit-equal' if name.startswith('svla') else f'{W8A8_ROW_RTOL:.4g} x row max |y|'}), "
+            f"{err:.3e} (tol {'bit-equal' if name.startswith(W8A8_EXACT) else f'{W8A8_ROW_RTOL:.4g} x row max |y|'}), "
             f"max |y| {ref.float().abs().max().item():.3e}")
         if not ok:
             raise SystemExit(f"w8a8_matmul disagrees with its plain version on {name}")
@@ -894,7 +924,7 @@ def phase_w8a8_kernel() -> dict:
             f"(kernel / bf16 {ms / bf16_ms:.3f}), bound {bound:.4f} ms by {by} ({2 * m * k * n / 1e12:.3f} T int8 "
             f"ops, bytes {bytes_ms:.4f} ms); kernel {2 * m * k * n / ms / 1e9:.1f} TOPS, {moved / ms / 1e6:.1f} GB/s; "
             f"device time per call (profiler, no host gaps): kernel {dev_ms:.4f} ms, bf16 {bf16_dev_ms:.4f} ms")
-        if name in (W8A8_TIMED, W8A8_DECODE) + W8A8_MVLA + W8A8_SVLA:
+        if name in (W8A8_TIMED, W8A8_DECODE) + W8A8_MVLA + W8A8_SVLA + W8A8_MAGMA:
             timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, int_mm_ms=int_mm_ms,
                                bf16_ms=bf16_ms, device_ms=dev_ms, bf16_device_ms=bf16_dev_ms)
         del wb
@@ -902,6 +932,7 @@ def phase_w8a8_kernel() -> dict:
     torch.cuda.empty_cache()
     w8a8.w8a8_matmul.launches = 0  # comparison launches do not count
     decode, mvla, svla = timed[W8A8_DECODE], {n: timed[n] for n in W8A8_MVLA}, {n: timed[n] for n in W8A8_SVLA}
+    magma = {n: timed[n] for n in W8A8_MAGMA}
     timed = timed[W8A8_TIMED]
     return {
         "name": "w8a8_matmul",
@@ -927,6 +958,9 @@ def phase_w8a8_kernel() -> dict:
         "svla_unembed_shape": "SpatialVLA-4B tied unembedding, M 64 (and 1) K 2304 N 259714, fp32 out",
         **{f"{n}_{k}": svla[n][k] for n in W8A8_SVLA
            for k in ("ms", "plain_ms", "bound_ms", "bf16_ms", "device_ms", "bf16_device_ms")},
+        "magma_lm_head_shape": "Magma-8B untied lm_head, M 64 (and 1) K 4096 N 128256, bf16 out",
+        **{f"{n}_{k}": magma[n][k] for n in W8A8_MAGMA
+           for k in ("ms", "plain_ms", "bound_ms", "int_mm_ms", "bf16_ms", "device_ms", "bf16_device_ms")},
     }
 
 
@@ -1029,20 +1063,24 @@ def phase_serving() -> int:
 KERNEL_SYMBOLS = ("attn_kernel", "fused_adam_rows_kernel", "quantize_kernel", "gemm_kernel", "finish_kernel")
 
 
-def profile_pass(label: str, fn, in_order: str | None = None):
+def profile_pass(label: str, fn, in_order: str | None = None, annotation: str | None = None):
     """Device busy share and the kernels that take the most device time in
     one call of fn (which ends in a sync), under torch.profiler (which adds
     host time of its own). -> {kernel name: (device ms, launches)} for the
     kernels of KERNEL_SYMBOLS; with `in_order`, also the device ms of each
     launch of the kernels whose name holds it, in launch order, and the
-    device busy ms."""
+    device busy ms; with `annotation`, instead the device ms of the kernels
+    that ran inside the device spans of the `record_function` ranges of that
+    name, the number of spans, and the device busy ms (the spans themselves
+    are not kernels: they count neither as busy time nor as launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key != annotation]
     busy_us = sum(e.self_device_time_total for e in kernels)
     log(f"# profile {label}: wall {wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms "
         f"({100 * busy_us / wall_us:.1f}%), {sum(e.count for e in kernels)} kernel launches")
@@ -1057,6 +1095,15 @@ def profile_pass(label: str, fn, in_order: str | None = None):
             if name in e.key:
                 ms, n = totals.get(name, (0.0, 0))
                 totals[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    if annotation is not None:
+        # the device spans of the ranges (CUDA events of the annotation's name), and the kernels inside them: on
+        # one stream those are the kernels launched in the range, however they were launched (ctypes launches
+        # are attributed to no CPU op)
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        spans = [e.time_range for e in device if e.name == annotation]
+        inside = [e for e in device if e.name != annotation
+                  and any(s.start <= e.time_range.start and e.time_range.end <= s.end for s in spans)]
+        return totals, sum(e.time_range.elapsed_us() for e in inside) / 1e3, len(spans), busy_us / 1e3
     if in_order is None:
         return totals
     launches = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
@@ -2358,11 +2405,13 @@ def mvla_kernel_vs_plain(label: str, params, inputs, cfg, policy, noise) -> None
         raise SystemExit(f"{label}: actions through the attention kernel disagree with the plain path")
 
 
-def time_wrappers(label: str, runs: dict, requests: dict, steps: int, reps: dict, in_order: str | None = None):
+def time_wrappers(label: str, runs: dict, requests: dict, steps: int, reps: dict, in_order: str | None = None,
+                  annotation: str | None = None):
     """Median latency of infer_batch per wrapper, the wrappers alternating
     call by call, at each batch of `requests` ({batch: [request, ...]}, one
     single-row request per session); then one profiler pass each -> {(wrapper
-    key, batch): profile_pass's result (with `in_order`, its launch times)}."""
+    key, batch): profile_pass's result (with `in_order`, its launch times;
+    with `annotation`, the device time inside those ranges)}."""
     for b, reqs in requests.items():
         times = {k: [] for k in runs}
         calls = {k: [(r, ss[i]) for i, r in enumerate(reqs)] for k, (w, ss) in runs.items()}
@@ -2385,7 +2434,8 @@ def time_wrappers(label: str, runs: dict, requests: dict, steps: int, reps: dict
     for b, reqs in requests.items():
         for k, (w, ss) in runs.items():
             calls = [(r, ss[i]) for i, r in enumerate(reqs)]
-            profiles[k, b] = profile_pass(f"{label} {k} wrapper batch {b}", lambda: w.infer_batch(calls), in_order)
+            profiles[k, b] = profile_pass(f"{label} {k} wrapper batch {b}", lambda: w.infer_batch(calls), in_order,
+                                          annotation)
     return profiles
 
 
@@ -2950,6 +3000,229 @@ def phase_svla_serving() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 11. Magma serving: the native wrapper in int8 and bf16
+# ---------------------------------------------------------------------------
+
+MAGMA_EV_CONFIG = "config/experiment/simpler/magma_bridge_ev.yaml"
+# the yaml's adapter, BridgeSimplerMagmaAdapter, is defined in neither package
+# (scripts/gen_experiment_configs.py makes up the name): the Bridge adapter
+# serves in its place; its checkpoint, microsoft/Magma-8B, is a hub id
+MAGMA_OVERRIDES = {"eval_cfg.env_adapter": "BridgeSimplerAdapter"}
+MAGMA_FP32_DEPTH = 4  # LLaMA layers of the bf16-against-fp32 comparison (all 32 in fp32 next to both wrappers is 36 GB)
+
+
+def magma_config(quantize: bool):
+    """The server role's config from the Magma yaml: model_cfg {"type":
+    "magma_native"}, no checkpoint (random weights from the seed), the hash
+    tokenizer."""
+    return ev_config(quantize, path=MAGMA_EV_CONFIG, model_cfg={"type": "magma_native"}, overrides=MAGMA_OVERRIDES)
+
+
+def magma_per_inference(cfg) -> int:
+    """W8A8 launches of one int8 Magma inference, from the configuration: the
+    LLaMA prefill's 7 per layer and the first token's lm_head, then for each
+    token fed back (all but the last of n_action_tokens + 1) 7 per layer and
+    the lm_head. ConvNeXt and the projector stay fp."""
+    return (cfg.lm.depth * 7 + 1) * (cfg.n_action_tokens + 1)
+
+
+def magma_requests(rng: np.random.Generator, cfg, b: int) -> list[dict]:
+    """b single-row requests as MagmaSession.preprocess emits them: a uint8
+    frame at the ConvNeXt resolution, one task string."""
+    obs = make_obs(rng, b, cfg.image_size)
+    return [{"image": obs["image"][i:i + 1], "task": [obs["task"][i]]} for i in range(b)]
+
+
+def magma_inputs(wrapper, reqs: list[dict]) -> tuple:
+    """The wrapper's device inputs for the fused requests: normalized images,
+    the prompt's ids and mask."""
+    tokens, masks = wrapper.model.build_prompt(wrapper.tokenizer, [r["task"][0] for r in reqs], wrapper.model_cfg)
+    images = np.concatenate([r["image"] for r in reqs])
+    return wrapper.model.normalize_images(wrapper._put(images)), wrapper._put(tokens), wrapper._put(masks)
+
+
+def magma_greedy_logits(params, inputs, cfg, policy, forced=None):
+    """`generate` step by step from its own pieces -> (tokens [B, T], logits
+    [T, B, V] fp32); with `forced` [B, T] the given tokens are fed back in
+    place of the argmax (teacher forcing)."""
+    from intact_tpu_torch.models import llama
+    from intact_tpu_torch.models.magma import model as magma
+
+    n = cfg.n_action_tokens + 1
+    with torch.inference_mode():
+        embeds, mask = magma.embed_prompt(params, *inputs, cfg, policy)
+        last, cache, key_valid, pos = llama.prefill(params["lm"], embeds, mask, n, cfg.lm, policy)
+        p_len = embeds.shape[1]
+        logits = [llama.logits(params["lm"], last, cfg.lm, policy)]
+        tokens = [logits[-1].argmax(dim=-1)]
+        for s in range(n - 1):
+            feed = tokens[-1] if forced is None else forced[:, s]
+            h = llama.decode_step(params["lm"], feed, cache, p_len + s, key_valid, pos + s, cfg.lm, policy)
+            logits.append(llama.logits(params["lm"], h, cfg.lm, policy))
+            tokens.append(logits[-1].argmax(dim=-1))
+        return torch.stack(tokens, dim=1), torch.stack(logits)
+
+
+def magma_env_actions(wrapper, ids: np.ndarray, sessions) -> list:
+    """The env actions of `ids` [B, T] as `_infer_fused` makes them: the
+    first n_action_tokens through the bins, the quantile denormalization,
+    each session's postprocess."""
+    from intact_tpu_torch.serve.decoding import denormalize_with_quantiles, tokens_to_actions
+
+    cfg = wrapper.model_cfg
+    out = []
+    for i, session in enumerate(sessions):
+        norm = tokens_to_actions(ids[i, :cfg.n_action_tokens], vocab_size=cfg.lm.vocab_size, n_bins=cfg.n_action_bins)
+        stats = session.adapter.dataset_statistics["action"]
+        raw = denormalize_with_quantiles(norm, stats["p01"], stats["p99"], np.array([True] * 6 + [False]))
+        out.append(session.adapter.postprocess(raw[None]))
+    return out
+
+
+def phase_magma_serving() -> dict:
+    """-> {kernel: launches} on Magma's int8 serving path (the bf16 path
+    launches none of the three kernels: ConvNeXt, the projector and LLaMA's
+    attention are plain, as in the reference)."""
+    from intact_tpu_torch.models import common as cm
+    from intact_tpu_torch.models import llama
+    from intact_tpu_torch.ops import w8a8
+    from intact_tpu_torch.ops.flash_attention import flash_attention
+    from intact_tpu_torch.serve.policy_wrapper import make_policy_wrapper
+
+    cfg = magma_config(quantize=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wrapper = make_policy_wrapper(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    mc = wrapper.model_cfg
+    leaves = cm.tree_leaves(wrapper.params)
+    want = {"flash_attention": 0, "w8a8_matmul": magma_per_inference(mc)}
+    n_tok, vocab = mc.n_action_tokens + 1, mc.lm.vocab_size
+    rng = np.random.default_rng(7)
+    req1, req64 = magma_requests(rng, mc, 1), magma_requests(rng, mc, 64)
+    inputs = magma_inputs(wrapper, req64)
+    p_len, n_valid = inputs[1].shape[1], inputs[2].sum(dim=1)
+    log(f"# Magma serving: {type(wrapper).__name__} from {MAGMA_EV_CONFIG} ({cfg.model_type}, adapter "
+        f"{cfg.eval_cfg.env_adapter}, quantize_int8 {cfg.eval_cfg.quantize_int8}, seed {cfg.seed}): "
+        f"{sum(x.numel() for x in leaves if x.dtype == torch.int8) / 1e9:.3f} B int8 weights + "
+        f"{sum(x.numel() for x in leaves if x.dtype != torch.int8) / 1e9:.3f} B bf16/fp32 values, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, init {time.perf_counter() - t0:.2f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; prompt {p_len} tokens ({mc.n_image_tokens} image; "
+        f"{int(n_valid.min())}-{int(n_valid.max())} valid over the 64 rows), {n_tok} greedy tokens over a vocabulary "
+        f"of {vocab}; expect {want} launches per inference")
+
+    s1, sessions = wrapper.new_session(), [wrapper.new_session() for _ in range(64)]
+    counters = {"flash_attention": flash_attention, "w8a8_matmul": w8a8.w8a8_matmul}
+
+    def fused(w, items, expect, label):
+        before = {k: c.launches for k, c in counters.items()}
+        out = w.infer_batch(items)
+        grew = {k: c.launches - before[k] for k, c in counters.items()}
+        if grew != expect:
+            raise SystemExit(f"one fused {label} inference launched {grew}; expected {expect}")
+        for a in out:
+            if isinstance(a, Exception) or a.shape != (1, 7) or not np.isfinite(a).all():
+                raise SystemExit(f"bad {label} serving result {a!r:.200}")
+        return out
+
+    # --- the main path: fused requests through the wrapper, as the batching server calls it ---
+    flash_attention.launches = w8a8.w8a8_matmul.launches = 0
+    for _ in range(2):
+        fused(wrapper, [(req1[0], s1)], want, "int8 Magma")
+    out64 = fused(wrapper, list(zip(req64, sessions)), want, "int8 Magma")
+    launches = {k: c.launches for k, c in counters.items()}
+    # -------------------------------------------------------------------------------------------
+    log(f"# Magma int8 serving: 3 fused inferences (batch 1, 1, 64), launches {launches}, env actions of shape "
+        f"(1, 7), finite")
+
+    # int8: the tokens and every step's logits with the W8A8 kernel against with only its product plain
+    images, tasks = np.concatenate([r["image"] for r in req64]), [r["task"][0] for r in req64]
+    ids = wrapper.generate_tokens(images, tasks)  # the wrapper's device call
+    tokens, log_k = magma_greedy_logits(wrapper.params, inputs, mc, wrapper.policy)
+    stepwise = np.array_equal(tokens.cpu().numpy(), ids)
+    in_vocab = bool(((tokens >= 0) & (tokens < vocab)).all())
+    same_as_served = all(np.array_equal(e, o) for e, o in zip(magma_env_actions(wrapper, ids, sessions), out64))
+    real = w8a8.w8a8_matmul
+    n0 = w8a8.w8a8_matmul.launches
+    w8a8.w8a8_matmul = plain_w8a8  # the plain W8A8 product, for this comparison only
+    try:
+        ids_plain = wrapper.generate_tokens(images, tasks)
+        tok_p, log_p = magma_greedy_logits(wrapper.params, inputs, mc, wrapper.policy, forced=tokens)
+    finally:
+        w8a8.w8a8_matmul = real
+    same = np.array_equal(ids_plain, ids) and torch.equal(tok_p, tokens) and torch.equal(log_p, log_k)
+    top2 = log_k.topk(2, dim=-1).values
+    ties = int((top2[..., 0] == top2[..., 1]).sum())
+    log(f"# Magma int8, batch 64: {tokens.numel()} tokens in [0, {vocab}) {in_vocab}, {tokens.unique().numel()} "
+        f"distinct, {ties} steps and rows with a tie at the bf16 maximum (argmax takes the first, as jnp.argmax); "
+        f"the stepwise decode equals the wrapper's {stepwise}; the served env actions equal the decoded tokens' "
+        f"{same_as_served}; with only the W8A8 product plain (the lm_head included): tokens and every step's "
+        f"teacher-forced logits bit-equal {same} (gates: all; plain runs launched w8a8_matmul "
+        f"{w8a8.w8a8_matmul.launches - n0} times)")
+    if not (in_vocab and stepwise and same_as_served and same and w8a8.w8a8_matmul.launches == n0):
+        raise SystemExit("Magma int8: tokens outside the vocabulary, the W8A8 kernel's tokens or logits differ from "
+                         "its plain version's, or the served actions differ from the checked tokens'")
+    del log_p, tok_p
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for items in ([(req1[0], s1)], list(zip(req64, sessions))):
+        wrapper.infer_batch(items)
+    int8_peak = torch.cuda.max_memory_allocated()
+
+    # bf16: the same random weights behind the same wrapper, quantize_int8 off
+    bf16_wrapper = make_policy_wrapper(magma_config(quantize=False), device=DEVICE)
+    bf16_sessions = [bf16_wrapper.new_session() for _ in range(64)]
+    bp, bpol = bf16_wrapper.params, bf16_wrapper.policy
+    tok_b, _ = magma_greedy_logits(bp, inputs, mc, bpol)
+    ids_b = bf16_wrapper.generate_tokens(images, tasks)
+    log(f"# Magma bf16, batch 64: the stepwise decode equals the wrapper's {np.array_equal(tok_b.cpu().numpy(), ids_b)}"
+        f"; int8 tokens equal to bf16's {(tokens == tok_b).float().mean().item():.4f} (reported, no gate)")
+    if not bool(((tok_b >= 0) & (tok_b < vocab)).all()) or not np.array_equal(tok_b.cpu().numpy(), ids_b):
+        raise SystemExit("Magma bf16: the wrapper's tokens differ from the stepwise decode's")
+    del log_k
+    # bf16 against fp32 at full width and MAGMA_FP32_DEPTH LLaMA layers (views of the bf16 tree)
+    mc4 = dataclasses.replace(mc, lm=dataclasses.replace(mc.lm, depth=MAGMA_FP32_DEPTH))
+    bp4 = {**bp, "lm": {**bp["lm"], "blocks": cm.tree_map(lambda a: a[:MAGMA_FP32_DEPTH], bp["lm"]["blocks"])}}
+    tok_b4, log_b4 = magma_greedy_logits(bp4, inputs, mc4, bpol)
+    fp32 = cm.tree_map(lambda x: x.float(), bp4)
+    tok_f4, _ = magma_greedy_logits(fp32, inputs, mc4, cm.FP32_POLICY)
+    _, log_ff4 = magma_greedy_logits(fp32, inputs, mc4, cm.FP32_POLICY, forced=tok_b4)  # teacher-forced fp32
+    del fp32
+    log(f"# Magma bf16 against fp32 at {MAGMA_FP32_DEPTH} of {mc.lm.depth} LLaMA layers, batch 64: tokens equal "
+        f"{(tok_b4 == tok_f4).float().mean().item():.4f}, teacher-forced logits rel L2 {rel_l2(log_b4, log_ff4):.3e} "
+        f"(logits std {log_b4.std().item():.3e}; reported, no gate)")
+    del log_b4, log_ff4, inputs, bp4
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    runs = {"int8": (wrapper, sessions), "bf16": (bf16_wrapper, bf16_sessions)}
+    torch.cuda.reset_peak_memory_stats()
+    real_logits = llama.logits
+
+    def annotated_logits(*args, **kwargs):  # the lm_head's kernels, read by name in the profiles
+        with torch.profiler.record_function("magma_lm_head"):
+            return real_logits(*args, **kwargs)
+
+    llama.logits = annotated_logits
+    try:
+        # one env action per inference: 1 policy step per row
+        profiles = time_wrappers("Magma", runs, {1: req1, 64: req64}, 1, {1: 3, 64: 3}, annotation="magma_lm_head")
+    finally:
+        llama.logits = real_logits
+    log(f"# Magma peak device memory: int8 wrapper alone {int8_peak / 2**30:.2f} GiB (batch 1 and 64); both wrappers "
+        f"during the timing {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for (k, b), (totals, head_ms, n_head, busy) in profiles.items():
+        w8 = totals.get("gemm_kernel", (0.0, 0))[0]
+        log(f"# Magma {k} batch {b}: the lm_head's kernels (in the device spans of {n_head} of its {n_tok} calls) take "
+            f"{head_ms:.3f} ms of device time, {100 * head_ms / busy:.1f}% of the device busy time {busy:.3f} ms"
+            + (f" and {100 * head_ms / w8:.1f}% of the W8A8 products' gemm_kernel time {w8:.3f} ms" if w8 else ""))
+    del wrapper, bf16_wrapper, runs, bp, sessions, bf16_sessions
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2978,12 +3251,14 @@ def main() -> int:
     mvla_serving = run(phase_mvla_serving)
     mvla_training = run(phase_mvla_training)
     svla_serving = run(phase_svla_serving)
+    magma_serving = run(phase_magma_serving)
     paths = {"serving": {"flash_attention": serving}, "int8": int8, "training": training, "standard": standard,
              "fast_serving": fast_serving, "fast_training": fast_training, "mvla_serving": mvla_serving,
-             "mvla_training": mvla_training, "svla_serving": svla_serving}
-    # SpatialVLA launches no attention kernel (head_dim 72 and the softcap keep it plain), by design
-    if not all(n > 0 for counts in paths.values() for name, n in counts.items()
-               if (counts is not svla_serving or name == "w8a8_matmul")):
+             "mvla_training": mvla_training, "svla_serving": svla_serving, "magma_serving": magma_serving}
+    # SpatialVLA and Magma launch no attention kernel (SpatialVLA's head_dim 72 and softcap keep it plain; LLaMA
+    # calls the plain path, as in the reference), by design
+    if not all(n > 0 for path, counts in paths.items() for name, n in counts.items()
+               if path not in ("svla_serving", "magma_serving") or name == "w8a8_matmul"):
         raise SystemExit(f"a kernel of the path never launched: {paths}")
     for name in kernels:
         kernels[name]["launches"] = sum(counts.get(name, 0) for counts in paths.values())
@@ -2995,7 +3270,8 @@ def main() -> int:
         f"{fast_serving['w8a8_matmul']} Pi0FAST int8 serving + {mvla_serving['w8a8_matmul']} MVLA int8 serving; "
         f"MVLA flash_attention {mvla_serving['flash_attention']} serving + {mvla_training['flash_attention']} training; "
         f"SpatialVLA w8a8_matmul {svla_serving['w8a8_matmul']} int8 serving (flash_attention "
-        f"{svla_serving['flash_attention']})")
+        f"{svla_serving['flash_attention']}); Magma w8a8_matmul {magma_serving['w8a8_matmul']} int8 serving "
+        f"(flash_attention {magma_serving['flash_attention']})")
     torch.cuda.synchronize()
     log(f"# total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))

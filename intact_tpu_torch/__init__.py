@@ -7,7 +7,8 @@ layouts so the two can be compared like with like: attention tensors are
 [L, ...], the K/V cache [L, B, P, KVH, D] with RoPE already applied to K,
 images [B, K, H, W, 3].
 
-Entry points (`Pi0Policy`, `models.pi0.model.init`, `serve.build_server`)
-run on the CUDA device unless the caller passes `device="cpu"`; without a
-CUDA device and without an explicit "cpu" they raise.
+Entry points (`Pi0Policy`, the models' `init`, the serving wrappers of
+`serve.policy_wrapper.make_policy_wrapper`) run on the CUDA device unless
+the caller passes `device="cpu"`; without a CUDA device and without an
+explicit "cpu" they raise.
 """

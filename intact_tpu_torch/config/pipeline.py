@@ -271,8 +271,8 @@ class TrainPipelineConfig:
         """model_cfg dict -> the model config, built as the type's registry
         entry says (`model_json`): from the whole model JSON ("pi0"), its
         default config with the JSON's common fields ("pi0fast", "mvla",
-        "mmmvla"), or its default as is (spatialvla_native and the tiny,
-        CPU-testable types)."""
+        "mmmvla"), or its default as is (spatialvla_native, magma_native and
+        the tiny, CPU-testable types)."""
         from intact_tpu_torch.models import registry
 
         entry = registry.get(self.model_type)

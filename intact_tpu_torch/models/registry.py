@@ -1,8 +1,8 @@
 """Model registry: type string -> config factory and model module, for the
 types the port has (intact_tpu/models/registry.py, cut to them).
 
-A model module exposes init / compute_loss / sample_actions (SpatialVLA,
-serving only: init / predict_action_tokens); the policy, the serving
+A model module exposes init / compute_loss / sample_actions (SpatialVLA
+and Magma, serving only: init / predict_action_tokens, init / generate); the policy, the serving
 wrapper, the trainer and the weight bridge resolve it from here, and
 `make_policy_wrapper` the type's wrapper class (its `wrapper` path). An
 entry's `model_json` says how `make_model_config` builds the type's config
@@ -49,6 +49,7 @@ def module_for_config(cfg):
 def _register_builtin() -> None:
     import dataclasses
 
+    from intact_tpu_torch.models.magma.config import MagmaConfig
     from intact_tpu_torch.models.mvla.config import MVLAConfig
     from intact_tpu_torch.models.pi0.config import Pi0Config
     from intact_tpu_torch.models.pi0fast.config import Pi0FASTConfig
@@ -74,6 +75,11 @@ def _register_builtin() -> None:
         register(name, config_cls=SpatialVLAConfig, default_config=factory, model_json="default",
                  module="intact_tpu_torch.models.spatialvla.model",
                  wrapper="intact_tpu_torch.serve.policy_wrapper.SpatialVLANativePolicyWrapper")
+    # native Magma-8B (ConvNeXt + LLaMA-3, HF-checkpoint import)
+    for name, factory in (("magma_native", MagmaConfig.magma_8b), ("magma_native_tiny", MagmaConfig.tiny)):
+        register(name, config_cls=MagmaConfig, default_config=factory, model_json="default",
+                 module="intact_tpu_torch.models.magma.model",
+                 wrapper="intact_tpu_torch.serve.policy_wrapper.MagmaNativePolicyWrapper")
 
 
 _register_builtin()

@@ -1,7 +1,3 @@
-"""Serving: the policy wrappers (fuse contract, sessions), the continuous-batching
-server and the server entry. `build_server` serves a bare Pi0Policy
-(`python -m intact_tpu_torch.serve`)."""
-
-from intact_tpu_torch.serve.standalone import build_server, main
-
-__all__ = ["build_server", "main"]
+"""Serving: the policy wrappers (fuse contract, sessions) and the
+continuous-batching websocket server, started by the server role of
+`python -m intact_tpu_torch.run`."""

@@ -1,6 +1,6 @@
 """Policy wrappers: glue between the wire protocol, env adapters and the model.
 
-The Pi0 and native SpatialVLA parts of intact_tpu/serve/policy_wrapper.py:
+The Pi0, native SpatialVLA and native Magma parts of intact_tpu/serve/policy_wrapper.py:
 `select_action(obs) -> np.ndarray [action_step, dim]`, `reset()`, `switch_model(path)` (hot
 checkpoint swap for checkpoint sweeps), and ONE fused-batch contract,
 `infer_batch(items)`, that both the per-request path (`select_action`) and
@@ -11,7 +11,7 @@ Per-connection episode state (the env adapter's episode state) lives in a
 `new_session()`; the shared policy on the card stays stateless across
 co-batched clients. The wrapper serves one card (CUDA unless the caller
 passes device="cpu"); serving over several cards and the families other than
-Pi0, Pi0FAST, MVLA and native SpatialVLA are ROADMAP items ("serving and
+Pi0, Pi0FAST, MVLA, native SpatialVLA and native Magma are ROADMAP items ("serving and
 training over several cards", "the other model families and their
 wrappers").
 """
@@ -454,9 +454,111 @@ class SpatialVLANativePolicyWrapper(BasePolicyWrapper):
         return out
 
 
+class MagmaSession(PolicySession):
+    """Magma's host-side image prep: the adapter's frame as uint8, resized to
+    the ConvNeXt resolution; the CLIP normalization runs on the card."""
+
+    wants_uint8 = True
+
+    def preprocess(self, obs: dict) -> dict:
+        import cv2
+
+        from intact_tpu_torch.utils.device import float_to_u8
+
+        inputs = self.adapter.preprocess(obs)
+        if inputs["image"].shape[0] != 1:
+            raise ValueError(f"magma serving is single-env per connection; adapter produced a "
+                             f"{inputs['image'].shape[0]}-row request")
+        s = self.wrapper.model_cfg.image_size
+        u8 = float_to_u8(np.asarray(inputs["image"]))
+        if u8.shape[1] != s or u8.shape[2] != s:
+            u8 = np.stack([cv2.resize(im, (s, s), interpolation=cv2.INTER_LINEAR) for im in u8])
+        return {"image": u8, "task": inputs["task"]}
+
+
+class MagmaNativePolicyWrapper(BasePolicyWrapper):
+    """Native Magma serving (models/magma): ConvNeXt + projector + LLaMA-3
+    action-token decode on one card, in bf16 (use_bf16) or with the W8A8
+    kernel (eval_cfg.quantize_int8: every LLaMA block product and the untied
+    lm_head; the vision tower and projector stay fp). Each inference gives
+    one env action per row: the first n_action_tokens tokens through the
+    vocabulary-tail bins, denormalized with the action quantiles, then the
+    adapter's postprocess (reference policy_wrapper.py:1074-1104)."""
+
+    session_cls = MagmaSession
+
+    def __init__(self, config, device=None):
+        """device: CUDA unless given (raises without a CUDA device)."""
+        super().__init__(config)
+        from intact_tpu_torch.models import common as cm
+        from intact_tpu_torch.models.magma import model as magma
+        from intact_tpu_torch.models.tokenizer import make_tokenizer
+
+        self.model = magma
+        self.model_cfg = cfg = config.make_model_config()
+        self.device = cm.resolve_device(device)
+        self.policy = cm.SERVING_POLICY if config.use_bf16 else cm.DEFAULT_POLICY
+        path = config.eval_cfg.pretrained_model_path
+        self.params, self.quantize = _init_native_serving(magma, cfg, config, self.policy, self.device,
+                                                          materialize=not path)
+        # the LLaMA-3 tokenizer, or the hash fallback with its ids kept below
+        # image_token_id: a text id equal to the placeholder would take a
+        # vision embedding
+        self.tokenizer = make_tokenizer(config.resolve_tokenizer_path(), cfg.max_prompt_tokens,
+                                        vocab_size=min(cfg.image_token_id, cfg.lm.vocab_size))
+        if path:
+            self.switch_model(path)
+            self.logger.info("loaded checkpoint %s", path)
+
+    def switch_model(self, new_model_path: str) -> None:
+        _native_switch_model(self, self.model, self.model.load_magma_checkpoint, new_model_path)
+        self.env_adapter.reset()
+
+    def warmup_inputs(self) -> dict:
+        s = self.model_cfg.image_size
+        return {"image": np.zeros((1, s, s, 3), np.uint8), "task": ["warmup"]}
+
+    def _put(self, x: np.ndarray):
+        return torch.from_numpy(np.array(x)).to(self.device)  # np.array: a writable copy
+
+    def generate_tokens(self, images_u8: np.ndarray, tasks: list[str]) -> np.ndarray:
+        """One device call: uint8 frames [B, s, s, 3] and B task strings ->
+        greedy ids [B, n_action_tokens + 1]."""
+        tokens, masks = self.model.build_prompt(self.tokenizer, tasks, self.model_cfg)
+        ids = self.model.generate(self.params, self.model.normalize_images(self._put(images_u8)), self._put(tokens),
+                                  self._put(masks), self.model_cfg, self.policy)
+        return ids.cpu().numpy()
+
+    def _infer_fused(self, items):
+        """Fuse N single-row requests into one decode (the last row repeated up
+        to the bucket), then turn each item's tokens into its env action."""
+        from intact_tpu_torch.serve.decoding import denormalize_with_quantiles, tokens_to_actions
+
+        cfg = self.model_cfg
+        n = len(items)
+        pad = self.bucket_size(n) - n
+        images = np.concatenate([it[0]["image"] for it in items])
+        if pad:
+            images = np.concatenate([images, np.repeat(images[-1:], pad, axis=0)])
+        tasks = [it[0]["task"][0] for it in items]
+        ids = self.generate_tokens(images, tasks + [tasks[-1]] * pad)
+        mask = np.array([True] * 6 + [False])  # the gripper is not denormalized
+        out = []
+        for i, (_, session) in enumerate(items):
+            try:
+                norm = tokens_to_actions(ids[i, :cfg.n_action_tokens], vocab_size=cfg.lm.vocab_size,
+                                         n_bins=cfg.n_action_bins)
+                stats = session.adapter.dataset_statistics["action"]
+                raw = denormalize_with_quantiles(norm, stats["p01"], stats["p99"], mask)
+                out.append(session.adapter.postprocess(raw[None]))
+            except Exception as e:  # noqa: BLE001 — isolated per request
+                out.append(e)
+        return out
+
+
 def make_policy_wrapper(config, device=None):
     """Model type -> its wrapper from the registry; device: CUDA unless
-    given. An unported type (octo, the HF-scaffold spatialvla, magma,
+    given. An unported type (octo, the HF-scaffold spatialvla and magma,
     dreamvla) raises there: the ROADMAP item "the other model families and
     their wrappers"."""
     from intact_tpu_torch.models import registry

@@ -98,6 +98,23 @@ def test_config_fields_and_defaults_match():
         assert (tc.n_spatial_tokens, tc.spatial_offset, tc.tokens_per_action) == (
             jc.n_spatial_tokens, jc.spatial_offset, jc.tokens_per_action)
 
+    from intact_tpu.models import convnext as jcn
+    from intact_tpu.models import llama as jll
+    from intact_tpu.models.magma.config import MagmaConfig as JMG
+    from intact_tpu_torch.models import convnext as tcn
+    from intact_tpu_torch.models import llama as tll
+    from intact_tpu_torch.models.magma.config import MagmaConfig as TMG
+
+    for j, t in ((jcn.ConvNeXtConfig, tcn.ConvNeXtConfig), (jll.LlamaConfig, tll.LlamaConfig), (JMG, TMG)):
+        assert _fields(t) == _fields(j), t.__name__
+    for jc, tc in ((jcn.convnext_tiny(), tcn.convnext_tiny()), (jcn.convnext_xxlarge(), tcn.convnext_xxlarge()),
+                   (jcn.tiny_test_config(), tcn.tiny_test_config()), (jll.llama3_8b(), tll.llama3_8b()),
+                   (jll.tiny_test_config(), tll.tiny_test_config()), (JMG.magma_8b(), TMG.magma_8b()),
+                   (JMG.tiny(), TMG.tiny())):
+        assert dataclasses.asdict(tc) == dataclasses.asdict(jc), type(tc).__name__
+    for jc, tc in ((JMG.magma_8b(), TMG.magma_8b()), (JMG.tiny(), TMG.tiny())):
+        assert tc.n_image_tokens == jc.n_image_tokens
+
 
 def test_pipeline_config_fields_and_defaults_match():
     """The port's TrainPipelineConfig has the reference's fields, with equal
@@ -121,11 +138,11 @@ def test_pipeline_config_fields_and_defaults_match():
 
 
 @pytest.mark.parametrize("entry", ["policy", "init", "server", "pi0fast_policy", "pi0fast_init", "mvla_policy",
-                                   "mvla_init", "spatialvla_init", "spatialvla_wrapper"])
+                                   "mvla_init", "spatialvla_init", "spatialvla_wrapper", "magma_init",
+                                   "magma_wrapper"])
 def test_entry_points_raise_without_cuda_unless_given_cpu(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
-    from intact_tpu_torch import serve
     from intact_tpu_torch.models.pi0 import model
     from intact_tpu_torch.models.pi0.config import Pi0Config
     from intact_tpu_torch.models.pi0.policy import Pi0Policy
@@ -137,25 +154,38 @@ def test_entry_points_raise_without_cuda_unless_given_cpu(entry):
     from intact_tpu_torch.config.pipeline import EnvConfig, EvalConfig, TrainPipelineConfig
     from intact_tpu_torch.models.spatialvla import SpatialVLAConfig
     from intact_tpu_torch.models.spatialvla import model as svla
-    from intact_tpu_torch.serve.policy_wrapper import SpatialVLANativePolicyWrapper
+    from intact_tpu_torch.models.magma import MagmaConfig
+    from intact_tpu_torch.models.magma import model as magma
+    from intact_tpu_torch.serve.policy_wrapper import (
+        MagmaNativePolicyWrapper,
+        SpatialVLANativePolicyWrapper,
+        make_policy_wrapper,
+    )
 
     cfg, fcfg, mcfg = Pi0Config.tiny(), Pi0FASTConfig.tiny(), MVLAConfig.tiny()
-    pipe = TrainPipelineConfig(
-        name="spatialvla", model_cfg={"type": "spatialvla_native_tiny"}, tokenizer_path="hash",
-        eval_cfg=EvalConfig(simulator_name="simpler", env_adapter="BridgeSimplerAdapter", task_list=["t"],
-                            n_eval_episode=1, n_video=0, recording=False, role="server"),
-        env=EnvConfig(dataset_statistics_path=str(REPO / "config/dataset/bridge_statistics.json"),
-                      image_size=(28, 28)))
+
+    def pipe(model_type):
+        """A server-role config of `model_type`, as the run CLI builds it."""
+        return TrainPipelineConfig(
+            name=model_type, model_cfg={"type": model_type}, tokenizer_path="hash",
+            eval_cfg=EvalConfig(simulator_name="simpler", env_adapter="BridgeSimplerAdapter", task_list=["t"],
+                                n_eval_episode=1, n_video=0, recording=False, role="server"),
+            env=EnvConfig(dataset_statistics_path=str(REPO / "config/dataset/bridge_statistics.json"),
+                          image_size=(28, 28)))
+
     call = {
         "policy": lambda **kw: Pi0Policy(cfg, tokenizer_path="hash", **kw),
         "init": lambda **kw: model.init(cfg, **kw),
-        "server": lambda **kw: serve.build_server(cfg, port=0, **kw),
+        # the server role's builder (intact_tpu_torch.run --eval_cfg.role server)
+        "server": lambda **kw: make_policy_wrapper(pipe("pi0_tiny"), **kw),
         "pi0fast_policy": lambda **kw: Pi0Policy(fcfg, tokenizer_path="hash", model_module=fast, **kw),
         "pi0fast_init": lambda **kw: fast.init(fcfg, **kw),
         "mvla_policy": lambda **kw: Pi0Policy(mcfg, tokenizer_path="hash", model_module=mvla, **kw),
         "mvla_init": lambda **kw: mvla.init(mcfg, **kw),
         "spatialvla_init": lambda **kw: svla.init(SpatialVLAConfig.tiny(), **kw),
-        "spatialvla_wrapper": lambda **kw: SpatialVLANativePolicyWrapper(pipe, **kw),
+        "spatialvla_wrapper": lambda **kw: SpatialVLANativePolicyWrapper(pipe("spatialvla_native_tiny"), **kw),
+        "magma_init": lambda **kw: magma.init(MagmaConfig.tiny(), **kw),
+        "magma_wrapper": lambda **kw: MagmaNativePolicyWrapper(pipe("magma_native_tiny"), **kw),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

@@ -99,6 +99,48 @@ class TestW8A8Kernel:
         ref = w8a8.w8a8_matmul_reference(hidden, table["embedding_q"].t(), table["embed_scale"], out_dtype=torch.float32)
         assert torch.equal(y, ref)
 
+    @pytest.mark.parametrize("m", [64, 1])
+    def test_llama_down_projection_splits_k(self, cuda, m):
+        """A LLaMA-3-8B decode step's down projection, K 14,336 (the largest K
+        of any path; per-row int32 sums up to 127^2 x 14,336 < 2^31): the split
+        plan over many STAGE_K units, the quantize pass's absmax over 14,336
+        values, bit-equal to the plain version (no bias)."""
+        k, n = 14_336, 4096
+        p = w8a8.plan(m, n, k)
+        assert p.mode == "split" and p.split_len % w8a8.STAGE_K == 0 and p.split_len // w8a8.STAGE_K > 4
+        rng = np.random.default_rng(m)
+        x = t_(rng.standard_normal((m, k), dtype=np.float32)).to(cuda, torch.bfloat16)
+        wq = t_(rng.integers(-127, 128, (n, k)).astype(np.int8)).to(cuda)
+        ws = t_((rng.random(n) + 0.5).astype(np.float32) * 1e-3).to(cuda)
+        before = w8a8.w8a8_matmul.launches
+        y, xq, xs = w8a8.launch(x, wq, ws, None, None, torch.bfloat16, "nk")
+        torch.cuda.synchronize()
+        assert w8a8.w8a8_matmul.launches == before + 1
+        rq, rs = w8a8.quantize_reference(x)
+        assert torch.equal(xq[:, :k], rq) and torch.equal(xs, rs)
+        assert torch.equal(y, w8a8.w8a8_matmul_reference(x, wq.t(), ws, out_dtype=torch.bfloat16))
+
+    @pytest.mark.parametrize("m", [64, 1])
+    def test_untied_lm_head_launches_the_kernel(self, cuda, m):
+        """Magma's untied lm_head through `llama.logits`: K 4096, N 128,256,
+        bf16 out (rows 16-byte aligned: the TMA-store epilogue; 501 tiles keep
+        the row plan at M 1 too), cast to fp32 after the product; bit-equal
+        to the plain version."""
+        from intact_tpu_torch.models import llama
+
+        cfg = llama.llama3_8b()
+        k, n = cfg.width, cfg.vocab_size
+        rng = np.random.default_rng(n + m)
+        head = {"kernel_q": t_(rng.integers(-127, 128, (n, k)).astype(np.int8)).to(cuda),
+                "kernel_scale": t_((rng.random(n) + 0.5).astype(np.float32) * 1e-3).to(cuda)}
+        hidden = t_(rng.standard_normal((m, k), dtype=np.float32)).to(cuda, torch.bfloat16)
+        before = w8a8.w8a8_matmul.launches
+        y = llama.logits({"lm_head": head}, hidden, cfg, tcm.SERVING_POLICY)
+        torch.cuda.synchronize()
+        assert w8a8.w8a8_matmul.launches == before + 1 and y.dtype == torch.float32 and y.shape == (m, n)
+        ref = w8a8.w8a8_matmul_reference(hidden, head["kernel_q"].t(), head["kernel_scale"], out_dtype=torch.bfloat16)
+        assert torch.equal(y, ref.float())
+
     def test_kernel_raises_on_fp16(self, cuda):
         wq = torch.zeros(64, 8, dtype=torch.int8, device=cuda)
         with pytest.raises(TypeError, match="bf16 or fp32"):
