@@ -174,6 +174,24 @@ Phases, each failing loudly (non-zero exit):
              layers (token agreement and logits rel L2, reported); latency at
              batch 1 and 64 (int8 beside bf16), peak memory, profiles and the
              lm_head's share of device time
+  12. Octo serving: the server role's OctoPolicyWrapper from
+             config/experiment/simpler/octo_base_bridge_ev.yaml with model_cfg
+             {"type": "octo_base_upstream"} (octo-base as released: SmallStem16
+             at 256 px, T5-base, ViT-B over 16 + 2 x 257 tokens, 20 clipped
+             DDPM steps of the MLPResNet head; random fp32 weights from the
+             seed, bf16 compute, hash tokenizer, OctoBridgeSimplerAdapter in
+             place of the yaml's undefined adapter, its resize skipped for
+             frames already at 256 px): two requests per session through the
+             session's history deque (padded, then full) fused at batch 1 and
+             64, with no hand-kernel launch (gated: plain attention, no int8
+             Octo, as in the reference); env actions finite, of the right
+             shape; the raw chunk within +-max_action; the padded frame's
+             pixels leave the actions bit-equal (same generator state); the
+             weights written as a released-layout flax-msgpack snapshot and
+             loaded through switch_model give bit-equal actions; the yaml's
+             own native "octo" type at batch 64; one compute_loss and
+             backward at batch 16, finite; bf16 against fp32 readouts,
+             latency at batch 1 and 64, peak memory and profiles
 The second-to-last line is `nvidia-smi`'s card name and power limit; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
@@ -3223,6 +3241,207 @@ def phase_magma_serving() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 12. Octo serving: the released architecture (T5-base) and the native model
+# ---------------------------------------------------------------------------
+
+OCTO_EV_CONFIG = "config/experiment/simpler/octo_base_bridge_ev.yaml"
+# the yaml includes config/models/octo.json (type "octo", the from-scratch
+# model) but names a released snapshot as its checkpoint, and its adapter,
+# BridgeSimplerOctoAdapter, is defined in neither package: the phase serves
+# octo_base_upstream (the released architecture) behind
+# OctoBridgeSimplerAdapter at Octo's 256 px
+OCTO_OVERRIDES = {"eval_cfg.env_adapter": "OctoBridgeSimplerAdapter", "env.image_size": "[256, 256]"}
+OCTO_TRAIN_BATCH = 16
+
+
+def octo_config(model_cfg: dict | None):
+    """The server role's config from the octo-base yaml (bf16 compute over fp32
+    params, as the reference's Octo wrapper), random weights from the seed,
+    the hash tokenizer; `model_cfg` None keeps the yaml's own model JSON."""
+    return ev_config(False, path=OCTO_EV_CONFIG, model_cfg=model_cfg, overrides=OCTO_OVERRIDES)
+
+
+def octo_sessions(wrapper, n: int) -> list:
+    """n sessions whose adapter hands the frame on as it came: the card has
+    neither TF nor cv2, and the frames already have the model's size, so the
+    adapter's resize is skipped; the rest of its preprocess (uint8 frame, the
+    zero state, the task) is kept, and the session's history deque runs as
+    served."""
+    sessions = [wrapper.new_session() for _ in range(n)]
+    for s in sessions:
+        s.adapter.preprocess = lambda obs: {"image": obs["observation.images.top"][None],
+                                            "state": np.zeros((1, 7), np.float32), "task": [obs["task"]]}
+    return sessions
+
+
+def octo_round(rng: np.random.Generator, sessions, size: int) -> list[dict]:
+    """One request per session, through its preprocess (the deque appends)."""
+    obs = make_obs(rng, len(sessions), size)
+    return [s.preprocess({"observation.images.top": obs["image"][i], "task": obs["task"][i]})
+            for i, s in enumerate(sessions)]
+
+
+def octo_fused(reqs: list[dict]) -> tuple:
+    """The fused arrays of single-row requests (images, img_masks, tasks, state)."""
+    return (np.concatenate([r["images"] for r in reqs]), np.concatenate([r["img_masks"] for r in reqs]),
+            [r["task"][0] for r in reqs], np.concatenate([r["state"] for r in reqs]))
+
+
+def octo_chunk_at(wrapper, state: torch.Tensor, *inputs) -> np.ndarray:
+    """The wrapper's raw chunk for `inputs` with its generator at `state`."""
+    wrapper.generator.set_state(state)
+    return wrapper.sample_chunk(*inputs)
+
+
+def phase_octo_serving() -> dict:
+    """-> {kernel: launches} on Octo's serving paths: none by design (plain
+    attention in both packages, no int8 Octo in the reference)."""
+    import shutil
+
+    from intact_tpu_torch.models import common as cm
+    from intact_tpu_torch.models.octo import upstream as tup
+    from intact_tpu_torch.ops import fused_adam, w8a8
+    from intact_tpu_torch.ops.flash_attention import flash_attention
+    from intact_tpu_torch.serve.policy_wrapper import make_policy_wrapper
+    from intact_tpu_torch.utils import flax_msgpack
+
+    counters = {"flash_attention": flash_attention, "w8a8_matmul": w8a8.w8a8_matmul,
+                "fused_adam_rows": fused_adam.fused_adam_rows}
+    cfg = octo_config({"type": "octo_base_upstream"})
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wrapper = make_policy_wrapper(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    mc = wrapper.model_cfg
+    size, steps = mc.image_size, min(cfg.eval_cfg.action_step, mc.horizon)
+    n_params = sum(x.numel() for x in cm.tree_leaves(wrapper.params))
+    log(f"# Octo serving: {type(wrapper).__name__} from {OCTO_EV_CONFIG} ({cfg.model_type}, adapter "
+        f"{cfg.eval_cfg.env_adapter}, seed {cfg.seed}): {n_params / 1e6:.1f} M fp32 parameters (T5 "
+        f"{sum(x.numel() for x in cm.tree_leaves(wrapper.params['t5'])) / 1e6:.1f} M), compute "
+        f"{wrapper.policy.compute_dtype}, init {time.perf_counter() - t0:.2f} s; {mc.max_lang_tokens} language + "
+        f"{mc.history} x ({mc.n_patches} + 1) frame tokens, ViT {mc.depth} x {mc.width} ({mc.num_heads} heads), "
+        f"{mc.diffusion_steps} DDPM steps clipped to +-{mc.max_action}; {steps} actions per row")
+
+    rng = np.random.default_rng(12)
+    s1, sessions = octo_sessions(wrapper, 1), octo_sessions(wrapper, 64)
+
+    def serve(items, label):
+        out = wrapper.infer_batch(items)
+        for a in out:
+            if isinstance(a, Exception) or a.shape != (steps, 7) or not np.isfinite(a).all():
+                raise SystemExit(f"bad {label} serving result {a!r:.200}")
+        return out
+
+    # --- the main path: each session's two requests (padded, then full history) fused, at batch 1 and 64 ---
+    for c in counters.values():
+        c.launches = 0
+    rounds = {1: [], 64: []}
+    for _ in range(2):
+        for b, ss in ((1, s1), (64, sessions)):
+            rounds[b].append(octo_round(rng, ss, size))
+            serve(list(zip(rounds[b][-1], ss)), f"Octo batch {b}")
+    launches = {k: c.launches for k, c in counters.items()}
+    # -------------------------------------------------------------------------------------------
+    first, second = rounds[64]
+    pad_ok = (all(r["img_masks"].tolist() == [[False, True]] for r in first)
+              and all(r["img_masks"].tolist() == [[True, True]] for r in second)
+              and all(np.array_equal(r["images"][0, 0], r["images"][0, 1]) for r in first))
+    log(f"# Octo served 2 x 2 fused inferences (batch 1, 64; the first with the padded history), launches {launches} "
+        f"(none by design), env actions of shape ({steps}, 7) finite; first requests front-padded with their frame "
+        f"and masked, second ones full: {pad_ok}")
+    if any(launches.values()) or not pad_ok:
+        raise SystemExit("Octo: a hand kernel launched on the Octo path, or the history was not padded as served")
+
+    # the raw chunk within +-max_action; the padded frame's pixels do not reach the actions (same draws)
+    state = wrapper.generator.get_state()
+    inputs = octo_fused(first)
+    chunk = octo_chunk_at(wrapper, state, *inputs)
+    changed_pad = (255 - inputs[0][:, 0:1], inputs[0][:, 1:])
+    chunk_pad = octo_chunk_at(wrapper, state, np.concatenate(changed_pad, axis=1), *inputs[1:])
+    changed_real = np.concatenate([inputs[0][:, :1], 255 - inputs[0][:, 1:]], axis=1)
+    chunk_real = octo_chunk_at(wrapper, state, changed_real, *inputs[1:])
+    bound = float(np.abs(chunk).max())
+    unfilled_ok = np.array_equal(chunk, chunk_pad) and not np.array_equal(chunk, chunk_real)
+    log(f"# Octo batch 64, padded history: raw chunk {chunk.shape}, max |a| {bound:.4f} (bound {mc.max_action}, "
+        f"{int((np.abs(chunk) == np.float32(mc.max_action)).sum())} values clipped); with the padded frame's pixels "
+        f"inverted the actions are bit-equal {np.array_equal(chunk, chunk_pad)}, with the real frame's inverted they "
+        f"differ {not np.array_equal(chunk, chunk_real)} (same generator state)")
+    if not (np.isfinite(chunk).all() and bound <= mc.max_action and unfilled_ok):
+        raise SystemExit("Octo: the raw chunk leaves +-max_action, or the padded frame reaches the actions")
+
+    # bf16 compute against fp32 readouts, same params and inputs (reported)
+    dev = [wrapper._put(x) for x in (inputs[0], inputs[1], *wrapper.tokenizer(inputs[2], mc.max_lang_tokens))]
+    images = dev[0].float() * (2.0 / 255.0) - 1.0
+    with torch.inference_mode():
+        r16 = tup.encode(wrapper.params, images, dev[1], dev[2], dev[3], mc, wrapper.policy)
+        r32 = tup.encode(wrapper.params, images, dev[1], dev[2], dev[3], mc, cm.FP32_POLICY)
+    log(f"# Octo batch 64: bf16-compute readouts against fp32 rel L2 {rel_l2(r16.float(), r32):.3e} (reported, no gate)")
+    del r16, r32, images, dev
+
+    # latency, launches and busy share (the second round's full-history requests)
+    torch.cuda.reset_peak_memory_stats()
+    time_wrappers("Octo", {"bf16": (wrapper, sessions)}, {1: rounds[1][1], 64: second}, steps, {1: 5, 64: 5})
+    log(f"# Octo peak device memory during the timing: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # a released-layout flax-msgpack snapshot of these weights through switch_model: the same actions
+    snapshot = RUN_DIR / "octo_snapshot"
+    snapshot.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    (snapshot / "octo_base.msgpack").write_bytes(flax_msgpack.packb({"params": tup.to_released_tree(wrapper.params,
+                                                                                                     mc)}))
+    written = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wrapper.switch_model(str(snapshot))
+    torch.cuda.synchronize()
+    loaded = time.perf_counter() - t0
+    chunk_back = octo_chunk_at(wrapper, state, *inputs)
+    mb = (snapshot / "octo_base.msgpack").stat().st_size / 1e6
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    log(f"# Octo msgpack round trip: {mb:.1f} MB written in {written:.2f} s, switch_model {loaded:.2f} s; actions "
+        f"bit-equal to before the switch {np.array_equal(chunk_back, chunk)}")
+    if not np.array_equal(chunk_back, chunk):
+        raise SystemExit("Octo: the actions changed through the msgpack snapshot")
+
+    # one compute_loss and backward at the training batch (fp32 params, bf16 compute)
+    b = OCTO_TRAIN_BATCH
+    leaves = {k: v.detach().requires_grad_() for k, v in cm.flatten_paths(wrapper.params).items()}
+    lang, lmask = wrapper.tokenizer(inputs[2][:b], mc.max_lang_tokens)
+    batch = {"images": wrapper._put(inputs[0][:b]).float() * (2.0 / 255.0) - 1.0, "img_masks": wrapper._put(inputs[1][:b]),
+             "lang_tokens": wrapper._put(lang), "lang_masks": wrapper._put(lmask),
+             "actions": torch.rand((b, mc.horizon, mc.action_dim), device=DEVICE) * 2 - 1}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, _ = tup.compute_loss(cm.unflatten_paths(leaves), np.random.default_rng(0), batch, mc, wrapper.policy)
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True, materialize_grads=True)
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    log(f"# Octo compute_loss + backward at batch {b}: loss {loss.item():.4f}, {len(grads)} gradients finite {finite}, "
+        f"norm {torch.sqrt(sum(g.float().square().sum() for g in grads)).item():.4e}, "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms (first call), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not (np.isfinite(loss.item()) and finite):
+        raise SystemExit("Octo: the loss or a gradient is not finite")
+    del leaves, grads, loss, batch, wrapper, s1, sessions
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the yaml's own type: the native octo (octo.json), once at batch 64
+    native = make_policy_wrapper(octo_config(None), device=DEVICE)
+    nc = native.model_cfg
+    ns = octo_sessions(native, 64)
+    out = native.infer_batch(list(zip(octo_round(rng, ns, nc.image_size), ns)))
+    ok = all(not isinstance(a, Exception) and a.shape == (steps, 7) and np.isfinite(a).all() for a in out)
+    log(f"# Octo native ({native.config.model_type} from the yaml's model JSON: ViT {nc.depth} x {nc.width}, "
+        f"{nc.image_size} px, {nc.diffusion_steps} DDPM steps): batch 64 env actions finite {ok}; launches "
+        f"{ {k: c.launches for k, c in counters.items()} }")
+    if not ok or any(c.launches for c in counters.values()):
+        raise SystemExit("Octo native: bad serving result, or a hand kernel launched")
+    del native, ns, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3252,13 +3471,16 @@ def main() -> int:
     mvla_training = run(phase_mvla_training)
     svla_serving = run(phase_svla_serving)
     magma_serving = run(phase_magma_serving)
+    octo_serving = run(phase_octo_serving)
     paths = {"serving": {"flash_attention": serving}, "int8": int8, "training": training, "standard": standard,
              "fast_serving": fast_serving, "fast_training": fast_training, "mvla_serving": mvla_serving,
-             "mvla_training": mvla_training, "svla_serving": svla_serving, "magma_serving": magma_serving}
+             "mvla_training": mvla_training, "svla_serving": svla_serving, "magma_serving": magma_serving,
+             "octo_serving": octo_serving}
     # SpatialVLA and Magma launch no attention kernel (SpatialVLA's head_dim 72 and softcap keep it plain; LLaMA
-    # calls the plain path, as in the reference), by design
+    # calls the plain path, as in the reference), and Octo none of the three (plain attention, no int8 Octo), by
+    # design
     if not all(n > 0 for path, counts in paths.items() for name, n in counts.items()
-               if path not in ("svla_serving", "magma_serving") or name == "w8a8_matmul"):
+               if path != "octo_serving" and (path not in ("svla_serving", "magma_serving") or name == "w8a8_matmul")):
         raise SystemExit(f"a kernel of the path never launched: {paths}")
     for name in kernels:
         kernels[name]["launches"] = sum(counts.get(name, 0) for counts in paths.values())
@@ -3271,7 +3493,7 @@ def main() -> int:
         f"MVLA flash_attention {mvla_serving['flash_attention']} serving + {mvla_training['flash_attention']} training; "
         f"SpatialVLA w8a8_matmul {svla_serving['w8a8_matmul']} int8 serving (flash_attention "
         f"{svla_serving['flash_attention']}); Magma w8a8_matmul {magma_serving['w8a8_matmul']} int8 serving "
-        f"(flash_attention {magma_serving['flash_attention']})")
+        f"(flash_attention {magma_serving['flash_attention']}); Octo {octo_serving} (none by design)")
     torch.cuda.synchronize()
     log(f"# total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))

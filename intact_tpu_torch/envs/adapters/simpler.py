@@ -1,6 +1,7 @@
 """SimplerEnv (ManiSkill2 real2sim) adapters for the Bridge (WidowX) robot,
-copied from intact_tpu/envs/adapters/simpler.py (the Google-robot and Octo
-adapters wait for their families), and SpatialVLA's chunk ensembler:
+copied from intact_tpu/envs/adapters/simpler.py (the Google-robot EDR
+adapters wait for their evaluators), Octo's Bridge adapter, and SpatialVLA's
+chunk ensembler:
   * preprocess: cv2 Lanczos resize -> [-1,1] float image; robot-specific
     proprio construction; bound/gaussian state normalization against dataset
     statistics (gripper dim included for proprio)
@@ -128,6 +129,35 @@ class BridgeSimplerAdapter(SimplerAdapter):
         # trained with [0,1] (0 close, 1 open) -> simpler wants -1 close / +1 open
         g = 2.0 * (action > 0.5) - 1.0
         return float(np.sign(g)) if binarize else float(g)
+
+
+class OctoBridgeSimplerAdapter(BridgeSimplerAdapter):
+    """Octo on Bridge: upstream Octo's eval preprocessing (TF lanczos3 resize
+    with antialias, rounded before the clip and the uint8 cast, reference
+    simpler.py:305-355; cv2 INTER_LANCZOS4 where TF is absent, a slightly
+    different kernel) and gaussian action denormalization. Octo takes no
+    proprio: the state is zeros. TF and cv2 are imported when called."""
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.action_normalization_type = "gaussian"
+
+    def preprocess(self, obs: dict) -> dict:
+        try:
+            import tensorflow as tf
+
+            # round before the cast: a truncating cast would bias every pixel by ~-0.5
+            image = tf.cast(tf.clip_by_value(tf.round(tf.image.resize(
+                tf.cast(obs["observation.images.top"], tf.float32), self.image_size, method="lanczos3",
+                antialias=True)), 0, 255), tf.uint8).numpy()
+        except ImportError:
+            import cv2
+
+            h, w = self.image_size  # cv2's dsize is (width, height)
+            image = cv2.resize(obs["observation.images.top"], (w, h), interpolation=cv2.INTER_LANCZOS4)
+        if not self.output_uint8:
+            image = image.astype(np.float32) / 255.0 * 2.0 - 1.0
+        return {"image": image[None], "state": np.zeros((1, 7), np.float32), "task": [obs["task"]]}
 
 
 class ActionEnsembler:

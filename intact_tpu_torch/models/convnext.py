@@ -92,7 +92,7 @@ def init(cfg: ConvNeXtConfig, seed: int = 0, device=None, dtype=torch.float32) -
 # forward
 # ---------------------------------------------------------------------------
 
-def _conv(p: cm.Params, x: torch.Tensor, stride: int, policy: DtypePolicy, groups: int = 1,
+def conv_nhwc(p: cm.Params, x: torch.Tensor, stride: int, policy: DtypePolicy, groups: int = 1,
           padding: int = 0) -> torch.Tensor:
     """NHWC x, HWIO kernel -> NHWC, then the bias added in the compute dtype
     (the reference's conv + bias)."""
@@ -102,7 +102,7 @@ def _conv(p: cm.Params, x: torch.Tensor, stride: int, policy: DtypePolicy, group
 
 
 def _block_apply(cfg: ConvNeXtConfig, policy: DtypePolicy, x: torch.Tensor, bp: cm.Params) -> torch.Tensor:
-    h = _conv(bp["dwconv"], x, 1, policy, groups=x.shape[-1], padding=cfg.kernel // 2)
+    h = conv_nhwc(bp["dwconv"], x, 1, policy, groups=x.shape[-1], padding=cfg.kernel // 2)
     h = cm.layer_norm(bp["ln"], h, cfg.norm_eps)
     h = F.gelu(cm.dense(bp["pw1"], h, policy), approximate="none")
     h = cm.dense(bp["pw2"], h, policy)
@@ -113,12 +113,12 @@ def encode(params: cm.Params, images: torch.Tensor, cfg: ConvNeXtConfig,
            policy: DtypePolicy = DEFAULT_POLICY) -> tuple[torch.Tensor, torch.Tensor]:
     """images [B, H, W, 3] (preprocessed floats) -> (features [B, H', W',
     dims[-1]], pooled [B, dims[-1]]), in the compute dtype."""
-    x = _conv(params["stem"], policy.cast(images), cfg.patch_size, policy)
+    x = conv_nhwc(params["stem"], policy.cast(images), cfg.patch_size, policy)
     x = cm.layer_norm(params["stem_ln"], x, cfg.norm_eps)
     for i, depth in enumerate(cfg.depths):
         if i > 0:
             d = params[f"down_{i}"]
-            x = _conv(d["conv"], cm.layer_norm(d["ln"], x, cfg.norm_eps), 2, policy)
+            x = conv_nhwc(d["conv"], cm.layer_norm(d["ln"], x, cfg.norm_eps), 2, policy)
         for j in range(depth):
             x = _block_apply(cfg, policy, x, cm.layer(params[f"stage_{i}"], j))
     pooled = cm.layer_norm(params["final_ln"], x.mean(dim=(1, 2)), cfg.norm_eps)

@@ -73,10 +73,13 @@ def _start(generator, shape, init_noise):
 
 
 def ddpm_sample(schedule: DiffusionSchedule, eps_fn, generator: torch.Generator | None, shape, cond=None,
-                clip_value: float | None = None, init_noise: torch.Tensor | None = None) -> torch.Tensor:
+                clip_value: float | None = None, init_noise: torch.Tensor | None = None,
+                step_noise=None) -> torch.Tensor:
     """Ancestral sampling over all T steps. `clip_value` clips x to [-v, v]
     after every step (Octo's per-step clipping); `init_noise` fixes x_T.
-    The per-step noise comes from `generator`."""
+    The per-step noise comes from `generator`, or from `step_noise` (the
+    draws of the steps t = T-1 .. 1, in that order), which replays another
+    sampler's draws."""
     x = _start(generator, shape, init_noise)
     betas = torch.tensor(schedule.betas, dtype=torch.float32, device=x.device)
     alphas = 1.0 - betas
@@ -87,7 +90,10 @@ def ddpm_sample(schedule: DiffusionSchedule, eps_fn, generator: torch.Generator 
         eps = eps_fn(x, torch.full((shape[0],), t, dtype=torch.int32, device=x.device), cond)
         mean = (x - betas[t] / torch.sqrt(1 - acp[t]) * eps) / torch.sqrt(alphas[t])
         if t > 0:
-            noise = torch.randn(tuple(shape), generator=generator, device=x.device, dtype=torch.float32)
+            if step_noise is None:
+                noise = torch.randn(tuple(shape), generator=generator, device=x.device, dtype=torch.float32)
+            else:
+                noise = step_noise[schedule.num_timesteps - 1 - t].to(x.device, torch.float32)
             mean = mean + torch.sqrt(post_var[t]) * noise
         x = mean if clip_value is None else mean.clamp(-clip_value, clip_value)
     return x

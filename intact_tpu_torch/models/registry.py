@@ -2,7 +2,8 @@
 types the port has (intact_tpu/models/registry.py, cut to them).
 
 A model module exposes init / compute_loss / sample_actions (SpatialVLA
-and Magma, serving only: init / predict_action_tokens, init / generate); the policy, the serving
+and Magma, serving only: init / predict_action_tokens, init / generate;
+Octo's compute_loss takes its diffusion draws as t_int / noise); the policy, the serving
 wrapper, the trainer and the weight bridge resolve it from here, and
 `make_policy_wrapper` the type's wrapper class (its `wrapper` path). An
 entry's `model_json` says how `make_model_config` builds the type's config
@@ -38,11 +39,21 @@ def module(name: str):
     return importlib.import_module(get(name)["module"])
 
 
+# model modules without a type (no wrapper, no pipeline config, as in the
+# reference), whose trees the weight bridge maps all the same
+_UNREGISTERED = ("intact_tpu_torch.models.t5:T5Config", "intact_tpu_torch.models.dreamvla:DreamVLAConfig")
+
+
 def module_for_config(cfg):
     """The model module whose config class `cfg` is."""
     for entry in _REGISTRY.values():
         if isinstance(cfg, entry["config_cls"]):
             return importlib.import_module(entry["module"])
+    for spec in _UNREGISTERED:
+        mod_name, cls_name = spec.split(":")
+        mod = importlib.import_module(mod_name)
+        if isinstance(cfg, getattr(mod, cls_name)):
+            return mod
     raise NotImplementedError(f"no ported model takes a {type(cfg).__name__}")
 
 
@@ -51,6 +62,8 @@ def _register_builtin() -> None:
 
     from intact_tpu_torch.models.magma.config import MagmaConfig
     from intact_tpu_torch.models.mvla.config import MVLAConfig
+    from intact_tpu_torch.models.octo import upstream as octo_upstream
+    from intact_tpu_torch.models.octo.config import OctoConfig
     from intact_tpu_torch.models.pi0.config import Pi0Config
     from intact_tpu_torch.models.pi0fast.config import Pi0FASTConfig
     from intact_tpu_torch.models.spatialvla.config import SpatialVLAConfig
@@ -80,6 +93,17 @@ def _register_builtin() -> None:
         register(name, config_cls=MagmaConfig, default_config=factory, model_json="default",
                  module="intact_tpu_torch.models.magma.model",
                  wrapper="intact_tpu_torch.serve.policy_wrapper.MagmaNativePolicyWrapper")
+    # Octo: the native model and the released architecture (T5-base, checkpoint import)
+    for name, cls, factory, mod in (
+        ("octo", OctoConfig, OctoConfig.small, "intact_tpu_torch.models.octo.model"),
+        ("octo_tiny", OctoConfig, OctoConfig.tiny, "intact_tpu_torch.models.octo.model"),
+        ("octo_small_upstream", octo_upstream.OctoUpstreamConfig, octo_upstream.octo_small,
+         "intact_tpu_torch.models.octo.upstream"),
+        ("octo_base_upstream", octo_upstream.OctoUpstreamConfig, octo_upstream.octo_base,
+         "intact_tpu_torch.models.octo.upstream"),
+    ):
+        register(name, config_cls=cls, default_config=factory, model_json="default", module=mod,
+                 wrapper="intact_tpu_torch.serve.policy_wrapper.OctoPolicyWrapper")
 
 
 _register_builtin()

@@ -1,6 +1,6 @@
 """Policy wrappers: glue between the wire protocol, env adapters and the model.
 
-The Pi0, native SpatialVLA and native Magma parts of intact_tpu/serve/policy_wrapper.py:
+The Pi0, native SpatialVLA, native Magma and Octo parts of intact_tpu/serve/policy_wrapper.py:
 `select_action(obs) -> np.ndarray [action_step, dim]`, `reset()`, `switch_model(path)` (hot
 checkpoint swap for checkpoint sweeps), and ONE fused-batch contract,
 `infer_batch(items)`, that both the per-request path (`select_action`) and
@@ -10,10 +10,8 @@ Per-connection episode state (the env adapter's episode state) lives in a
 `PolicySession`, created per websocket connection by the batching server via
 `new_session()`; the shared policy on the card stays stateless across
 co-batched clients. The wrapper serves one card (CUDA unless the caller
-passes device="cpu"); serving over several cards and the families other than
-Pi0, Pi0FAST, MVLA, native SpatialVLA and native Magma are ROADMAP items ("serving and
-training over several cards", "the other model families and their
-wrappers").
+passes device="cpu"); serving over several cards and the HF-scaffold
+SpatialVLA and Magma wrappers are ROADMAP items.
 """
 
 from __future__ import annotations
@@ -150,6 +148,19 @@ class BasePolicyWrapper:
         """Family fused-inference hook (items already capped at
         eval_cfg.max_batch_size)."""
         raise NotImplementedError
+
+    def _fuse_pad(self, items, keys) -> tuple[dict, list[str]]:
+        """The fuse of single-row requests: each `keys` array concatenated
+        over the items, its last row repeated up to the bucket, and the task
+        list padded to match -> (arrays by key, tasks)."""
+        n = len(items)
+        pad = self.bucket_size(n) - n
+        arrays = {}
+        for key in keys:
+            arr = np.concatenate([it[0][key] for it in items])
+            arrays[key] = np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)]) if pad else arr
+        tasks = [it[0]["task"][0] for it in items]
+        return arrays, tasks + [tasks[-1]] * pad
 
     def warmup_inputs(self) -> dict:
         """One post-preprocess request the server can replicate to run every
@@ -436,14 +447,8 @@ class SpatialVLANativePolicyWrapper(BasePolicyWrapper):
         to the bucket), then decode each item's tokens, ensemble them in its
         session and postprocess."""
         cfg = self.model_cfg
-        n = len(items)
-        pad = self.bucket_size(n) - n
-        arrays = {}
-        for key in ("image", "depth"):
-            arr = np.concatenate([it[0][key] for it in items])
-            arrays[key] = np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)]) if pad else arr
-        tasks = [it[0]["task"][0] for it in items]
-        ids = self.predict_tokens(arrays["image"], arrays["depth"], tasks + [tasks[-1]] * pad)
+        arrays, tasks = self._fuse_pad(items, ("image", "depth"))
+        ids = self.predict_tokens(arrays["image"], arrays["depth"], tasks)
         out = []
         for i, (_, session) in enumerate(items):
             try:
@@ -535,13 +540,8 @@ class MagmaNativePolicyWrapper(BasePolicyWrapper):
         from intact_tpu_torch.serve.decoding import denormalize_with_quantiles, tokens_to_actions
 
         cfg = self.model_cfg
-        n = len(items)
-        pad = self.bucket_size(n) - n
-        images = np.concatenate([it[0]["image"] for it in items])
-        if pad:
-            images = np.concatenate([images, np.repeat(images[-1:], pad, axis=0)])
-        tasks = [it[0]["task"][0] for it in items]
-        ids = self.generate_tokens(images, tasks + [tasks[-1]] * pad)
+        arrays, tasks = self._fuse_pad(items, ("image",))
+        ids = self.generate_tokens(arrays["image"], tasks)
         mask = np.array([True] * 6 + [False])  # the gripper is not denormalized
         out = []
         for i, (_, session) in enumerate(items):
@@ -556,11 +556,157 @@ class MagmaNativePolicyWrapper(BasePolicyWrapper):
         return out
 
 
+class OctoSession(PolicySession):
+    """Octo's per-connection state: the image-history deque (maxlen =
+    history) and its timestep pad mask (reference policy_wrapper.py:344-354).
+    A co-batched client's reset leaves every other episode's history alone.
+    Frames ship as uint8; the wrapper normalizes them on the card."""
+
+    wants_uint8 = True
+
+    def __init__(self, wrapper, adapter):
+        super().__init__(wrapper, adapter)
+        from collections import deque
+
+        self.history = deque(maxlen=wrapper.model_cfg.history)
+
+    def preprocess(self, obs: dict) -> dict:
+        from intact_tpu_torch.utils.device import float_to_u8
+
+        cfg = self.wrapper.model_cfg
+        inputs = self.adapter.preprocess(obs)
+        if inputs["image"].shape[0] != 1:
+            # the history is one episode's deque: an N-env request folded into it would serve envs 1..N-1 wrong
+            raise ValueError(f"octo serving is single-env per connection; adapter produced a "
+                             f"{inputs['image'].shape[0]}-row request")
+        got = tuple(inputs["image"].shape[1:3])
+        if got != (cfg.image_size, cfg.image_size):
+            # the adapter owns the resize Octo was evaluated with; resizing again here would corrupt it
+            raise ValueError(f"octo adapter produced {got} images but the model expects ({cfg.image_size}, "
+                             f"{cfg.image_size}); set env.image_size accordingly")
+        self.history.append(float_to_u8(np.asarray(inputs["image"][0])))
+        frames = list(self.history)
+        n_pad = cfg.history - len(frames)
+        return {
+            "images": np.stack([frames[0]] * n_pad + frames)[None],  # [1, T, H, W, 3], front-padded
+            "img_masks": np.array([[False] * n_pad + [True] * len(frames)]),
+            "state": np.asarray(inputs["state"], np.float32),
+            "task": inputs["task"],
+        }
+
+    def reset(self) -> None:
+        super().reset()
+        self.history.clear()
+
+
+class OctoPolicyWrapper(BasePolicyWrapper):
+    """Serves Octo on one card: the native model (octo, octo_tiny; the port's
+    step_{n} checkpoints) and the released architecture with T5-base
+    (octo_*_upstream; released flax-msgpack snapshots through
+    `load_octo_checkpoint`), with the reference's semantics (policy_wrapper.py:
+    305-371): the per-connection history deque, the text task, diffusion
+    sampling from a torch.Generator seeded from config.seed. Parameters are
+    fp32 and compute bf16 (DEFAULT_POLICY) whatever use_bf16 says, as in the
+    reference; the reference has no int8 Octo, so quantize_int8 raises."""
+
+    session_cls = OctoSession
+
+    def __init__(self, config, device=None):
+        """device: CUDA unless given (raises without a CUDA device)."""
+        super().__init__(config)
+        from intact_tpu_torch.models import common as cm
+        from intact_tpu_torch.models import registry
+        from intact_tpu_torch.models.tokenizer import make_tokenizer
+
+        if getattr(config.eval_cfg, "quantize_int8", False):
+            raise NotImplementedError("octo has no int8 serving path (the reference quantizes no Octo model); "
+                                      "set eval_cfg.quantize_int8 false")
+        self.model_cfg = cfg = config.make_model_config()
+        self.model = registry.module(config.model_type)
+        self._upstream = "upstream" in config.model_type
+        self.device = cm.resolve_device(device)
+        self.policy = cm.DEFAULT_POLICY
+        path = config.eval_cfg.pretrained_model_path
+        self.params = self.model.init(cfg, config.seed, "meta" if path else self.device, torch.float32)
+        vocab = cfg.t5.vocab_size if self._upstream else cfg.vocab_size
+        # the released model conditions on the t5-base tokenizer; without the asset, the hash tokenizer
+        tok_path = config.resolve_tokenizer_path() or ("t5-base" if self._upstream else None)
+        try:
+            self.tokenizer = make_tokenizer(tok_path, cfg.max_lang_tokens, vocab_size=vocab)
+        except RuntimeError:
+            if tok_path != "t5-base":
+                raise  # an asset that was asked for and failed stays loud
+            self.logger.warning("t5-base tokenizer asset unavailable; falling back to the hermetic hash tokenizer "
+                                "(NOT t5-vocab-compatible)")
+            self.tokenizer = make_tokenizer("hash", cfg.max_lang_tokens, vocab_size=vocab)
+        self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        if path:
+            self.switch_model(path)
+            self.logger.info("loaded checkpoint %s", path)
+
+    def switch_model(self, new_model_path: str) -> None:
+        """Released Octo snapshots (flax msgpack) through the upstream
+        converter for the octo_*_upstream types; the port's step_{n}
+        checkpoints for the native ones."""
+        from intact_tpu_torch.models import common as cm
+        from intact_tpu_torch.train import checkpoint as ckpt_lib
+
+        if self._upstream:
+            raw = self.model.load_octo_checkpoint(new_model_path, self.model_cfg)
+        else:
+            raw = ckpt_lib.restore_params(new_model_path, self.model.init(self.model_cfg, device="meta"))
+        self.params = cm.tree_map(lambda x: x.to(device=self.device, dtype=torch.float32), raw)
+        self.reset()
+        self.model_generation += 1
+
+    def warmup_inputs(self) -> dict:
+        cfg = self.model_cfg
+        s = cfg.image_size
+        return {
+            "images": np.zeros((1, cfg.history, s, s, 3), np.uint8),
+            "img_masks": np.ones((1, cfg.history), bool),
+            # the native model's proprio width; the released one takes no state (the adapter sends 7 zeros)
+            "state": np.zeros((1, getattr(cfg, "proprio_dim", 7)), np.float32),
+            "task": ["warmup"],
+        }
+
+    def _put(self, x: np.ndarray):
+        return torch.from_numpy(np.array(x)).to(self.device)  # np.array: a writable copy
+
+    def sample_chunk(self, images_u8: np.ndarray, img_masks: np.ndarray, tasks: list[str],
+                     state: np.ndarray) -> np.ndarray:
+        """One device call: uint8 frames [B, T, s, s, 3], their masks [B, T],
+        B task strings and states [B, d] -> the raw action chunks [B,
+        horizon, action_dim] (fp32). Frames normalize on the card as x * (2 /
+        255) - 1, as the reference's jitted sample does, before the model."""
+        cfg = self.model_cfg
+        lang_tokens, lang_masks = self.tokenizer(tasks, cfg.max_lang_tokens)
+        images = self._put(images_u8).to(torch.float32) * (2.0 / 255.0) - 1.0
+        with torch.inference_mode():
+            chunk = self.model.sample_actions(self.params, self.generator, images, self._put(img_masks),
+                                              self._put(lang_tokens), self._put(lang_masks), self._put(state), cfg,
+                                              self.policy)
+        return chunk.cpu().numpy()
+
+    def _infer_fused(self, items):
+        """Fuse N single-row requests (each with its session's history
+        already stacked) into one bucketed diffusion sample, then each item's
+        first action_step actions through its adapter's postprocess."""
+        arrays, tasks = self._fuse_pad(items, ("images", "img_masks", "state"))
+        chunk = self.sample_chunk(arrays["images"], arrays["img_masks"], tasks, arrays["state"])
+        out = []
+        for i, (_, session) in enumerate(items):
+            try:
+                out.append(session.adapter.postprocess(chunk[i, :self.action_step]))
+            except Exception as e:  # noqa: BLE001 — isolated per request
+                out.append(e)
+        return out
+
+
 def make_policy_wrapper(config, device=None):
     """Model type -> its wrapper from the registry; device: CUDA unless
-    given. An unported type (octo, the HF-scaffold spatialvla and magma,
-    dreamvla) raises there: the ROADMAP item "the other model families and
-    their wrappers"."""
+    given. An unported type (the HF-scaffold spatialvla and magma) raises
+    there: the ROADMAP item on the HF-scaffold wrappers."""
     from intact_tpu_torch.models import registry
 
     wrapper = get_class_from_path(registry.get(config.model_cfg.get("type", "pi0"))["wrapper"])

@@ -145,6 +145,13 @@ class Trainer:
         self.cfg = cfg
         self.device = cm.resolve_device(device)
         self.logger = logging.getLogger("intact_tpu_torch.trainer")
+        if cfg.model_type.startswith("octo"):
+            # the reference's Trainer builds its datasets at model_cfg.vision.image_size
+            # (intact_tpu/train/trainer.py:431), which no Octo config has: it cannot train Octo either
+            raise NotImplementedError(
+                f"the trainer does not train {cfg.model_type!r}: Octo's configs have no `vision` field, which the "
+                "reference Trainer builds its datasets from; train Octo through its model's compute_loss, as the "
+                "reference does")
         self.model_cfg = cfg.make_model_config()
         self.model = registry.module(cfg.model_type)
         self._refuse_unported(cfg)

@@ -369,7 +369,7 @@ def test_model_config_from_yaml_matches_reference(path):
 
 def test_unported_model_types_raise():
     with pytest.raises(NotImplementedError, match="the other model families"):
-        port_config(TRAIN_YAML, **{"model_cfg.type": "octo"}).make_model_config()
+        port_config(TRAIN_YAML, **{"model_cfg.type": "magma"}).make_model_config()  # the HF scaffold
 
 
 def test_trainer_runs_the_recipe_and_its_first_loss_matches(cfgs, jparams, tmp_path, caplog):

@@ -115,6 +115,31 @@ def test_config_fields_and_defaults_match():
     for jc, tc in ((JMG.magma_8b(), TMG.magma_8b()), (JMG.tiny(), TMG.tiny())):
         assert tc.n_image_tokens == jc.n_image_tokens
 
+    from intact_tpu.models import dreamvla as jdv
+    from intact_tpu.models import t5 as jt5
+    from intact_tpu.models.octo import upstream as jup
+    from intact_tpu.models.octo.config import OctoConfig as JO
+    from intact_tpu_torch.models import dreamvla as tdv
+    from intact_tpu_torch.models import t5 as tt5
+    from intact_tpu_torch.models.octo import upstream as tup
+    from intact_tpu_torch.models.octo.config import OctoConfig as TO
+
+    for j, t in ((jt5.T5Config, tt5.T5Config), (JO, TO), (jup.OctoUpstreamConfig, tup.OctoUpstreamConfig),
+                 (jdv.DreamVLAConfig, tdv.DreamVLAConfig)):
+        assert _fields(t) == _fields(j), t.__name__
+    for jc, tc in ((jt5.t5_base(), tt5.t5_base()), (jt5.tiny_test_config(), tt5.tiny_test_config()),
+                   (JO.small(), TO.small()), (JO.base(), TO.base()), (JO.tiny(), TO.tiny()),
+                   (jup.octo_small(), tup.octo_small()), (jup.octo_base(), tup.octo_base()),
+                   (jup.tiny_test_config(), tup.tiny_test_config()), (jdv.DreamVLAConfig(), tdv.DreamVLAConfig()),
+                   (jdv.DreamVLAConfig.tiny(), tdv.DreamVLAConfig.tiny())):
+        assert dataclasses.asdict(tc) == dataclasses.asdict(jc), type(tc).__name__
+    for jc, tc in ((JO.small(), TO.small()), (JO.tiny(), TO.tiny())):
+        assert (tc.tokens_per_frame, tc.tokenizer_max_length, tc.max_state_dim, tc.max_action_dim, tc.chunk_size,
+                tc.n_action_steps, tc.num_cameras) == (jc.tokens_per_frame, jc.tokenizer_max_length, jc.max_state_dim,
+                                                       jc.max_action_dim, jc.chunk_size, jc.n_action_steps,
+                                                       jc.num_cameras)
+    assert tup.octo_base().n_patches == jup.octo_base().n_patches == 256
+
 
 def test_pipeline_config_fields_and_defaults_match():
     """The port's TrainPipelineConfig has the reference's fields, with equal
@@ -139,7 +164,7 @@ def test_pipeline_config_fields_and_defaults_match():
 
 @pytest.mark.parametrize("entry", ["policy", "init", "server", "pi0fast_policy", "pi0fast_init", "mvla_policy",
                                    "mvla_init", "spatialvla_init", "spatialvla_wrapper", "magma_init",
-                                   "magma_wrapper"])
+                                   "magma_wrapper", "octo_init", "octo_upstream_init", "octo_wrapper"])
 def test_entry_points_raise_without_cuda_unless_given_cpu(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
@@ -156,6 +181,9 @@ def test_entry_points_raise_without_cuda_unless_given_cpu(entry):
     from intact_tpu_torch.models.spatialvla import model as svla
     from intact_tpu_torch.models.magma import MagmaConfig
     from intact_tpu_torch.models.magma import model as magma
+    from intact_tpu_torch.models.octo import OctoConfig
+    from intact_tpu_torch.models.octo import model as octo
+    from intact_tpu_torch.models.octo import upstream as octo_upstream
     from intact_tpu_torch.serve.policy_wrapper import (
         MagmaNativePolicyWrapper,
         SpatialVLANativePolicyWrapper,
@@ -186,6 +214,9 @@ def test_entry_points_raise_without_cuda_unless_given_cpu(entry):
         "spatialvla_wrapper": lambda **kw: SpatialVLANativePolicyWrapper(pipe("spatialvla_native_tiny"), **kw),
         "magma_init": lambda **kw: magma.init(MagmaConfig.tiny(), **kw),
         "magma_wrapper": lambda **kw: MagmaNativePolicyWrapper(pipe("magma_native_tiny"), **kw),
+        "octo_init": lambda **kw: octo.init(OctoConfig.tiny(), **kw),
+        "octo_upstream_init": lambda **kw: octo_upstream.init(octo_upstream.tiny_test_config(), **kw),
+        "octo_wrapper": lambda **kw: make_policy_wrapper(pipe("octo_tiny"), **kw),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

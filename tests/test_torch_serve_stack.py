@@ -624,7 +624,7 @@ class TestRunCLIServerRole:
             run_mod.main(["--config_path", str(REPO / "config/experiment/simpler/pi0_finetune_bridge_ev.yaml"),
                           "--eval_cfg.role", "client", "--device", "cpu"])
         cfg = make_cfg()
-        cfg.model_cfg = {"type": "octo_tiny"}
+        cfg.model_cfg = {"type": "spatialvla"}  # the HF-scaffold wrapper is not ported
         with pytest.raises(NotImplementedError, match="the other model families"):
             make_policy_wrapper(cfg, device="cpu")
 
