@@ -192,6 +192,29 @@ Phases, each failing loudly (non-zero exit):
              own native "octo" type at batch 64; one compute_loss and
              backward at batch 16, finite; bf16 against fp32 readouts,
              latency at batch 1 and 64, peak memory and profiles
+  13. the client role: the Simpler, ManiSkill3 and LIBERO evaluators
+             (intact_tpu_torch/envs/evaluators) against one int8 Pi0PolicyWrapper
+             built as in phase 3b, each through a LoopbackClient that makes
+             the batching server's per-connection calls in this process (a
+             PolicySession's preprocess, then infer_batch of the one request;
+             the card machine has no websockets or msgpack) over fakes that
+             render at the model's 224 px (no cv2 or PIL resize runs):
+             Simpler on the yaml's first task, 2 episodes of 24 steps, the
+             first recorded (.npz); ManiSkill3 from
+             config/experiment/simplerMS3/pi0_finetune_bridge_ev.yaml, one
+             batch episode of its n_parallel_eval 60 envs whose observations
+             are tensors on the card (60-row requests, bucket 64); LIBERO's
+             libero_spatial, one episode of 10 settle steps and 24 more,
+             through a LiberoAdapter session. Gates: 12 / 6 / 6 inferences, and
+             17 flash_attention and 1544 w8a8_matmul launches per inference
+             (this is what turns an error LIBERO's per-episode except swallows
+             into a failed phase); every stepped action finite, of shape (7,)
+             or (60, 7), with a +-1 gripper (Bridge adapters) and equal to the
+             served chunks' first action_step rows in order; LIBERO's frame
+             the env's rotated 180 degrees; results with exactly the metric
+             keys in [0, 1]; eval.log with the summary block under the
+             reference's log-dir layout. Reported: wall time, inferences, env
+             steps/s and the share of the loop inside client.infer
 The second-to-last line is `nvidia-smi`'s card name and power limit; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
@@ -3442,6 +3465,332 @@ def phase_octo_serving() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 13. the client role: the three simulator evaluators against the served int8 Pi0
+# ---------------------------------------------------------------------------
+
+MS3_EV_CONFIG = "config/experiment/simplerMS3/pi0_finetune_bridge_ev.yaml"
+EPISODE_STEPS = 24  # the fakes' episodes (FakeSimplerEnv.max_episode_steps); LIBERO's after its settle steps
+
+
+class LoopbackClient:
+    """The policy client's surface served in this process, through the calls
+    the batching server's per-connection handler makes
+    (intact_tpu_torch/serve/batching.py::_handler): one PolicySession, `infer`
+    its preprocess and then the wrapper's infer_batch of that one request,
+    `reset` the session's, `switch_model` the wrapper's. No msgpack round trip
+    (the card machine has neither msgpack nor websockets). It keeps every
+    request, every returned chunk, and the host seconds spent inside infer."""
+
+    def __init__(self, wrapper, session):
+        self.wrapper, self.session = wrapper, session
+        self.obs, self.chunks = [], []
+        self.infer_s = 0.0
+
+    def get_server_metadata(self) -> dict:
+        return {"model": self.wrapper.config.model_type, "action_step": self.wrapper.action_step}
+
+    def infer(self, obs):
+        t = time.perf_counter()
+        out = self.wrapper.infer_batch([(self.session.preprocess(obs), self.session)])[0]
+        self.infer_s += time.perf_counter() - t
+        if isinstance(out, Exception):
+            raise out
+        self.obs.append(obs)
+        self.chunks.append(np.array(out))
+        return out
+
+    def reset(self) -> dict:
+        self.session.reset()
+        return {"status": "reset"}
+
+    def switch_model(self, new_model_path: str) -> dict:
+        self.wrapper.switch_model(new_model_path)
+        return {"status": "model switched"}
+
+
+class SteppedEnv:
+    """An env that keeps every action it is stepped with."""
+
+    def __init__(self, env):
+        self.env, self.stepped = env, []
+
+    def step(self, action):
+        self.stepped.append(np.array(action))
+        return self.env.step(action)
+
+    def __getattr__(self, name):
+        return getattr(self.env, name)
+
+
+class FakeMS3Env:
+    """The vectorized ManiSkill3 env as its GPU simulation answers: n envs whose
+    observations, truncation, episode stats and success are torch tensors on the
+    card; the end effectors move with the actions; all truncate after
+    EPISODE_STEPS. Frames: `size` px, one value per (step, env), so the videos
+    compress."""
+
+    def __init__(self, n: int, size: int):
+        self.n, self.size, self.stepped = n, size, []
+
+    @property
+    def unwrapped(self):
+        return self
+
+    def get_language_instruction(self) -> str:
+        return "put carrot on plate"
+
+    def reset(self, seed=None, options=None):
+        self.t = 0
+        self.pos = torch.zeros(self.n, 3, device=DEVICE, dtype=torch.float64)
+        return self.obs(), {}
+
+    def step(self, action):
+        self.stepped.append(np.array(action))
+        self.pos += torch.as_tensor(action[:, :3], device=DEVICE)
+        self.t += 1
+        truncated = torch.full((self.n,), self.t >= EPISODE_STEPS, device=DEVICE)
+        info = {}
+        if self.t >= EPISODE_STEPS:
+            near = self.pos.norm(dim=1) < 0.1
+            info = {"episode_stats": {"moved_correct_obj": near.int(), "moved_wrong_obj": torch.zeros_like(near).int(),
+                                      "is_src_obj_grasped": near.int(), "source_intention": (self.pos[:, 0] > 0).int()},
+                    "success": near}
+        return self.obs(), torch.zeros(self.n, device=DEVICE), torch.zeros_like(truncated), truncated, info
+
+    def obs(self) -> dict:
+        quat = torch.tensor([1.0, 0, 0, 0], device=DEVICE, dtype=torch.float64).expand(self.n, 4)
+        grip = torch.full((self.n, 1), 0.5, device=DEVICE, dtype=torch.float64)
+        return {"agent": {"eef_pos": torch.cat([self.pos, quat, grip], dim=1)}}
+
+    def image(self) -> torch.Tensor:
+        value = (self.t * 7 + torch.arange(self.n, device=DEVICE)) % 256
+        return value.to(torch.uint8)[:, None, None, None].expand(self.n, self.size, self.size, 3).contiguous()
+
+
+class FakeLiberoEnv:
+    """A LIBERO env: `size` px agentview frames that a 180-degree flip changes
+    (a ramp across the rows and columns, shifted every step), an end effector
+    moved by the actions, done after the settle steps and EPISODE_STEPS more.
+    It keeps every frame it rendered and every action it was stepped with."""
+
+    def __init__(self, size: int, settle: int):
+        self.size, self.done_at = size, settle + EPISODE_STEPS
+        self.frames, self.stepped = [], []
+
+    def reset(self):
+        self.t, self.pos = 0, np.zeros(3)
+
+    def set_init_state(self, state):
+        return self.obs()
+
+    def step(self, action):
+        self.stepped.append(np.array(action))
+        self.pos = self.pos + np.asarray(action[:3])
+        self.t += 1
+        return self.obs(), 0.0, self.t >= self.done_at, {}
+
+    def close(self):
+        pass
+
+    def obs(self) -> dict:
+        ramp, shape = np.arange(self.size), (self.size, self.size)
+        frame = np.stack([np.broadcast_to((ramp[:, None] + 3 * self.t) % 256, shape),
+                          np.broadcast_to(ramp[None, :], shape), np.full(shape, self.t)], axis=-1).astype(np.uint8)
+        self.frames.append(frame)
+        return {"agentview_image": frame, "robot0_eef_pos": self.pos.copy(),
+                "robot0_eef_quat": np.array([0.0, 0.0, 0.0, 1.0]), "robot0_gripper_qpos": np.array([0.03, -0.03])}
+
+
+class FakeLiberoSuite:
+    n_tasks = 1
+
+    def get_task(self, task_id):
+        return types.SimpleNamespace(bddl_file="fake.bddl", language="pick up the black bowl and place it on the plate")
+
+    def get_task_init_states(self, task_id):
+        return [np.zeros(4)]
+
+
+def client_config(path: str, **eval_overrides):
+    """The yaml at `path` as the client role reads it (the server's seed and
+    hash tokenizer, no checkpoint sweep), with `eval_overrides` on eval_cfg."""
+    overrides = {"eval_cfg.role": "client", "eval_cfg.pretrained_model_gradient_step_cnt": "null",
+                 **{f"eval_cfg.{k}": v if isinstance(v, str) else json.dumps(v) for k, v in eval_overrides.items()}}
+    return ev_config(path=path, overrides=overrides)
+
+
+def check_actions(label: str, stepped: list, chunks: list, action_step: int, shape: tuple,
+                  binary_gripper: bool = True) -> None:
+    """Every stepped action finite and of `shape`, its gripper -1 or +1 where the
+    adapter binarizes it, and the stepped sequence the chunks' first
+    action_step rows in order."""
+    stepped = np.stack(stepped)
+    rows = [np.moveaxis(c[..., :action_step, :], -2, 0) for c in chunks]  # [action_step, (N,) 7] per chunk
+    planned = np.concatenate(rows)
+    grippers = np.unique(stepped[..., 6])
+    ok = (stepped.shape[1:] == shape and np.isfinite(stepped).all()
+          and (not binary_gripper or np.isin(grippers, (-1.0, 1.0)).all())
+          and planned.shape == stepped.shape and np.array_equal(planned, stepped))
+    log(f"#   {label}: {len(stepped)} actions of shape {stepped.shape[1:]} stepped, finite, "
+        f"{len(grippers)} gripper values in [{grippers.min():.4f}, {grippers.max():.4f}], equal to the chunks' first "
+        f"{action_step} rows in order: {ok}")
+    if not ok:
+        raise SystemExit(f"{label}: the stepped actions are not the served chunks' first {action_step} rows, or not "
+                         f"finite {shape} actions{' with a +-1 gripper' if binary_gripper else ''}")
+
+
+def check_log(label: str, root: Path, cfg, episodes: int) -> None:
+    """eval.log under the reference's layout eval_online/<sim>/<name>/step_0/ta_K/<seed>/<timestamp>,
+    with the _log_summary block."""
+    ec = cfg.eval_cfg
+    layout = f"eval_online/{ec.simulator_name}/{cfg.name}/step_0/ta_{ec.action_step}/{cfg.seed}/*/eval.log"
+    logs = list(root.glob(layout))
+    text = logs[0].read_text() if len(logs) == 1 else ""
+    block = ["============ Evaluation Summary ============", f"Number of episodes: {episodes}",
+             "Total Task Eval Time: ", "============================================"]
+    if not all(line in text for line in block):
+        raise SystemExit(f"{label}: no eval.log with the summary block under the reference's layout ({logs})")
+
+
+def check_results(label: str, results: dict, task: str, keys: set) -> None:
+    got = results.get(task, {})
+    if set(got) != keys or not all(0.0 <= v <= 1.0 for v in got.values()):
+        raise SystemExit(f"{label}: results {results} do not have exactly the metric keys {sorted(keys)} in [0, 1]")
+
+
+def phase_client() -> dict:
+    """-> {kernel: launches} of the three evaluators' episodes against the int8 wrapper."""
+    import os
+    import shutil
+
+    from intact_tpu_torch.config import load_yaml
+    from intact_tpu_torch.envs.evaluators import libero, simpler, simplerMS3
+    from intact_tpu_torch.envs.evaluators.fake import FakeSimplerEnv
+    from intact_tpu_torch.ops import w8a8
+    from intact_tpu_torch.ops.flash_attention import flash_attention
+    from intact_tpu_torch.serve.policy_wrapper import make_policy_wrapper
+    from intact_tpu_torch.utils.pipeline import get_class_from_path
+
+    t0 = time.perf_counter()
+    wrapper = make_policy_wrapper(ev_config(), device=DEVICE)
+    mc = wrapper.model_cfg
+    size = mc.vision.image_size
+    w8a8_per, flash_per = w8a8_per_inference(mc), mc.vlm.depth - 1
+    log(f"# client: one int8 Pi0PolicyWrapper from {EV_CONFIG} (seed {SERVING_SEED}, {size} px) in "
+        f"{time.perf_counter() - t0:.2f} s; {w8a8_per} w8a8_matmul and {flash_per} flash_attention launches per "
+        f"inference; {gpu_name_and_power()}")
+    first_task = load_yaml(EV_CONFIG)["eval_cfg"]["task_list"][0]
+    npe = load_yaml(MS3_EV_CONFIG)["eval_cfg"]["n_parallel_eval"]
+    log_root = RUN_DIR  # the evaluators' logs and videos, removed after the phase
+    shutil.rmtree(log_root, ignore_errors=True)
+    saved_log_dir = os.environ.get("VLA_LOG_DIR")
+    os.environ["VLA_LOG_DIR"] = str(log_root)
+    # the videos take the evaluators' .npz path, which the card machine (no imageio) takes anyway
+    saved_imageio = sys.modules.get("imageio")
+    sys.modules["imageio"] = None
+    totals = {"flash_attention": 0, "w8a8_matmul": 0}
+
+    def drive(label: str, cfg, evaluator_cls, want_inferences: int, env_steps: int, **kw) -> tuple:
+        """Run one evaluator against the wrapper through a LoopbackClient whose
+        session holds the adapter cfg names -> (results, client)."""
+        adapter = get_class_from_path(cfg.eval_cfg.env_adapter_path)(cfg)
+        client = LoopbackClient(wrapper, wrapper.session_cls(wrapper, adapter))
+        evaluator = evaluator_cls(cfg, client=client, **kw)
+        w8a8.w8a8_matmul.launches = flash_attention.launches = 0
+        t = time.perf_counter()
+        results = evaluator.evaluate()
+        wall = time.perf_counter() - t
+        launches = {"flash_attention": flash_attention.launches, "w8a8_matmul": w8a8.w8a8_matmul.launches}
+        n = len(client.chunks)
+        log(f"# client {label} ({evaluator_cls.__name__}, {type(adapter).__name__}): {n} inferences in {wall:.2f} s, "
+            f"{env_steps} env steps ({env_steps / wall:.1f} env steps/s), {client.infer_s / wall:.1%} of the loop's "
+            f"wall inside client.infer ({client.infer_s / max(n, 1) * 1e3:.1f} ms per inference); launches {launches}; "
+            f"results {results}")
+        if n != want_inferences or launches != {"flash_attention": flash_per * n, "w8a8_matmul": w8a8_per * n}:
+            raise SystemExit(f"client {label}: {n} inferences (expected {want_inferences}) and launches {launches} "
+                             f"(expected {flash_per} flash_attention and {w8a8_per} w8a8_matmul per inference)")
+        for k in totals:
+            totals[k] += launches[k]
+        return results, client
+
+    try:
+        # Simpler: the yaml's first task, 2 episodes, the first one recorded (.npz where imageio is absent)
+        cfg = client_config(EV_CONFIG, task_list=[first_task], n_eval_episode=2, n_video=1, recording=True)
+        envs = []
+
+        def simpler_env(task):
+            envs.append(SteppedEnv(FakeSimplerEnv(task, image_size=size)))
+            return envs[-1]
+
+        steps = cfg.eval_cfg.action_step
+        results, client = drive("Simpler", cfg, simpler.SimplerEvaluator, 2 * EPISODE_STEPS // steps,
+                                2 * EPISODE_STEPS, env_factory=simpler_env, image_getter=lambda env, obs: obs["image"])
+        check_actions("Simpler", envs[0].stepped, client.chunks, steps, (7,))
+        check_results("Simpler", results, first_task, set(simpler.METRIC_KEYS))
+        check_log("Simpler", log_root, cfg, 2)
+        videos = sorted(p.name for p in log_root.rglob(f"{first_task}/videos/*"))
+        log(f"#   Simpler videos: {videos}")
+        if len(videos) != 1:
+            raise SystemExit(f"Simpler: expected one video of the first episode, found {videos}")
+
+        # ManiSkill3: one batch episode of the sweep's n_parallel_eval envs on the card (tensors there)
+        cfg = client_config(MS3_EV_CONFIG, task_list=["widowx_carrot_on_plate"], n_eval_episode=npe)
+        envs = []
+
+        def ms3_env(task, n, seed):
+            envs.append(FakeMS3Env(n, size))
+            return envs[-1]
+
+        # the frames come to the host as the default getter brings them (simplerMS3._to_numpy)
+        results, client = drive(f"ManiSkill3 x{npe}", cfg, simplerMS3.SimplerMS3Evaluator, EPISODE_STEPS // steps,
+                                EPISODE_STEPS * npe, env_factory=ms3_env,
+                                image_getter=lambda env, obs: simplerMS3._to_numpy(env.image()))
+        rows = {o["observation.images.top"].shape[0] for o in client.obs}
+        log(f"#   ManiSkill3: {sorted(rows)} rows per request, padded to the wrapper's bucket "
+            f"{wrapper.bucket_size(npe)}")
+        if rows != {npe}:
+            raise SystemExit(f"ManiSkill3: requests of {rows} rows, expected {npe}")
+        check_actions("ManiSkill3", envs[0].stepped, client.chunks, steps, (npe, 7))
+        check_results("ManiSkill3", results, "widowx_carrot_on_plate", set(simpler.METRIC_KEYS))
+        check_log("ManiSkill3", log_root, cfg, npe)
+
+        # LIBERO: libero_spatial, one task, one episode; the session a LIBERO server builds (LiberoAdapter)
+        cfg = client_config(EV_CONFIG, simulator_name="libero", env_adapter="LiberoAdapter",
+                            task_list=["libero_spatial"], n_eval_episode=1)
+        env = FakeLiberoEnv(size, libero.SETTLE_STEPS)
+        results, client = drive("LIBERO", cfg, libero.LiberoEvaluator, EPISODE_STEPS // steps,
+                                libero.SETTLE_STEPS + EPISODE_STEPS, suite_factory=lambda name: FakeLiberoSuite(),
+                                env_factory=lambda task, res, seed: (env, task.language))
+        # LiberoAdapter.postprocess passes the model's actions through (the gripper too), as the reference's does
+        check_actions("LIBERO", env.stepped[libero.SETTLE_STEPS:], client.chunks, steps, (7,), binary_gripper=False)
+        # the k-th request carries the frame rendered after SETTLE_STEPS + k * action_step steps (frames[j]: j steps)
+        sent = [o["observation.images.top"] for o in client.obs]
+        rendered = [env.frames[libero.SETTLE_STEPS + k * steps] for k in range(len(sent))]
+        flipped = all(np.array_equal(s, r[::-1, ::-1]) and not np.array_equal(s, r) for s, r in zip(sent, rendered))
+        log(f"#   LIBERO: each of the {len(sent)} frames sent is the rendered frame rotated 180 degrees: {flipped}")
+        if not flipped:
+            raise SystemExit("LIBERO: a frame sent is not the env's frame rotated 180 degrees")
+        check_results("LIBERO", results, "libero_spatial", {"Success Rate"})
+        check_log("LIBERO", log_root, cfg, 1)
+        if results["libero_spatial"]["Success Rate"] != 1.0:
+            raise SystemExit("LIBERO: the episode did not run to the env's end (an error abandoned it)")
+    finally:
+        if saved_log_dir is None:
+            os.environ.pop("VLA_LOG_DIR", None)
+        else:
+            os.environ["VLA_LOG_DIR"] = saved_log_dir
+        if saved_imageio is None:
+            sys.modules.pop("imageio", None)
+        else:
+            sys.modules["imageio"] = saved_imageio
+        shutil.rmtree(log_root, ignore_errors=True)
+    del wrapper
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3472,10 +3821,11 @@ def main() -> int:
     svla_serving = run(phase_svla_serving)
     magma_serving = run(phase_magma_serving)
     octo_serving = run(phase_octo_serving)
+    client = run(phase_client)
     paths = {"serving": {"flash_attention": serving}, "int8": int8, "training": training, "standard": standard,
              "fast_serving": fast_serving, "fast_training": fast_training, "mvla_serving": mvla_serving,
              "mvla_training": mvla_training, "svla_serving": svla_serving, "magma_serving": magma_serving,
-             "octo_serving": octo_serving}
+             "octo_serving": octo_serving, "client": client}
     # SpatialVLA and Magma launch no attention kernel (SpatialVLA's head_dim 72 and softcap keep it plain; LLaMA
     # calls the plain path, as in the reference), and Octo none of the three (plain attention, no int8 Octo), by
     # design
@@ -3493,7 +3843,8 @@ def main() -> int:
         f"MVLA flash_attention {mvla_serving['flash_attention']} serving + {mvla_training['flash_attention']} training; "
         f"SpatialVLA w8a8_matmul {svla_serving['w8a8_matmul']} int8 serving (flash_attention "
         f"{svla_serving['flash_attention']}); Magma w8a8_matmul {magma_serving['w8a8_matmul']} int8 serving "
-        f"(flash_attention {magma_serving['flash_attention']}); Octo {octo_serving} (none by design)")
+        f"(flash_attention {magma_serving['flash_attention']}); Octo {octo_serving} (none by design); the client "
+        f"role's evaluators flash_attention {client['flash_attention']}, w8a8_matmul {client['w8a8_matmul']}")
     torch.cuda.synchronize()
     log(f"# total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -4,9 +4,9 @@ roles, copied.
 Derivations kept: n_updates = train_episode_count // global_batch_size *
 n_epochs; save_model_freq defaults to one epoch of updates; the val data
 section inherits unset fields from the train section; with an `eval_cfg`,
-the env-adapter path is built from simulator_name, pointing into
-intact_tpu_torch.envs.adapters; simulator_path stays None, because the
-evaluators are not ported yet. Every key the
+the env-adapter and evaluator paths are built from simulator_name, pointing
+into intact_tpu_torch.envs.adapters and intact_tpu_torch.envs.evaluators.
+Every key the
 YAMLs under config/train/ and config/experiment/ set binds here; the trainer
 and the server refuse the settings whose paths are not ported yet.
 """
@@ -247,8 +247,8 @@ class TrainPipelineConfig:
                 raise ValueError("Simulator name is not specified in the config.")
             adapter = self.eval_cfg.env_adapter or "BridgeSimplerAdapter"
             self.eval_cfg.env_adapter_path = f"intact_tpu_torch.envs.adapters.{sim}.{adapter}"
-            # simulator_path stays None: the evaluators are not ported (ROADMAP: the client role and the
-            # simulator evaluators)
+            evaluator = sim[:1].upper() + sim[1:] + "Evaluator"
+            self.eval_cfg.simulator_path = f"intact_tpu_torch.envs.evaluators.{sim}.{evaluator}"
         return self
 
     def validate_parallel_eval(self):

@@ -1,1 +1,2 @@
-"""Simulator-facing host code (env adapters), copied from intact_tpu/envs."""
+"""Simulator-facing host code (env adapters, task suites and the simulator-client
+evaluators), ported from intact_tpu/envs."""

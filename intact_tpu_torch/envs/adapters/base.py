@@ -1,5 +1,5 @@
 """Base adapter: normalization helpers shared by all simulators (a copy of
-intact_tpu/envs/adapters/base.py)."""
+intact_tpu/envs/adapters/base.py), and the adapters' cv2 Lanczos resize."""
 
 from __future__ import annotations
 
@@ -26,3 +26,15 @@ class BaseEnvAdapter:
 
     def denormalize_gaussian(self, data, mean, std):
         return nz.denormalize_normal(data, np.asarray(mean), np.asarray(std))
+
+
+def lanczos_resize(frame: np.ndarray, dsize) -> np.ndarray:
+    """cv2.resize(frame, dsize, interpolation=cv2.INTER_LANCZOS4), dsize being
+    cv2's (width, height). A frame already of that size comes back as a copy,
+    which is what cv2 returns for it, without importing cv2: the simulator hosts
+    that render at the model's size need no cv2."""
+    if tuple(frame.shape[:2]) == (dsize[1], dsize[0]):
+        return np.array(frame)
+    import cv2
+
+    return cv2.resize(frame, tuple(dsize), interpolation=cv2.INTER_LANCZOS4)

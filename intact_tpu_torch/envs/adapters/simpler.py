@@ -1,16 +1,16 @@
-"""SimplerEnv (ManiSkill2 real2sim) adapters for the Bridge (WidowX) robot,
-copied from intact_tpu/envs/adapters/simpler.py (the Google-robot EDR
-adapters wait for their evaluators), Octo's Bridge adapter, and SpatialVLA's
-chunk ensembler:
+"""SimplerEnv (ManiSkill2 real2sim) adapters, copied from
+intact_tpu/envs/adapters/simpler.py: the Bridge (WidowX) and Google-robot
+(EDR) adapters, Octo's Bridge adapter, and SpatialVLA's chunk ensembler:
   * preprocess: cv2 Lanczos resize -> [-1,1] float image; robot-specific
     proprio construction; bound/gaussian state normalization against dataset
     statistics (gripper dim included for proprio)
   * postprocess: denormalize all but the gripper dim, euler -> axis-angle
-    rotation, the Bridge gripper threshold
+    rotation, robot-specific gripper mapping (Bridge threshold / EDR sticky)
 
 Resize fidelity matters: each adapter reproduces the interpolation its
 model family was evaluated with upstream (cv2 INTER_LANCZOS4 here). cv2 is
-imported by the functions that resize, so the module imports without it.
+imported by the functions that resize, and only for a frame whose size
+changes, so the module imports without it.
 """
 
 from __future__ import annotations
@@ -19,9 +19,9 @@ import json
 
 import numpy as np
 
-from intact_tpu_torch.envs.adapters.base import BaseEnvAdapter
+from intact_tpu_torch.envs.adapters.base import BaseEnvAdapter, lanczos_resize
 from intact_tpu_torch.utils.device import normalize_u8
-from intact_tpu_torch.utils.geometry import euler2axangle, mat2euler, quat2mat
+from intact_tpu_torch.utils.geometry import euler2axangle, mat2euler, quat2euler, quat2mat
 
 
 class SimplerAdapter(BaseEnvAdapter):
@@ -50,12 +50,7 @@ class SimplerAdapter(BaseEnvAdapter):
     output_uint8: bool = False
 
     def preprocess(self, obs: dict) -> dict:
-        import cv2
-
-        image = cv2.resize(
-            obs["observation.images.top"], self.image_size,
-            interpolation=cv2.INTER_LANCZOS4,
-        )
+        image = lanczos_resize(obs["observation.images.top"], self.image_size)
         if self.output_uint8:
             image = image[None]
         else:
@@ -129,6 +124,55 @@ class BridgeSimplerAdapter(SimplerAdapter):
         # trained with [0,1] (0 close, 1 open) -> simpler wants -1 close / +1 open
         g = 2.0 * (action > 0.5) - 1.0
         return float(np.sign(g)) if binarize else float(g)
+
+
+class EDRSimplerAdapter(SimplerAdapter):
+    """Google-robot (EDR / Fractal): xyzw quat + gripper closedness proprio,
+    sticky gripper over 15 action repeats (reference simpler.py:358-421)."""
+
+    STICKY_REPEATS = 15
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.reset()
+
+    def reset(self):
+        self.sticky_action_is_on = False
+        self.gripper_action_repeat = 0
+        self.sticky_gripper_action = 0.0
+        super().reset()
+
+    def preprocess_proprio(self, obs: dict) -> np.ndarray:
+        eef = np.asarray(obs["agent"]["eef_pos"], np.float64)
+        quat_xyzw = np.roll(eef[3:7], -1)
+        gripper_closedness = 1.0 - eef[7]
+        return np.concatenate([eef[:3], quat_xyzw, [gripper_closedness]])
+
+    def postprocess_gripper(self, action: float) -> float:
+        # [0,1] (0 close) -> relative command with sticky closing
+        action = action * 2.0 - 1.0
+        relative = -action
+        if abs(relative) > 0.5 and not self.sticky_action_is_on:
+            self.sticky_action_is_on = True
+            self.sticky_gripper_action = relative
+        if self.sticky_action_is_on:
+            self.gripper_action_repeat += 1
+            relative = self.sticky_gripper_action
+        if self.gripper_action_repeat == self.STICKY_REPEATS:
+            self.sticky_action_is_on = False
+            self.gripper_action_repeat = 0
+            self.sticky_gripper_action = 0.0
+        return float(relative)
+
+
+class EDREulerSimplerAdapter(EDRSimplerAdapter):
+    """EDR variant with euler-angle proprio (reference simpler.py:424-490)."""
+
+    def preprocess_proprio(self, obs: dict) -> np.ndarray:
+        eef = np.asarray(obs["agent"]["eef_pos"], np.float64)
+        euler = quat2euler(eef[3:7])
+        gripper_closedness = 1.0 - eef[7]
+        return np.concatenate([eef[:3], euler, [gripper_closedness]])
 
 
 class OctoBridgeSimplerAdapter(BridgeSimplerAdapter):

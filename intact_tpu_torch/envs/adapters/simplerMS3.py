@@ -1,12 +1,14 @@
 """Batched adapters for vectorized ManiSkill3 evaluation, copied from
 intact_tpu/envs/adapters/simplerMS3.py: the simpler adapters' math over a
 leading batch axis, for the `n_parallel_eval` rollout loop. cv2 is imported
-by the function that resizes, so the module imports without it."""
+by the function that resizes, and only for frames whose size changes, so the
+module imports without it."""
 
 from __future__ import annotations
 
 import numpy as np
 
+from intact_tpu_torch.envs.adapters.base import lanczos_resize
 from intact_tpu_torch.envs.adapters.simpler import BridgeSimplerAdapter
 from intact_tpu_torch.utils.device import normalize_u8
 from intact_tpu_torch.utils.geometry import mat2euler, quat2mat
@@ -15,13 +17,8 @@ from intact_tpu_torch.utils.geometry import mat2euler, quat2mat
 class BatchBridgeSimplerAdapter(BridgeSimplerAdapter):
     def preprocess(self, obs: dict) -> dict:
         """obs images [N, H, W, 3]; observation.state = eef_pos [N, 8]."""
-        import cv2
-
         imgs = np.asarray(obs["observation.images.top"])
-        resized = np.stack([
-            cv2.resize(im, self.image_size, interpolation=cv2.INTER_LANCZOS4)
-            for im in imgs
-        ])
+        resized = np.stack([lanczos_resize(im, self.image_size) for im in imgs])
         images = resized if self.output_uint8 else normalize_u8(resized)
 
         eef = np.asarray(obs["observation.state"], np.float64)  # [N, 8]

@@ -1,4 +1,4 @@
-"""CLI entry: config parse + role dispatch (intact_tpu/run.py's train and server roles).
+"""CLI entry: config parse + role dispatch (intact_tpu/run.py's train, server and client roles).
 
     python -m intact_tpu_torch.run --config_path config/train/pi0_finetune_bridge_1chip.yaml \
         --n_updates 3 --log_freq 1 --tokenizer_path hash [--device cpu]
@@ -7,12 +7,16 @@
     python -m intact_tpu_torch.run --config_path config/experiment/simpler/pi0_finetune_bridge_ev.yaml \
         --eval_cfg.role server --eval_cfg.quantize_int8 true [--eval_cfg.pretrained_model_path null] \
         [--tokenizer_path hash] [--device cpu]
+    python -m intact_tpu_torch.run --config_path config/experiment/simpler/pi0_finetune_bridge_ev.yaml \
+        --eval_cfg.role client [--eval_cfg.host HOST --eval_cfg.port PORT]
 
 Any config field is overridable with --dotted.path value. --device picks the
-device (CUDA unless given). Without `eval_cfg` the config trains; with it,
-`eval_cfg.role` server serves the configured policy over the websocket
-protocol. The client role drives the simulator evaluators, which are not
-ported yet (ROADMAP: the client role and the simulator evaluators) and raises.
+device of the train and server roles (CUDA unless given). Without `eval_cfg`
+the config trains; with it, `eval_cfg.role` server serves the configured
+policy over the websocket protocol, and client runs the simulator evaluator
+that `eval_cfg.simulator_path` names (built from simulator_name) against such
+a server; it touches no device, and its simulator (SimplerEnv, ManiSkill3 or
+LIBERO) must be installed.
 """
 
 from __future__ import annotations
@@ -53,9 +57,10 @@ def main(argv: list[str] | None = None) -> int:
         return 0
 
     if cfg.eval_cfg.role == "client":
-        raise NotImplementedError(
-            "the client role (simulator evaluators) is not ported yet; see the ROADMAP item 'the client role and "
-            "the simulator evaluators'")
+        from intact_tpu_torch.utils.pipeline import get_class_from_path
+
+        get_class_from_path(cfg.eval_cfg.simulator_path)(cfg).evaluate()
+        return 0
 
     raise ValueError(f"unknown role {cfg.eval_cfg.role!r}")
 

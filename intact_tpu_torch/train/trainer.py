@@ -10,7 +10,9 @@ and acc@t for each of `eval_thresholds`), saving the state every
 `save_model_freq` updates and after the last one under
 <log_dir>/<name>/checkpoint/step_{n}/ (train/checkpoint.py), and loading a
 checkpoint at start: params only (resume_run false), or the whole state to
-resume the run.
+resume the run. The train and validation metrics go to W&B through
+utils/wandb_gate.py (a no-op run unless use_wandb and wandb is installed);
+the run id is saved with each checkpoint and kept on resume.
 
 Two steps, as in the reference:
   * fused_update: train/fused_joint.py, the joint recipe with its update
@@ -27,8 +29,8 @@ Two steps, as in the reference:
     layer in the backward, as the reference's does. MVLA's loss runs the
     same prefill under autograd (the metaqueries train through the VLM).
 
-Not ported yet, and refused: meshes (the trainer runs on one card), W&B,
-task paraphrasing. Runs on the CUDA device unless the caller passes
+Not ported yet, and refused: meshes (the trainer runs on one card), task
+paraphrasing. Runs on the CUDA device unless the caller passes
 device="cpu".
 """
 
@@ -42,7 +44,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from intact_tpu_torch.config.pipeline import TrainPipelineConfig, optimizer_config_from_model_json
+from intact_tpu_torch.config.core import to_dict
+from intact_tpu_torch.config.pipeline import TrainPipelineConfig, WandBConfig, optimizer_config_from_model_json
 from intact_tpu_torch.data.dataset import InterleavedDataset
 from intact_tpu_torch.models import common as cm
 from intact_tpu_torch.models import registry
@@ -51,6 +54,7 @@ from intact_tpu_torch.train import checkpoint as ckpt
 from intact_tpu_torch.train import fused_joint as fj
 from intact_tpu_torch.train import train_step as ts
 from intact_tpu_torch.train.optim import cosine_warmup_restarts, make_optimizer
+from intact_tpu_torch.utils import wandb_gate
 from intact_tpu_torch.utils.metric import get_action_accuracy, l1_error
 from intact_tpu_torch.utils.prefetch import PrefetchIterator
 
@@ -189,8 +193,13 @@ class Trainer:
         self.cnt_update = 0
         self._last_saved_update = -1
         self.ckpt_root = Path(cfg.log_dir) / (cfg.name or "run") / "checkpoint"
+        if cfg.wandb is None:  # --wandb null: the same as use_wandb false
+            cfg.wandb = WandBConfig()
         if cfg.load_from_checkpoint:
             self._load(cfg.load_from_checkpoint, cfg.resume_run)
+        self.wandb = wandb_gate.init(cfg.use_wandb, cfg.wandb.project, name=cfg.name, entity=cfg.wandb.entity,
+                                     run_id=cfg.wandb.run_id, config=to_dict(cfg))
+        cfg.wandb.run_id = self.wandb.id  # saved with every checkpoint
 
     def _init_fused(self, accum: int) -> None:
         """The fused joint step and its refusals (as the JAX trainer's)."""
@@ -299,7 +308,6 @@ class Trainer:
         unported = {
             "meshes (the trainer runs on one card)": (cfg.mesh.data not in (-1, 1) or cfg.mesh.fsdp != 1
                                                       or cfg.mesh.tensor != 1),
-            "W&B logging": cfg.use_wandb,
             "task paraphrasing": cfg.task_paraphrase,
         }
         missing = [name for name, asked in unported.items() if asked]
@@ -368,6 +376,7 @@ class Trainer:
         metrics = {"l1_loss": torch.stack(l1s).mean().item(), **{f"acc@{t}": a for t, a in zip(cfg.eval_thresholds, acc)}}
         self.logger.info("val @ update %d | %s", self.cnt_update,
                          " | ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
+        self.wandb.log(metrics, step=self.cnt_update)
         return metrics
 
     # ------------------------------------------------------------------
@@ -376,7 +385,8 @@ class Trainer:
 
     def save(self) -> Path:
         """The training state at the current update count (the step_{n} contract)."""
-        path = ckpt.save_checkpoint(self.ckpt_root, self.state.params, self.cnt_update, aux={"name": self.cfg.name},
+        path = ckpt.save_checkpoint(self.ckpt_root, self.state.params, self.cnt_update,
+                                    aux={"wandb_id": self.cfg.wandb.run_id, "name": self.cfg.name},
                                     train_state=ckpt.state_fields(self.state))
         self._last_saved_update = self.cnt_update
         self.logger.info("saved checkpoint %s", path)
@@ -394,6 +404,8 @@ class Trainer:
         else:
             self.state, aux = ckpt.restore_train_state(path, self.state, resume_run=resume_run)
         self.cnt_update = int(aux.get("cnt_update", 0)) if resume_run else 0
+        if resume_run and self.cfg.wandb.run_id is None:  # the resumed run logs on to its W&B run
+            self.cfg.wandb.run_id = aux.get("wandb_id")
         self.logger.info("restored %s (resume=%s, update=%d)", path, resume_run, self.cnt_update)
 
     def _log_training(self, window: list[dict], seconds: float) -> None:
@@ -404,3 +416,4 @@ class Trainer:
         lr = self.lr_schedule(self.cnt_update)
         line = " | ".join(f"{k} {v:8.5f}" for k, v in mean.items())
         self.logger.info("update %6d | %s | lr %10.8f | t %5.2fs", self.cnt_update, line, lr, seconds)
+        self.wandb.log({**mean, "learning rate": lr}, step=self.cnt_update)

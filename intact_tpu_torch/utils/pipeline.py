@@ -1,5 +1,5 @@
 """Seeding and dynamic class loading (the parts of intact_tpu/utils/pipeline.py
-the serving stack uses)."""
+the serving stack and the evaluators use)."""
 
 from __future__ import annotations
 
@@ -11,8 +11,11 @@ import numpy as np
 import torch
 
 
-def set_seed_everywhere(seed: int) -> None:
-    """Seed Python, numpy and torch (CPU and every CUDA device)."""
+def set_seed_everywhere(seed: int, train: bool = True) -> None:
+    """Seed Python, numpy and torch (CPU and every CUDA device).
+
+    `train` is the reference's signature: there it also seeds TensorFlow's
+    data pipeline, which the port does not have, so here it has no effect."""
     np.random.seed(seed)
     random.seed(seed)
     os.environ["PYTHONHASHSEED"] = str(seed)

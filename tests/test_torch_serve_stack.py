@@ -616,11 +616,16 @@ class TestRunCLIServerRole:
         finally:
             st.stop()
 
-    def test_client_role_and_other_families_raise(self):
+    def test_client_role_and_other_families_raise(self, monkeypatch):
         from intact_tpu_torch import run as run_mod
+        from intact_tpu_torch.protocol import websocket_policy_client
         from intact_tpu_torch.serve.policy_wrapper import make_policy_wrapper
 
-        with pytest.raises(NotImplementedError, match="client role"):
+        def no_server(host, port):  # the client role reaches the evaluator's websocket client
+            raise ConnectionRefusedError(f"no policy server at {host}:{port}")
+
+        monkeypatch.setattr(websocket_policy_client, "WebsocketPolicyClient", no_server)
+        with pytest.raises(ConnectionRefusedError, match="no policy server at 0.0.0.0:8000"):
             run_mod.main(["--config_path", str(REPO / "config/experiment/simpler/pi0_finetune_bridge_ev.yaml"),
                           "--eval_cfg.role", "client", "--device", "cpu"])
         cfg = make_cfg()
@@ -662,6 +667,13 @@ def test_eval_paths_point_into_the_port():
     assert ours.eval_cfg.env_adapter_path == "intact_tpu_torch.envs.adapters.simpler.BridgeSimplerAdapter"
     assert ref.eval_cfg.env_adapter_path == "intact_tpu.envs.adapters.simpler.BridgeSimplerAdapter"
     assert ref.eval_cfg.simulator_path == "intact_tpu.envs.evaluators.simpler.SimplerEvaluator"
-    assert ours.eval_cfg.simulator_path is None  # the evaluators are not ported
+    assert ours.eval_cfg.simulator_path == "intact_tpu_torch.envs.evaluators.simpler.SimplerEvaluator"
+    for sim, adapter, evaluator, kw in [("simplerMS3", "BatchBridgeSimplerAdapter", "SimplerMS3Evaluator",
+                                         {"n_parallel_eval": 4}), ("libero", "LiberoAdapter", "LiberoEvaluator", {})]:
+        ours = TrainPipelineConfig(eval_cfg=EvalConfig(simulator_name=sim, env_adapter=adapter, **kw))
+        ref = JCfg(eval_cfg=JEval(simulator_name=sim, env_adapter=adapter, **kw))
+        assert ours.eval_cfg.simulator_path == f"intact_tpu_torch.envs.evaluators.{sim}.{evaluator}"
+        assert ref.eval_cfg.simulator_path == f"intact_tpu.envs.evaluators.{sim}.{evaluator}"
+        assert ours.eval_cfg.env_adapter_path == f"intact_tpu_torch.envs.adapters.{sim}.{adapter}"
     with pytest.raises(ValueError, match="simplerMS3"):
         make_cfg(n_parallel_eval=4)
