@@ -54,10 +54,24 @@ Phases, each failing loudly (non-zero exit):
              through the Trainer, the row kernel launched on fp32 p and g. The
              trainer saves its last update; these full-tower saves are recorded,
              not written (record_saves)
+  5a. the RLDS training-data path without TensorFlow: the host codec's
+             self-checks (JPEG q95 round trips above JPEG_PSNR_FLOOR at 256 px
+             and at 257 x 255, PNG round trips bit-exact in 1-4 channels, a
+             corrupted TFRecord record raising), then a BridgeV2-shaped
+             `bridge_dataset` written by the port's writer into RLDS_DIR (64
+             episodes of 34-42 steps, the registry's two cameras at 256 x 256
+             as JPEG q95, 7-d actions and state, instructions from
+             config/dataset/bridge_paraphrases.json, 4 shards), and the train
+             path's loader at the recipe's micro-batch and thread count:
+             frames/s, the split between read+parse, decode and
+             crop-resize-jitter, batches' shapes, dtypes and ranges, and the
+             paraphrased share
   5. standard training through the Trainer's standard step, at full width and
-             depth (random weights from the seed, hash tokenizer, synthetic
-             episodes):
+             depth (random weights from the seed, hash tokenizer):
              expert-only, config/train/pi0_finetune_bridge_expertonly.yaml
+             fed from phase 5a's directory (data.backend rlds, augmentation,
+             task_paraphrase on; every raw batch checked as in 5a; the
+             trainer's wait on next(data) per update reported)
              (frozen int8 prefix, fp32 expert masters, AdamW) with mesh.fsdp 1,
              micro-batch 96, global 192 (accumulation 2), 3 updates, saves at
              2 and 3, validation at 3 on one batch of 96: every micro-step's
@@ -75,7 +89,7 @@ Phases, each failing loudly (non-zero exit):
              gradient of every trainable leaf and one update through the
              kernels against through their plain versions (STD_* tolerances);
              a profiler pass.
-             standard joint, config/train/pi0_finetune_bridge.yaml (bf16
+             standard joint (synthetic episodes), config/train/pi0_finetune_bridge.yaml (bf16
              masters, 8-bit AdamW, stochastic rounding, remat) with mesh.fsdp
              1, micro-batch 32, global 64, 2 updates: finite metrics, int8
              moment codes, flash_attention per micro-step as counted (the
@@ -180,8 +194,8 @@ Phases, each failing loudly (non-zero exit):
              at 256 px, T5-base, ViT-B over 16 + 2 x 257 tokens, 20 clipped
              DDPM steps of the MLPResNet head; random fp32 weights from the
              seed, bf16 compute, hash tokenizer, OctoBridgeSimplerAdapter in
-             place of the yaml's undefined adapter, its resize skipped for
-             frames already at 256 px): two requests per session through the
+             place of the yaml's undefined adapter, its antialiased lanczos3
+             through the port's codec at 256 px): two requests per session through the
              session's history deque (padded, then full) fused at batch 1 and
              64, with no hand-kernel launch (gated: plain attention, no int8
              Octo, as in the reference); env actions finite, of the right
@@ -322,8 +336,9 @@ def phase_build() -> None:
     from intact_tpu_torch.ops import build
 
     t0 = time.perf_counter()
-    build.build_all()
-    log(f"# build: {time.perf_counter() - t0:.2f} s for {len(build.SOURCES)} source(s)")
+    build.build_all(build.SOURCES + tuple(build.HOST_SOURCES))  # nvcc and g++, all started at once
+    log(f"# build: {time.perf_counter() - t0:.2f} s for {len(build.SOURCES)} CUDA and {len(build.HOST_SOURCES)} "
+        f"host source(s)")
     for name, text in build.ptxas_logs.items():
         entry = "?"
         for line in text.splitlines():
@@ -1620,6 +1635,231 @@ def compare_training_paths(depth: int = 4) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 5a. the RLDS training-data path without TensorFlow: the host codec's
+#     self-checks, a BridgeV2-shaped directory written by the port's writer,
+#     and the train-path loader's figures
+# ---------------------------------------------------------------------------
+
+RLDS_DIR = Path(".chip_smoke_rlds")  # the phase's RLDS directory (git-ignored), removed after phase 5
+RLDS_EPISODES = 64
+RLDS_STEPS = (34, 43)  # steps per episode, drawn in [34, 43): ~38, as BridgeV2's
+RLDS_SIZE = 256  # BridgeV2's 256 x 256 frames, JPEG at quality 95
+RLDS_CAMERAS = ("image_0", "image_1")  # the registry's bridge entry: primary and secondary
+PARAPHRASES = "config/dataset/bridge_paraphrases.json"
+# the recipe's 200,000-frame shuffle buffer would cycle the directory's 2,432
+# frames ~80 times before the first batch: cut to about one pass
+RLDS_OVERRIDES = {"data.backend": "rlds", "data.train.data_path": RLDS_DIR, "data.train.shuffle_buffer_size": 2400,
+                  "task_paraphrase": "true", "data.paraphrase_json": PARAPHRASES}
+JPEG_PSNR_FLOOR = 30.0  # dB at quality 95 on the phase's frames (noise sigma 6; reading ~33 dB)
+LOADER_BATCHES = 6  # timed batches of the micro-batch after a first, buffer-filling one
+
+
+def scene_frames(rng: np.random.Generator, steps: int, size: int = RLDS_SIZE) -> np.ndarray:
+    """uint8 [steps, size, size, 3]: a lit table (gradients), a few coloured
+    blocks and a gripper-like bar that moves, sensor noise (sigma 6, from a
+    bank of 8 fields per episode: drawing a field per frame would cost more
+    than encoding it)."""
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    base = np.stack([xx / size * 200 + 20, yy / size * 180 + 30, (xx + yy) / (2 * size) * 150 + 50], -1)
+    for _ in range(4):
+        y0, x0, s = rng.integers(0, size - 48), rng.integers(0, size - 48), rng.integers(16, 48)
+        base[y0:y0 + s, x0:x0 + s] = rng.integers(0, 255, 3)
+    base = base.astype(np.int16)
+    noise = np.rint(rng.normal(0, 6, (8, size, size, 3))).astype(np.int16)
+    out = np.empty((steps, size, size, 3), np.uint8)
+    y, x = rng.uniform(40, size - 40, 2)
+    for t in range(steps):
+        y, x = np.clip([y + rng.normal(0, 4), x + rng.normal(0, 4)], 20, size - 20)
+        img = base + noise[t % 8]
+        img[int(y) - 20:int(y) + 20, int(x) - 4:int(x) + 4] = 40
+        out[t] = np.clip(img, 0, 255)
+    return out
+
+
+def bridge_episodes(seed: int, instructions: list[str]):
+    rng = np.random.default_rng(seed)
+    for i in range(RLDS_EPISODES):
+        steps = int(rng.integers(*RLDS_STEPS))
+        state = np.cumsum(rng.normal(0, 0.01, (steps, 7)), 0).astype(np.float32)
+        state[:, 6] = rng.uniform(0, 1, steps)
+        action = np.concatenate([rng.normal(0, 0.01, (steps, 6)), rng.uniform(0, 1, (steps, 1))], 1)
+        yield {"observation": {cam: scene_frames(rng, steps) for cam in RLDS_CAMERAS} | {"state": state},
+               "action": action.astype(np.float32),
+               "language_instruction": np.array([instructions[i % len(instructions)]] * steps)}
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = float(((a.astype(np.float64) - b) ** 2).mean())
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def codec_self_checks(rng: np.random.Generator) -> None:
+    """JPEG round trips above the PSNR floor (the writer's 4:2:0 at 256 px,
+    and edge MCUs at 257 x 255), PNG round trips bit-exact, a corrupted
+    record raises."""
+    from intact_tpu_torch.data import codec, tfrecord_rlds
+
+    frame = scene_frames(rng, 1)[0]
+    odd = scene_frames(rng, 1, 257)[0][:, :255]
+    for label, img in (("256x256", frame), ("257x255", odd)):
+        data = codec.encode_jpeg(img, 95)
+        t = time.perf_counter()
+        dec = codec.decode_image(data)
+        ms = (time.perf_counter() - t) * 1e3
+        p = psnr(dec, img)
+        log(f"# codec: JPEG q95 {label} {len(data)} bytes, PSNR {p:.2f} dB (floor {JPEG_PSNR_FLOOR}), decode "
+            f"{ms:.2f} ms")
+        if dec.shape != img.shape or not p >= JPEG_PSNR_FLOOR:
+            raise SystemExit(f"codec: JPEG round trip {label} PSNR {p:.2f} dB < {JPEG_PSNR_FLOOR}")
+    for c in (1, 2, 3, 4):
+        img = rng.integers(0, 256, (37, 41, c), dtype=np.uint8)
+        dec = codec.decode_image(codec.encode_png(img))
+        want = img[..., :1].repeat(3, -1) if c <= 2 else img[..., :3]
+        if not np.array_equal(dec, want):
+            raise SystemExit(f"codec: PNG round trip with {c} channels not bit-exact")
+    rec = bytearray(tfrecord_rlds.frame_record(codec.encode_jpeg(frame)))
+    rec[100] ^= 0x01
+    bad = RLDS_DIR / "corrupt.tfrecord"
+    bad.write_bytes(bytes(rec))
+    try:
+        list(tfrecord_rlds.iter_records(bad))
+    except tfrecord_rlds.RecordError as e:
+        log(f"# codec: a corrupted record raises: {e}")
+    else:
+        raise SystemExit("codec: a corrupted record read without an error")
+    finally:
+        bad.unlink()
+    log("# codec: PNG round trips (1-4 channels) bit-exact")
+
+
+def check_batch(batch: dict, b: int, size: int, table: dict) -> float:
+    """The train path's batch: shapes, dtypes, ranges; -> the share of
+    instructions that are paraphrases."""
+    obs = batch["observation"]
+    img, prop, act = obs["image_primary"], obs["proprio"], batch["action"]
+    lang = [s.decode() for s in batch["task"]["language_instruction"]]
+    ok = (img.shape == (b, 1, size, size, 3) and img.dtype == np.uint8 and img.any() and
+          prop.shape == (b, 1, 7) and prop.dtype == np.float32 and np.isfinite(prop).all() and
+          act.shape == (b, 1, 4, 7) and act.dtype == np.float32 and np.isfinite(act).all() and
+          np.abs(act).max() <= 1.0 and batch["action_pad_mask"].shape == act.shape and
+          batch["future_action"].shape == (b, 1, 50, 7) and all(lang))
+    if not ok:
+        raise SystemExit(f"rlds batch: {img.shape} {img.dtype} {prop.shape} {prop.dtype} {act.shape} {act.dtype} "
+                         f"|action| max {np.abs(act).max()}, {sum(not s for s in lang)} empty instructions")
+    return float(np.mean([s not in table for s in lang]))
+
+
+def phase_rlds_data() -> dict:
+    """-> the loader's figures. Writes RLDS_DIR (removed after phase 5)."""
+    import shutil
+
+    from intact_tpu_torch.data import tfrecord_rlds
+    from intact_tpu_torch.data.dataset import InterleavedDataset
+
+    shutil.rmtree(RLDS_DIR, ignore_errors=True)
+    RLDS_DIR.mkdir(parents=True)
+    rng = np.random.default_rng(13)
+    codec_self_checks(rng)
+    table = json.loads(Path(PARAPHRASES).read_text())
+    t = time.perf_counter()
+    ds_dir = tfrecord_rlds.write_rlds_dataset(RLDS_DIR, "bridge_dataset", bridge_episodes(13, list(table)),
+                                              num_shards=4, image_keys=RLDS_CAMERAS, image_encoding="jpeg")
+    wall = time.perf_counter() - t
+    size = sum(p.stat().st_size for p in ds_dir.glob("*.tfrecord-*"))
+    info = tfrecord_rlds.load_split_info(ds_dir)
+    log(f"# rlds: wrote {info} episodes of bridge_dataset ({len(RLDS_CAMERAS)} cameras {RLDS_SIZE} px, JPEG q95, "
+        f"4 shards, {size / 2**20:.1f} MiB) in {wall:.2f} s")
+    cfg = trainer_config(EXPERT_RECIPE, {**EXPERT_OVERRIDES, **RLDS_OVERRIDES})
+    b, size = cfg.per_device_batch_size, cfg.make_model_config().vision.image_size
+    t = time.perf_counter()
+    ds = InterleavedDataset(cfg.data, b, split="train", seed=cfg.seed, normalization_type="bound", image_size=size,
+                            task_paraphrase=True)
+    build_s = time.perf_counter() - t
+    threads = ds._ds._mix.num_threads
+    it = iter(ds)
+    try:
+        t = time.perf_counter()
+        shares = [check_batch(next(it), b, size, table)]
+        first_s = time.perf_counter() - t
+        before = ds.loader_stats.snapshot()
+        t = time.perf_counter()
+        for _ in range(LOADER_BATCHES):
+            shares.append(check_batch(next(it), b, size, table))
+        wall = time.perf_counter() - t
+        after = ds.loader_stats.snapshot()
+    finally:
+        it.close()
+    frames = LOADER_BATCHES * b
+    d = {k: after[k] - before[k] for k in after}
+    card = gpu_name_and_power()
+    fig = {"frames_per_s": frames / wall, "threads": threads, "first_batch_s": first_s, "build_s": build_s,
+           "read_parse_ms_per_episode": 1e3 * d["read_parse_s"] / max(d["episodes"], 1),
+           "decode_ms_per_frame": 1e3 * d["decode_s"] / max(d["frames"], 1),
+           "crop_resize_jitter_ms_per_frame": 1e3 * d["transform_s"] / max(d["frames"], 1),
+           "paraphrased_share": float(np.mean(shares)), "errors": after["errors"]}
+    log(f"# rlds loader ({card}): train path {fig['frames_per_s']:.1f} frames/s over {frames} frames "
+        f"({LOADER_BATCHES} batches of {b}) at {threads} threads; statistics and build {build_s:.2f} s, first batch "
+        f"(shuffle buffer fill) {first_s:.2f} s")
+    log(f"# rlds loader stages ({card}), CPU time summed over threads: read+parse "
+        f"{fig['read_parse_ms_per_episode']:.2f} ms per episode ({d['episodes']} episodes), decode "
+        f"{fig['decode_ms_per_frame']:.2f} ms per frame ({d['frames']} frames; the recipe loads the primary "
+        f"camera), crop-resize-jitter {fig['crop_resize_jitter_ms_per_frame']:.2f} ms per "
+        f"frame; {fig['paraphrased_share']:.3f} of instructions paraphrased; {fig['errors']} skipped")
+    if fig["errors"] or not 0.0 < fig["paraphrased_share"] < 1.0:
+        raise SystemExit(f"rlds loader: {fig}")
+    return fig
+
+
+def loader_contention(steps: int = 6, rounds: int = 2) -> None:
+    """Not part of main(); run after phase_rlds_data. Expert-only micro-steps
+    at the recipe's micro-batch, one trainer, fed in turns from synthetic
+    batches (no loader threads) and from RLDS_DIR with 8, 4 and 2 loader
+    threads, each through the trainer's prefetch thread: the median
+    micro-step (its next(data) included) and the median wait on next(data)."""
+    import copy
+
+    from intact_tpu_torch.data.dataset import InterleavedDataset
+    from intact_tpu_torch.train.trainer import Trainer
+    from intact_tpu_torch.utils.prefetch import PrefetchIterator
+
+    cfg = trainer_config(EXPERT_RECIPE, {**EXPERT_OVERRIDES, **RLDS_OVERRIDES})
+    trainer = Trainer(cfg, device=DEVICE)
+    size, card = trainer.model_cfg.vision.image_size, gpu_name_and_power()
+    results: dict = {}
+    for r in range(rounds):
+        order = [0, 8, 4, 2] if r % 2 == 0 else [2, 4, 8, 0]
+        for threads in order:
+            data_cfg = copy.deepcopy(cfg.data)
+            if threads:
+                data_cfg.train.num_parallel_calls = threads
+            else:
+                data_cfg.backend = "synthetic"
+            ds = InterleavedDataset(data_cfg, trainer.micro_batch_size, split="train", seed=cfg.seed + r,
+                                    normalization_type="bound", image_size=size)
+            data = PrefetchIterator(iter(ds), prepare=trainer.device_batch, depth=2)
+            try:
+                trainer.state, _ = trainer.train_step(trainer.state, next(data))  # not timed: the buffer fill
+                torch.cuda.synchronize()
+                for _ in range(steps):
+                    t0 = time.perf_counter()
+                    batch = next(data)
+                    t1 = time.perf_counter()
+                    trainer.state, _ = trainer.train_step(trainer.state, batch)
+                    torch.cuda.synchronize()
+                    results.setdefault(threads, []).append((time.perf_counter() - t0, t1 - t0))
+            finally:
+                data.close()
+    for threads, rec in sorted(results.items()):
+        label = f"RLDS, {threads} loader threads" if threads else "synthetic batches"
+        log(f"# loader contention ({card}): {label}: median micro-step {statistics.median(s for s, _ in rec) * 1e3:.2f} "
+            f"ms, median wait on next(data) {statistics.median(w for _, w in rec) * 1e3:.2f} ms, "
+            f"{len(rec)} micro-steps of {trainer.micro_batch_size} over {rounds} rounds in turns")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # 5. the trainer's standard step: expert-only (frozen int8 prefix) and the
 #    standard joint recipe
 # ---------------------------------------------------------------------------
@@ -1721,15 +1961,19 @@ def report_steps(label: str, records: list, accum: int, global_batch: int) -> No
 
 
 def phase_standard_training() -> dict:
-    """-> {kernel: launches} on the standard step's two recipes."""
+    """-> {kernel: launches} on the standard step's two recipes (the
+    expert-only one fed from phase_rlds_data's RLDS_DIR)."""
     import shutil
 
+    if not (RLDS_DIR / "bridge_dataset").exists():
+        raise SystemExit(f"{RLDS_DIR}/bridge_dataset is missing: run phase_rlds_data first")
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     try:
         expert = train_expert_only()
         joint = train_standard_joint()
     finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
+        shutil.rmtree(RLDS_DIR, ignore_errors=True)
     return {"flash_attention": expert["flash_attention"] + joint["flash_attention"],
             "w8a8_matmul": expert["w8a8_matmul"]}
 
@@ -1744,10 +1988,22 @@ def train_expert_only() -> dict:
     from intact_tpu_torch.train import checkpoint as ckpt
     from intact_tpu_torch.train.trainer import Trainer
 
-    cfg = trainer_config(EXPERT_RECIPE, EXPERT_OVERRIDES)
+    cfg = trainer_config(EXPERT_RECIPE, {**EXPERT_OVERRIDES, **RLDS_OVERRIDES})
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = Trainer(cfg, device=DEVICE)
+    if trainer.train_data.backend != "rlds" or trainer.train_data.rephraser is None:
+        raise SystemExit(f"expert-only: data backend {trainer.train_data.backend}, paraphrasing "
+                         f"{trainer.train_data.rephraser is not None}")
+    table = json.loads(Path(PARAPHRASES).read_text())
+    paraphrased = []
+    real_device_batch = trainer.device_batch
+
+    def checked_device_batch(raw):  # the prefetch thread's raw RLDS batches, checked on the way
+        paraphrased.append(check_batch(raw, trainer.micro_batch_size, mc.vision.image_size, table))
+        return real_device_batch(raw)
+
+    trainer.device_batch = checked_device_batch
     torch.cuda.synchronize()
     mc, accum = trainer.model_cfg, trainer.opt_cfg.grad_accumulation_steps
     params = flatten_paths(trainer.state.params)
@@ -1763,6 +2019,14 @@ def train_expert_only() -> dict:
 
     counters = {"flash_attention": flash_attention, "w8a8_matmul": w8a8.w8a8_matmul}
     records = record_steps(trainer, counters)
+    calls = []  # (host time, seconds waited on next(data) so far) at each micro-step's start
+    recorded = trainer.train_step
+
+    def timed_step(state, batch):
+        calls.append((time.perf_counter(), trainer.data_wait_s))
+        return recorded(state, batch)
+
+    trainer.train_step = timed_step
     validations = []
     real_validate = trainer.validate
 
@@ -1783,6 +2047,20 @@ def train_expert_only() -> dict:
     report_steps("expert-only", records, accum, cfg.global_batch_size)
     log(f"# expert-only: loop wall {wall:.2f} s for {cfg.n_updates} updates incl. data, validation and saves; "
         f"launches {launches}")
+    card = gpu_name_and_power()
+    calls.append((t0 + wall, trainer.data_wait_s))
+    for u in range(cfg.n_updates):  # from the start of its first micro-step to the next update's
+        (ta, wa), (tb, wb) = calls[u * accum], calls[(u + 1) * accum]
+        log(f"# expert-only from RLDS ({card}): update {u + 1} wall {tb - ta:.3f} s, waiting on next(data) "
+            f"{wb - wa:.3f} s ({(wb - wa) / (tb - ta):.1%}){', with the saves or validation after it' if u else ''}")
+    log(f"# expert-only from RLDS ({card}): the first batch's wait (statistics, shuffle buffer fill) "
+        f"{calls[0][1]:.3f} s")
+    log(f"# expert-only from RLDS ({card}): loop waited {trainer.data_wait_s:.3f} s of {wall:.2f} s on next(data) "
+        f"({trainer.data_wait_s / wall:.1%}); {len(paraphrased)} batches checked, {np.mean(paraphrased):.3f} of "
+        f"instructions paraphrased; loader {trainer.train_data.loader_stats.snapshot()}")
+    if not paraphrased or not 0.0 < np.mean(paraphrased) < 1.0 or trainer.train_data.loader_stats.errors:
+        raise SystemExit(f"expert-only from RLDS: paraphrased shares {paraphrased}, "
+                         f"{trainer.train_data.loader_stats.errors} frames skipped")
     n_val = max(1, cfg.eval_size // trainer.micro_batch_size)
     for metrics, n in validations:
         log(f"# expert-only validation at update 3: {metrics}, launches {n}")
@@ -1806,7 +2084,7 @@ def train_expert_only() -> dict:
         raise SystemExit(f"expert-only: frozen leaves changed {changed_frozen[:5]} or too few trainable moved ({moved})")
     del before
     steps = ckpt.list_steps(trainer.ckpt_root, committed_only=True)
-    resumed = Trainer(trainer_config(EXPERT_RECIPE, {**EXPERT_OVERRIDES,
+    resumed = Trainer(trainer_config(EXPERT_RECIPE, {**EXPERT_OVERRIDES, **RLDS_OVERRIDES,
                                                      "load_from_checkpoint": trainer.ckpt_root / "step_3"}),
                       device=DEVICE)
     ia, ib = state_items(trainer.state), state_items(resumed.state)
@@ -1819,7 +2097,8 @@ def train_expert_only() -> dict:
     compare_expert_paths(trainer, resumed)
     batch = trainer.device_batch(next(iter(trainer.train_data)))
     profile_pass("expert-only micro-step", lambda: (trainer.train_step(trainer.state, batch), torch.cuda.synchronize()))
-    del trainer, resumed, batch, real_validate  # the bound validate would keep the trainer past gc.collect
+    # the bound validate, device_batch and train_step would keep the trainer past gc.collect
+    del trainer, resumed, batch, real_validate, real_device_batch, recorded
     gc.collect()  # the recorders installed on the trainer refer back to it
     torch.cuda.empty_cache()
     return launches
@@ -3286,16 +3565,10 @@ def octo_config(model_cfg: dict | None):
 
 
 def octo_sessions(wrapper, n: int) -> list:
-    """n sessions whose adapter hands the frame on as it came: the card has
-    neither TF nor cv2, and the frames already have the model's size, so the
-    adapter's resize is skipped; the rest of its preprocess (uint8 frame, the
-    zero state, the task) is kept, and the session's history deque runs as
-    served."""
-    sessions = [wrapper.new_session() for _ in range(n)]
-    for s in sessions:
-        s.adapter.preprocess = lambda obs: {"image": obs["observation.images.top"][None],
-                                            "state": np.zeros((1, 7), np.float32), "task": [obs["task"]]}
-    return sessions
+    """n sessions as served: the adapter's antialiased lanczos3 (the port's
+    codec; no TF or cv2 on the card), its uint8 frame, zero state and task,
+    then the session's history deque."""
+    return [wrapper.new_session() for _ in range(n)]
 
 
 def octo_round(rng: np.random.Generator, sessions, size: int) -> list[dict]:
@@ -3813,6 +4086,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     int8 = run(phase_int8_serving)
     training = run(phase_training)
+    run(phase_rlds_data)
     standard = run(phase_standard_training)
     fast_serving = run(phase_fast_serving)
     fast_training = run(phase_fast_training)

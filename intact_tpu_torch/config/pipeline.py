@@ -77,7 +77,8 @@ class TrainDataConfig:
     # config/dataset/bridge_statistics.json): guarantees training
     # normalizes with the SAME constants serving denormalizes with
     dataset_statistics_path: str | None = None
-    # tf.data service dispatcher ("grpc://host:port"), for the RLDS backend
+    # tf.data service dispatcher ("grpc://host:port"): the reference's; the
+    # port's RLDS backend refuses it (no TensorFlow)
     service_address: str | None = None
 
 
@@ -106,7 +107,7 @@ class DataConfig:
     val: ValDataConfig = field(default_factory=ValDataConfig)
     dataset_stats: dict = field(default_factory=lambda: dict(BRIDGE_DATASET_STATS))
     train_episode_count: int = 1_550_000
-    backend: str = "auto"  # "synthetic" | "auto" (= synthetic); "rlds" is not ported yet
+    backend: str = "auto"  # "rlds" | "synthetic" | "auto" (rlds when the section's data_path exists)
     # instruction-paraphrase table (local JSON), for task_paraphrase
     paraphrase_json: str | None = None
 

@@ -1,2 +1,2 @@
 """Env adapters: simulator obs dict -> model inputs, model actions -> sim
-actions. Pure numpy/cv2 on the serving host, never on the card."""
+actions. numpy and the port's host codec on the serving host, never on the card."""

@@ -1,10 +1,11 @@
 """Base adapter: normalization helpers shared by all simulators (a copy of
-intact_tpu/envs/adapters/base.py), and the adapters' cv2 Lanczos resize."""
+intact_tpu/envs/adapters/base.py), and the adapters' Lanczos resize (cv2's, computed by the codec)."""
 
 from __future__ import annotations
 
 import numpy as np
 
+from intact_tpu_torch.data import codec
 from intact_tpu_torch.data import normalize as nz
 
 
@@ -29,12 +30,12 @@ class BaseEnvAdapter:
 
 
 def lanczos_resize(frame: np.ndarray, dsize) -> np.ndarray:
-    """cv2.resize(frame, dsize, interpolation=cv2.INTER_LANCZOS4), dsize being
-    cv2's (width, height). A frame already of that size comes back as a copy,
-    which is what cv2 returns for it, without importing cv2: the simulator hosts
-    that render at the model's size need no cv2."""
+    """cv2.resize(frame, dsize, interpolation=cv2.INTER_LANCZOS4) on a uint8
+    frame, dsize being cv2's (width, height), computed by the port's codec bit
+    for bit (no cv2 needed). A frame already of that size comes back as a copy,
+    which is what cv2 returns for it."""
     if tuple(frame.shape[:2]) == (dsize[1], dsize[0]):
         return np.array(frame)
-    import cv2
-
-    return cv2.resize(frame, tuple(dsize), interpolation=cv2.INTER_LANCZOS4)
+    frame = np.asarray(frame)
+    out = codec.resize_lanczos4(frame.reshape(*frame.shape[:2], -1), (dsize[1], dsize[0]))
+    return out.reshape(dsize[1], dsize[0], *frame.shape[2:])

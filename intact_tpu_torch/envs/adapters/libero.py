@@ -5,8 +5,7 @@ Obs translation for LIBERO/robosuite: cv2 Lanczos resize -> [-1,1], proprio
 = xyz + axis-angle (LIBERO trains on axis-angle while the env reports wxyz
 quats) + gripper openness from two-finger widths; actions pass through
 unchanged (LIBERO training data is already in the env action convention).
-cv2 is imported by the function that resizes, and only for a frame whose size
-changes, so the module imports without it.
+The resize is cv2's INTER_LANCZOS4, computed by the port's codec (no cv2).
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ import json
 import numpy as np
 
 from intact_tpu_torch.envs.adapters.base import BaseEnvAdapter, lanczos_resize
-from intact_tpu_torch.utils.device import normalize_u8
+from intact_tpu_torch.native import normalize_u8
 from intact_tpu_torch.utils.geometry import quat2axisangle, quat2euler
 
 GRIPPER_CLOSED_WIDTH = 0.015  # per-finger width below which we call it closed

@@ -8,9 +8,9 @@ intact_tpu/envs/adapters/simpler.py: the Bridge (WidowX) and Google-robot
     rotation, robot-specific gripper mapping (Bridge threshold / EDR sticky)
 
 Resize fidelity matters: each adapter reproduces the interpolation its
-model family was evaluated with upstream (cv2 INTER_LANCZOS4 here). cv2 is
-imported by the functions that resize, and only for a frame whose size
-changes, so the module imports without it.
+model family was evaluated with upstream (cv2 INTER_LANCZOS4 here, Octo's
+antialiased TF lanczos3), both computed bit for bit by the port's codec, so
+the adapters need neither cv2 nor TF.
 """
 
 from __future__ import annotations
@@ -19,8 +19,9 @@ import json
 
 import numpy as np
 
+from intact_tpu_torch.data import codec
 from intact_tpu_torch.envs.adapters.base import BaseEnvAdapter, lanczos_resize
-from intact_tpu_torch.utils.device import normalize_u8
+from intact_tpu_torch.native import normalize_u8
 from intact_tpu_torch.utils.geometry import euler2axangle, mat2euler, quat2euler, quat2mat
 
 
@@ -176,29 +177,20 @@ class EDREulerSimplerAdapter(EDRSimplerAdapter):
 
 
 class OctoBridgeSimplerAdapter(BridgeSimplerAdapter):
-    """Octo on Bridge: upstream Octo's eval preprocessing (TF lanczos3 resize
-    with antialias, rounded before the clip and the uint8 cast, reference
-    simpler.py:305-355; cv2 INTER_LANCZOS4 where TF is absent, a slightly
-    different kernel) and gaussian action denormalization. Octo takes no
-    proprio: the state is zeros. TF and cv2 are imported when called."""
+    """Octo on Bridge: upstream Octo's eval preprocessing (TF's lanczos3 resize
+    with antialias, rounded half to even before the clip and the uint8 cast,
+    reference simpler.py:305-355, here through the port's codec, bit-equal to
+    TF's) and gaussian action denormalization. Octo takes no proprio: the
+    state is zeros."""
 
     def __init__(self, config):
         super().__init__(config)
         self.action_normalization_type = "gaussian"
 
     def preprocess(self, obs: dict) -> dict:
-        try:
-            import tensorflow as tf
-
-            # round before the cast: a truncating cast would bias every pixel by ~-0.5
-            image = tf.cast(tf.clip_by_value(tf.round(tf.image.resize(
-                tf.cast(obs["observation.images.top"], tf.float32), self.image_size, method="lanczos3",
-                antialias=True)), 0, 255), tf.uint8).numpy()
-        except ImportError:
-            import cv2
-
-            h, w = self.image_size  # cv2's dsize is (width, height)
-            image = cv2.resize(obs["observation.images.top"], (w, h), interpolation=cv2.INTER_LANCZOS4)
+        # round before the cast: a truncating cast would bias every pixel by ~-0.5
+        image = codec.resize_lanczos3(obs["observation.images.top"], tuple(self.image_size), antialias=True,
+                                      round_even=True)
         if not self.output_uint8:
             image = image.astype(np.float32) / 255.0 * 2.0 - 1.0
         return {"image": image[None], "state": np.zeros((1, 7), np.float32), "task": [obs["task"]]}

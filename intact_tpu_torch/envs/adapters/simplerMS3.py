@@ -1,8 +1,7 @@
 """Batched adapters for vectorized ManiSkill3 evaluation, copied from
 intact_tpu/envs/adapters/simplerMS3.py: the simpler adapters' math over a
-leading batch axis, for the `n_parallel_eval` rollout loop. cv2 is imported
-by the function that resizes, and only for frames whose size changes, so the
-module imports without it."""
+leading batch axis, for the `n_parallel_eval` rollout loop. The resize is
+cv2's INTER_LANCZOS4, computed by the port's codec (no cv2)."""
 
 from __future__ import annotations
 
@@ -10,7 +9,7 @@ import numpy as np
 
 from intact_tpu_torch.envs.adapters.base import lanczos_resize
 from intact_tpu_torch.envs.adapters.simpler import BridgeSimplerAdapter
-from intact_tpu_torch.utils.device import normalize_u8
+from intact_tpu_torch.native import normalize_u8
 from intact_tpu_torch.utils.geometry import mat2euler, quat2mat
 
 

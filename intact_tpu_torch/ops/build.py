@@ -1,11 +1,14 @@
-"""Build the CUDA sources under `csrc/` into shared libraries, load them with ctypes.
+"""Build the C++ and CUDA sources into shared libraries, load them with ctypes.
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on its own
 with `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`
 into `intact_tpu_torch/_build/lib<name>_<hash>.so`, where the hash covers the
 source and the flags: an edited source is rebuilt, an unchanged one is reused.
-Nothing is compiled at import time; the first call that needs a library
-builds it (`build_all` starts every missing build at once).
+The host sources (`native/fastops.cpp`, `csrc/host/codec.cpp`) are built the
+same way by g++ (`HOST_SOURCES`). Nothing is compiled at import time; the first
+call that needs a library builds it (`build_all` starts every missing build at
+once). A build writes a temporary file and renames it into place, so processes
+that build one library at the same time never load half of it.
 """
 
 from __future__ import annotations
@@ -27,6 +30,14 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 SOURCES = ("flash_attention", "fused_adam_rows", "w8a8_matmul")
+# host C++: (source, g++ flags). fastops keeps the JAX package's flags, so its
+# output is bit-equal to intact_tpu.native's built on the same machine; the
+# codec keeps IEEE float semantics (no FMA contraction), as its numpy versions
+HOST_SOURCES = {
+    "fastops": (PKG_DIR / "native" / "fastops.cpp", ("-O3", "-march=native", "-shared", "-fPIC")),
+    "codec": (CSRC_DIR / "host" / "codec.cpp",
+              ("-O3", "-march=native", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC")),
+}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -43,10 +54,32 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
+def _compile(name: str) -> list[str]:
+    """The compiler command for `name` without its output path."""
+    if name in HOST_SOURCES:
+        src, flags = HOST_SOURCES[name]
+        return ["g++", *flags, str(src)]
+    return [_nvcc(), *NVCC_FLAGS, str(CSRC_DIR / f"{name}.cu")]
+
+
+def _host_cpu() -> bytes:
+    """The host CPU's model and flags: -march=native builds differ per CPU."""
+    try:
+        lines = Path("/proc/cpuinfo").read_text().splitlines()
+    except OSError:
+        return b""
+    return "".join(l for l in lines if l.startswith(("model name", "flags")))[:4096].encode()
+
+
 def _target(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    src += b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))  # shared headers
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    if name in HOST_SOURCES:
+        src_path, flags = HOST_SOURCES[name]
+        src = src_path.read_bytes() + _host_cpu()
+    else:
+        src = (CSRC_DIR / f"{name}.cu").read_bytes()
+        src += b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))  # shared headers
+        flags = NVCC_FLAGS
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
@@ -55,7 +88,7 @@ def _start(name: str) -> tuple[subprocess.Popen, Path, Path]:
     target = _target(name)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+    cmd = _compile(name) + ["-o", tmp]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, Path(tmp), target
 
@@ -64,13 +97,13 @@ def _finish(name: str, proc: subprocess.Popen, tmp: Path, target: Path) -> None:
     out, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n{out}")
+        raise RuntimeError(f"{' '.join(_compile(name)[:1])} failed on {name} (exit {proc.returncode}):\n{out}")
     ptxas_logs[name] = out
     os.replace(tmp, target)  # atomic: a concurrent loader never sees half a file
 
 
 def build_all(names=SOURCES) -> None:
-    """Compile every missing library, one nvcc per source, all at once."""
+    """Compile every missing library, one compiler per source, all at once."""
     with _lock:
         started = [(n, *_start(n)) for n in names if not _target(n).exists()]
         errors = []
@@ -84,7 +117,7 @@ def build_all(names=SOURCES) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built first if needed."""
+    """The loaded library for csrc/<name>.cu (or a HOST_SOURCES entry), built first if needed."""
     lib = _libs.get(name)
     if lib is not None:
         return lib

@@ -44,6 +44,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from intact_tpu_torch import native
 from intact_tpu_torch.config.core import to_dict
 from intact_tpu_torch.config.pipeline import TrainPipelineConfig, WandBConfig, optimizer_config_from_model_json
 from intact_tpu_torch.data.dataset import InterleavedDataset
@@ -100,7 +101,7 @@ def preprocess_batch(batch: dict, tokenizer, model_cfg) -> dict:
         cam_masks.append(np.zeros((b,), bool))
 
     stacked = np.stack(cam_frames, axis=1).astype(np.uint8)  # [B, K, H, W, C]
-    images = stacked.astype(np.float32) * np.float32(2.0 / 255.0) + np.float32(-1.0)
+    images = native.normalize_u8(stacked)  # one fused u8 -> [-1, 1] pass, as the reference's native op
     img_masks = np.stack(cam_masks, axis=1)  # [B, K]
 
     texts = [s.decode() if isinstance(s, bytes) else str(s) for s in batch["task"]["language_instruction"]]
@@ -187,10 +188,12 @@ class Trainer:
         # the scheme the serving adapters invert ("gaussian" there is "normal" here)
         norm_type = "normal" if cfg.env.action_normalization_type == "gaussian" else "bound"
         data_kw = dict(stats=norm_stats, normalization_type=norm_type, image_size=self.model_cfg.vision.image_size)
-        self.train_data = InterleavedDataset(cfg.data, self.micro_batch_size, split="train", seed=cfg.seed, **data_kw)
+        self.train_data = InterleavedDataset(cfg.data, self.micro_batch_size, split="train", seed=cfg.seed,
+                                             task_paraphrase=cfg.task_paraphrase, **data_kw)
         self.val_data = InterleavedDataset(cfg.data, self.micro_batch_size, split="val", seed=cfg.seed + 1,
                                            **data_kw)
         self.cnt_update = 0
+        self.data_wait_s = 0.0  # host seconds the loop waited on the next prepared batch
         self._last_saved_update = -1
         self.ckpt_root = Path(cfg.log_dir) / (cfg.name or "run") / "checkpoint"
         if cfg.wandb is None:  # --wandb null: the same as use_wandb false
@@ -308,7 +311,6 @@ class Trainer:
         unported = {
             "meshes (the trainer runs on one card)": (cfg.mesh.data not in (-1, 1) or cfg.mesh.fsdp != 1
                                                       or cfg.mesh.tensor != 1),
-            "task paraphrasing": cfg.task_paraphrase,
         }
         missing = [name for name, asked in unported.items() if asked]
         if missing:
@@ -335,7 +337,10 @@ class Trainer:
         try:
             micro = 0
             while self.cnt_update < cfg.n_updates:
-                self.state, metrics = self.train_step(self.state, next(data))
+                t = time.perf_counter()
+                batch = next(data)
+                self.data_wait_s += time.perf_counter() - t
+                self.state, metrics = self.train_step(self.state, batch)
                 window.append(metrics)
                 micro += 1
                 if micro % accum:
@@ -365,6 +370,8 @@ class Trainer:
         val_iter = iter(self.val_data)
         for i in range(n_batches):
             batch = self.device_batch(next(val_iter))
+            if i == n_batches - 1:
+                val_iter.close()  # ends the pass (the RLDS pipeline stops its threads)
             gt = batch.pop("actions")
             batch.pop("action_is_pad", None)
             generator = torch.Generator(device=self.device).manual_seed(1000 + i)

@@ -1,13 +1,9 @@
-"""The uint8 frame codec of the serving wire (intact_tpu/utils/device.py::float_to_u8, copied)."""
+"""The uint8 frame codec of the serving wire (intact_tpu/utils/device.py::float_to_u8,
+copied; its inverse, the u8 -> [-1, 1] normalize, is `intact_tpu_torch.native.normalize_u8`)."""
 
 from __future__ import annotations
 
 import numpy as np
-
-
-def normalize_u8(img: np.ndarray, scale: float = 2.0 / 255.0, offset: float = -1.0) -> np.ndarray:
-    """uint8 [...] -> float32 x * scale + offset (the adapters' [-1, 1] frames)."""
-    return np.asarray(img, np.uint8).astype(np.float32) * np.float32(scale) + np.float32(offset)
 
 
 def float_to_u8(img: np.ndarray) -> np.ndarray:

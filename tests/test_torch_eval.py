@@ -538,10 +538,9 @@ def test_edr_adapters_match_jax(name, norm):
 @pytest.mark.parametrize("norm", ["bound", "gaussian"])
 def test_libero_adapters_match_jax(name, norm, monkeypatch):
     """preprocess (cv2 Lanczos resize, [-1, 1] frame, proprio) and postprocess
-    bit-equal. The JAX package's C++ normalize contracts x * scale + offset into
-    a fused multiply-add (its build passes -march=native), one float32 ulp away
-    from numpy's; the port computes numpy's, which the JAX package's own numpy
-    path gives exactly."""
+    bit-equal. Both packages normalize with their C++ fastops, built with the
+    same flags: x * scale + offset contracts into a fused multiply-add
+    (-march=native), one float32 ulp away from the JAX package's numpy path."""
     from intact_tpu import native
     from intact_tpu.envs.adapters import libero as jlib
     from intact_tpu_torch.envs.adapters import libero as tlib
@@ -555,9 +554,9 @@ def test_libero_adapters_match_jax(name, norm, monkeypatch):
            "task": "open the drawer"}
     fused = j.preprocess(obs)  # the JAX package's native path
     got = t.preprocess(obs)
-    assert np.abs(got["image"] - fused["image"]).max() <= 2.0 ** -23
+    assert_same(got, fused)
     monkeypatch.setattr(native, "_LIB_CACHE", [None, True])  # the JAX package's numpy path
-    assert_same(got, j.preprocess(obs))
+    assert np.abs(got["image"] - j.preprocess(obs)["image"]).max() <= 2.0 ** -23
     actions = rng.normal(size=(4, 7)).astype(np.float32)
     assert_same(t.postprocess(actions), j.postprocess(actions))
     for widths in ([0.03, -0.03], [0.01, -0.03], [0.016, 0.02]):
@@ -620,11 +619,12 @@ def equal_size_cases():
                                         ("libero", False)])  # LiberoAdapter has no uint8 output, as in the reference
 def test_equal_size_frame_skips_cv2(kind, uint8, monkeypatch):
     """At image_size the adapters return what cv2's Lanczos resize returns
-    there (a copy), and run with cv2 unimportable; at another size they still
-    import it."""
+    there (a copy), and run with cv2 unimportable; at another size they run
+    without cv2 too (the port's codec computes cv2's Lanczos4) and return what
+    cv2 returns."""
     import cv2
 
-    from intact_tpu_torch.utils.device import normalize_u8
+    from intact_tpu_torch.native import normalize_u8
 
     cls, obs = equal_size_cases()[kind]
     _, tcfg = adapter_cfgs(image_size=IMAGE_SIZE)
@@ -642,8 +642,10 @@ def test_equal_size_frame_skips_cv2(kind, uint8, monkeypatch):
     assert not np.shares_memory(without["image"], obs["observation.images.top"])
     taller = np.concatenate([frames, frames], axis=1)
     other = dict(obs, **{"observation.images.top": taller if kind == "batch" else taller[0]})
-    with pytest.raises(ImportError):
-        adapter.preprocess(other)
+    resized = np.stack([cv2.resize(f, IMAGE_SIZE, interpolation=cv2.INTER_LANCZOS4) for f in taller])
+    want_other = resized if uint8 else normalize_u8(resized)
+    got = adapter.preprocess(other)["image"]  # cv2 still unimportable
+    assert_same(got, want_other if kind == "batch" else want_other[:1])
 
 
 # ---------------------------------------------------------------------------

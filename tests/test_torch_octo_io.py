@@ -456,19 +456,22 @@ def test_trainer_refuses_octo_with_its_reason():
 @pytest.mark.parametrize("resize", ["tensorflow", "cv2"])
 def test_adapter_matches_reference(uint8, resize, monkeypatch):
     """OctoBridgeSimplerAdapter against the reference's on a 64 -> 32 px
-    frame: TF lanczos3 (antialias, rounded) or, without TF, cv2 Lanczos4;
-    gaussian denormalization in the postprocess."""
+    frame: the reference's TF lanczos3 (antialias, rounded), which the port
+    computes with its own codec, with TF importable or not ("cv2": without
+    TF, where the reference falls back to cv2 Lanczos4 and the port does not
+    need to); gaussian denormalization in the postprocess."""
     from intact_tpu.config import pipeline as jpipe
     from intact_tpu.envs.adapters.simpler import OctoBridgeSimplerAdapter as JA
     from intact_tpu_torch.config import pipeline as tp
     from intact_tpu_torch.envs.adapters.simpler import OctoBridgeSimplerAdapter as TA
 
-    if resize == "cv2":
-        monkeypatch.setitem(sys.modules, "tensorflow", None)  # import raises ImportError
     ja, ta = JA(pipeline_config(jpipe)), TA(pipeline_config(tp))
     ja.output_uint8 = ta.output_uint8 = uint8
     o = obs(3, size=64)
-    ours, ref = ta.preprocess(o), ja.preprocess(o)
+    ref = ja.preprocess(o)  # the reference's TF path
+    if resize == "cv2":
+        monkeypatch.setitem(sys.modules, "tensorflow", None)  # import raises ImportError
+    ours = ta.preprocess(o)
     assert ours.keys() == ref.keys() and ours["task"] == ref["task"]
     for k in ("image", "state"):
         assert ours[k].dtype == ref[k].dtype and np.array_equal(ours[k], ref[k]), k

@@ -32,6 +32,43 @@ def test_port_imports_no_jax_and_nothing_of_intact_tpu(path):
     assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
 
 
+# The card machine has none of these. The training-data path (data/, native/,
+# ops/build.py, train/) reads and decodes RLDS without them.
+HOST_BANNED = ("tensorflow", "tensorflow_datasets", "google.protobuf", "PIL", "cv2")
+# Serving- and client-side resizes that predate the RLDS path, each imported
+# inside the function that resizes a frame whose size differs from the
+# model's (as the JAX package's adapters resize): cv2 bilinear / area and
+# PIL's resize_with_pad, held bit-equal to the JAX package's by the adapter
+# tests. Frames already at the model's size, as on the card, import none of
+# them.
+RESIZE_ONLY = {
+    "intact_tpu_torch/protocol/image_tools.py": {"PIL"},
+    "intact_tpu_torch/serve/policy_wrapper.py": {"cv2"},
+}
+
+
+def _banned(name: str) -> bool:
+    return any(name == b or name.startswith(b + ".") for b in HOST_BANNED)
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_no_tensorflow_protobuf_pil_or_cv2(path):
+    """At any level of any module: none of HOST_BANNED, but for the listed
+    function-level resizes; at module level, none at all."""
+    rel = str(path.relative_to(REPO))
+    tree = ast.parse(path.read_text(), str(path))
+    top = {a.name for node in tree.body if isinstance(node, ast.Import) for a in node.names}
+    top |= {node.module for node in tree.body if isinstance(node, ast.ImportFrom) and node.level == 0}
+    assert not {m for m in top if _banned(m)}, f"{rel} imports {sorted(m for m in top if _banned(m))} at module level"
+    bad = {m for m in imported_modules(path) if _banned(m)} - RESIZE_ONLY.get(rel, set())
+    assert not bad, f"{rel} imports {sorted(bad)}"
+
+
+def test_resize_only_imports_are_where_listed():
+    for rel, mods in RESIZE_ONLY.items():
+        assert {m for m in imported_modules(REPO / rel) if _banned(m)} == mods, rel
+
+
 def test_port_files_found():
     assert len(PORT_FILES) > 15
 
@@ -160,6 +197,20 @@ def test_pipeline_config_fields_and_defaults_match():
     assert reference_only <= set(defaults(J)) and not reference_only & set(defaults(T))
     assert defaults(T) == want
     assert defaults(T)["eval_thresholds"] == [0.05, 0.1, 0.2, 0.3, 0.5]
+
+
+def test_data_config_fields_and_defaults_match():
+    """The sections the RLDS backend reads (data.train / data.val / data)."""
+    from intact_tpu.config import pipeline as jp
+    from intact_tpu_torch.config import pipeline as tp
+
+    for name in ("TrainDataConfig", "ValDataConfig", "DataConfig"):
+        j, t = getattr(jp, name)(), getattr(tp, name)()
+        assert dataclasses.asdict(t) == dataclasses.asdict(j), name
+    read = {"dataset_mix", "data_path", "load_proprio", "shuffle_buffer_size", "window_size", "action_horizon",
+            "max_action_future", "subsample_length", "image_dropout_prob", "dataset_statistics_path", "split",
+            "skip_unlabeled", "num_parallel_calls", "service_address"}
+    assert read <= set(_fields(tp.TrainDataConfig))
 
 
 @pytest.mark.parametrize("entry", ["policy", "init", "server", "pi0fast_policy", "pi0fast_init", "mvla_policy",

@@ -475,7 +475,7 @@ class TestTrainer:
     @pytest.mark.parametrize("override,error", [
         ({"global_batch_size": "4"}, "accumulation"),
         ({"quantize_frozen_int8": "true"}, "standard"),
-        ({"data.backend": "rlds"}, "RLDS"),
+        ({"data.backend": "rlds", "data.train.service_address": "grpc://localhost:1"}, "RLDS"),
         ({"freeze_vlm": "true"}, "freeze"),
     ])
     def test_refusals(self, tiny_recipe, override, error):
