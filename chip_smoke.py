@@ -96,9 +96,25 @@ Phases, each failing loudly (non-zero exit):
              forward's depth - 1 and their remat recompute), the last update's
              save asked; a profiler pass. Both report median micro-step and
              update times, samples/s and peak memory
+  5b. the multi-card recipes (config/train/pi0_finetune_bridge.yaml,
+             pi0_finetune_bridge_expertonly.yaml fed from phase 5a's
+             directory, with --mesh.fsdp 1 as the script runs on one card, and the
+             fused pi0_finetune_bridge_1chip.yaml) through the Trainer in a
+             one-rank NCCL group joined from torchrun's variables
+             (parallel.distributed.initialize; destroyed at the end), two
+             updates each at full width (32 x 2, 96 x 2, 16 x 1). Gates: the
+             backend is nccl; the launches of the three kernels per micro-step
+             are phases 4 and 5's; the collectives per update (all-reduce,
+             reduce-scatter, all-gather, each wrapper's count) are the ones
+             counted from the state; loss and grad norm finite; the params
+             after the updates bit-equal to phases 4 and 5's runs of the same
+             recipes without a group at the same micro-step. Reported: each
+             update's time with and without the group, the card's name and
+             power limit
   6. Pi0FAST serving: the server role's Pi0PolicyWrapper from
              config/experiment/simplerMS3/pi0fast_finetune_bridge_ev.yaml
-             (SigLIP So400m + Gemma-2B, 329-token prefix, 28 greedy
+             (SigLIP So400m + Gemma-2B at full width, its depth cut to
+             FAST_SERVING_DEPTH of 18 layers, 329-token prefix, 28 greedy
              single-token steps of the whole trunk against a growing K/V
              cache; random weights from the seed, hash tokenizer) with
              quantize_int8 on: requests through infer_batch at batch 1 and at
@@ -167,8 +183,9 @@ Phases, each failing loudly (non-zero exit):
              kernel launch; ensembled env actions finite, (1, 7); the served
              actions equal to the decoded tokens'; the int8 tokens and every
              step's teacher-forced logits bit-equal with only the W8A8 product
-             plain; then bf16 behind the same wrapper against an fp32 run of
-             the same weights (token agreement and logit margins, reported);
+             plain; then bf16 behind the same wrapper, and bf16 against an fp32
+             run of the same weights at full width and SVLA_FP32_DEPTH Gemma2
+             layers (token agreement and logit margins, reported);
              latency at batch 1 and 64 (int8 beside bf16), peak memory, profiles
              and the unembedding's share of device time
   11. Magma serving: the server role's MagmaNativePolicyWrapper from
@@ -1463,6 +1480,7 @@ def phase_training() -> dict:
 
     trainer.train_step = recorded
     saves = record_saves(trainer)
+    keep_reference("fused", trainer)
     torch.cuda.reset_peak_memory_stats()
     # --- the main path: the trainer's loop, as `python -m intact_tpu_torch.run` drives it ---
     flash_attention.launches = fused_adam_rows.launches = 0
@@ -1471,6 +1489,7 @@ def phase_training() -> dict:
     wall = time.perf_counter() - t0
     launches = {"flash_attention": flash_attention.launches, "fused_adam_rows": fused_adam_rows.launches}
     # -------------------------------------------------------------------------------------------
+    park_reference("fused")
     if saves != [TRAIN_STEPS]:
         raise SystemExit(f"the trainer asked to save at updates {saves}, not at its last update {TRAIN_STEPS}")
     peak = torch.cuda.max_memory_allocated()
@@ -1972,8 +1991,7 @@ def phase_standard_training() -> dict:
         expert = train_expert_only()
         joint = train_standard_joint()
     finally:
-        shutil.rmtree(RUN_DIR, ignore_errors=True)
-        shutil.rmtree(RLDS_DIR, ignore_errors=True)
+        shutil.rmtree(RUN_DIR, ignore_errors=True)  # phase 5b reads RLDS_DIR and removes it
     return {"flash_attention": expert["flash_attention"] + joint["flash_attention"],
             "w8a8_matmul": expert["w8a8_matmul"]}
 
@@ -2037,6 +2055,7 @@ def train_expert_only() -> dict:
         return metrics
 
     trainer.validate = validate
+    keep_reference("expert-only", trainer)
     # --- the main path: the trainer's loop, as `python -m intact_tpu_torch.run` drives it ---
     flash_attention.launches = w8a8.w8a8_matmul.launches = 0
     t0 = time.perf_counter()
@@ -2044,6 +2063,7 @@ def train_expert_only() -> dict:
     wall = time.perf_counter() - t0
     launches = {"flash_attention": flash_attention.launches, "w8a8_matmul": w8a8.w8a8_matmul.launches}
     # -------------------------------------------------------------------------------------------
+    park_reference("expert-only")
     report_steps("expert-only", records, accum, cfg.global_batch_size)
     log(f"# expert-only: loop wall {wall:.2f} s for {cfg.n_updates} updates incl. data, validation and saves; "
         f"launches {launches}")
@@ -2271,6 +2291,7 @@ def train_standard_joint() -> dict:
         f"micro-step expect {want_flash} flash_attention launches")
     records = record_steps(trainer, {"flash_attention": flash_attention})
     saves = record_saves(trainer)
+    keep_reference("joint", trainer)
     # --- the main path: the trainer's loop ---
     flash_attention.launches = 0
     t0 = time.perf_counter()
@@ -2278,6 +2299,7 @@ def train_standard_joint() -> dict:
     wall = time.perf_counter() - t0
     launches = {"flash_attention": flash_attention.launches}
     # -----------------------------------------
+    park_reference("joint")
     report_steps("standard joint", records, accum, cfg.global_batch_size)
     codes = {m["q"].dtype for m in trainer.state.opt_state["mu"].values() if isinstance(m, dict)}
     log(f"# standard joint: loop wall {wall:.2f} s for {cfg.n_updates} updates; launches {launches}; moment codes "
@@ -2294,6 +2316,234 @@ def train_standard_joint() -> dict:
     gc.collect()  # the recorders installed on the trainer refer back to it
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# 5b. the multi-card recipes through the trainer in a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+# the repo's multi-card recipes with --mesh.fsdp 1 (the script runs on one card),
+# two updates of two micro-steps each (update 2 is warm on both sides); the
+# fused recipe takes no accumulation: two updates of one step (the second
+# clips with the first's norm)
+MULTI_RECIPES = {
+    "joint": (JOINT_RECIPE, {"mesh.fsdp": 1, "per_device_batch_size": 32, "global_batch_size": 64, "n_updates": 2}),
+    "expert-only": (EXPERT_RECIPE, {"mesh.fsdp": 1, "per_device_batch_size": 96, "global_batch_size": 192,
+                                    "n_updates": 2, **RLDS_OVERRIDES}),
+    "fused": (RECIPE, {"n_updates": 2}),
+}
+MULTI_MICRO_STEPS = {"joint": 4, "expert-only": 4, "fused": 2}
+# the runs without a group that phase 5b holds its group runs to: the params
+# after MULTI_MICRO_STEPS micro-steps of phases 4 and 5's runs of the same
+# recipes (same seed, same data), on the host, and their micro-step times
+NO_GROUP: dict = {}
+
+
+def keep_reference(label: str, trainer) -> None:
+    """Wrap trainer.train_step (outermost): time each micro-step and clone the
+    params on the card after MULTI_MICRO_STEPS[label] of them (a device copy,
+    a few ms); park_reference moves them to the host after the loop."""
+    real = trainer.train_step
+    ref = NO_GROUP[label] = {"times": [], "params": None}
+
+    def step(state, batch):
+        t = time.perf_counter()
+        out = real(state, batch)
+        torch.cuda.synchronize()
+        ref["times"].append(time.perf_counter() - t)
+        if len(ref["times"]) == MULTI_MICRO_STEPS[label]:
+            from intact_tpu_torch.models.common import flatten_paths
+
+            ref["params"] = {k: v.detach().clone() for k, v in flatten_paths(out[0].params).items()}
+        return out
+
+    trainer.train_step = step
+
+
+def park_reference(label: str) -> None:
+    ref = NO_GROUP[label]
+    if ref["params"] is None:
+        raise SystemExit(f"{label}: the run stopped before micro-step {MULTI_MICRO_STEPS[label]}")
+    ref["params"] = {k: v.to("cpu") for k, v in ref["params"].items()}
+    torch.cuda.empty_cache()
+
+
+def expected_collectives(trainer) -> dict:
+    """The collectives one update issues, counted from the trainer's state
+    as the code issues them (train/optim.py, train/fused_joint.py), plus the
+    log line's all-reduce (log_freq 1)."""
+    from intact_tpu_torch.models.common import flatten_paths
+    from intact_tpu_torch.train import fused_joint as fj
+
+    if trainer.cfg.fused_update:
+        state, mesh = trainer.state, trainer.mesh
+        depth = trainer.model_cfg.vlm.depth
+        split = 2 * depth  # each trunk layer: its pack's rows
+        replicated = 0
+        small = [(name, trainer.state.params[name], state.mu[name]) for name in fj.EMBED_NAMES + ("action_out_proj",)]
+        small.append(("final_norm", state.params["expert"]["final_norm"], state.mu["expert"]["final_norm"]))
+        for _, ptree, mtree in small:
+            moments = dict(fj.tree_items(mtree, quant_leaves=True))
+            for path, p in fj.tree_items(ptree):
+                quant = fj._is_quant_leaf(moments[path])
+                if quant and fj.leaf_shard(p, 2048, mesh) is not None:
+                    split += 1
+                else:
+                    replicated += 1
+    else:
+        flat = flatten_paths(trainer.state.params)
+        paths = trainer.tx.paths(flat)
+        split = sum(trainer.tx.shard_of(flat[k]) is not None for k in paths)
+        replicated = len(paths) - split
+    # a split gradient: reduce-scatter (fsdp) and all-reduce (data), its rows all-gathered after the update;
+    # a replicated one: one all-reduce; the clip's (or the norm's) sum of squares and the log line: one each
+    return {"all_reduce": split + replicated + 2, "reduce_scatter": split, "all_gather": split}
+
+
+def multirank_run(label: str, group: bool) -> dict:
+    """One recipe of MULTI_RECIPES through the Trainer, with or without the
+    process group: its updates' launches, collectives, metrics and times,
+    and the params after the last update on the host."""
+    from intact_tpu_torch.models.common import flatten_paths
+    from intact_tpu_torch.ops import w8a8
+    from intact_tpu_torch.ops.flash_attention import flash_attention
+    from intact_tpu_torch.ops.fused_adam import fused_adam_rows
+    from intact_tpu_torch.parallel import collectives
+    from intact_tpu_torch.train.trainer import Trainer
+
+    recipe, overrides = MULTI_RECIPES[label]
+    cfg = trainer_config(recipe, {**overrides, "eval_freq": 10**6})
+    trainer = Trainer(cfg, device=DEVICE)
+    mc, accum = trainer.model_cfg, trainer.opt_cfg.grad_accumulation_steps
+    if trainer.mesh.distributed != group or trainer.mesh.size != 1:
+        raise SystemExit(f"{label}: mesh {trainer.mesh} (group expected: {group})")
+    counters = {"flash_attention": flash_attention, "w8a8_matmul": w8a8.w8a8_matmul, "fused_adam_rows": fused_adam_rows}
+    if cfg.fused_update:
+        want = {"flash_attention": 2 * (mc.vlm.depth - 1), "w8a8_matmul": 0,
+                "fused_adam_rows": len(expected_row_updates(trainer.state))}
+    elif mc.train_expert_only:
+        want = {"flash_attention": mc.vlm.depth - 1, "w8a8_matmul": w8a8_per_prefix(trainer.state.params),
+                "fused_adam_rows": 0}
+    else:
+        want = {"flash_attention": 2 * (mc.vlm.depth - 1), "w8a8_matmul": 0, "fused_adam_rows": 0}
+    want_coll = expected_collectives(trainer) if group else {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0}
+    records = []
+    real_step = trainer.train_step
+
+    def recorded(state, batch):
+        before = {k: c.launches for k, c in counters.items()}
+        c0 = collectives.counts()
+        t = time.perf_counter()
+        out = real_step(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        records.append(({k: c.launches - before[k] for k, c in counters.items()},
+                        {k: v - c0[k] for k, v in collectives.counts().items()},
+                        out[1]["l2_loss"].item(), out[1]["grad_norm"].item(), dt))
+        return out
+
+    trainer.train_step = recorded
+    saves = record_saves(trainer)
+    # --- the main path: the trainer's loop ---
+    for c in counters.values():
+        c.launches = 0
+    collectives.reset()
+    t0 = time.perf_counter()
+    trainer.train()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    per_update = collectives.counts()  # with the log lines' all-reduces, outside train_step
+    # -----------------------------------------
+    n_updates = cfg.n_updates
+    updates = [sum(r[-1] for r in records[i:i + accum]) for i in range(0, len(records), accum)]
+    where = "one-rank NCCL group" if group else "no group"
+    for i, (n, coll, loss, gn, dt) in enumerate(records):
+        log(f"# multi-card {label} ({where}) micro-step {i + 1}: loss {loss:.6f}, grad_norm {gn:.6f}, "
+            f"{dt * 1e3:.2f} ms, launches {n}, collectives {coll}")
+    log(f"# multi-card {label} ({where}): {n_updates} update(s) of {accum} micro-step(s), update times "
+        f"{[round(u * 1e3, 2) for u in updates]} ms, loop wall {wall:.2f} s; launches {launches}; collectives "
+        f"{per_update} (expected per update {want_coll}); saves asked at {saves}")
+    bad = [i + 1 for i, (n, _, loss, gn, _) in enumerate(records)
+           if not (np.isfinite(loss) and np.isfinite(gn)) or n != want]
+    coll_want = {k: v * n_updates for k, v in want_coll.items()}
+    if bad or len(records) != n_updates * accum or per_update != coll_want or saves != [n_updates]:
+        raise SystemExit(f"multi-card {label} ({where}): micro-steps {bad} non-finite or launches other than {want}, "
+                         f"{len(records)} micro-steps, collectives {per_update} (expected {coll_want}), saves {saves}")
+    params = {k: v.detach().to("cpu", copy=True) for k, v in flatten_paths(trainer.state.params).items()}
+    out = {"launches": launches, "times": [r[-1] for r in records], "accum": accum, "params": params,
+           "collectives": per_update}
+    del trainer, real_step, recorded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def update_times(times: list, accum: int) -> list:
+    return [round(sum(times[i:i + accum]) * 1e3, 2) for i in range(0, len(times), accum)]
+
+
+def phase_multirank_training() -> dict:
+    """-> {kernel: launches} of the three recipes in the group. The script
+    joins a one-rank NCCL group as torchrun would start it, runs each recipe
+    through the Trainer, and holds its params after the updates bit-equal to
+    the same recipe's run without a group (phases 4 and 5's, or its own when
+    run alone): a world of one reduces nothing."""
+    import os
+    import shutil
+    import socket
+
+    from intact_tpu_torch.parallel import distributed
+
+    if not (RLDS_DIR / "bridge_dataset").exists():
+        raise SystemExit(f"{RLDS_DIR}/bridge_dataset is missing: run phase_rlds_data first")
+    card = gpu_name_and_power()
+    launch_env = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    saved_env = {k: os.environ.get(k) for k in launch_env}
+    try:
+        for label in MULTI_RECIPES:
+            if label not in NO_GROUP:  # the phase alone: its own runs without a group
+                alone = multirank_run(label, group=False)
+                NO_GROUP[label] = {"times": alone["times"], "params": alone["params"]}
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        t0 = time.perf_counter()
+        device = distributed.initialize(DEVICE)
+        log(f"# multi-card: process group {distributed.backend()} of {distributed.process_count()} rank(s) on "
+            f"{device}, joined in {time.perf_counter() - t0:.2f} s")
+        if distributed.backend() != "nccl" or distributed.process_count() != 1:
+            raise SystemExit(f"the card's process group is {distributed.backend()}, not a one-rank NCCL group")
+        totals = {"flash_attention": 0, "w8a8_matmul": 0, "fused_adam_rows": 0}
+        for label in MULTI_RECIPES:
+            grouped = multirank_run(label, group=True)
+            for k in totals:
+                totals[k] += grouped["launches"][k]
+            ref = NO_GROUP.pop(label)
+            n = MULTI_MICRO_STEPS[label]
+            unequal = [k for k, v in grouped["params"].items() if not torch.equal(v, ref["params"][k])]
+            gap = max(((grouped["params"][k].double() - ref["params"][k].double()).abs().max().item()
+                       for k in unequal), default=0.0)
+            log(f"# multi-card {label} ({card}): update times with the one-rank NCCL group "
+                f"{update_times(grouped['times'], grouped['accum'])} ms, without a group "
+                f"{update_times(ref['times'][:n], grouped['accum'])} ms; params after {n} micro-steps bit-equal to "
+                f"the run without a group: {not unequal} ({len(unequal)} of {len(ref['params'])} leaves differ, max "
+                f"abs {gap:.3e})")
+            if unequal or set(ref["params"]) != set(grouped["params"]):
+                raise SystemExit(f"multi-card {label}: the one-rank group's params differ from the run without a "
+                                 f"group at {unequal[:5]}")
+            del grouped, ref
+            gc.collect()
+    finally:
+        distributed.destroy()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(RLDS_DIR, ignore_errors=True)
+        shutil.rmtree(RUN_DIR, ignore_errors=True)
+    return totals
 
 
 # ---------------------------------------------------------------------------
@@ -2314,6 +2564,10 @@ FAST_EV_CONFIG = "config/experiment/simplerMS3/pi0fast_finetune_bridge_ev.yaml"
 FAST_KV_RTOL = 5e-2
 FAST_LOGITS_RTOL = 5e-2
 FAST_MARGIN = 0.1
+FAST_TIMING_REPS = 3  # timed inferences per wrapper and batch (5 before phase 5b joined the script's budget)
+# Gemma layers of the served Pi0FAST (18 before phase 5b joined the script's budget): the launches and every
+# gate follow the configuration
+FAST_SERVING_DEPTH = 9
 
 
 def w8a8_per_fast_inference(cfg) -> int:
@@ -2356,7 +2610,21 @@ def greedy_logits(params, inputs, cfg, policy, forced=None):
 
 
 def phase_fast_serving() -> dict:
-    """-> {kernel: launches} on Pi0FAST's serving path."""
+    """-> {kernel: launches} on Pi0FAST's serving path, at full width and
+    FAST_SERVING_DEPTH Gemma layers."""
+    from intact_tpu_torch.models import registry
+
+    entry = registry.get("pi0fast")
+    full = entry["default_config"]
+    entry["default_config"] = lambda: dataclasses.replace(
+        full(), vlm=dataclasses.replace(full().vlm, depth=FAST_SERVING_DEPTH))
+    try:
+        return fast_serving()
+    finally:
+        entry["default_config"] = full
+
+
+def fast_serving() -> dict:
     from intact_tpu_torch.models import common as cm
     from intact_tpu_torch.models.pi0fast import model as fast
     from intact_tpu_torch.ops import w8a8
@@ -2372,7 +2640,8 @@ def phase_fast_serving() -> dict:
     leaves = cm.tree_leaves(policy.params)
     per_inference, flash_per = w8a8_per_fast_inference(mc), mc.vlm.depth - 1
     first = mc.vlm.vocab_size - (mc.action_vocab_size or mc.n_action_bins)
-    log(f"# Pi0FAST serving: Pi0PolicyWrapper from {FAST_EV_CONFIG} ({cfg.model_type}, model {policy.model.__name__}, "
+    log(f"# Pi0FAST serving: Pi0PolicyWrapper from {FAST_EV_CONFIG} ({cfg.model_type} at {mc.vlm.depth} Gemma layers, "
+        f"model {policy.model.__name__}, "
         f"adapter {cfg.eval_cfg.env_adapter}, quantize_int8 {cfg.eval_cfg.quantize_int8}, seed {cfg.seed}): "
         f"{sum(x.numel() for x in leaves if x.dtype == torch.int8) / 1e9:.3f} B int8 weights + "
         f"{sum(x.numel() for x in leaves if x.dtype != torch.int8) / 1e9:.3f} B bf16/fp32 values, init "
@@ -2498,7 +2767,7 @@ def phase_fast_serving() -> dict:
         calls = {k: [(req, ss[i])] for k, (w, ss) in runs.items()}
         for k, (w, _) in runs.items():
             w.infer_batch(calls[k])  # warm
-        for _ in range(5):
+        for _ in range(FAST_TIMING_REPS):
             for k, (w, _) in runs.items():
                 t0 = time.perf_counter()
                 w.infer_batch(calls[k])  # ends in a device->host copy and the adapters' postprocess
@@ -2506,7 +2775,7 @@ def phase_fast_serving() -> dict:
         med = {k: statistics.median(v) for k, v in times.items()}
         for k in runs:
             log(f"# Pi0FAST {k} serving batch {b} ({n} rows; Pi0PolicyWrapper.infer_batch): median fused "
-                f"inference {med[k] * 1e3:.2f} ms over 5 ({[round(x * 1e3, 2) for x in times[k]]}), "
+                f"inference {med[k] * 1e3:.2f} ms over {FAST_TIMING_REPS} ({[round(x * 1e3, 2) for x in times[k]]}), "
                 f"{n * mc.n_action_steps / med[k]:.2f} policy steps/s")
         log(f"# Pi0FAST serving batch {b} through the wrapper: int8 / bf16 latency {med['int8'] / med['bf16']:.3f}")
     log(f"# Pi0FAST peak device memory: int8 wrapper alone {int8_peak / 2**30:.2f} GiB (batch 1 and 64); both "
@@ -3120,6 +3389,8 @@ SVLA_EV_CONFIG = "config/experiment/simpler/spatialvla_finetune_bridge_ev.yaml"
 # package (scripts/gen_experiment_configs.py makes up the name): the Bridge
 # adapter serves in its place
 SVLA_OVERRIDES = {"eval_cfg.env_adapter": "BridgeSimplerAdapter"}
+SVLA_FP32_DEPTH = 4  # Gemma2 layers of the bf16-against-fp32 comparison (views of the bf16 tree), as Magma's
+SVLA_TIMING_REPS = 3  # timed inferences per wrapper and batch (5 before phase 5b joined the script's budget)
 
 
 def svla_config(quantize: bool):
@@ -3278,16 +3549,21 @@ def phase_svla_serving() -> dict:
     bp, bpol = bf16_wrapper.params, bf16_wrapper.policy
     tok_b, log_b = svla_greedy_logits(bp, inputs, mc, bpol)
     ids_b = bf16_wrapper.predict_tokens(images, depth, tasks)
-    fp32 = cm.tree_map(lambda x: x.float(), bp)
-    tok_f, _ = svla_greedy_logits(fp32, inputs, mc, cm.FP32_POLICY)
-    _, log_ff = svla_greedy_logits(fp32, inputs, mc, cm.FP32_POLICY, forced=tok_b)  # teacher-forced fp32
-    del fp32
-    chosen = log_ff.gather(-1, tok_b.T[..., None])[..., 0]  # [T, B]
+    # bf16 against fp32 at full width and SVLA_FP32_DEPTH Gemma2 layers (views of the bf16 tree)
+    mc4 = dataclasses.replace(mc, lm=dataclasses.replace(mc.lm, depth=SVLA_FP32_DEPTH))
+    bp4 = {**bp, "lm": {**bp["lm"], "blocks": cm.tree_map(lambda a: a[:SVLA_FP32_DEPTH], bp["lm"]["blocks"])}}
+    tok_b4, log_b = svla_greedy_logits(bp4, inputs, mc4, bpol)
+    fp32 = cm.tree_map(lambda x: x.float(), bp4)
+    tok_f, _ = svla_greedy_logits(fp32, inputs, mc4, cm.FP32_POLICY)
+    _, log_ff = svla_greedy_logits(fp32, inputs, mc4, cm.FP32_POLICY, forced=tok_b4)  # teacher-forced fp32
+    del fp32, bp4
+    chosen = log_ff.gather(-1, tok_b4.T[..., None])[..., 0]  # [T, B]
     below = (log_ff.amax(dim=-1) - chosen) / log_ff.std()
     top2 = log_b.topk(2, dim=-1).values
     gap = (top2[..., 0] - top2[..., 1]).flatten()
     log(f"# SpatialVLA bf16, batch 64: the stepwise decode equals the wrapper's {np.array_equal(tok_b.cpu().numpy(), ids_b)}; "
-        f"tokens equal to an fp32 run of the same weights on the card {(tok_b == tok_f).float().mean().item():.4f}; "
+        f"at {SVLA_FP32_DEPTH} of {mc.lm.depth} Gemma2 layers, tokens equal to an fp32 run of the same weights on the "
+        f"card {(tok_b4 == tok_f).float().mean().item():.4f}; "
         f"teacher-forced fp32 logits rel L2 {rel_l2(log_b, log_ff):.3e}, fp32 logit of the bf16 token below the fp32 "
         f"maximum by at most {below.max().item():.3e} std (at {int((below > 0).sum())} of {below.numel()} steps and "
         f"rows); bf16 top-2 logit margin median {gap.median().item():.3e}, min {gap.min().item():.3e} (logits std "
@@ -3303,7 +3579,7 @@ def phase_svla_serving() -> dict:
     torch.cuda.reset_peak_memory_stats()
     # one ensembled env action per inference: 1 policy step per row
     # the unembedding is the path's only W8A8 product with fp32 out: its gemm_kernel<0, float> launches
-    profiles = time_wrappers("SpatialVLA", runs, {1: req1, 64: req64}, 1, {1: 5, 64: 5},
+    profiles = time_wrappers("SpatialVLA", runs, {1: req1, 64: req64}, 1, {1: SVLA_TIMING_REPS, 64: SVLA_TIMING_REPS},
                              in_order="gemm_kernel<0, float>")
     log(f"# SpatialVLA peak device memory: int8 wrapper alone {int8_peak / 2**30:.2f} GiB (batch 1 and 64); both "
         f"wrappers during the timing {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -4088,6 +4364,7 @@ def main() -> int:
     training = run(phase_training)
     run(phase_rlds_data)
     standard = run(phase_standard_training)
+    multirank = run(phase_multirank_training)
     fast_serving = run(phase_fast_serving)
     fast_training = run(phase_fast_training)
     mvla_serving = run(phase_mvla_serving)
@@ -4097,7 +4374,7 @@ def main() -> int:
     octo_serving = run(phase_octo_serving)
     client = run(phase_client)
     paths = {"serving": {"flash_attention": serving}, "int8": int8, "training": training, "standard": standard,
-             "fast_serving": fast_serving, "fast_training": fast_training, "mvla_serving": mvla_serving,
+             "multirank": multirank, "fast_serving": fast_serving, "fast_training": fast_training, "mvla_serving": mvla_serving,
              "mvla_training": mvla_training, "svla_serving": svla_serving, "magma_serving": magma_serving,
              "octo_serving": octo_serving, "client": client}
     # SpatialVLA and Magma launch no attention kernel (SpatialVLA's head_dim 72 and softcap keep it plain; LLaMA
@@ -4110,9 +4387,11 @@ def main() -> int:
         kernels[name]["launches"] = sum(counts.get(name, 0) for counts in paths.values())
     log(f"# launches on the main paths: flash_attention {serving} serving + {int8['flash_attention']} int8 "
         f"serving + {training['flash_attention']} fused training + {standard['flash_attention']} standard "
-        f"training + {fast_serving['flash_attention']} Pi0FAST serving + {fast_training['flash_attention']} Pi0FAST "
-        f"training, fused_adam_rows {training['fused_adam_rows']} fused training, w8a8_matmul "
+        f"training + {multirank['flash_attention']} multi-card recipes + {fast_serving['flash_attention']} Pi0FAST "
+        f"serving + {fast_training['flash_attention']} Pi0FAST training, fused_adam_rows {training['fused_adam_rows']} "
+        f"fused training + {multirank['fused_adam_rows']} multi-card fused recipe, w8a8_matmul "
         f"{int8['w8a8_matmul']} int8 serving + {standard['w8a8_matmul']} expert-only training + "
+        f"{multirank['w8a8_matmul']} multi-card expert-only + "
         f"{fast_serving['w8a8_matmul']} Pi0FAST int8 serving + {mvla_serving['w8a8_matmul']} MVLA int8 serving; "
         f"MVLA flash_attention {mvla_serving['flash_attention']} serving + {mvla_training['flash_attention']} training; "
         f"SpatialVLA w8a8_matmul {svla_serving['w8a8_matmul']} int8 serving (flash_attention "

@@ -75,6 +75,17 @@ def hash_noise_u16(shape, salt: int, device=None) -> torch.Tensor:
     return h & 0xFFFF
 
 
+_MIX_INV = pow(0x9E3779B9, -1, 1 << 32)  # the salt multiplier is odd, so invertible mod 2**32
+
+
+def shift_salt(salt: int, offset: int) -> int:
+    """The salt whose hash noise at flat index i equals `salt`'s at i + offset
+    (2-D shapes): the noise adds salt * 0x9E3779B9 to the index, so a row
+    range that starts `offset` elements into a leaf rounds, under the shifted
+    salt, with the bits the whole leaf's rounding gives it."""
+    return (int(salt) + int(offset) * _MIX_INV) & _M32
+
+
 def sr_to_bf16(exact: torch.Tensor, salt: int) -> torch.Tensor:
     """fused_joint._sr_add's rounding of fp32 `exact` to bf16: add 16 bits of
     hash noise to the fp32 bits and keep the top 16."""

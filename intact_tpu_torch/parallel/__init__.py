@@ -1,0 +1,23 @@
+"""Several cards: the ranks' mesh, the block-row split, the process group and
+its collectives (intact_tpu/parallel's counterpart).
+
+The JAX package declares shardings and lets XLA insert the collectives; the
+port runs one process per card and issues them itself: the trainer's standard
+step and fused step reduce each gradient over the ranks and update this
+rank's global block rows of the optimizer state (ZeRO-2 over fsdp), then
+gather the updated parameters. NCCL on the card, gloo on the CPU.
+"""
+
+from intact_tpu_torch.parallel.mesh import AXIS_NAMES, Mesh, MeshConfig, default_mesh_for, make_mesh
+from intact_tpu_torch.parallel.sharding import RowShard, local_rows, row_shard
+
+__all__ = [
+    "AXIS_NAMES",
+    "Mesh",
+    "MeshConfig",
+    "default_mesh_for",
+    "make_mesh",
+    "RowShard",
+    "row_shard",
+    "local_rows",
+]

@@ -1,0 +1,59 @@
+"""The collectives the port issues, each counting its calls.
+
+Thin wrappers over torch.distributed's all_reduce (sum), reduce_scatter_tensor
+(sum) and all_gather_into_tensor on a process group: the fsdp group, the data
+group or the world (parallel/mesh.py). NCCL carries them on the card, gloo on
+the CPU; they are library calls, as XLA's collectives are for the JAX package.
+Each wrapper adds one to its `.calls` where it issues its collective, and
+nowhere else, as the kernels' wrappers count `.launches`: `counts()` reads
+them and `reset()` sets them to 0. Nothing catches a failed collective.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+
+def _op(name: str, older: str):
+    """torch.distributed's `name`, or its older name: torch 2.13 renamed the
+    tensor collectives and deprecated the old names, which older releases
+    have alone."""
+    return getattr(dist, name, None) or getattr(dist, older)
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """x <- the sum of x over the group's ranks, in place."""
+    dist.all_reduce(x, group=group)
+    all_reduce.calls += 1
+    return x
+
+
+def reduce_scatter(out: torch.Tensor, x: torch.Tensor, group) -> torch.Tensor:
+    """out <- the sum over the group's ranks of this rank's chunk of x (x holds
+    group-size equal chunks, in rank order)."""
+    _op("reduce_scatter_single", "reduce_scatter_tensor")(out, x, group=group)
+    reduce_scatter.calls += 1
+    return out
+
+
+def all_gather(out: torch.Tensor, x: torch.Tensor, group) -> torch.Tensor:
+    """out <- the ranks' x, concatenated in rank order along the first axis."""
+    _op("all_gather_single", "all_gather_into_tensor")(out, x, group=group)
+    all_gather.calls += 1
+    return out
+
+
+WRAPPERS = (all_reduce, reduce_scatter, all_gather)
+
+
+def counts() -> dict[str, int]:
+    return {f.__name__: f.calls for f in WRAPPERS}
+
+
+def reset() -> None:
+    for f in WRAPPERS:
+        f.calls = 0
+
+
+reset()

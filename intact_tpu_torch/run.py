@@ -4,6 +4,8 @@
         --n_updates 3 --log_freq 1 --tokenizer_path hash [--device cpu]
     python -m intact_tpu_torch.run --config_path config/train/pi0_finetune_bridge_expertonly.yaml \
         --mesh.fsdp 1 --global_batch_size 192 --n_updates 3 --tokenizer_path hash [--device cpu]
+    torchrun --standalone --nproc_per_node 4 -m intact_tpu_torch.run \
+        --config_path config/train/pi0_finetune_bridge.yaml --tokenizer_path hash [--device cpu]
     python -m intact_tpu_torch.run --config_path config/experiment/simpler/pi0_finetune_bridge_ev.yaml \
         --eval_cfg.role server --eval_cfg.quantize_int8 true [--eval_cfg.pretrained_model_path null] \
         [--tokenizer_path hash] [--device cpu]
@@ -11,7 +13,10 @@
         --eval_cfg.role client [--eval_cfg.host HOST --eval_cfg.port PORT]
 
 Any config field is overridable with --dotted.path value. --device picks the
-device of the train and server roles (CUDA unless given). Without `eval_cfg`
+device of the train and server roles (CUDA unless given). Under torchrun the
+train role runs one rank per process: NCCL over the cards (cuda:LOCAL_RANK),
+or gloo with --device cpu; the yaml's mesh (data -1 x fsdp 4 in the
+multi-card recipes) must fill the world size. Without `eval_cfg`
 the config trains; with it, `eval_cfg.role` server serves the configured
 policy over the websocket protocol, and client runs the simulator evaluator
 that `eval_cfg.simulator_path` names (built from simulator_name) against such
@@ -42,9 +47,13 @@ def main(argv: list[str] | None = None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
 
     if cfg.eval_cfg is None:
+        from intact_tpu_torch.parallel import distributed
         from intact_tpu_torch.train.trainer import Trainer
 
-        Trainer(cfg, device=device).train()
+        try:
+            Trainer(cfg, device=device).train()
+        finally:
+            distributed.destroy()
         return 0
 
     if cfg.eval_cfg.role == "server":

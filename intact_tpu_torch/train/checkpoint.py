@@ -14,6 +14,12 @@ is restored as given.
 state; a params_template/params_transform pair loads a checkpoint whose
 parameter tree differs from the live one (float pretrained params into a
 quantize_frozen_int8 run), as intact_tpu/train/checkpoint.py does.
+
+Several ranks: a checkpoint holds the one-rank layout (the trainer gathers the
+row-split optimizer state before saving), so it restores onto any world
+size; `save_from_ranks` lets rank 0 clear a stale partial step dir and write,
+and returns on every rank behind a barrier once the step is committed, and
+`restore_train_state`'s `localize` cuts the saved fields to a rank's rows.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from pathlib import Path
 import torch
 
 from intact_tpu_torch.models.common import flatten_paths, unflatten_paths
+from intact_tpu_torch.parallel import distributed
 
 PARAMS_FILE = "params.pt"
 STATE_FILE = "train_state.pt"
@@ -84,6 +91,19 @@ def save_checkpoint(ckpt_root: str | Path, params, step: int, aux: dict | None =
     auxiliary = {"cnt_update": int(step)}
     auxiliary.update(aux or {})
     (path / AUX_FILE).write_text(json.dumps(auxiliary, indent=2))
+    return path
+
+
+def save_from_ranks(ckpt_root: str | Path, params, step: int, aux: dict | None = None,
+                    train_state: dict | None = None) -> Path:
+    """save_checkpoint from a process group: every rank calls it with the
+    same (gathered, one-rank layout) state; rank 0 clears a stale partial
+    step dir and writes, and every rank returns after a barrier, when the
+    step is committed. Without a group it is save_checkpoint."""
+    path = step_dir(ckpt_root, int(step)).resolve()
+    if distributed.process_index() == 0:
+        path = save_checkpoint(ckpt_root, params, step, aux=aux, train_state=train_state)
+    distributed.barrier()
     return path
 
 
@@ -147,7 +167,7 @@ def _load_into(live, saved, where: str):
 
 
 def restore_train_state(ckpt_path: str | Path, template, resume_run: bool = True, params_template=None,
-                        params_transform=None):
+                        params_transform=None, localize=None):
     """-> (state, aux). `template` is the live training state (TrainState or
     FusedTrainState); restored values are copied into its tensors. With
     resume_run=False only the params load (the optimizer, counters and seed
@@ -155,7 +175,9 @@ def restore_train_state(ckpt_path: str | Path, template, resume_run: bool = True
     too, or, for a params-only checkpoint, the template's stay with a
     warning. With params_template (a tree of tensors or meta tensors giving
     paths, shapes and dtypes) the params restore into that structure on the
-    template's device and `params_transform` maps them into the live one."""
+    template's device and `params_transform` maps them into the live one.
+    `localize` maps the saved state fields (one-rank layout) to the live
+    state's (a rank's rows of its row-split moments)."""
     path = Path(ckpt_path)
     if not (path / PARAMS_FILE).exists():
         path = _resolve_latest_step(path)
@@ -180,5 +202,7 @@ def restore_train_state(ckpt_path: str | Path, template, resume_run: bool = True
             "optimizer and counters", path)
         return dataclasses.replace(template, params=params), aux
     fields = torch.load(path / STATE_FILE, map_location="cpu", weights_only=True)
+    if localize is not None:
+        fields = localize(fields)
     restored = _load_into(state_fields(template), fields, STATE_FILE)
     return dataclasses.replace(template, params=params, **restored), aux

@@ -119,11 +119,12 @@ def should_quantize(p: torch.Tensor) -> bool:
     return p.numel() >= MIN_QUANT_ELEMS
 
 
-def init_moment(p: torch.Tensor, signed: bool):
-    """Zero moment of leaf p: codes of exact zero with zero scales, or fp32
-    zeros below MIN_QUANT_ELEMS elements."""
+def init_moment(p: torch.Tensor, signed: bool, rows: int | None = None):
+    """Zero moment of leaf p: codes of exact zero with zero scales (all its
+    block rows, or `rows` of them: one rank's share), or fp32 zeros below
+    MIN_QUANT_ELEMS elements."""
     if should_quantize(p):
-        nb = -(-p.numel() // BLOCK_SIZE)
+        nb = -(-p.numel() // BLOCK_SIZE) if rows is None else rows
         return {"q": torch.full((nb, BLOCK_SIZE), zero_index(signed), dtype=torch.int8, device=p.device),
                 "scale": torch.zeros((nb, 1), dtype=torch.float32, device=p.device)}
     return torch.zeros(p.shape, dtype=torch.float32, device=p.device)

@@ -14,6 +14,14 @@ Random draws: micro-step n takes its flow noise and time, then the seed of
 its stochastic-rounding generator, from numpy.random.default_rng((seed, n)),
 so a run is reproducible and a resumed run continues bit for bit; the state
 holds no generator. The state is updated in place.
+
+Over several ranks (the optimizer's mesh, parallel/): each rank draws its own
+rows' noise and time from default_rng((seed, n, rank)); the rounding seed
+comes from default_rng((seed, n)), the same on every rank, so data replicas
+round their shared leaves with identical bits and stay equal. A row-split
+leaf's rows round with a generator seeded from that seed and the fsdp index,
+so fsdp ranks never repeat each other's bits. The optimizer reduces the
+gradients once per emitted update (train/optim.py).
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import numpy as np
 import torch
 
 from intact_tpu_torch.models.common import flatten_paths, unflatten_paths
+from intact_tpu_torch.parallel.sharding import data_draw_key
 from intact_tpu_torch.train.optim import Optimizer, global_norm
 from intact_tpu_torch.train.optim8bit import add_rounded
 
@@ -47,11 +56,12 @@ def make_train_step(loss_fn: Callable, tx: Optimizer, stochastic_rounding: bool 
     loss_fn(params, rng, batch, noise, time) -> (loss, aux dict), where rng is
     the micro-step's numpy Generator (the loss draws the noise and time that
     are not given). metrics hold 0-dim tensors: l2_loss, grad_norm (this
-    micro-step's gradients), param_norm (float leaves only: int8 codes would
-    wrap) and aux's scalars."""
+    rank's micro-step gradients), param_norm (float leaves only: int8 codes
+    would wrap) and aux's scalars."""
+    mesh = tx.mesh
 
     def step(state: TrainState, batch: dict, noise=None, time=None):
-        draws = np.random.default_rng((state.seed, state.step))
+        draws = np.random.default_rng(data_draw_key(state.seed, state.step, mesh))
         flat = flatten_paths(state.params)
         views = {k: flat[k].detach().requires_grad_() for k in tx.paths(flat)}
         with torch.enable_grad():
@@ -60,14 +70,20 @@ def make_train_step(loss_fn: Callable, tx: Optimizer, stochastic_rounding: bool 
         grads = dict(zip(views, grads))
         del views
         device = loss.device
-        generator = None
+        generator = row_generator = None
         if stochastic_rounding:
-            generator = torch.Generator(device=device).manual_seed(int(draws.integers(0, 2**63 - 1)))
+            shared = draws if mesh.size == 1 else np.random.default_rng((state.seed, state.step))
+            sr_seed = int(shared.integers(0, 2**63 - 1))
+            generator = row_generator = torch.Generator(device=device).manual_seed(sr_seed)
+            if mesh.fsdp > 1:
+                row_seed = int(np.random.default_rng((sr_seed, mesh.fsdp_index)).integers(0, 2**63 - 1))
+                row_generator = torch.Generator(device=device).manual_seed(row_seed)
         grad_norm = global_norm(grads.values())
 
         def apply(path, sl, u):
             seg = flat[path].view(-1)[sl]
-            seg.copy_(add_rounded(seg, u, generator, stochastic_rounding))
+            gen = generator if tx.shard_of(flat[path]) is None else row_generator
+            seg.copy_(add_rounded(seg, u, gen, stochastic_rounding))
 
         with torch.no_grad():
             tx.apply(grads, state.opt_state, state.params, apply)

@@ -1,7 +1,8 @@
-"""Single-card Pi0, Pi0FAST and MVLA trainer: the fused joint step or the standard step.
+"""Pi0, Pi0FAST and MVLA trainer on one card or on a data x fsdp mesh of ranks: the fused joint step or the standard step.
 
-intact_tpu/train/trainer.py on one card: config -> the model module from the
-registry -> parameters from the seed
+intact_tpu/train/trainer.py: config -> the process group and the ranks' mesh
+(parallel/, one process per card under torchrun; a world of one without it)
+-> the model module from the registry -> parameters from the seed
 -> training state -> a loop of micro-steps over synthetic batches, prepared
 one batch ahead on a worker thread (utils/prefetch.py), logging the
 reference's train line (update count, loss, grad norm, lr, time), validating
@@ -29,9 +30,20 @@ Two steps, as in the reference:
     layer in the backward, as the reference's does. MVLA's loss runs the
     same prefill under autograd (the metaqueries train through the VLM).
 
-Not ported yet, and refused: meshes (the trainer runs on one card), task
-paraphrasing. Runs on the CUDA device unless the caller passes
-device="cpu".
+Several ranks (torchrun --nproc_per_node N, NCCL on the cards; gloo with
+device "cpu"): `mesh` resolves against the world size (data -1 absorbs what
+is left), every rank reads its own episode shard (shard_index rank of
+num_shards world) at per_device_batch_size rows, and an update averages
+global_batch_size rows: accumulation = global / (per_device x data x fsdp).
+The steps reduce the gradients over the ranks and split the optimizer state
+over fsdp (ZeRO-2, train/optim.py and train/fused_joint.py). Rank 0 logs,
+reports to W&B and writes checkpoints, in the one-rank layout, so a run
+resumes on any world size; validation scores each rank's rows and averages
+the metrics over the ranks.
+
+Not ported yet, and refused: the tensor axis, the tf.data service
+(data.train.service_address). Runs on the CUDA device unless the caller
+passes device="cpu".
 """
 
 from __future__ import annotations
@@ -51,6 +63,8 @@ from intact_tpu_torch.data.dataset import InterleavedDataset
 from intact_tpu_torch.models import common as cm
 from intact_tpu_torch.models import registry
 from intact_tpu_torch.models.tokenizer import make_tokenizer
+from intact_tpu_torch.parallel import MeshConfig, distributed, make_mesh
+from intact_tpu_torch.parallel.mesh import refuse_tensor
 from intact_tpu_torch.train import checkpoint as ckpt
 from intact_tpu_torch.train import fused_joint as fj
 from intact_tpu_torch.train import train_step as ts
@@ -144,12 +158,18 @@ _QUANTIZE_FROZEN_SAFE = {"pi0"}
 
 
 class Trainer:
-    """Pi0 / Pi0FAST / MVLA trainer on one card (fused joint step or standard step)."""
+    """Pi0 / Pi0FAST / MVLA trainer on one card or a mesh of ranks (fused joint step or standard step)."""
 
     def __init__(self, cfg: TrainPipelineConfig, device=None):
         self.cfg = cfg
-        self.device = cm.resolve_device(device)
+        self._refuse_unported(cfg)
+        self.device = distributed.initialize(device)  # idempotent; a world of one without a launcher
+        self.mesh = make_mesh(MeshConfig(cfg.mesh.data, cfg.mesh.fsdp, cfg.mesh.tensor))
+        self.main_rank = self.mesh.rank == 0
         self.logger = logging.getLogger("intact_tpu_torch.trainer")
+        if not self.main_rank:  # rank 0 logs
+            self.logger = logging.getLogger(f"intact_tpu_torch.trainer.rank{self.mesh.rank}")
+            self.logger.setLevel(logging.WARNING)
         if cfg.model_type.startswith("octo"):
             # the reference's Trainer builds its datasets at model_cfg.vision.image_size
             # (intact_tpu/train/trainer.py:431), which no Octo config has: it cannot train Octo either
@@ -159,17 +179,19 @@ class Trainer:
                 "reference does")
         self.model_cfg = cfg.make_model_config()
         self.model = registry.module(cfg.model_type)
-        self._refuse_unported(cfg)
         if cfg.master_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"master_dtype must be float32|bfloat16, got {cfg.master_dtype!r}")
         self.bf16_masters = cfg.master_dtype == "bfloat16" and cfg.use_bf16
-        accum = max(1, cfg.global_batch_size // cfg.per_device_batch_size)
-        if accum * cfg.per_device_batch_size != cfg.global_batch_size:
+        n_batch_devices = self.mesh.data * self.mesh.fsdp
+        accum = max(1, cfg.global_batch_size // (cfg.per_device_batch_size * n_batch_devices))
+        effective_global = accum * cfg.per_device_batch_size * n_batch_devices
+        if effective_global != cfg.global_batch_size:
             raise ValueError(
                 f"global_batch_size={cfg.global_batch_size} is not a multiple of the micro batch "
-                f"{cfg.per_device_batch_size} (per_device_batch_size on one device); training would "
-                f"silently run at effective global batch {accum * cfg.per_device_batch_size}.")
-        self.micro_batch_size = cfg.per_device_batch_size
+                f"{cfg.per_device_batch_size * n_batch_devices} (per_device_batch_size={cfg.per_device_batch_size} "
+                f"x {n_batch_devices} data*fsdp devices); training would silently run at effective global batch "
+                f"{effective_global}. Adjust global_batch_size or per_device_batch_size.")
+        self.micro_batch_size = cfg.per_device_batch_size  # this rank's rows per micro-step
         self.policy = cm.DtypePolicy(param_dtype=torch.float32,
                                      compute_dtype=torch.bfloat16 if cfg.use_bf16 else torch.float32)
         self.opt_cfg = dataclasses.replace(optimizer_config_from_model_json(cfg.model_cfg, cfg),
@@ -188,10 +210,11 @@ class Trainer:
         # the scheme the serving adapters invert ("gaussian" there is "normal" here)
         norm_type = "normal" if cfg.env.action_normalization_type == "gaussian" else "bound"
         data_kw = dict(stats=norm_stats, normalization_type=norm_type, image_size=self.model_cfg.vision.image_size)
+        shards = dict(shard_index=self.mesh.rank, num_shards=self.mesh.size)  # this rank's episodes
         self.train_data = InterleavedDataset(cfg.data, self.micro_batch_size, split="train", seed=cfg.seed,
-                                             task_paraphrase=cfg.task_paraphrase, **data_kw)
+                                             task_paraphrase=cfg.task_paraphrase, **shards, **data_kw)
         self.val_data = InterleavedDataset(cfg.data, self.micro_batch_size, split="val", seed=cfg.seed + 1,
-                                           **data_kw)
+                                           **shards, **data_kw)
         self.cnt_update = 0
         self.data_wait_s = 0.0  # host seconds the loop waited on the next prepared batch
         self._last_saved_update = -1
@@ -200,8 +223,8 @@ class Trainer:
             cfg.wandb = WandBConfig()
         if cfg.load_from_checkpoint:
             self._load(cfg.load_from_checkpoint, cfg.resume_run)
-        self.wandb = wandb_gate.init(cfg.use_wandb, cfg.wandb.project, name=cfg.name, entity=cfg.wandb.entity,
-                                     run_id=cfg.wandb.run_id, config=to_dict(cfg))
+        self.wandb = wandb_gate.init(cfg.use_wandb and self.main_rank, cfg.wandb.project, name=cfg.name,
+                                     entity=cfg.wandb.entity, run_id=cfg.wandb.run_id, config=to_dict(cfg))
         cfg.wandb.run_id = self.wandb.id  # saved with every checkpoint
 
     def _init_fused(self, accum: int) -> None:
@@ -219,21 +242,22 @@ class Trainer:
         if accum > 1:
             raise ValueError(
                 "fused_update applies each layer's update inside the backward — gradient accumulation "
-                "would need the full gradient tree the mode exists to avoid "
-                f"(global_batch_size={cfg.global_batch_size} needs accumulation {accum} on one device).")
+                "would need the full gradient tree the mode exists to avoid. Reach the global batch with "
+                f"data-parallel chips (global_batch_size={cfg.global_batch_size} needs accumulation {accum} at "
+                "this mesh/micro-batch).")
         # parameters: all bf16 (the joint recipe's precision, stochastic
         # rounding), or fp32 trainable leaves with the frozen embedding in bf16
         params = self.model.init(self.model_cfg, cfg.seed, self.device,
                                  torch.bfloat16 if self.bf16_masters else torch.float32)
         if not self.bf16_masters and cfg.use_bf16:
             params["vlm_embed"] = cm.tree_map(lambda x: x.to(torch.bfloat16), params["vlm_embed"])
-        self.state = fj.init_fused_state(params, cfg.seed)
+        self.state = fj.init_fused_state(params, cfg.seed, mesh=self.mesh)
         oc = self.opt_cfg
         self.lr_schedule = cosine_warmup_restarts(
             max_lr=oc.lr, first_cycle_steps=oc.first_cycle_steps, warmup_steps=oc.warmup_steps,
             min_lr=oc.min_lr, cycle_mult=oc.cycle_mult, gamma=oc.gamma)
         self.train_step = fj.make_fused_joint_step(
-            self.model_cfg, self.opt_cfg, self.policy, stochastic_rounding=self.bf16_masters)
+            self.model_cfg, self.opt_cfg, self.policy, stochastic_rounding=self.bf16_masters, mesh=self.mesh)
 
     def _init_standard(self) -> None:
         """The standard step over the freeze partition."""
@@ -265,7 +289,7 @@ class Trainer:
             params = cm.quantize_frozen(params, frozen_mask)
             frozen_mask = self._freeze_mask(params)
         self.frozen_mask = frozen_mask
-        self.tx, self.lr_schedule = make_optimizer(self.opt_cfg, frozen_mask)
+        self.tx, self.lr_schedule = make_optimizer(self.opt_cfg, frozen_mask, mesh=self.mesh)
         self.state = ts.init_train_state(params, self.tx, seed=cfg.seed)
 
         policy = self.policy  # not self: a step holding the trainer would keep it alive after `del`
@@ -308,13 +332,11 @@ class Trainer:
 
     @staticmethod
     def _refuse_unported(cfg: TrainPipelineConfig) -> None:
-        unported = {
-            "meshes (the trainer runs on one card)": (cfg.mesh.data not in (-1, 1) or cfg.mesh.fsdp != 1
-                                                      or cfg.mesh.tensor != 1),
-        }
-        missing = [name for name, asked in unported.items() if asked]
-        if missing:
-            raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+        refuse_tensor(MeshConfig(cfg.mesh.data, cfg.mesh.fsdp, cfg.mesh.tensor))
+        if getattr(cfg.data.train, "service_address", None):
+            raise NotImplementedError(
+                "not ported yet: the tf.data service the RLDS backend would read through "
+                "(data.train.service_address); each rank reads its own episode shard instead")
 
     def device_batch(self, raw: dict) -> dict:
         batch = preprocess_batch(raw, self.tokenizer, self.model_cfg)
@@ -330,8 +352,9 @@ class Trainer:
         start, start_update = time.time(), self.cnt_update
         last = start
         window: list[dict] = []
-        self.logger.info("training: %d updates x %d accumulation (micro-batch %d, global %d) on %s",
-                         cfg.n_updates, accum, self.micro_batch_size, cfg.global_batch_size, self.device)
+        self.logger.info("training: %d updates x %d accumulation (micro-batch %d on each of %d ranks, global %d) "
+                         "on %s, mesh %s", cfg.n_updates, accum, self.micro_batch_size, self.mesh.size,
+                         cfg.global_batch_size, self.device, self.mesh.shape)
         # the host side (data, preprocess, host-to-device copy) runs a batch ahead
         data = PrefetchIterator(iter(self.train_data), prepare=self.device_batch, depth=2)
         try:
@@ -365,7 +388,7 @@ class Trainer:
         i) against eval_size // micro_batch val batches: mean l1_loss and
         acc@t for each of cfg.eval_thresholds."""
         cfg, mc = self.cfg, self.model_cfg
-        n_batches = max(1, cfg.eval_size // self.micro_batch_size)
+        n_batches = max(1, cfg.eval_size // (self.micro_batch_size * self.mesh.size))
         accs, l1s = [], []
         val_iter = iter(self.val_data)
         for i in range(n_batches):
@@ -381,6 +404,8 @@ class Trainer:
             l1s.append(l1_error(gt, pred))
         acc = torch.stack(accs).mean(dim=0).tolist()
         metrics = {"l1_loss": torch.stack(l1s).mean().item(), **{f"acc@{t}": a for t, a in zip(cfg.eval_thresholds, acc)}}
+        # this rank scored its own rows; the mean over the ranks (the reference all-reduces)
+        metrics = distributed.process_mean(metrics)
         self.logger.info("val @ update %d | %s", self.cnt_update,
                          " | ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
         self.wandb.log(metrics, step=self.cnt_update)
@@ -391,13 +416,34 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def save(self) -> Path:
-        """The training state at the current update count (the step_{n} contract)."""
-        path = ckpt.save_checkpoint(self.ckpt_root, self.state.params, self.cnt_update,
+        """The training state at the current update count (the step_{n}
+        contract), in the one-rank layout: every rank gathers, rank 0 writes
+        (train/checkpoint.py::save_from_ranks)."""
+        path = ckpt.save_from_ranks(self.ckpt_root, self.state.params, self.cnt_update,
                                     aux={"wandb_id": self.cfg.wandb.run_id, "name": self.cfg.name},
-                                    train_state=ckpt.state_fields(self.state))
+                                    train_state=self._global_fields())
         self._last_saved_update = self.cnt_update
         self.logger.info("saved checkpoint %s", path)
         return path
+
+    def _global_fields(self) -> dict:
+        """The state's fields but its params, with the optimizer state's
+        row-split moments gathered into the one-rank layout."""
+        fields = ckpt.state_fields(self.state)
+        if self.cfg.fused_update:
+            fields["mu"], fields["nu"] = fj.global_moments(self.state, self.mesh)
+        else:
+            fields["opt_state"] = self.tx.global_state(fields["opt_state"], self.state.params)
+        return fields
+
+    def _local_fields(self, saved: dict) -> dict:
+        """Saved (one-rank layout) fields cut to this rank's rows."""
+        out = dict(saved)
+        if self.cfg.fused_update:
+            out["mu"], out["nu"] = fj.local_moments(self.state, (saved["mu"], saved["nu"]), self.mesh)
+        else:
+            out["opt_state"] = self.tx.local_state(saved["opt_state"], self.state.params)
+        return out
 
     def _load(self, path: str, resume_run: bool) -> None:
         if self._prequant is not None and not resume_run:
@@ -409,16 +455,19 @@ class Trainer:
                 path, self.state, resume_run=False, params_template=fp_template,
                 params_transform=lambda p: cm.quantize_frozen(p, mask))
         else:
-            self.state, aux = ckpt.restore_train_state(path, self.state, resume_run=resume_run)
+            self.state, aux = ckpt.restore_train_state(path, self.state, resume_run=resume_run,
+                                                       localize=self._local_fields)
         self.cnt_update = int(aux.get("cnt_update", 0)) if resume_run else 0
         if resume_run and self.cfg.wandb.run_id is None:  # the resumed run logs on to its W&B run
             self.cfg.wandb.run_id = aux.get("wandb_id")
         self.logger.info("restored %s (resume=%s, update=%d)", path, resume_run, self.cnt_update)
 
     def _log_training(self, window: list[dict], seconds: float) -> None:
-        # the configured metrics the family's loss reports, Pi0FAST's token accuracy, the grad norm
+        # the configured metrics the family's loss reports, Pi0FAST's token accuracy, the grad norm;
+        # averaged over the ranks
         mean = {k: float(np.mean([float(m[k]) for m in window]))
                 for k in self.cfg.train_log_metrics + ["token_accuracy", "grad_norm"] if k in window[-1]}
+        mean = distributed.process_mean(mean)
         # the schedule is indexed by emitted updates
         lr = self.lr_schedule(self.cnt_update)
         line = " | ".join(f"{k} {v:8.5f}" for k, v in mean.items())

@@ -73,6 +73,14 @@ def test_port_files_found():
     assert len(PORT_FILES) > 15
 
 
+def test_port_walk_covers_parallel():
+    """The import walks above cover the parallel package (the mesh, the
+    process group, the block-row split, the collectives)."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {f"intact_tpu_torch/parallel/{m}.py" for m in ("__init__", "mesh", "distributed", "sharding",
+                                                           "collectives")} <= names
+
+
 def _fields(cls_or_obj):
     return {f.name: f.default for f in dataclasses.fields(cls_or_obj)}
 
@@ -215,7 +223,8 @@ def test_data_config_fields_and_defaults_match():
 
 @pytest.mark.parametrize("entry", ["policy", "init", "server", "pi0fast_policy", "pi0fast_init", "mvla_policy",
                                    "mvla_init", "spatialvla_init", "spatialvla_wrapper", "magma_init",
-                                   "magma_wrapper", "octo_init", "octo_upstream_init", "octo_wrapper"])
+                                   "magma_wrapper", "octo_init", "octo_upstream_init", "octo_wrapper",
+                                   "distributed_initialize"])
 def test_entry_points_raise_without_cuda_unless_given_cpu(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
@@ -228,6 +237,7 @@ def test_entry_points_raise_without_cuda_unless_given_cpu(entry):
     from intact_tpu_torch.models.mvla import model as mvla
 
     from intact_tpu_torch.config.pipeline import EnvConfig, EvalConfig, TrainPipelineConfig
+    from intact_tpu_torch.parallel import distributed
     from intact_tpu_torch.models.spatialvla import SpatialVLAConfig
     from intact_tpu_torch.models.spatialvla import model as svla
     from intact_tpu_torch.models.magma import MagmaConfig
@@ -268,6 +278,8 @@ def test_entry_points_raise_without_cuda_unless_given_cpu(entry):
         "octo_init": lambda **kw: octo.init(OctoConfig.tiny(), **kw),
         "octo_upstream_init": lambda **kw: octo_upstream.init(octo_upstream.tiny_test_config(), **kw),
         "octo_wrapper": lambda **kw: make_policy_wrapper(pipe("octo_tiny"), **kw),
+        # the trainer's first call: the process group's device (a world of one here, no launcher)
+        "distributed_initialize": lambda **kw: distributed.initialize(**kw),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

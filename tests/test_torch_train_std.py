@@ -404,8 +404,11 @@ def test_trainer_is_freed_on_del(make_cfg, recipe):
 @pytest.mark.parametrize("recipe,overrides,error", [
     ("joint", {"quantize_frozen_int8": "true"}, "quantize_frozen_int8 requires"),
     ("fused", {"model_cfg.train_expert_only": "true"}, "standard path for expert-only"),
-    ("expertonly", {"mesh.fsdp": 4}, "meshes"),
+    # the repo's fsdp 4 mesh in a single process: the world of one rank does not fill it
+    pytest.param("expertonly", {"mesh.fsdp": 4}, r"1 devices not divisible by fsdp\*tensor=4",
+                 id="expertonly-overrides2-meshes"),
     ("expertonly", {"global_batch_size": 5}, "not a multiple"),
+    pytest.param("joint", {"mesh.tensor": 2}, "the tensor axis", id="joint-tensor-axis"),
 ])
 def test_refusals(make_cfg, recipe, overrides, error):
     from intact_tpu_torch.train.trainer import Trainer
