@@ -41,6 +41,26 @@ Phases, each failing loudly (non-zero exit):
              W8A8 product plain, and within ACTIONS_RTOL of the plain path;
              int8 against bf16 (reported); peak memory; latency and profiles
              beside the same wrapper with quantize_int8 off (bf16)
+  3c. serving in a group: the server role's Pi0PolicyWrapper from the same
+             yaml in a one-rank NCCL group joined from torchrun's variables
+             (parallel.distributed.initialize, the yaml's mesh through
+             make_mesh, serve/group.py's protocol: rank 0 broadcasts each
+             call's header and arrays and gathers the actions), int8 at batch
+             64 and bf16 at batch 1, each beside the same wrapper without a
+             group built from the same seed. Gates: the backend is nccl; env
+             actions bit-equal to the wrapper without a group, call by call
+             (a world of one gathers no weight and reduces nothing); 17
+             flash_attention and, in int8, 1544 w8a8_matmul launches per
+             inference; per inference 7 broadcasts (the header, five arrays,
+             the noise) and one all-gather. Reported: time per inference with
+             and without the group (alternating, each first in turn), a
+             profile of each at int8 batch 64, the card's name and power limit.
+             Then the int8 wrapper once more with every leaf the rules split at
+             fsdp 2 held as a Sharded of one part over the world group, so each
+             layer, the embedding and every W8A8 product run on weights
+             gathered through the group: actions bit-equal to the wrapper
+             without a group, 17 and 1544 launches, and the all-gathers each
+             layer's split leaves imply; its time beside the wrapper without one
   4. training the 1-chip joint recipe (config/train/pi0_finetune_bridge_1chip.yaml:
              fused step, bf16 params with stochastic rounding, fp8 moments,
              batch 16, synthetic data) at full width and depth through the
@@ -174,7 +194,8 @@ Phases, each failing loudly (non-zero exit):
   10. SpatialVLA serving: the server role's SpatialVLANativePolicyWrapper from
              config/experiment/simpler/spatialvla_finetune_bridge_ev.yaml with
              model_cfg {"type": "spatialvla_native"} (SigLIP So400m, Ego3D,
-             Gemma2-2B over a 304-token bidirectional prefix, 12 greedy
+             Gemma2-2B at full width, its depth cut to SVLA_SERVING_DEPTH of
+             26 layers, over a 304-token bidirectional prefix, 12 greedy
              spatial tokens against its K/V cache, the tied 259,714-row
              vocabulary; random weights from the seed, hash tokenizer, the Bridge
              adapter in place of the yaml's undefined one): int8 at batch 1 and
@@ -191,13 +212,14 @@ Phases, each failing loudly (non-zero exit):
   11. Magma serving: the server role's MagmaNativePolicyWrapper from
              config/experiment/simpler/magma_bridge_ev.yaml with model_cfg
              {"type": "magma_native"} (ConvNeXt-XXLarge at 512 px, the
-             2-layer projector, LLaMA-3-8B over a 321-token prompt with 256
+             2-layer projector, LLaMA-3-8B at full width, its depth cut to
+             MAGMA_SERVING_DEPTH of 32 layers, over a 321-token prompt with 256
              image placeholders, 8 greedy tokens against its K/V cache, the
              untied 128,256-row lm_head; random weights from the seed, hash
              tokenizer, the Bridge adapter in place of the yaml's undefined
              one): int8 at batch 1 and 64 with the W8A8 launches per
-             inference counted from the configuration (1,800: 7 per layer and
-             the lm_head per step) and no attention kernel launch; env
+             inference counted from the configuration (904 at 16 layers: 7
+             per layer and the lm_head per step) and no attention kernel launch; env
              actions finite, (1, 7); the served actions equal to the decoded
              tokens'; the int8 tokens and every step's teacher-forced logits
              bit-equal with only the W8A8 product plain; then bf16 behind the
@@ -1349,6 +1371,187 @@ def phase_int8_serving() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 3c. serving in a one-rank group (serve/group.py), beside the wrapper without one
+# ---------------------------------------------------------------------------
+
+GROUP_SERVING = {True: (64, 4), False: (1, 4)}  # quantize_int8 -> (rows, timed inferences per wrapper)
+GROUP_CALL_BROADCASTS = 7  # a header, image, img_masks, lang_tokens, lang_masks, state, the noise
+GATHERED_REPS = 3  # timed inferences per wrapper on the gathered layout
+
+
+def one_part(params, mesh):
+    """The tree with every leaf that the rules split at fsdp 2 held as a
+    `Sharded` of one part over the world group: at world 1 each use gathers
+    the whole leaf through the group (an all-gather, a contiguous copy), the
+    path a rank takes at fsdp > 1."""
+    from intact_tpu_torch.models.common import flatten_paths, unflatten_paths
+    from intact_tpu_torch.parallel.mesh import Mesh
+    from intact_tpu_torch.parallel.sharding import Sharded, spec_for_path
+
+    rules = Mesh(1, 2, 1, 0, mesh.groups)
+    out = {}
+    for path, x in flatten_paths(params).items():
+        spec = spec_for_path(path, x.shape, rules)
+        out[path] = Sharded(x, spec.index("fsdp"), tuple(x.shape), mesh.groups["world"], 1) if "fsdp" in spec else x
+    return unflatten_paths(out)
+
+
+def gathers_per_inference(params, cfg) -> int:
+    """The all-gathers of one Pi0 inference on a tree of Sharded leaves: each
+    layer of a tower gathers all its split leaves (cm.layer), SigLIP and the
+    VLM once, the expert once per Euler step; the embedding once for the
+    language tokens; and the group's gather of the actions."""
+    from intact_tpu_torch.models.common import flatten_paths
+    from intact_tpu_torch.parallel.sharding import Sharded
+
+    split = [k for k, v in flatten_paths(params).items() if isinstance(v, Sharded)]
+
+    def n(prefix: str) -> int:
+        return sum(k.startswith(prefix) for k in split)
+
+    towers = (("siglip/blocks/", cfg.vision.depth), ("vlm/blocks/", cfg.vlm.depth),
+              ("expert/blocks/", cfg.num_steps * cfg.expert.depth))
+    if sum(n(p) for p, _ in towers) + n("vlm_embed/") != len(split):
+        raise SystemExit(f"gathered layout: split leaves outside the towers and the embedding: {split}")
+    return sum(n(p) * uses for p, uses in towers) + min(n("vlm_embed/"), 1) + 1
+
+
+def phase_multirank_serving() -> dict:
+    """-> {kernel: launches} of the grouped wrappers' inferences. The script
+    joins a one-rank NCCL group as torchrun would start it and builds the
+    server role's wrapper as run.serve_on_ranks does (the yaml's mesh), beside
+    the same wrapper without a group."""
+    import os
+    import socket
+
+    from intact_tpu_torch.ops import w8a8
+    from intact_tpu_torch.ops.flash_attention import flash_attention
+    from intact_tpu_torch.parallel import MeshConfig, collectives, distributed, make_mesh
+    from intact_tpu_torch.serve.policy_wrapper import make_policy_wrapper
+
+    card = gpu_name_and_power()
+    launch_env = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    saved_env = {k: os.environ.get(k) for k in launch_env}
+    totals = {"flash_attention": 0, "w8a8_matmul": 0}
+    try:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        t0 = time.perf_counter()
+        device = distributed.initialize(DEVICE)
+        log(f"# group serving: process group {distributed.backend()} of {distributed.process_count()} rank(s) on "
+            f"{device}, joined in {time.perf_counter() - t0:.2f} s")
+        if distributed.backend() != "nccl" or distributed.process_count() != 1:
+            raise SystemExit(f"the card's process group is {distributed.backend()}, not a one-rank NCCL group")
+        for quantize, (rows, reps) in GROUP_SERVING.items():
+            cfg = ev_config(quantize)
+            mesh = make_mesh(MeshConfig(cfg.mesh.data, cfg.mesh.fsdp, cfg.mesh.tensor))
+            grouped = make_policy_wrapper(cfg, device=device, mesh=mesh)
+            plain = make_policy_wrapper(ev_config(quantize), device=DEVICE)
+            if grouped.group is None or plain.group is not None or grouped.effective_fused_size(rows) != rows:
+                raise SystemExit(f"group serving: the wrappers' groups are {grouped.group} and {plain.group}")
+            mc = grouped.model_cfg
+            want = {"flash_attention": mc.vlm.depth - 1, "w8a8_matmul": w8a8_per_inference(mc) if quantize else 0}
+            label = f"{'int8' if quantize else 'bf16'} batch {rows}"
+            reqs = wire_inputs(np.random.default_rng(5), rows, mc.vision.image_size)
+            calls = {name: [(r, w.new_session()) for r in reqs] for name, w in (("group", grouped), ("plain", plain))}
+            # --- the main path: the grouped wrapper's fused inferences ---
+            w8a8.w8a8_matmul.launches = flash_attention.launches = 0
+            collectives.reset()
+            out = grouped.infer_batch(calls["group"])
+            torch.cuda.synchronize()
+            got = {"flash_attention": flash_attention.launches, "w8a8_matmul": w8a8.w8a8_matmul.launches}
+            coll = collectives.counts()
+            # --------------------------------------------------------------
+            for k in totals:
+                totals[k] += got[k]
+            ref = plain.infer_batch(calls["plain"])
+            same = all(not isinstance(a, Exception) and np.array_equal(a, b) for a, b in zip(out, ref))
+            log(f"# group serving {label}: launches {got} (expected {want}), collectives {coll} (expected "
+                f"{GROUP_CALL_BROADCASTS} broadcasts and 1 all_gather), env actions bit-equal to the wrapper "
+                f"without a group: {same}")
+            if got != want or coll != {"broadcast": GROUP_CALL_BROADCASTS, "all_reduce": 0, "reduce_scatter": 0,
+                                       "all_gather": 1}:
+                raise SystemExit(f"group serving {label}: launches {got}, collectives {coll}")
+            if not same or any(a.shape != (cfg.eval_cfg.action_step, 7) or not np.isfinite(a).all() for a in out):
+                raise SystemExit(f"group serving {label}: env actions differ from the wrapper without a group")
+            times = {"group": [], "plain": []}
+            order = (("group", grouped), ("plain", plain))
+            for i in range(reps):  # the wrappers alternating call by call, which goes first alternating too
+                for name, w in (order if i % 2 == 0 else order[::-1]):
+                    t = time.perf_counter()
+                    w.infer_batch(calls[name])  # ends in a device->host copy and the adapters' postprocess
+                    times[name].append(time.perf_counter() - t)
+            med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+            log(f"# group serving {label} ({card}): median fused inference with the one-rank NCCL group "
+                f"{med['group']:.2f} ms {[round(x * 1e3, 2) for x in times['group']]}, without a group "
+                f"{med['plain']:.2f} ms {[round(x * 1e3, 2) for x in times['plain']]}, ratio "
+                f"{med['group'] / med['plain']:.4f}")
+            if quantize:  # where an inference's time goes, with and without the group
+                for name, w in order:
+                    profile_pass(f"group serving {label} {name}", lambda: w.infer_batch(calls[name]))
+                for k, v in gathered_serving(grouped, plain, calls, mesh, label, want, card).items():
+                    totals[k] += v
+            grouped.group.stop()
+            del grouped, plain, out, ref
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        distributed.destroy()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return totals
+
+
+def gathered_serving(grouped, plain, calls: dict, mesh, label: str, want: dict, card: str) -> dict:
+    """The grouped wrapper again with the rules' leaves as Sharded of one
+    part (`one_part`): every layer, the embedding and the W8A8 products run
+    on weights gathered through the group, bit-equal to the wrapper without
+    a group, timed beside it and profiled -> the kernels' launches of its
+    inference."""
+    from intact_tpu_torch.ops import w8a8
+    from intact_tpu_torch.ops.flash_attention import flash_attention
+    from intact_tpu_torch.parallel import collectives
+
+    grouped.policy.params = one_part(grouped.policy.params, mesh)
+    want_coll = {"all_reduce": 0, "reduce_scatter": 0, "broadcast": GROUP_CALL_BROADCASTS,
+                 "all_gather": gathers_per_inference(grouped.policy.params, grouped.model_cfg)}
+    # --- the main path: the grouped wrapper's fused inference on gathered weights ---
+    w8a8.w8a8_matmul.launches = flash_attention.launches = 0
+    collectives.reset()
+    out = grouped.infer_batch(calls["group"])
+    torch.cuda.synchronize()
+    got = {"flash_attention": flash_attention.launches, "w8a8_matmul": w8a8.w8a8_matmul.launches}
+    coll = collectives.counts()
+    # --------------------------------------------------------------------------------
+    ref = plain.infer_batch(calls["plain"])
+    same = all(not isinstance(a, Exception) and np.array_equal(a, b) for a, b in zip(out, ref))
+    log(f"# group serving {label} on gathered weights: launches {got} (expected {want}), collectives {coll} "
+        f"(expected {want_coll}), env actions bit-equal to the wrapper without a group: {same}")
+    if got != want or coll != want_coll or not same:
+        raise SystemExit(f"group serving {label} on gathered weights: launches {got}, collectives {coll}, "
+                         f"bit-equal {same}")
+    times = {"gathered": [], "plain": []}
+    order = (("gathered", grouped, "group"), ("plain", plain, "plain"))
+    for i in range(GATHERED_REPS):
+        for name, w, key in (order if i % 2 == 0 else order[::-1]):
+            t = time.perf_counter()
+            w.infer_batch(calls[key])
+            times[name].append(time.perf_counter() - t)
+    med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    log(f"# group serving {label} on gathered weights ({card}): median fused inference {med['gathered']:.2f} ms "
+        f"{[round(x * 1e3, 2) for x in times['gathered']]}, without a group {med['plain']:.2f} ms "
+        f"{[round(x * 1e3, 2) for x in times['plain']]}, ratio {med['gathered'] / med['plain']:.4f}")
+    # where the gathers' time goes (the plain wrapper's profile is phase 3c's)
+    profile_pass(f"group serving {label} on gathered weights", lambda: grouped.infer_batch(calls["group"]))
+    return got
+
+
+# ---------------------------------------------------------------------------
 # 4. full-width training
 # ---------------------------------------------------------------------------
 
@@ -2397,7 +2600,7 @@ def expected_collectives(trainer) -> dict:
         replicated = len(paths) - split
     # a split gradient: reduce-scatter (fsdp) and all-reduce (data), its rows all-gathered after the update;
     # a replicated one: one all-reduce; the clip's (or the norm's) sum of squares and the log line: one each
-    return {"all_reduce": split + replicated + 2, "reduce_scatter": split, "all_gather": split}
+    return {"all_reduce": split + replicated + 2, "reduce_scatter": split, "all_gather": split, "broadcast": 0}
 
 
 def multirank_run(label: str, group: bool) -> dict:
@@ -2426,7 +2629,7 @@ def multirank_run(label: str, group: bool) -> dict:
                 "fused_adam_rows": 0}
     else:
         want = {"flash_attention": 2 * (mc.vlm.depth - 1), "w8a8_matmul": 0, "fused_adam_rows": 0}
-    want_coll = expected_collectives(trainer) if group else {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0}
+    want_coll = expected_collectives(trainer) if group else dict.fromkeys(collectives.counts(), 0)
     records = []
     real_step = trainer.train_step
 
@@ -3391,6 +3594,8 @@ SVLA_EV_CONFIG = "config/experiment/simpler/spatialvla_finetune_bridge_ev.yaml"
 SVLA_OVERRIDES = {"eval_cfg.env_adapter": "BridgeSimplerAdapter"}
 SVLA_FP32_DEPTH = 4  # Gemma2 layers of the bf16-against-fp32 comparison (views of the bf16 tree), as Magma's
 SVLA_TIMING_REPS = 3  # timed inferences per wrapper and batch (5 before phase 5b joined the script's budget)
+# Gemma2 layers served of SpatialVLA-4B's 26 (full width), the script's time limit's cut since phase 3c
+SVLA_SERVING_DEPTH = 13
 
 
 def svla_config(quantize: bool):
@@ -3455,7 +3660,21 @@ def svla_greedy_logits(params, inputs, cfg, policy, forced=None):
 def phase_svla_serving() -> dict:
     """-> {kernel: launches} on SpatialVLA's int8 serving path (the bf16 path
     launches none of the three kernels: SigLIP and Gemma2 attention are
-    plain, as in the reference)."""
+    plain, as in the reference), at full width and SVLA_SERVING_DEPTH Gemma2
+    layers."""
+    from intact_tpu_torch.models import registry
+
+    entry = registry.get("spatialvla_native")
+    full = entry["default_config"]
+    entry["default_config"] = lambda: dataclasses.replace(
+        full(), lm=dataclasses.replace(full().lm, depth=SVLA_SERVING_DEPTH))
+    try:
+        return svla_serving()
+    finally:
+        entry["default_config"] = full
+
+
+def svla_serving() -> dict:
     from intact_tpu_torch.models import common as cm
     from intact_tpu_torch.ops import w8a8
     from intact_tpu_torch.ops.flash_attention import flash_attention
@@ -3606,6 +3825,8 @@ MAGMA_EV_CONFIG = "config/experiment/simpler/magma_bridge_ev.yaml"
 # serves in its place; its checkpoint, microsoft/Magma-8B, is a hub id
 MAGMA_OVERRIDES = {"eval_cfg.env_adapter": "BridgeSimplerAdapter"}
 MAGMA_FP32_DEPTH = 4  # LLaMA layers of the bf16-against-fp32 comparison (all 32 in fp32 next to both wrappers is 36 GB)
+# LLaMA layers served of Magma-8B's 32 (full width), the script's time limit's cut since phase 3c's gathered step
+MAGMA_SERVING_DEPTH = 16
 
 
 def magma_config(quantize: bool):
@@ -3679,7 +3900,21 @@ def magma_env_actions(wrapper, ids: np.ndarray, sessions) -> list:
 def phase_magma_serving() -> dict:
     """-> {kernel: launches} on Magma's int8 serving path (the bf16 path
     launches none of the three kernels: ConvNeXt, the projector and LLaMA's
-    attention are plain, as in the reference)."""
+    attention are plain, as in the reference), at full width and
+    MAGMA_SERVING_DEPTH LLaMA layers."""
+    from intact_tpu_torch.models import registry
+
+    entry = registry.get("magma_native")
+    full = entry["default_config"]
+    entry["default_config"] = lambda: dataclasses.replace(
+        full(), lm=dataclasses.replace(full().lm, depth=MAGMA_SERVING_DEPTH))
+    try:
+        return magma_serving()
+    finally:
+        entry["default_config"] = full
+
+
+def magma_serving() -> dict:
     from intact_tpu_torch.models import common as cm
     from intact_tpu_torch.models import llama
     from intact_tpu_torch.ops import w8a8
@@ -4361,6 +4596,7 @@ def main() -> int:
     serving = run(phase_serving)
     torch.cuda.empty_cache()
     int8 = run(phase_int8_serving)
+    group_serving = run(phase_multirank_serving)
     training = run(phase_training)
     run(phase_rlds_data)
     standard = run(phase_standard_training)
@@ -4373,7 +4609,8 @@ def main() -> int:
     magma_serving = run(phase_magma_serving)
     octo_serving = run(phase_octo_serving)
     client = run(phase_client)
-    paths = {"serving": {"flash_attention": serving}, "int8": int8, "training": training, "standard": standard,
+    paths = {"serving": {"flash_attention": serving}, "int8": int8, "group_serving": group_serving,
+             "training": training, "standard": standard,
              "multirank": multirank, "fast_serving": fast_serving, "fast_training": fast_training, "mvla_serving": mvla_serving,
              "mvla_training": mvla_training, "svla_serving": svla_serving, "magma_serving": magma_serving,
              "octo_serving": octo_serving, "client": client}
@@ -4386,11 +4623,12 @@ def main() -> int:
     for name in kernels:
         kernels[name]["launches"] = sum(counts.get(name, 0) for counts in paths.values())
     log(f"# launches on the main paths: flash_attention {serving} serving + {int8['flash_attention']} int8 "
-        f"serving + {training['flash_attention']} fused training + {standard['flash_attention']} standard "
+        f"serving + {group_serving['flash_attention']} group serving + {training['flash_attention']} fused training + {standard['flash_attention']} standard "
         f"training + {multirank['flash_attention']} multi-card recipes + {fast_serving['flash_attention']} Pi0FAST "
         f"serving + {fast_training['flash_attention']} Pi0FAST training, fused_adam_rows {training['fused_adam_rows']} "
         f"fused training + {multirank['fused_adam_rows']} multi-card fused recipe, w8a8_matmul "
-        f"{int8['w8a8_matmul']} int8 serving + {standard['w8a8_matmul']} expert-only training + "
+        f"{int8['w8a8_matmul']} int8 serving + {group_serving['w8a8_matmul']} int8 group serving + "
+        f"{standard['w8a8_matmul']} expert-only training + "
         f"{multirank['w8a8_matmul']} multi-card expert-only + "
         f"{fast_serving['w8a8_matmul']} Pi0FAST int8 serving + {mvla_serving['w8a8_matmul']} MVLA int8 serving; "
         f"MVLA flash_attention {mvla_serving['flash_attention']} serving + {mvla_training['flash_attention']} training; "

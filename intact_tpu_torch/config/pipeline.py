@@ -277,6 +277,9 @@ class TrainPipelineConfig:
         from intact_tpu_torch.models import registry
 
         entry = registry.get(self.model_type)
+        if entry["model_json"] is None:
+            raise NotImplementedError(f"model type {self.model_type!r} serves the upstream HF model through its "
+                                      "wrapper and has no model config here")
         if entry["model_json"] == "json":
             return pi0_config_from_json(self.model_cfg)
         if entry["model_json"] == "common":

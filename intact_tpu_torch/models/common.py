@@ -9,6 +9,10 @@ norm statistics are taken in fp32. A quantized dense node holds int8
 [..., in, out] codes, the layout the W8A8 kernel's wgmma reads) and fp32
 `kernel_scale` [..., out] (per output channel, per layer when stacked);
 `dense` sends it through the W8A8 kernel.
+
+Served over fsdp ranks (`parallel/sharding.py`), a leaf the rules split is
+a `Sharded` holder of this rank's slice; only `layer` (a stacked leaf's
+layer), `dense`, `embed_lookup`, `unembed_logits` and `whole` gather it.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+
+from intact_tpu_torch.parallel.sharding import Sharded
 
 Params = dict  # nested dict of tensors
 
@@ -108,7 +114,22 @@ def layernorm_init(init: Initializer, dim: int, lead: tuple = ()) -> Params:
 # apply functions
 # ---------------------------------------------------------------------------
 
+def whole(x, index=None):
+    """A leaf whole (`x[index]` with an index before its split dimension):
+    a `Sharded` leaf gathered over its fsdp group, a tensor as it is."""
+    if isinstance(x, Sharded):
+        return x.gather(index)
+    return x if index is None else x[index]
+
+
+def _whole_node(p: Params) -> Params:
+    if any(isinstance(v, Sharded) for v in p.values()):
+        return {k: whole(v) for k, v in p.items()}
+    return p
+
+
 def dense(p: Params, x: torch.Tensor, policy: DtypePolicy = DEFAULT_POLICY) -> torch.Tensor:
+    p = _whole_node(p)
     if "kernel_q" in p:
         return _dense_int8(p, x, policy)
     y = policy.cast(x) @ p["kernel"].to(policy.compute_dtype)
@@ -134,6 +155,7 @@ def _dense_int8(p: Params, x: torch.Tensor, policy: DtypePolicy) -> torch.Tensor
 
 def embed_lookup(p: Params, ids: torch.Tensor, policy: DtypePolicy = DEFAULT_POLICY) -> torch.Tensor:
     # out-of-range ids clip to the table (never index past it)
+    p = _whole_node(p)
     if "embedding_q" in p:  # int8 rows + per-row scale (quantize_embed)
         idx = ids.long().clamp(0, p["embedding_q"].shape[0] - 1)
         rows = p["embedding_q"][idx].to(torch.float32)
@@ -152,6 +174,7 @@ def unembed_logits(p: Params, hidden: torch.Tensor, policy: DtypePolicy | None =
     fl(1/127). On CUDA tensors that launches the W8A8 kernel (or raises); on
     CPU tensors it runs the kernel's plain version."""
     policy = policy or DEFAULT_POLICY
+    p = _whole_node(p)
     if "embedding_q" not in p:
         emb = p["embedding"].to(policy.compute_dtype)
         return (hidden.to(policy.compute_dtype) @ emb.T).to(torch.float32)
@@ -242,8 +265,9 @@ def unflatten_paths(flat: dict) -> dict:
 
 
 def layer(blocks: Params, i: int) -> Params:
-    """Layer i of a stacked [L, ...] block tree (views, no copy)."""
-    return tree_map(lambda a: a[i], blocks)
+    """Layer i of a stacked [L, ...] block tree: views, no copy, of whole
+    leaves; a `Sharded` leaf's layer gathered over its fsdp group."""
+    return tree_map(lambda a: whole(a, i), blocks)
 
 
 # ---------------------------------------------------------------------------
@@ -350,12 +374,13 @@ def quantize_frozen(params: Params, trainable_mask) -> Params:
     return walk(params, trainable_mask)
 
 
-def quantize_host_tree(raw: Params, policy: DtypePolicy = SERVING_POLICY, device=None) -> Params:
+def quantize_host_tree(raw: Params, policy: DtypePolicy = SERVING_POLICY, device=None, place=None) -> Params:
     """A host (CPU tensor or numpy) parameter tree -> the serving-int8 tree on
     `device` (CUDA unless given), one leaf at a time: the device holds the
     int8 tree and one fp leaf at most. Quantized kernels are cast to the
     compute dtype first, biases and other leaves to the param dtype, as in
-    the reference's checkpoint-load path."""
+    the reference's checkpoint-load path. `place(path, leaf)` takes each
+    finished leaf on the device (a rank keeps its share: `shard_leaf`)."""
     import numpy as np
 
     device = resolve_device(device)
@@ -366,16 +391,20 @@ def quantize_host_tree(raw: Params, policy: DtypePolicy = SERVING_POLICY, device
         t = torch.from_numpy(np.asarray(leaf)) if not isinstance(leaf, torch.Tensor) else leaf
         return t.to(device=device, dtype=dtype)
 
+    def finish(node: Params, path: str) -> Params:
+        return node if place is None else {k: place(f"{path}/{k}", v) for k, v in node.items()}
+
     def walk(node, path=""):
         if not isinstance(node, dict):
-            return put(node, policy.param_dtype)
+            leaf = put(node, policy.param_dtype)
+            return leaf if place is None else place(path, leaf)
         if "kernel" in node and default.match(path):
             out = quantize_dense({"kernel": put(node["kernel"], policy.compute_dtype)})
             if "bias" in node:
                 out["bias"] = put(node["bias"], policy.param_dtype)
-            return out
+            return finish(out, path)
         if "embedding" in node and embed_re.match(path):
-            return quantize_embed({"embedding": put(node["embedding"], policy.compute_dtype)})
+            return finish(quantize_embed({"embedding": put(node["embedding"], policy.compute_dtype)}), path)
         return {k: walk(v, f"{path}/{k}" if path else k) for k, v in node.items()}
 
     return walk(raw)

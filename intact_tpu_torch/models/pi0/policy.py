@@ -5,6 +5,13 @@ padding to model dims, an action queue that re-infers every n_action_steps,
 checkpoint load, and int8 (W8A8) serving. Device work is the model module's
 `sample_actions` (pi0 by default; pi0fast takes the same signature);
 everything else is numpy.
+
+Over several ranks (`mesh` with a process group, one process per card) the
+policy holds this rank's shard of the parameters (parallel/sharding.py's
+rules at fsdp > 1, gathered layer by layer). The serving wrapper
+(serve/policy_wrapper.py) owns the ranks' serving group: it pads the batch,
+draws the padded batch's noise with `_draw_noise` on rank 0, and every rank
+runs `_sample_rows` on its rows.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ class Pi0Policy:
         device=None,
         quantize: bool = False,
         model_module=None,
+        mesh=None,
     ):
         """device: CUDA unless given (raises without a CUDA device).
         params: a param tree on that device (e.g. from convert.py); random
@@ -41,7 +49,8 @@ class Pi0Policy:
         is passed. quantize: int8 W8A8 serving of the transformer-block
         matmuls and the projector (`cm.quantize_params`, leaf by leaf).
         model_module: a module with pi0's init / sample_actions signatures
-        (pi0 by default; pi0fast)."""
+        (pi0 by default; pi0fast). mesh: the ranks' mesh (parallel.make_mesh);
+        at fsdp > 1 the policy holds this rank's shard of the parameters."""
         self.cfg = cfg
         self.model = model_module or pi0
         self.device = cm.resolve_device(device)
@@ -50,15 +59,26 @@ class Pi0Policy:
         self.tokenizer = tokenizer or make_tokenizer(
             tokenizer_path, cfg.tokenizer_max_length, vocab_size=cfg.vlm.vocab_size
         )
-        if params is None:
+        self.mesh = mesh
+        own = params is None
+        if own:
             params = self.model.init(cfg, seed, self.device, self.policy.param_dtype)
-            if quantize:  # the freshly made tree is ours to empty as it quantizes
-                params = cm.quantize_params(params, consume=True)
-        elif quantize:
-            params = cm.quantize_params(params)
-        self.params = params
+        if quantize:  # a freshly made tree is ours to empty as it quantizes
+            params = cm.quantize_params(params, consume=own)
+        self.params = self._shard(params, consume=own or quantize)
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._queue: deque = deque()
+
+    def _sharded(self) -> bool:
+        return self.mesh is not None and self.mesh.fsdp > 1
+
+    def _shard(self, params, consume: bool = False, put=None):
+        """This rank's share of a whole tree (the tree itself at fsdp 1)."""
+        if not self._sharded():
+            return params if put is None else cm.tree_map(put, params)
+        from intact_tpu_torch.parallel.sharding import shard_tree
+
+        return shard_tree(params, self.mesh, put=put, consume=consume)
 
     # ------------------------------------------------------------------
     # checkpoints (step_{n} contract, hot-swappable)
@@ -77,9 +97,14 @@ class Pi0Policy:
         policy serves int8, and replace the old tree once complete."""
         restored = ckpt_lib.restore_params(path, self.model.init(self.cfg, device="meta"))
         if self._quantize:
-            params = cm.quantize_host_tree(restored, self.policy, self.device)
-        else:
-            params = cm.tree_map(lambda x: x.to(device=self.device, dtype=self.policy.param_dtype), restored)
+            place = None
+            if self._sharded():
+                from intact_tpu_torch.parallel.sharding import shard_leaf
+
+                place = lambda path, x: shard_leaf(path, x, self.mesh)  # noqa: E731
+            params = cm.quantize_host_tree(restored, self.policy, self.device, place=place)
+        else:  # each rank moves only its share of a leaf to its card
+            params = self._shard(restored, put=lambda x: x.to(device=self.device, dtype=self.policy.param_dtype))
         self.params = params
         self.reset()
 
@@ -112,22 +137,35 @@ class Pi0Policy:
     def _put(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.array(x)).to(self.device)  # np.array: a writable copy
 
+    @staticmethod
+    def _normalized(images: torch.Tensor) -> torch.Tensor:
+        if images.dtype == torch.uint8:
+            # serving ships uint8 frames (4x fewer bytes to the device)
+            images = images.to(torch.float32) * (2.0 / 255.0) - 1.0
+        return images
+
     def device_inputs(self, batch: dict) -> tuple[torch.Tensor, ...]:
         """prepare_inputs on the device, images normalized to [-1, 1]."""
         images, img_masks, lang_tokens, lang_masks, state = (
             self._put(x) for x in self.prepare_inputs(batch)
         )
-        if images.dtype == torch.uint8:
-            # serving ships uint8 frames (4x fewer bytes to the device)
-            images = images.to(torch.float32) * (2.0 / 255.0) - 1.0
-        return images, img_masks, lang_tokens, lang_masks, state
+        return self._normalized(images), img_masks, lang_tokens, lang_masks, state
+
+    def _sample_rows(self, images, img_masks, lang_tokens, lang_masks, state, noise=None) -> torch.Tensor:
+        """sample_actions on device arrays (this rank's rows over a group);
+        the policy's generator draws the noise unless it is given."""
+        return self.model.sample_actions(
+            self.params, self._generator, self._normalized(images), img_masks, lang_tokens, lang_masks, state,
+            self.cfg, self.policy, noise=noise,
+        )
 
     def sample_action_chunk(self, batch: dict) -> np.ndarray:
         """One inference -> [B, chunk_size, max_action_dim] float32."""
-        actions = self.model.sample_actions(
-            self.params, self._generator, *self.device_inputs(batch), self.cfg, self.policy
-        )
-        return actions.cpu().numpy()
+        return self._sample_rows(*(self._put(x) for x in self.prepare_inputs(batch))).cpu().numpy()
+
+    def _draw_noise(self, rows: int) -> torch.Tensor:
+        """The sampler's initial noise for `rows` rows, drawn as sample_actions draws it."""
+        return pi0.sample_noise(self._generator, (rows, self.cfg.chunk_size, self.cfg.max_action_dim), self.device)
 
     def select_action(self, batch: dict, action_dim: int | None = None) -> np.ndarray:
         """Queue semantics: re-infer when the queue of n_action_steps actions

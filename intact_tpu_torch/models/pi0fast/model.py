@@ -29,6 +29,8 @@ from intact_tpu_torch.models.pi0fast.config import Pi0FASTConfig
 from intact_tpu_torch.ops.attention import xla_attention
 from intact_tpu_torch.ops.masks import make_att_2d_masks
 
+GREEDY = True  # sample_actions draws no noise: a serving group broadcasts none (serve/policy_wrapper.py)
+
 
 def init_params(init: cm.Initializer, cfg: Pi0FASTConfig) -> cm.Params:
     return {
@@ -95,7 +97,7 @@ def _logits(params, h: torch.Tensor, policy: DtypePolicy, first: int = 0) -> tor
     """Tied head: h [..., D] against the embedding rows first.. -> fp32
     [..., V - first]. The product runs in the compute dtype, as the
     reference's does, so its ties are the reference's ties."""
-    emb = params["vlm_embed"]["embedding"][first:].to(policy.compute_dtype)
+    emb = cm.whole(params["vlm_embed"]["embedding"], slice(first, None)).to(policy.compute_dtype)
     return (h.to(policy.compute_dtype) @ emb.T).to(torch.float32)
 
 

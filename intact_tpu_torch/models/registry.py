@@ -8,7 +8,8 @@ wrapper, the trainer and the weight bridge resolve it from here, and
 `make_policy_wrapper` the type's wrapper class (its `wrapper` path). An
 entry's `model_json` says how `make_model_config` builds the type's config
 from the model JSON: "json" reads the whole config from it, "common" lays its
-common fields over the default config, "default" takes the default as is.
+common fields over the default config, "default" takes the default as is,
+None: the type has no config here (the HF-scaffold types).
 """
 
 from __future__ import annotations
@@ -24,9 +25,7 @@ def register(name: str, **entries) -> None:
 
 def get(name: str) -> dict:
     if name not in _REGISTRY:
-        raise NotImplementedError(
-            f"model type {name!r} is not ported (ported: {available()}); the other families are the "
-            "ROADMAP item 'the other model families and their wrappers'")
+        raise NotImplementedError(f"model type {name!r} is not a model type (types: {available()})")
     return _REGISTRY[name]
 
 
@@ -47,7 +46,7 @@ _UNREGISTERED = ("intact_tpu_torch.models.t5:T5Config", "intact_tpu_torch.models
 def module_for_config(cfg):
     """The model module whose config class `cfg` is."""
     for entry in _REGISTRY.values():
-        if isinstance(cfg, entry["config_cls"]):
+        if "config_cls" in entry and isinstance(cfg, entry["config_cls"]):
             return importlib.import_module(entry["module"])
     for spec in _UNREGISTERED:
         mod_name, cls_name = spec.split(":")
@@ -88,6 +87,10 @@ def _register_builtin() -> None:
         register(name, config_cls=SpatialVLAConfig, default_config=factory, model_json="default",
                  module="intact_tpu_torch.models.spatialvla.model",
                  wrapper="intact_tpu_torch.serve.policy_wrapper.SpatialVLANativePolicyWrapper")
+    # the HF-scaffold wrappers: the upstream transformers models (trust_remote_code, a local snapshot
+    # required); no model config or module of the port, as the reference registers none
+    for name, wrapper_cls in (("spatialvla", "SpatialVLAPolicyWrapper"), ("magma", "MagmaPolicyWrapper")):
+        register(name, model_json=None, wrapper=f"intact_tpu_torch.serve.policy_wrapper.{wrapper_cls}")
     # native Magma-8B (ConvNeXt + LLaMA-3, HF-checkpoint import)
     for name, factory in (("magma_native", MagmaConfig.magma_8b), ("magma_native_tiny", MagmaConfig.tiny)):
         register(name, config_cls=MagmaConfig, default_config=factory, model_json="default",

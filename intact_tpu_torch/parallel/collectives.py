@@ -1,12 +1,12 @@
 """The collectives the port issues, each counting its calls.
 
 Thin wrappers over torch.distributed's all_reduce (sum), reduce_scatter_tensor
-(sum) and all_gather_into_tensor on a process group: the fsdp group, the data
-group or the world (parallel/mesh.py). NCCL carries them on the card, gloo on
+(sum), all_gather_into_tensor and broadcast on a process group: the fsdp
+group, the data group or the world (parallel/mesh.py). NCCL carries them on the card, gloo on
 the CPU; they are library calls, as XLA's collectives are for the JAX package.
 Each wrapper adds one to its `.calls` where it issues its collective, and
 nowhere else, as the kernels' wrappers count `.launches`: `counts()` reads
-them and `reset()` sets them to 0. Nothing catches a failed collective.
+all four, and `reset()` sets them to 0. Nothing catches a failed collective.
 """
 
 from __future__ import annotations
@@ -44,10 +44,18 @@ def all_gather(out: torch.Tensor, x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-WRAPPERS = (all_reduce, reduce_scatter, all_gather)
+def broadcast(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
+    """x <- the group's rank `src`'s x (global rank), in place."""
+    dist.broadcast(x, src=src, group=group)
+    broadcast.calls += 1
+    return x
+
+
+WRAPPERS = (all_reduce, reduce_scatter, all_gather, broadcast)
 
 
 def counts() -> dict[str, int]:
+    """The calls of the four collectives since the last reset()."""
     return {f.__name__: f.calls for f in WRAPPERS}
 
 

@@ -1,6 +1,7 @@
 """Policy wrappers: glue between the wire protocol, env adapters and the model.
 
-The Pi0, native SpatialVLA, native Magma and Octo parts of intact_tpu/serve/policy_wrapper.py:
+The wrappers of intact_tpu/serve/policy_wrapper.py (Pi0, native SpatialVLA,
+native Magma, Octo and the HF-scaffold SpatialVLA and Magma):
 `select_action(obs) -> np.ndarray [action_step, dim]`, `reset()`, `switch_model(path)` (hot
 checkpoint swap for checkpoint sweeps), and ONE fused-batch contract,
 `infer_batch(items)`, that both the per-request path (`select_action`) and
@@ -9,12 +10,22 @@ the continuous-batching server route through.
 Per-connection episode state (the env adapter's episode state) lives in a
 `PolicySession`, created per websocket connection by the batching server via
 `new_session()`; the shared policy on the card stays stateless across
-co-batched clients. The wrapper serves one card (CUDA unless the caller
-passes device="cpu"); serving over several cards and the HF-scaffold
-SpatialVLA and Magma wrappers are ROADMAP items.
+co-batched clients. A wrapper serves on CUDA unless the caller passes
+device="cpu".
+
+Over several ranks (`mesh` with a process group; run.py's server role under
+torchrun) the Pi0-shaped, native SpatialVLA and native Magma wrappers hold
+this rank's shard of the parameters (parallel/sharding.py's rules at
+fsdp > 1) and run their device calls through serve/group.py: rank 0 serves
+and pads each fused batch to a multiple of the world (`effective_fused_size`),
+every rank runs its rows, and `switch_model` restores each rank's share. Octo
+and the HF-scaffold wrappers (`serves_on_ranks` False) run whole on rank 0,
+as the JAX package serves Octo on one device.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -54,6 +65,10 @@ class BasePolicyWrapper:
     # class-level default so partially constructed wrappers (test stubs via
     # __new__) still satisfy the generation protocol; __init__ shadows it
     model_generation = 0
+    # the ranks' mesh and serving group (serve/group.py), None on one card
+    mesh = None
+    group = None
+    serves_on_ranks = True  # False: the family runs whole on rank 0 (run.py)
 
     def __init__(self, config):
         self.config = config
@@ -112,6 +127,14 @@ class BasePolicyWrapper:
             b *= 2
         return min(b, self.config.eval_cfg.max_batch_size)
 
+    def effective_fused_size(self, n: int) -> int:
+        """The device batch a fuse of n rows runs at: the bucket, rounded up
+        to a multiple of data x fsdp over a mesh."""
+        target = self.bucket_size(n)
+        if self.mesh is not None:
+            target += -target % (self.mesh.data * self.mesh.fsdp)
+        return target
+
     def bucket_sizes(self) -> list[int]:
         sizes, b = [], 1
         max_b = max(int(self.config.eval_cfg.max_batch_size), 1)
@@ -151,10 +174,10 @@ class BasePolicyWrapper:
 
     def _fuse_pad(self, items, keys) -> tuple[dict, list[str]]:
         """The fuse of single-row requests: each `keys` array concatenated
-        over the items, its last row repeated up to the bucket, and the task
-        list padded to match -> (arrays by key, tasks)."""
+        over the items, its last row repeated up to effective_fused_size, and
+        the task list padded to match -> (arrays by key, tasks)."""
         n = len(items)
-        pad = self.bucket_size(n) - n
+        pad = self.effective_fused_size(n) - n
         arrays = {}
         for key in keys:
             arr = np.concatenate([it[0][key] for it in items])
@@ -168,11 +191,17 @@ class BasePolicyWrapper:
         raise NotImplementedError
 
     def prewarm(self) -> None:
-        """Run one dummy inference per bucket, so the first clients meet no
-        first-call costs (kernel builds, allocator growth)."""
+        """Run one dummy inference per distinct device batch (buckets that
+        round to the same effective_fused_size run once), so the first
+        clients meet no first-call costs (kernel builds, allocator growth)."""
         session = self.new_session()
         inputs = self.warmup_inputs()
+        seen: set[int] = set()
         for b in self.bucket_sizes():
+            eff = self.effective_fused_size(b)
+            if eff in seen:
+                continue
+            seen.add(eff)
             results = self.infer_batch([(inputs, session)] * b)
             for r in results:
                 if isinstance(r, Exception):  # only the dummy postprocess failed
@@ -188,7 +217,49 @@ class BasePolicyWrapper:
         self.session.reset()
 
     def switch_model(self, new_model_path: str) -> None:
+        """Hot checkpoint swap; over a group rank 0 sends the path and every
+        rank restores its own share."""
+        if self.group is None:
+            self._switch(new_model_path)
+            return
+        from intact_tpu_torch.serve.group import path_array
+
+        if not os.path.exists(new_model_path):  # before the ranks see it: a follower's failure ends the group
+            raise FileNotFoundError(f"no checkpoint at {new_model_path}")
+        self.group.call("switch", [path_array(new_model_path)])
+
+    def _switch(self, new_model_path: str) -> None:
         raise NotImplementedError
+
+    def _join(self, mesh, op: str, rows_fn) -> None:
+        """Serve over the ranks of `mesh` when it has a process group: the
+        wrapper's serving group, whose `op` runs `rows_fn` on a rank's rows
+        and whose "switch" runs `_switch`. Without a group, nothing."""
+        if mesh is None or not mesh.distributed:
+            return
+        from intact_tpu_torch.serve.group import ServeGroup, path_of
+
+        self.mesh = mesh
+        self.group = ServeGroup(mesh, self.device)
+        self.group.on(op, rows_fn)
+        self.group.on("switch", lambda path: self._switch(path_of(path)), rows=False)
+
+    def _on_ranks(self, op: str, rows_fn, arrays, extra=None) -> torch.Tensor:
+        """`rows_fn` over host arrays: here, or over the group (rank 0: the
+        batch padded to the world by repeating its last row, `extra(rows)`'s
+        arrays for the padded batch appended, each rank on its rows, the
+        gathered output without the padding)."""
+        from intact_tpu_torch.serve.group import to_device
+
+        if self.group is None:
+            return rows_fn(*(to_device(x, self.device) for x in arrays))
+        from intact_tpu_torch.parallel.sharding import pad_rows
+
+        n = arrays[0].shape[0]
+        arrays = pad_rows(list(arrays), self.group.world)
+        if extra is not None:
+            arrays += extra(arrays[0].shape[0])
+        return self.group.call(op, arrays)[:n]
 
     def select_action(self, obs: dict) -> np.ndarray:
         res = self.infer_batch([(self.session.preprocess(obs), self.session)])[0]
@@ -216,13 +287,15 @@ class Pi0Session(PolicySession):
 
 class Pi0PolicyWrapper(BasePolicyWrapper):
     """Serves Pi0, Pi0FAST and MVLA (mvla, mmmvla) checkpoints of the port
-    (bf16, or int8 with eval_cfg.quantize_int8) on one card; the model
-    module comes from the registry by model type."""
+    (bf16, or int8 with eval_cfg.quantize_int8) on one card, or over the
+    ranks of a mesh; the model module comes from the registry by model type."""
 
     session_cls = Pi0Session
 
-    def __init__(self, config, device=None):
-        """device: CUDA unless given (raises without a CUDA device)."""
+    def __init__(self, config, device=None, mesh=None):
+        """device: CUDA unless given (raises without a CUDA device). mesh:
+        the ranks' mesh (parallel.make_mesh); with a process group every rank
+        builds the wrapper and rank 0 serves (run.py)."""
         super().__init__(config)
         from intact_tpu_torch.models import registry
         from intact_tpu_torch.models.pi0.policy import Pi0Policy
@@ -231,8 +304,10 @@ class Pi0PolicyWrapper(BasePolicyWrapper):
         self.policy = Pi0Policy(
             self.model_cfg, seed=config.seed, use_bf16=config.use_bf16,
             tokenizer_path=config.resolve_tokenizer_path(), device=device,
-            quantize=config.eval_cfg.quantize_int8, model_module=registry.module(config.model_type),
+            quantize=config.eval_cfg.quantize_int8, model_module=registry.module(config.model_type), mesh=mesh,
         )
+        self.device = self.policy.device
+        self._join(mesh, "sample", self.policy._sample_rows)
         path = config.eval_cfg.pretrained_model_path
         if path:
             self.policy.load(path)
@@ -242,10 +317,22 @@ class Pi0PolicyWrapper(BasePolicyWrapper):
         super().reset()
         self.policy.reset()
 
-    def switch_model(self, new_model_path: str) -> None:
+    def _switch(self, new_model_path: str) -> None:
         self.policy.load(new_model_path)
         self.env_adapter.reset()
         self.model_generation += 1
+
+    def sample_action_chunk(self, batch: dict) -> np.ndarray:
+        """One device call (Pi0Policy.sample_action_chunk's batch) -> [B,
+        chunk_size, max_action_dim] float32; over a group each rank samples
+        its rows of the padded batch, on the noise rank 0 draws for all of
+        it (none for a greedy model), so a world of N gives one card's
+        actions on the same padded batch, as the JAX package's single key does."""
+        policy = self.policy
+        if self.group is None:
+            return policy.sample_action_chunk(batch)
+        noise = None if getattr(policy.model, "GREEDY", False) else lambda rows: [policy._draw_noise(rows)]
+        return self._on_ranks("sample", policy._sample_rows, policy.prepare_inputs(batch), noise).cpu().numpy()
 
     def warmup_inputs(self) -> dict:
         h, w = self.config.env.image_size
@@ -278,7 +365,7 @@ class Pi0PolicyWrapper(BasePolicyWrapper):
                 ci = np.concatenate([ci, np.repeat(ci[-1:], pad, axis=0)])
                 cs = np.concatenate([cs, np.repeat(cs[-1:], pad, axis=0)])
                 ct = ct + [ct[-1]] * pad
-            parts.append(self.policy.sample_action_chunk({"image": ci, "state": cs, "task": ct})[:m])
+            parts.append(self.sample_action_chunk({"image": ci, "state": cs, "task": ct})[:m])
         chunks = parts[0] if len(parts) == 1 else np.concatenate(parts)  # [n, chunk, max_action_dim]
 
         out, offset = [], 0
@@ -342,31 +429,46 @@ class SpatialVLASession(PolicySession):
         self.ensembler.reset()
 
 
-def _init_native_serving(mod, cfg, config, policy, device, materialize: bool = True):
-    """The parameter tree of a native AR wrapper on one card -> (params,
+def _init_native_serving(mod, cfg, config, policy, device, mesh=None, materialize: bool = True):
+    """The parameter tree of a native AR wrapper on its card -> (params,
     quantize). Random weights from config.seed, made on the device in the
     param dtype; with eval_cfg.quantize_int8 they are quantized leaf by leaf
     (`cm.quantize_params(consume=True)`), so the fp tree and the int8 tree
-    never coexist whole. materialize=False makes the tree on the meta device
-    (shapes only), for a wrapper about to load a checkpoint."""
+    never coexist whole. Over fsdp ranks (`mesh`) each rank then keeps its
+    share (`shard_tree(consume=True)`). materialize=False makes the whole
+    tree on the meta device (shapes only), for a wrapper about to load a
+    checkpoint."""
     from intact_tpu_torch.models import common as cm
 
     quantize = bool(getattr(config.eval_cfg, "quantize_int8", False))
     params = mod.init(cfg, config.seed, device if materialize else "meta", policy.param_dtype)
     if quantize:
         params = cm.quantize_params(params, consume=True)
+    if materialize and mesh is not None and mesh.fsdp > 1:
+        from intact_tpu_torch.parallel.sharding import shard_tree
+
+        params = shard_tree(params, mesh, consume=True)
     return params, quantize
 
 
-def _put_native_checkpoint(raw, policy, quantize: bool, device):
+def _put_native_checkpoint(raw, policy, quantize: bool, device, mesh=None):
     """A host parameter tree (an importer's or a restored step's) -> the
-    serving tree on the device: int8 through `cm.quantize_host_tree` (the fp
-    tree never lands on the device whole), else the param dtype."""
+    serving tree on the device, leaf by leaf: int8 through
+    `cm.quantize_host_tree` (the fp tree never lands on the device whole),
+    else the param dtype; over fsdp ranks (`mesh`) each rank keeps its share
+    of every leaf the rules split."""
     from intact_tpu_torch.models import common as cm
+    from intact_tpu_torch.parallel.sharding import shard_leaf, shard_tree
 
+    sharded = mesh is not None and mesh.fsdp > 1
     if quantize:
-        return cm.quantize_host_tree(raw, policy, device)
-    return cm.tree_map(lambda x: torch.as_tensor(x).to(device=device, dtype=policy.param_dtype), raw)
+        place = (lambda path, x: shard_leaf(path, x, mesh)) if sharded else None  # noqa: E731
+        return cm.quantize_host_tree(raw, policy, device, place=place)
+
+    def put(x):
+        return torch.as_tensor(x).to(device=device, dtype=policy.param_dtype)
+
+    return shard_tree(raw, mesh, put=put) if sharded else cm.tree_map(put, raw)
 
 
 def _native_switch_model(wrapper, mod, load_fn, new_model_path) -> None:
@@ -385,21 +487,23 @@ def _native_switch_model(wrapper, mod, load_fn, new_model_path) -> None:
         raw = load_fn(new_model_path, wrapper.model_cfg)
     else:
         raw = ckpt_lib.restore_params(new_model_path, mod.init(wrapper.model_cfg, device="meta"))
-    wrapper.params = _put_native_checkpoint(raw, wrapper.policy, wrapper.quantize, wrapper.device)
+    wrapper.params = _put_native_checkpoint(raw, wrapper.policy, wrapper.quantize, wrapper.device, wrapper.mesh)
     wrapper.model_generation += 1
 
 
 class SpatialVLANativePolicyWrapper(BasePolicyWrapper):
     """Native SpatialVLA serving (models/spatialvla): SigLIP + Ego3D + Gemma2
-    spatial-token decode on one card, in bf16 (use_bf16) or with the W8A8
-    kernel (eval_cfg.quantize_int8: every block product, the projector and
-    the tied unembedding). Each session ensembles the decoded chunk into one
-    env action per inference (reference simpler.py:492-519)."""
+    spatial-token decode on one card or over the ranks of a mesh, in bf16
+    (use_bf16) or with the W8A8 kernel (eval_cfg.quantize_int8: every block
+    product, the projector and the tied unembedding). Each session ensembles
+    the decoded chunk into one env action per inference (reference
+    simpler.py:492-519)."""
 
     session_cls = SpatialVLASession
 
-    def __init__(self, config, device=None):
-        """device: CUDA unless given (raises without a CUDA device)."""
+    def __init__(self, config, device=None, mesh=None):
+        """device: CUDA unless given (raises without a CUDA device). mesh:
+        the ranks' mesh (parallel.make_mesh), as for Pi0PolicyWrapper."""
         super().__init__(config)
         from intact_tpu_torch.models import common as cm
         from intact_tpu_torch.models.spatialvla import model as svla
@@ -409,18 +513,19 @@ class SpatialVLANativePolicyWrapper(BasePolicyWrapper):
         self.model_cfg = cfg = config.make_model_config()
         self.device = cm.resolve_device(device)
         self.policy = cm.SERVING_POLICY if config.use_bf16 else cm.DEFAULT_POLICY
+        self._join(mesh, "predict", self._predict_rows)
         path = config.eval_cfg.pretrained_model_path
-        self.params, self.quantize = _init_native_serving(svla, cfg, config, self.policy, self.device,
+        self.params, self.quantize = _init_native_serving(svla, cfg, config, self.policy, self.device, self.mesh,
                                                           materialize=not path)
         # the PaliGemma2 tokenizer (spatial tokens appended at the tail), or the hash fallback
         self.tokenizer = make_tokenizer(config.resolve_tokenizer_path(), cfg.tokenizer_max_length,
                                         vocab_size=cfg.spatial_offset)
         self.action_tokenizer = svla.make_action_tokenizer(cfg)
-        if path:
-            self.switch_model(path)
+        if path:  # every rank restores its own share
+            self._switch(path)
             self.logger.info("loaded checkpoint %s", path)
 
-    def switch_model(self, new_model_path: str) -> None:
+    def _switch(self, new_model_path: str) -> None:
         _native_switch_model(self, self.model, self.model.load_spatialvla_checkpoint, new_model_path)
         self.reset()
 
@@ -434,13 +539,14 @@ class SpatialVLANativePolicyWrapper(BasePolicyWrapper):
 
     def predict_tokens(self, images_u8: np.ndarray, depth: np.ndarray, tasks: list[str]) -> np.ndarray:
         """One device call: uint8 frames [B, s, s, 3], depth [B, g, g] and B
-        task strings -> spatial token ids [B, 3 * n_action_steps]."""
-        cfg = self.model_cfg
-        lang_tokens, lang_masks = self.tokenizer(tasks, cfg.tokenizer_max_length)
-        ids = self.model.predict_action_tokens(
-            self.params, self.model.normalize_images(self._put(images_u8)), self._put(depth), self._put(lang_tokens),
-            self._put(lang_masks), cfg, self.policy)
-        return ids.cpu().numpy()
+        task strings -> spatial token ids [B, 3 * n_action_steps]; over a
+        group the batch is padded to the world and each rank decodes its rows."""
+        lang_tokens, lang_masks = self.tokenizer(tasks, self.model_cfg.tokenizer_max_length)
+        return self._on_ranks("predict", self._predict_rows, [images_u8, depth, lang_tokens, lang_masks]).cpu().numpy()
+
+    def _predict_rows(self, images_u8, depth, lang_tokens, lang_masks) -> torch.Tensor:
+        return self.model.predict_action_tokens(self.params, self.model.normalize_images(images_u8), depth,
+                                                lang_tokens, lang_masks, self.model_cfg, self.policy)
 
     def _infer_fused(self, items):
         """Fuse N single-row requests into one decode (the last row repeated up
@@ -483,7 +589,7 @@ class MagmaSession(PolicySession):
 
 class MagmaNativePolicyWrapper(BasePolicyWrapper):
     """Native Magma serving (models/magma): ConvNeXt + projector + LLaMA-3
-    action-token decode on one card, in bf16 (use_bf16) or with the W8A8
+    action-token decode on one card or over the ranks of a mesh, in bf16 (use_bf16) or with the W8A8
     kernel (eval_cfg.quantize_int8: every LLaMA block product and the untied
     lm_head; the vision tower and projector stay fp). Each inference gives
     one env action per row: the first n_action_tokens tokens through the
@@ -492,8 +598,9 @@ class MagmaNativePolicyWrapper(BasePolicyWrapper):
 
     session_cls = MagmaSession
 
-    def __init__(self, config, device=None):
-        """device: CUDA unless given (raises without a CUDA device)."""
+    def __init__(self, config, device=None, mesh=None):
+        """device: CUDA unless given (raises without a CUDA device). mesh:
+        the ranks' mesh (parallel.make_mesh), as for Pi0PolicyWrapper."""
         super().__init__(config)
         from intact_tpu_torch.models import common as cm
         from intact_tpu_torch.models.magma import model as magma
@@ -503,19 +610,20 @@ class MagmaNativePolicyWrapper(BasePolicyWrapper):
         self.model_cfg = cfg = config.make_model_config()
         self.device = cm.resolve_device(device)
         self.policy = cm.SERVING_POLICY if config.use_bf16 else cm.DEFAULT_POLICY
+        self._join(mesh, "generate", self._generate_rows)
         path = config.eval_cfg.pretrained_model_path
-        self.params, self.quantize = _init_native_serving(magma, cfg, config, self.policy, self.device,
+        self.params, self.quantize = _init_native_serving(magma, cfg, config, self.policy, self.device, self.mesh,
                                                           materialize=not path)
         # the LLaMA-3 tokenizer, or the hash fallback with its ids kept below
         # image_token_id: a text id equal to the placeholder would take a
         # vision embedding
         self.tokenizer = make_tokenizer(config.resolve_tokenizer_path(), cfg.max_prompt_tokens,
                                         vocab_size=min(cfg.image_token_id, cfg.lm.vocab_size))
-        if path:
-            self.switch_model(path)
+        if path:  # every rank restores its own share
+            self._switch(path)
             self.logger.info("loaded checkpoint %s", path)
 
-    def switch_model(self, new_model_path: str) -> None:
+    def _switch(self, new_model_path: str) -> None:
         _native_switch_model(self, self.model, self.model.load_magma_checkpoint, new_model_path)
         self.env_adapter.reset()
 
@@ -528,11 +636,14 @@ class MagmaNativePolicyWrapper(BasePolicyWrapper):
 
     def generate_tokens(self, images_u8: np.ndarray, tasks: list[str]) -> np.ndarray:
         """One device call: uint8 frames [B, s, s, 3] and B task strings ->
-        greedy ids [B, n_action_tokens + 1]."""
+        greedy ids [B, n_action_tokens + 1]; over a group the batch is padded
+        to the world and each rank decodes its rows."""
         tokens, masks = self.model.build_prompt(self.tokenizer, tasks, self.model_cfg)
-        ids = self.model.generate(self.params, self.model.normalize_images(self._put(images_u8)), self._put(tokens),
-                                  self._put(masks), self.model_cfg, self.policy)
-        return ids.cpu().numpy()
+        return self._on_ranks("generate", self._generate_rows, [images_u8, tokens, masks]).cpu().numpy()
+
+    def _generate_rows(self, images_u8, tokens, masks) -> torch.Tensor:
+        return self.model.generate(self.params, self.model.normalize_images(images_u8), tokens, masks,
+                                   self.model_cfg, self.policy)
 
     def _infer_fused(self, items):
         """Fuse N single-row requests into one decode (the last row repeated up
@@ -610,6 +721,7 @@ class OctoPolicyWrapper(BasePolicyWrapper):
     reference; the reference has no int8 Octo, so quantize_int8 raises."""
 
     session_cls = OctoSession
+    serves_on_ranks = False  # as in the JAX package, Octo is served whole on one device
 
     def __init__(self, config, device=None):
         """device: CUDA unless given (raises without a CUDA device)."""
@@ -644,7 +756,7 @@ class OctoPolicyWrapper(BasePolicyWrapper):
             self.switch_model(path)
             self.logger.info("loaded checkpoint %s", path)
 
-    def switch_model(self, new_model_path: str) -> None:
+    def _switch(self, new_model_path: str) -> None:
         """Released Octo snapshots (flax msgpack) through the upstream
         converter for the octo_*_upstream types; the port's step_{n}
         checkpoints for the native ones."""
@@ -703,11 +815,132 @@ class OctoPolicyWrapper(BasePolicyWrapper):
         return out
 
 
-def make_policy_wrapper(config, device=None):
-    """Model type -> its wrapper from the registry; device: CUDA unless
-    given. An unported type (the HF-scaffold spatialvla and magma) raises
-    there: the ROADMAP item on the HF-scaffold wrappers."""
+class SpatialVLAPolicyWrapper(BasePolicyWrapper):
+    """SpatialVLA-4B through the upstream HF model (trust_remote_code; JAX
+    package policy_wrapper.py:569-611): the adapter and the transformers
+    model, one request at a time. The model is not part of this framework:
+    without the asset at eval_cfg.pretrained_model_path (a local snapshot:
+    the port reads no hub) it raises."""
+
+    serves_on_ranks = False  # a transformers model on rank 0 alone
+
+    def __init__(self, config, device=None):
+        """device: CUDA unless given (raises without a CUDA device)."""
+        super().__init__(config)
+        from intact_tpu_torch.models import common as cm
+
+        self.device = cm.resolve_device(device)
+        path = config.eval_cfg.pretrained_model_path
+        try:
+            from transformers import AutoModel, AutoProcessor
+
+            self.processor = AutoProcessor.from_pretrained(path, trust_remote_code=True, local_files_only=True)
+            self.model = AutoModel.from_pretrained(path, trust_remote_code=True, local_files_only=True).to(self.device)
+        except Exception as e:
+            raise RuntimeError(f"SpatialVLA serving needs the upstream HF checkpoint (pretrained_model_path={path!r}); "
+                               "the native model serves as spatialvla_native") from e
+        self.unnorm_key = config.eval_cfg.unnorm_key
+
+    def _switch(self, new_model_path: str) -> None:
+        from transformers import AutoModel
+
+        self.model = AutoModel.from_pretrained(new_model_path, trust_remote_code=True,
+                                               local_files_only=True).to(self.device)
+        self.model_generation += 1
+
+    def _infer_fused(self, items):
+        return _each_item(self, items)
+
+    def _infer_one(self, inputs: dict, session: PolicySession) -> np.ndarray:
+        from intact_tpu_torch.utils.device import float_to_u8
+
+        # the processor rescales and normalizes uint8 pixels itself; the adapter's frames are float [-1, 1]
+        image = float_to_u8(np.asarray(inputs["image"]))[0]
+        hf_inputs = self.processor(images=image, text=inputs["task"][0], return_tensors="pt").to(self.device)
+        out = self.model.predict_action(hf_inputs)
+        actions = self.processor.decode_actions(out, unnorm_key=self.unnorm_key)
+        return session.adapter.postprocess(np.asarray(actions)[: self.action_step])
+
+
+class MagmaPolicyWrapper(BasePolicyWrapper):
+    """Magma-8B through the upstream HF model (JAX package
+    policy_wrapper.py:614-668): chat-template prompt, generate, the last 7
+    action tokens through the 256 vocabulary-tail bins (serve/decoding.py),
+    quantile unnormalization. Without the asset it raises."""
+
+    N_ACTION_TOKENS = 7
+    serves_on_ranks = False  # a transformers model on rank 0 alone
+
+    def __init__(self, config, device=None):
+        """device: CUDA unless given (raises without a CUDA device)."""
+        super().__init__(config)
+        from intact_tpu_torch.models import common as cm
+
+        self.device = cm.resolve_device(device)
+        path = config.eval_cfg.pretrained_model_path
+        try:
+            from transformers import AutoModelForCausalLM, AutoProcessor
+
+            self.processor = AutoProcessor.from_pretrained(path, trust_remote_code=True, local_files_only=True)
+            self.model = AutoModelForCausalLM.from_pretrained(path, trust_remote_code=True,
+                                                              local_files_only=True).to(self.device)
+        except Exception as e:
+            raise RuntimeError(f"Magma serving needs the upstream HF checkpoint (pretrained_model_path={path!r}); "
+                               "the native model serves as magma_native") from e
+
+    def _switch(self, new_model_path: str) -> None:
+        from transformers import AutoModelForCausalLM
+
+        self.model = AutoModelForCausalLM.from_pretrained(new_model_path, trust_remote_code=True,
+                                                          local_files_only=True).to(self.device)
+        self.model_generation += 1
+
+    def _infer_fused(self, items):
+        return _each_item(self, items)
+
+    def _infer_one(self, inputs: dict, session: PolicySession) -> np.ndarray:
+        from intact_tpu_torch.serve.decoding import denormalize_with_quantiles, tokens_to_actions
+        from intact_tpu_torch.utils.device import float_to_u8
+
+        convo = [{"role": "user", "content": f"<image>\nWhat action should the robot take to {inputs['task'][0]}?"}]
+        prompt = self.processor.tokenizer.apply_chat_template(convo, tokenize=False, add_generation_prompt=True)
+        image = float_to_u8(np.asarray(inputs["image"]))[0]  # uint8 for the processor's own normalize
+        hf_inputs = self.processor(images=image, texts=prompt, return_tensors="pt").to(self.device)
+        output_ids = self.model.generate(**hf_inputs, max_new_tokens=1000, use_cache=False)
+        action_ids = output_ids.cpu().numpy()[0, -(self.N_ACTION_TOKENS + 1):-1]
+        # the bins count from the end of the model's output vocabulary (its config), not the tokenizer's
+        vocab = getattr(self.model.config, "vocab_size", None) or len(self.processor.tokenizer)
+        norm = tokens_to_actions(action_ids, vocab_size=vocab)
+        stats = session.adapter.dataset_statistics["action"]
+        mask = np.array([True] * 6 + [False])
+        raw = denormalize_with_quantiles(norm, stats["p01"], stats["p99"], mask)
+        return session.adapter.postprocess(raw[None])
+
+
+def _each_item(wrapper, items) -> list:
+    """One inference per request (the HF-scaffold families have no fused
+    device path), each failure isolated to its request."""
+    out = []
+    for inputs, session in items:
+        try:
+            out.append(wrapper._infer_one(inputs, session))
+        except Exception as e:  # noqa: BLE001 — isolated per request
+            out.append(e)
+    return out
+
+
+def wrapper_class(config):
+    """The wrapper class of the config's model type (from the registry)."""
     from intact_tpu_torch.models import registry
 
-    wrapper = get_class_from_path(registry.get(config.model_cfg.get("type", "pi0"))["wrapper"])
+    return get_class_from_path(registry.get(config.model_cfg.get("type", "pi0"))["wrapper"])
+
+
+def make_policy_wrapper(config, device=None, mesh=None):
+    """Model type -> its wrapper from the registry; device: CUDA unless
+    given; mesh: the ranks' mesh for the families that serve over ranks
+    (`serves_on_ranks`), ignored by the others."""
+    wrapper = wrapper_class(config)
+    if mesh is not None and wrapper.serves_on_ranks:
+        return wrapper(config, device=device, mesh=mesh)
     return wrapper(config, device=device)

@@ -302,7 +302,7 @@ def test_standard_step_splits_the_moments_over_fsdp(groups):
     for res in split:  # per update: a reduce-scatter, an all-reduce (data) and an all-gather per split leaf, one
         # all-reduce per replicated leaf, one for the clip's sum of squares
         assert res["collectives"] == {"all_reduce": n_split + (n_leaves - n_split) + 1, "reduce_scatter": n_split,
-                                      "all_gather": n_split}
+                                      "all_gather": n_split, "broadcast": 0}
 
 
 @pytest.mark.parametrize("mesh", ["2x1", "1x2"])
@@ -395,7 +395,8 @@ def test_repo_recipe_at_its_mesh_on_four_ranks(groups, monkeypatch):
         assert_equal_trees(res["params"], quad[0]["params"], "ranks' params")
         assert res["validations"] == quad[0]["validations"] and len(res["validations"]) == 1
         assert np.isfinite(res["validations"][0]["l1_loss"])
-        assert min(res["collectives"].values()) > 0
+        steps = {k: v for k, v in res["collectives"].items() if k != "broadcast"}  # the serving group's collective
+        assert min(steps.values()) > 0 and res["collectives"]["broadcast"] == 0
     nb = {k: rows for k, rows in groups["pair"][0]["std_2x1"]["local_q_rows"].items()}
     for k, rows in quad[0]["local_q_rows"].items():
         assert rows == -(-nb[k] // 4), k

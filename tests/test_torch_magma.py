@@ -480,8 +480,8 @@ def test_registry_types_and_unported_scaffold(cfgs):
     tcfg.model_cfg = {"type": "magma_native"}
     assert tcfg.make_model_config() == TCfg.magma_8b()
     assert registry.module("magma_native") is tmagma
-    tcfg.model_cfg = {"type": "magma"}
-    with pytest.raises(NotImplementedError, match="magma_native"):
+    tcfg.model_cfg = {"type": "magma"}  # the HF-scaffold wrapper: it raises without the upstream asset
+    with pytest.raises(RuntimeError, match="magma_native"):
         make_policy_wrapper(tcfg, device="cpu")
 
 

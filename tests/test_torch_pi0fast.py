@@ -368,7 +368,7 @@ def test_model_config_from_yaml_matches_reference(path):
 
 
 def test_unported_model_types_raise():
-    with pytest.raises(NotImplementedError, match="the other model families"):
+    with pytest.raises(NotImplementedError, match="has no model config"):
         port_config(TRAIN_YAML, **{"model_cfg.type": "magma"}).make_model_config()  # the HF scaffold
 
 

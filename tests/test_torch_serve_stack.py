@@ -629,8 +629,8 @@ class TestRunCLIServerRole:
             run_mod.main(["--config_path", str(REPO / "config/experiment/simpler/pi0_finetune_bridge_ev.yaml"),
                           "--eval_cfg.role", "client", "--device", "cpu"])
         cfg = make_cfg()
-        cfg.model_cfg = {"type": "spatialvla"}  # the HF-scaffold wrapper is not ported
-        with pytest.raises(NotImplementedError, match="the other model families"):
+        cfg.model_cfg = {"type": "spatialvla"}  # the HF-scaffold wrapper: it raises without the upstream asset
+        with pytest.raises(RuntimeError, match="needs the upstream HF checkpoint"):
             make_policy_wrapper(cfg, device="cpu")
 
     def test_wrapper_raises_without_cuda_unless_given_cpu(self):

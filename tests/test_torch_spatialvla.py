@@ -483,8 +483,8 @@ def test_registry_types_and_unported_scaffold(cfgs):
     tcfg.model_cfg = {"type": "spatialvla_native"}
     assert tcfg.make_model_config() == TCfg.spatialvla_4b()
     assert registry.module("spatialvla_native") is tsvla
-    tcfg.model_cfg = {"type": "spatialvla"}
-    with pytest.raises(NotImplementedError, match="spatialvla_native"):
+    tcfg.model_cfg = {"type": "spatialvla"}  # the HF-scaffold wrapper: it raises without the upstream asset
+    with pytest.raises(RuntimeError, match="spatialvla_native"):
         make_policy_wrapper(tcfg, device="cpu")
 
 
