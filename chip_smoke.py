@@ -59,8 +59,11 @@ Phases, each failing loudly (non-zero exit):
              fsdp 2 held as a Sharded of one part over the world group, so each
              layer, the embedding and every W8A8 product run on weights
              gathered through the group: actions bit-equal to the wrapper
-             without a group, 17 and 1544 launches, and the all-gathers each
-             layer's split leaves imply; its time beside the wrapper without one
+             without a group, 17 and 1544 launches, one bucket all-gather per
+             layer that holds split leaves and one for the embedding (226);
+             its time beside the wrapper without one, and, from one profiled
+             inference, its device busy share and the host and device ms of
+             the buckets' gather and unpack ranges
   4. training the 1-chip joint recipe (config/train/pi0_finetune_bridge_1chip.yaml:
              fused step, bf16 params with stochastic rounding, fp8 moments,
              batch 16, synthetic data) at full width and depth through the
@@ -122,15 +125,24 @@ Phases, each failing loudly (non-zero exit):
              fused pi0_finetune_bridge_1chip.yaml) through the Trainer in a
              one-rank NCCL group joined from torchrun's variables
              (parallel.distributed.initialize; destroyed at the end), two
-             updates each at full width (32 x 2, 96 x 2, 16 x 1). Gates: the
-             backend is nccl; the launches of the three kernels per micro-step
-             are phases 4 and 5's; the collectives per update (all-reduce,
-             reduce-scatter, all-gather, each wrapper's count) are the ones
-             counted from the state; loss and grad norm finite; the params
-             after the updates bit-equal to phases 4 and 5's runs of the same
-             recipes without a group at the same micro-step. Reported: each
-             update's time with and without the group, the card's name and
-             power limit
+             updates each at full width (32 x 2, 96 x 2, 16 x 1); the joint and
+             expert-only runs on ZeRO-3: every leaf the recipes' own fsdp-4
+             rules split held as a Sharded of one part over the group (each
+             layer through the bucket all-gather and, where it trains, the
+             bucket reduce-scatter; the 8-bit moments through the per-block MAX
+             all-reduce; the expert-only prefix's W8A8 kernel on gathered
+             codes). Gates: the trainer's init at fsdp > 1 (drawn on the
+             card, each leaf handed to the host) bit-equal to the init on the
+             card at pi0_tiny; the backend is nccl; the launches of the three
+             kernels per micro-step are phases 4 and 5's; the bucket
+             all-gathers and reduce-scatters per micro-step and the
+             collectives per update (each wrapper's count) are the ones
+             counted from the configuration and the state; loss and grad norm
+             finite; the params after the updates bit-equal to phases 4 and
+             5's runs of the same recipes without a group at the same
+             micro-step. Reported: each update's and micro-step's time and the
+             peak memory with and without the group and the shares, the
+             buckets' host and device ms, the card's name and power limit
   6. Pi0FAST serving: the server role's Pi0PolicyWrapper from
              config/experiment/simplerMS3/pi0fast_finetune_bridge_ev.yaml
              (SigLIP So400m + Gemma-2B at full width, its depth cut to
@@ -1158,7 +1170,8 @@ def phase_serving() -> int:
 KERNEL_SYMBOLS = ("attn_kernel", "fused_adam_rows_kernel", "quantize_kernel", "gemm_kernel", "finish_kernel")
 
 
-def profile_pass(label: str, fn, in_order: str | None = None, annotation: str | None = None):
+def profile_pass(label: str, fn, in_order: str | None = None, annotation: str | None = None,
+                 buckets: str | None = None):
     """Device busy share and the kernels that take the most device time in
     one call of fn (which ends in a sync), under torch.profiler (which adds
     host time of its own). -> {kernel name: (device ms, launches)} for the
@@ -1167,7 +1180,9 @@ def profile_pass(label: str, fn, in_order: str | None = None, annotation: str | 
     device busy ms; with `annotation`, instead the device ms of the kernels
     that ran inside the device spans of the `record_function` ranges of that
     name, the number of spans, and the device busy ms (the spans themselves
-    are not kernels: they count neither as busy time nor as launches)."""
+    are not kernels: they count neither as busy time nor as launches). With
+    `buckets` (the card's name and power limit), the same profile's layer
+    bucket ranges are printed too (bucket_stats)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1175,10 +1190,12 @@ def profile_pass(label: str, fn, in_order: str | None = None, annotation: str | 
         fn()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.key != annotation]
+               and e.key != annotation and e.key not in BUCKET_RANGES]  # ranges' device spans are no kernels
     busy_us = sum(e.self_device_time_total for e in kernels)
     log(f"# profile {label}: wall {wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms "
         f"({100 * busy_us / wall_us:.1f}%), {sum(e.count for e in kernels)} kernel launches")
+    if buckets is not None:
+        bucket_stats(prof, wall_us / 1e3, label, buckets)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     ours = [e for e in kernels if any(name in e.key for name in KERNEL_SYMBOLS) and e not in top]
     for e in top + ours:
@@ -1379,16 +1396,18 @@ GROUP_CALL_BROADCASTS = 7  # a header, image, img_masks, lang_tokens, lang_masks
 GATHERED_REPS = 3  # timed inferences per wrapper on the gathered layout
 
 
-def one_part(params, mesh):
-    """The tree with every leaf that the rules split at fsdp 2 held as a
+def one_part(params, mesh, fsdp: int = 2):
+    """The tree with every leaf that the rules split at `fsdp` held as a
     `Sharded` of one part over the world group: at world 1 each use gathers
-    the whole leaf through the group (an all-gather, a contiguous copy), the
-    path a rank takes at fsdp > 1."""
+    the whole leaf through the group (one bucket all-gather per layer, a
+    contiguous copy of each leaf), and where it trains its gradient is
+    reduce-scattered back (one bucket per layer): the path a rank takes at
+    fsdp > 1."""
     from intact_tpu_torch.models.common import flatten_paths, unflatten_paths
     from intact_tpu_torch.parallel.mesh import Mesh
     from intact_tpu_torch.parallel.sharding import Sharded, spec_for_path
 
-    rules = Mesh(1, 2, 1, 0, mesh.groups)
+    rules = Mesh(1, fsdp, 1, 0, mesh.groups)
     out = {}
     for path, x in flatten_paths(params).items():
         spec = spec_for_path(path, x.shape, rules)
@@ -1396,24 +1415,70 @@ def one_part(params, mesh):
     return unflatten_paths(out)
 
 
-def gathers_per_inference(params, cfg) -> int:
-    """The all-gathers of one Pi0 inference on a tree of Sharded leaves: each
-    layer of a tower gathers all its split leaves (cm.layer), SigLIP and the
-    VLM once, the expert once per Euler step; the embedding once for the
-    language tokens; and the group's gather of the actions."""
+def split_prefixes(params, prefixes: tuple) -> dict:
+    """{prefix: whether any `Sharded` leaf lies under it}, raising where a
+    split leaf lies under none of them."""
     from intact_tpu_torch.models.common import flatten_paths
     from intact_tpu_torch.parallel.sharding import Sharded
 
     split = [k for k, v in flatten_paths(params).items() if isinstance(v, Sharded)]
+    stray = [k for k in split if not k.startswith(prefixes)]
+    if stray:
+        raise SystemExit(f"gathered layout: split leaves outside {prefixes}: {stray}")
+    return {p: any(k.startswith(p) for k in split) for p in prefixes}
 
-    def n(prefix: str) -> int:
-        return sum(k.startswith(prefix) for k in split)
 
-    towers = (("siglip/blocks/", cfg.vision.depth), ("vlm/blocks/", cfg.vlm.depth),
-              ("expert/blocks/", cfg.num_steps * cfg.expert.depth))
-    if sum(n(p) for p, _ in towers) + n("vlm_embed/") != len(split):
-        raise SystemExit(f"gathered layout: split leaves outside the towers and the embedding: {split}")
-    return sum(n(p) * uses for p, uses in towers) + min(n("vlm_embed/"), 1) + 1
+def buckets_per_inference(params, cfg) -> int:
+    """The bucket all-gathers of one Pi0 inference on a tree of Sharded
+    leaves, one per layer that holds split leaves (cm.layer): SigLIP's and
+    the VLM's once, the expert's once per Euler step; and one for the
+    embedding's language lookup."""
+    has = split_prefixes(params, ("siglip/blocks/", "vlm/blocks/", "expert/blocks/", "vlm_embed/"))
+    return (has["siglip/blocks/"] * cfg.vision.depth + has["vlm/blocks/"] * cfg.vlm.depth
+            + has["expert/blocks/"] * cfg.num_steps * cfg.expert.depth + has["vlm_embed/"])
+
+
+BUCKET_RANGES = ("bucket gather", "bucket unpack", "bucket reduce-scatter")
+
+
+def bucket_profile(label: str, fn, card: str) -> dict:
+    """One call of fn (which ends in a sync) under torch.profiler -> {range:
+    (calls, host ms, device ms)} for the layer buckets' record_function
+    ranges (parallel/sharding.py): the host time spent inside each range and
+    the device time of the kernels inside its device spans (NCCL's and the
+    copies'), each printed per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = (time.perf_counter() - t0) * 1e3
+    return bucket_stats(prof, wall, label, card)
+
+
+def bucket_stats(prof, wall: float, label: str, card: str) -> dict:
+    """bucket_profile's numbers from a finished profile of `wall` ms."""
+    import bisect
+
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = sorted(((e.time_range.start, e.time_range.end) for e in events
+                      if e.device_type == cuda and e.name not in BUCKET_RANGES))
+    starts = [k[0] for k in kernels]
+    out = {}
+    for name in BUCKET_RANGES:
+        host = [e for e in events if e.name == name and e.device_type != cuda]
+        dev_us = 0.0
+        for span in (e.time_range for e in events if e.name == name and e.device_type == cuda):
+            i = bisect.bisect_left(starts, span.start)
+            while i < len(kernels) and kernels[i][0] <= span.end:
+                dev_us += (kernels[i][1] - kernels[i][0]) if kernels[i][1] <= span.end else 0
+                i += 1
+        out[name] = (len(host), sum(e.time_range.elapsed_us() for e in host) / 1e3, dev_us / 1e3)
+    parts = ", ".join(f"{name}: {n} calls, host {h:.2f} ms ({h / max(n, 1):.4f} ms per call), device {d:.2f} ms "
+                      f"({d / max(n, 1):.4f} ms per call)" for name, (n, h, d) in out.items())
+    log(f"# buckets {label} ({card}): wall {wall:.2f} ms under the profiler; {parts}")
+    return out
 
 
 def phase_multirank_serving() -> dict:
@@ -1430,6 +1495,7 @@ def phase_multirank_serving() -> dict:
     from intact_tpu_torch.serve.policy_wrapper import make_policy_wrapper
 
     card = gpu_name_and_power()
+    host_staged_init()
     launch_env = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
     saved_env = {k: os.environ.get(k) for k in launch_env}
     totals = {"flash_attention": 0, "w8a8_matmul": 0}
@@ -1471,8 +1537,7 @@ def phase_multirank_serving() -> dict:
             log(f"# group serving {label}: launches {got} (expected {want}), collectives {coll} (expected "
                 f"{GROUP_CALL_BROADCASTS} broadcasts and 1 all_gather), env actions bit-equal to the wrapper "
                 f"without a group: {same}")
-            if got != want or coll != {"broadcast": GROUP_CALL_BROADCASTS, "all_reduce": 0, "reduce_scatter": 0,
-                                       "all_gather": 1}:
+            if got != want or coll != {**dict.fromkeys(coll, 0), "broadcast": GROUP_CALL_BROADCASTS, "all_gather": 1}:
                 raise SystemExit(f"group serving {label}: launches {got}, collectives {coll}")
             if not same or any(a.shape != (cfg.eval_cfg.action_step, 7) or not np.isfinite(a).all() for a in out):
                 raise SystemExit(f"group serving {label}: env actions differ from the wrapper without a group")
@@ -1518,8 +1583,9 @@ def gathered_serving(grouped, plain, calls: dict, mesh, label: str, want: dict, 
     from intact_tpu_torch.parallel import collectives
 
     grouped.policy.params = one_part(grouped.policy.params, mesh)
-    want_coll = {"all_reduce": 0, "reduce_scatter": 0, "broadcast": GROUP_CALL_BROADCASTS,
-                 "all_gather": gathers_per_inference(grouped.policy.params, grouped.model_cfg)}
+    want_coll = {"all_reduce": 0, "all_reduce_max": 0, "reduce_scatter": 0, "all_gather": 1,
+                 "bucket_all_gather": buckets_per_inference(grouped.policy.params, grouped.model_cfg),
+                 "bucket_reduce_scatter": 0, "broadcast": GROUP_CALL_BROADCASTS}
     # --- the main path: the grouped wrapper's fused inference on gathered weights ---
     w8a8.w8a8_matmul.launches = flash_attention.launches = 0
     collectives.reset()
@@ -1546,8 +1612,9 @@ def gathered_serving(grouped, plain, calls: dict, mesh, label: str, want: dict, 
     log(f"# group serving {label} on gathered weights ({card}): median fused inference {med['gathered']:.2f} ms "
         f"{[round(x * 1e3, 2) for x in times['gathered']]}, without a group {med['plain']:.2f} ms "
         f"{[round(x * 1e3, 2) for x in times['plain']]}, ratio {med['gathered'] / med['plain']:.4f}")
-    # where the gathers' time goes (the plain wrapper's profile is phase 3c's)
-    profile_pass(f"group serving {label} on gathered weights", lambda: grouped.infer_batch(calls["group"]))
+    # where the gathers' time goes (the plain wrapper's profile is phase 3c's), in one profiled inference
+    profile_pass(f"group serving {label} on gathered weights", lambda: grouped.infer_batch(calls["group"]),
+                 buckets=card)
     return got
 
 
@@ -2536,6 +2603,8 @@ MULTI_RECIPES = {
     "fused": (RECIPE, {"n_updates": 2}),
 }
 MULTI_MICRO_STEPS = {"joint": 4, "expert-only": 4, "fused": 2}
+ZERO3_RULES_FSDP = 4  # the standard recipes' own mesh.fsdp, whose rules phase 5b's ZeRO-3 runs split by
+ZERO3_LABELS = ("joint", "expert-only")
 # the runs without a group that phase 5b holds its group runs to: the params
 # after MULTI_MICRO_STEPS micro-steps of phases 4 and 5's runs of the same
 # recipes (same seed, same data), on the host, and their micro-step times
@@ -2547,7 +2616,7 @@ def keep_reference(label: str, trainer) -> None:
     params on the card after MULTI_MICRO_STEPS[label] of them (a device copy,
     a few ms); park_reference moves them to the host after the loop."""
     real = trainer.train_step
-    ref = NO_GROUP[label] = {"times": [], "params": None}
+    ref = NO_GROUP[label] = {"times": [], "params": None, "peak_gib": None}
 
     def step(state, batch):
         t = time.perf_counter()
@@ -2557,6 +2626,7 @@ def keep_reference(label: str, trainer) -> None:
         if len(ref["times"]) == MULTI_MICRO_STEPS[label]:
             from intact_tpu_torch.models.common import flatten_paths
 
+            ref["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30  # the phase's peak so far
             ref["params"] = {k: v.detach().clone() for k, v in flatten_paths(out[0].params).items()}
         return out
 
@@ -2576,8 +2646,11 @@ def expected_collectives(trainer) -> dict:
     as the code issues them (train/optim.py, train/fused_joint.py), plus the
     log line's all-reduce (log_freq 1)."""
     from intact_tpu_torch.models.common import flatten_paths
+    from intact_tpu_torch.parallel.sharding import Sharded
     from intact_tpu_torch.train import fused_joint as fj
 
+    want = {"all_reduce": 0, "all_reduce_max": 0, "reduce_scatter": 0, "all_gather": 0, "bucket_all_gather": 0,
+            "bucket_reduce_scatter": 0, "broadcast": 0}
     if trainer.cfg.fused_update:
         state, mesh = trainer.state, trainer.mesh
         depth = trainer.model_cfg.vlm.depth
@@ -2593,14 +2666,47 @@ def expected_collectives(trainer) -> dict:
                     split += 1
                 else:
                     replicated += 1
-    else:
-        flat = flatten_paths(trainer.state.params)
-        paths = trainer.tx.paths(flat)
-        split = sum(trainer.tx.shard_of(flat[k]) is not None for k in paths)
-        replicated = len(paths) - split
-    # a split gradient: reduce-scatter (fsdp) and all-reduce (data), its rows all-gathered after the update;
-    # a replicated one: one all-reduce; the clip's (or the norm's) sum of squares and the log line: one each
-    return {"all_reduce": split + replicated + 2, "reduce_scatter": split, "all_gather": split, "broadcast": 0}
+        # a split gradient: reduce-scatter (fsdp) and all-reduce (data), its rows all-gathered after the update;
+        # a replicated one: one all-reduce; the norm's sum of squares and the log line: one each
+        return {**want, "all_reduce": split + replicated + 2, "reduce_scatter": split, "all_gather": split}
+    # ZeRO-3: per micro-step the layer buckets and one all-reduce of the norms; per update a data all-reduce
+    # per split leaf and a MAX all-reduce per 8-bit one, a world all-reduce per replicated leaf, the clip's
+    # and the log line's
+    flat = flatten_paths(trainer.state.params)
+    paths = trainer.tx.paths(flat)
+    mu = trainer.state.opt_state["mu"]
+    split = [k for k in paths if isinstance(flat[k], Sharded)]
+    accum = trainer.opt_cfg.grad_accumulation_steps
+    gathers, scatters = buckets_per_micro_step(trainer)
+    return {**want, "all_reduce": accum + len(paths) + 2, "all_reduce_max": sum(isinstance(mu[k], dict) for k in split),
+            "bucket_all_gather": accum * gathers, "bucket_reduce_scatter": accum * scatters}
+
+
+def buckets_per_micro_step(trainer) -> tuple[int, int]:
+    """(bucket all-gathers, bucket reduce-scatters) of one standard Pi0
+    micro-step on a tree of Sharded leaves, from the configuration: the
+    joint recipe gathers each SigLIP layer and each layer of both Gemma
+    stacks in the forward and again in its recomputed backward (all but the
+    last pair, which is not recomputed), and the embedding once; each layer
+    that trains reduce-scatters once. The expert-only recipe gathers the
+    frozen prefix once under no_grad (SigLIP, the embedding, the kv_only
+    prefill's every VLM layer) and the expert's layers once, each of them
+    reduce-scattered."""
+    from intact_tpu_torch.models.common import flatten_paths
+
+    mc = trainer.model_cfg
+    has = split_prefixes(trainer.state.params, ("siglip/blocks/", "vlm/blocks/", "expert/blocks/", "vlm_embed/"))
+    trains = {p: any(v for k, v in flatten_paths(trainer.frozen_mask).items() if k.startswith(p))
+              if trainer.frozen_mask is not None else True for p in has}
+    v, g, e, emb = (has[p] for p in ("siglip/blocks/", "vlm/blocks/", "expert/blocks/", "vlm_embed/"))
+    if mc.train_expert_only:
+        return v * mc.vision.depth + emb + g * mc.vlm.depth + e * mc.expert.depth, e * mc.expert.depth
+    remat = 2 if trains["siglip/blocks/"] else 1
+    gathers = (v * remat * mc.vision.depth + emb + g * (2 * (mc.vlm.depth - 1) + 1)
+               + e * (2 * (mc.expert.depth - 1) + 1))
+    scatters = (v * trains["siglip/blocks/"] * mc.vision.depth + emb * trains["vlm_embed/"]
+                + g * trains["vlm/blocks/"] * mc.vlm.depth + e * trains["expert/blocks/"] * mc.expert.depth)
+    return gathers, scatters
 
 
 def multirank_run(label: str, group: bool) -> dict:
@@ -2612,14 +2718,25 @@ def multirank_run(label: str, group: bool) -> dict:
     from intact_tpu_torch.ops.flash_attention import flash_attention
     from intact_tpu_torch.ops.fused_adam import fused_adam_rows
     from intact_tpu_torch.parallel import collectives
+    from intact_tpu_torch.parallel.sharding import Sharded, gather_leaf
     from intact_tpu_torch.train.trainer import Trainer
 
     recipe, overrides = MULTI_RECIPES[label]
     cfg = trainer_config(recipe, {**overrides, "eval_freq": 10**6})
+    torch.cuda.reset_peak_memory_stats()
     trainer = Trainer(cfg, device=DEVICE)
     mc, accum = trainer.model_cfg, trainer.opt_cfg.grad_accumulation_steps
     if trainer.mesh.distributed != group or trainer.mesh.size != 1:
         raise SystemExit(f"{label}: mesh {trainer.mesh} (group expected: {group})")
+    zero3 = group and not cfg.fused_update
+    if zero3:  # the recipe's own rules (fsdp 4), each split leaf a Sharded of one part over the group
+        from intact_tpu_torch.train import train_step as ts
+
+        params, trainer.state = trainer.state.params, None
+        gc.collect()
+        trainer.state = ts.init_train_state(one_part(params, trainer.mesh, fsdp=ZERO3_RULES_FSDP), trainer.tx,
+                                            seed=cfg.seed)
+        del params
     counters = {"flash_attention": flash_attention, "w8a8_matmul": w8a8.w8a8_matmul, "fused_adam_rows": fused_adam_rows}
     if cfg.fused_update:
         want = {"flash_attention": 2 * (mc.vlm.depth - 1), "w8a8_matmul": 0,
@@ -2657,24 +2774,38 @@ def multirank_run(label: str, group: bool) -> dict:
     launches = {k: c.launches for k, c in counters.items()}
     per_update = collectives.counts()  # with the log lines' all-reduces, outside train_step
     # -----------------------------------------
+    peak = torch.cuda.max_memory_allocated() / 2**30
     n_updates = cfg.n_updates
     updates = [sum(r[-1] for r in records[i:i + accum]) for i in range(0, len(records), accum)]
     where = "one-rank NCCL group" if group else "no group"
     for i, (n, coll, loss, gn, dt) in enumerate(records):
         log(f"# multi-card {label} ({where}) micro-step {i + 1}: loss {loss:.6f}, grad_norm {gn:.6f}, "
             f"{dt * 1e3:.2f} ms, launches {n}, collectives {coll}")
-    log(f"# multi-card {label} ({where}): {n_updates} update(s) of {accum} micro-step(s), update times "
-        f"{[round(u * 1e3, 2) for u in updates]} ms, loop wall {wall:.2f} s; launches {launches}; collectives "
-        f"{per_update} (expected per update {want_coll}); saves asked at {saves}")
-    bad = [i + 1 for i, (n, _, loss, gn, _) in enumerate(records)
-           if not (np.isfinite(loss) and np.isfinite(gn)) or n != want]
+    log(f"# multi-card {label} ({where}{', ZeRO-3 at the fsdp-4 rules, one part' if zero3 else ''}): {n_updates} "
+        f"update(s) of {accum} micro-step(s), update times {[round(u * 1e3, 2) for u in updates]} ms, loop wall "
+        f"{wall:.2f} s, peak memory since the trainer's init {peak:.2f} GiB; launches {launches}; collectives {per_update} "
+        f"(expected per update {want_coll}); saves asked at {saves}")
+    per_micro = ({"bucket_all_gather": want_coll["bucket_all_gather"] // accum,
+                  "bucket_reduce_scatter": want_coll["bucket_reduce_scatter"] // accum} if group else {})
+    bad = [i + 1 for i, (n, coll, loss, gn, _) in enumerate(records)
+           if not (np.isfinite(loss) and np.isfinite(gn)) or n != want
+           or any(coll[k] != v for k, v in per_micro.items())]
     coll_want = {k: v * n_updates for k, v in want_coll.items()}
     if bad or len(records) != n_updates * accum or per_update != coll_want or saves != [n_updates]:
-        raise SystemExit(f"multi-card {label} ({where}): micro-steps {bad} non-finite or launches other than {want}, "
-                         f"{len(records)} micro-steps, collectives {per_update} (expected {coll_want}), saves {saves}")
-    params = {k: v.detach().to("cpu", copy=True) for k, v in flatten_paths(trainer.state.params).items()}
+        raise SystemExit(f"multi-card {label} ({where}): micro-steps {bad} non-finite or launches other than {want} "
+                         f"or buckets other than {per_micro}, {len(records)} micro-steps, collectives {per_update} "
+                         f"(expected {coll_want}), saves {saves}")
+    if zero3:  # where the buckets' time goes in one more micro-step
+        batch = trainer.device_batch(next(iter(trainer.train_data)))
+        bucket_profile(f"multi-card {label}, one micro-step", lambda: (real_step(trainer.state, batch),
+                                                                        torch.cuda.synchronize()),
+                       gpu_name_and_power())
+        del batch
+    params = {}
+    for k, v in flatten_paths(trainer.state.params).items():  # a split leaf gathered (a bucket of its own)
+        params[k] = (gather_leaf(v.local, v) if isinstance(v, Sharded) else v).detach().to("cpu", copy=True)
     out = {"launches": launches, "times": [r[-1] for r in records], "accum": accum, "params": params,
-           "collectives": per_update}
+           "collectives": per_update, "peak_gib": peak}
     del trainer, real_step, recorded
     gc.collect()
     torch.cuda.empty_cache()
@@ -2683,6 +2814,23 @@ def multirank_run(label: str, group: bool) -> dict:
 
 def update_times(times: list, accum: int) -> list:
     return [round(sum(times[i:i + accum]) * 1e3, 2) for i in range(0, len(times), accum)]
+
+
+def host_staged_init() -> None:
+    """The trainer's init at fsdp > 1 draws each leaf on the card and hands it
+    to the host (cm.made_on_host) before placing the rank's shares: at
+    pi0_tiny, every leaf on the host and bit-equal to the init on the card."""
+    from intact_tpu_torch.models import common as cm
+    from intact_tpu_torch.models.pi0 import model as pi0
+    from intact_tpu_torch.models.pi0.config import Pi0Config
+
+    on_card = cm.flatten_paths(pi0.init(Pi0Config.tiny(), 3, DEVICE, torch.bfloat16))
+    with cm.made_on_host():
+        staged = cm.flatten_paths(pi0.init(Pi0Config.tiny(), 3, DEVICE, torch.bfloat16))
+    bad = [k for k, v in on_card.items() if staged[k].device.type != "cpu" or not torch.equal(staged[k].to(DEVICE), v)]
+    log(f"# host-staged init (pi0_tiny): {len(staged)} leaves on the host, {len(bad)} unequal to the init on the card")
+    if bad or set(staged) != set(on_card):
+        raise SystemExit(f"the host-staged init differs from the card's at {bad[:5]}")
 
 
 def phase_multirank_training() -> dict:
@@ -2700,13 +2848,14 @@ def phase_multirank_training() -> dict:
     if not (RLDS_DIR / "bridge_dataset").exists():
         raise SystemExit(f"{RLDS_DIR}/bridge_dataset is missing: run phase_rlds_data first")
     card = gpu_name_and_power()
+    host_staged_init()
     launch_env = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
     saved_env = {k: os.environ.get(k) for k in launch_env}
     try:
         for label in MULTI_RECIPES:
             if label not in NO_GROUP:  # the phase alone: its own runs without a group
                 alone = multirank_run(label, group=False)
-                NO_GROUP[label] = {"times": alone["times"], "params": alone["params"]}
+                NO_GROUP[label] = {"times": alone["times"], "params": alone["params"], "peak_gib": alone["peak_gib"]}
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
             port = sock.getsockname()[1]
@@ -2727,11 +2876,16 @@ def phase_multirank_training() -> dict:
             unequal = [k for k, v in grouped["params"].items() if not torch.equal(v, ref["params"][k])]
             gap = max(((grouped["params"][k].double() - ref["params"][k].double()).abs().max().item()
                        for k in unequal), default=0.0)
+            times_with, times_without = grouped["times"][:n], ref["times"][:n]
             log(f"# multi-card {label} ({card}): update times with the one-rank NCCL group "
                 f"{update_times(grouped['times'], grouped['accum'])} ms, without a group "
-                f"{update_times(ref['times'][:n], grouped['accum'])} ms; params after {n} micro-steps bit-equal to "
-                f"the run without a group: {not unequal} ({len(unequal)} of {len(ref['params'])} leaves differ, max "
-                f"abs {gap:.3e})")
+                f"{update_times(ref['times'][:n], grouped['accum'])} ms; micro-step median "
+                f"{statistics.median(times_with) * 1e3:.2f} ms with the group"
+                f"{' and the fsdp-4 shares (one part)' if label in ZERO3_LABELS else ''}, "
+                f"{statistics.median(times_without) * 1e3:.2f} ms without; peak memory {grouped['peak_gib']:.2f} GiB "
+                f"with, {ref['peak_gib'] if ref['peak_gib'] is None else round(ref['peak_gib'], 2)} GiB without; "
+                f"params after {n} micro-steps bit-equal to the run without a group: {not unequal} ({len(unequal)} of "
+                f"{len(ref['params'])} leaves differ, max abs {gap:.3e})")
             if unequal or set(ref["params"]) != set(grouped["params"]):
                 raise SystemExit(f"multi-card {label}: the one-rank group's params differ from the run without a "
                                  f"group at {unequal[:5]}")

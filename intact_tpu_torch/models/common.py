@@ -10,13 +10,17 @@ norm statistics are taken in fp32. A quantized dense node holds int8
 `kernel_scale` [..., out] (per output channel, per layer when stacked);
 `dense` sends it through the W8A8 kernel.
 
-Served over fsdp ranks (`parallel/sharding.py`), a leaf the rules split is
-a `Sharded` holder of this rank's slice; only `layer` (a stacked leaf's
-layer), `dense`, `embed_lookup`, `unembed_logits` and `whole` gather it.
+Over fsdp ranks (`parallel/sharding.py`: serving, and ZeRO-3 training), a
+leaf the rules split is a `Sharded` holder of this rank's slice; only
+`layer` (a stacked tree's layer), `dense`, `embed_lookup`, `unembed_logits`
+and `whole` gather it, each through one layer bucket (one all-gather for all
+the split leaves it needs; where a leaf trains, the backward reduce-scatters
+its gradient the same way: `sharding.GatherLayer`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import re
@@ -25,7 +29,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from intact_tpu_torch.parallel.sharding import Sharded
+from intact_tpu_torch.parallel.sharding import Sharded, gather_tree
 
 Params = dict  # nested dict of tensors
 
@@ -60,28 +64,47 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 # initializers
 # ---------------------------------------------------------------------------
 
+_ON_HOST = False  # set inside `made_on_host`
+
+
+@contextlib.contextmanager
+def made_on_host():
+    """Initializers made inside draw on their device, from its generator,
+    and move each leaf to the host as it is made: the values of an init on
+    the device, which holds one leaf at a time (a rank then keeps its
+    share: parallel.sharding.shard_tree)."""
+    global _ON_HOST
+    before, _ON_HOST = _ON_HOST, True
+    try:
+        yield
+    finally:
+        _ON_HOST = before
+
+
 class Initializer:
     """Random parameter factory on one device from an explicit seeded generator.
 
     On the "meta" device it makes shapes only (no generator, no memory); the
-    weight bridge uses that as the template of the parameter tree."""
+    weight bridge uses that as the template of the parameter tree. Made
+    inside `made_on_host`, it hands its leaves over to the host."""
 
     def __init__(self, seed: int, device: torch.device, dtype: torch.dtype):
         self.device = torch.device(device)
         self.dtype = dtype
+        self.store = torch.device("cpu") if _ON_HOST and self.device.type != "meta" else self.device
         self.generator = None
         if self.device.type != "meta":
             self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
     def normal(self, shape, std: float) -> torch.Tensor:
         x = torch.randn(tuple(shape), generator=self.generator, device=self.device, dtype=self.dtype)
-        return x.mul_(std)
+        return x.mul_(std).to(self.store)
 
     def zeros(self, shape) -> torch.Tensor:
-        return torch.zeros(tuple(shape), device=self.device, dtype=self.dtype)
+        return torch.zeros(tuple(shape), device=self.store, dtype=self.dtype)
 
     def ones(self, shape) -> torch.Tensor:
-        return torch.ones(tuple(shape), device=self.device, dtype=self.dtype)
+        return torch.ones(tuple(shape), device=self.store, dtype=self.dtype)
 
 
 def lecun_normal(init: Initializer, shape, fan_in: int) -> torch.Tensor:
@@ -116,15 +139,16 @@ def layernorm_init(init: Initializer, dim: int, lead: tuple = ()) -> Params:
 
 def whole(x, index=None):
     """A leaf whole (`x[index]` with an index before its split dimension):
-    a `Sharded` leaf gathered over its fsdp group, a tensor as it is."""
+    a `Sharded` leaf gathered over its fsdp group (a bucket of one leaf, with
+    its gradient where it trains), a tensor as it is."""
     if isinstance(x, Sharded):
-        return x.gather(index)
+        return gather_tree({"x": x}, index)["x"]
     return x if index is None else x[index]
 
 
 def _whole_node(p: Params) -> Params:
     if any(isinstance(v, Sharded) for v in p.values()):
-        return {k: whole(v) for k, v in p.items()}
+        return gather_tree(p)
     return p
 
 
@@ -266,8 +290,16 @@ def unflatten_paths(flat: dict) -> dict:
 
 def layer(blocks: Params, i: int) -> Params:
     """Layer i of a stacked [L, ...] block tree: views, no copy, of whole
-    leaves; a `Sharded` leaf's layer gathered over its fsdp group."""
-    return tree_map(lambda a: whole(a, i), blocks)
+    leaves; the `Sharded` leaves' layer gathered over their fsdp group in one
+    bucket (`sharding.gather_tree`)."""
+    return gather_tree(blocks, i)
+
+
+def gathered(tree: Params) -> Params:
+    """A tree with its `Sharded` leaves whole, through one bucket (a tree
+    used several times in one pass: gathered once, its gradient summed by
+    autograd before the one reduce-scatter)."""
+    return gather_tree(tree)
 
 
 # ---------------------------------------------------------------------------

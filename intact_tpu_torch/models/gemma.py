@@ -153,8 +153,9 @@ def forward_joint(
     """Training pass. Returns (prefix_out, suffix_out), both final-normed.
 
     Where a gradient is required each layer pair runs under
-    `torch.utils.checkpoint`: the backward recomputes one layer at a time,
-    as the reference's per-layer remat does.
+    `torch.utils.checkpoint`: the backward recomputes one layer at a time
+    (its split weights gathered again), as the reference's per-layer remat
+    does.
 
     suffix_only=True is for callers that discard prefix_out (Pi0's training
     loss reads only the action-chunk suffix): the last layer's prefix
@@ -170,7 +171,7 @@ def forward_joint(
     n_full = depth if not suffix_only else depth - 1
     carry = (x_pre, x_suf)
     for i in range(n_full):
-        carry = _remat_layer(body, carry, cm.layer(vb, i), cm.layer(eb, i))
+        carry = _remat_layer(body, carry, vb, eb, i)
     x_pre, x_suf = carry
     if not suffix_only:
         x_pre = cm.rms_norm(vlm_params["final_norm"], x_pre, vlm_cfg.norm_eps)
@@ -183,10 +184,15 @@ def forward_joint(
     return None, cm.rms_norm(expert_params["final_norm"], x_suf, expert_cfg.norm_eps)
 
 
-def _remat_layer(body, carry, bp_v, bp_e):
+def _remat_layer(body, carry, vb, eb, i: int):
+    """Layer pair i, its weights gathered inside the checkpointed function, so
+    the recomputed forward gathers them again and no whole layer outlives it."""
+    def pair(xp, xs):
+        return body((xp, xs), (cm.layer(vb, i), cm.layer(eb, i)))[0]
+
     if not torch.is_grad_enabled():
-        return body(carry, (bp_v, bp_e))[0]
-    return checkpoint(lambda xp, xs: body((xp, xs), (bp_v, bp_e))[0], *carry, use_reentrant=False)
+        return pair(*carry)
+    return checkpoint(pair, *carry, use_reentrant=False)
 
 
 def _joint_body(mask, pos_pre, pos_suf, vlm_cfg: GemmaConfig, expert_cfg: GemmaConfig,
@@ -275,8 +281,8 @@ def prefill(
     if torch.is_grad_enabled() and (x_pre.requires_grad or any(w.requires_grad for w in cm.tree_leaves(blocks))):
         if kv_only or cache_len is not None:
             raise ValueError("prefill under autograd returns prefix_out and builds no cache")
-        for i in range(cfg.depth):
-            body = functools.partial(lambda x, bp: layer(x, bp)[0], bp=cm.layer(blocks, i))
+        for i in range(cfg.depth):  # the layer's weights gathered inside, again in the recompute
+            body = functools.partial(lambda x, i: layer(x, cm.layer(blocks, i))[0], i=i)
             x_pre = checkpoint(body, x_pre, use_reentrant=False)
         return cm.rms_norm(vlm_params["final_norm"], x_pre, cfg.norm_eps), None
 

@@ -66,15 +66,18 @@ def prefill_prompt_kv(params: cm.Params, prompt: torch.Tensor, cfg: GemmaConfig,
                       policy: DtypePolicy = DEFAULT_POLICY):
     """Prompt embeddings [B, P, prompt_dim] -> the cross layers' K/V, each
     [L/2, B, P, KVH, head_dim], one layer at a time."""
+    cross = params["pairs"]["cross"]["attn"]
+    kv = [_prompt_kv(cm.layer({"k": cross["k"], "v": cross["v"]}, i), prompt, cfg, policy)
+          for i in range(cfg.depth // 2)]
+    return torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv])
+
+
+def _prompt_kv(attn: cm.Params, prompt: torch.Tensor, cfg: GemmaConfig, policy: DtypePolicy):
+    """One cross layer's K/V of the prompt (its "k" and "v" nodes whole)."""
     b, p_len, _ = prompt.shape
     x = policy.cast(prompt)
     shape = (b, p_len, cfg.num_kv_heads, cfg.head_dim)
-    ks, vs = [], []
-    for i in range(cfg.depth // 2):
-        bp = cm.layer(params["pairs"]["cross"], i)
-        ks.append(cm.dense(bp["attn"]["k"], x, policy).reshape(shape))
-        vs.append(cm.dense(bp["attn"]["v"], x, policy).reshape(shape))
-    return torch.stack(ks), torch.stack(vs)
+    return cm.dense(attn["k"], x, policy).reshape(shape), cm.dense(attn["v"], x, policy).reshape(shape)
 
 
 def forward(
@@ -89,15 +92,16 @@ def forward(
     attention_impl: str = "xla",
 ) -> torch.Tensor:
     """The alternating expert -> final-normed suffix [B, S, D]; exactly one
-    of prompt / prompt_kv is given."""
-    if prompt_kv is None:
-        prompt_kv = prefill_prompt_kv(params, prompt, cfg, policy)
-    ck, cv = prompt_kv
+    of prompt / prompt_kv is given. Given the prompt, each cross layer's K/V
+    come from the layer as gathered for its pass (one gather per layer over
+    fsdp ranks)."""
     b, s, _ = suffix.shape
     scale = cfg.head_dim**-0.5
     x = suffix
     for i in range(cfg.depth // 2):
         bp_self, bp_cross = cm.layer(params["pairs"]["self"], i), cm.layer(params["pairs"]["cross"], i)
+        ki, vi = (prompt_kv[0][i], prompt_kv[1][i]) if prompt_kv is not None else _prompt_kv(
+            bp_cross["attn"], prompt, cfg, policy)
         # self attention over the suffix (block mask + rope)
         y = cm.rms_norm(bp_self["ln1"], x, cfg.norm_eps)
         q, k, v = _qkv(bp_self, y, positions, cfg, policy)
@@ -106,7 +110,7 @@ def forward(
         # cross attention into the prompt (no rope, full attention, plain path)
         y = cm.rms_norm(bp_cross["ln1"], x, cfg.norm_eps)
         q = cm.dense(bp_cross["attn"]["q"], y, policy).reshape(b, s, cfg.num_heads, cfg.head_dim)
-        att = multi_head_attention(q, ck[i].to(q.dtype), cv[i].to(q.dtype), mask=None, scale=scale)
+        att = multi_head_attention(q, ki.to(q.dtype), vi.to(q.dtype), mask=None, scale=scale)
         x = _post_attention(bp_cross, x, att, cfg, policy)
     return cm.rms_norm(params["final_norm"], x, cfg.norm_eps)
 

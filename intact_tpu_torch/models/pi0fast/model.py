@@ -118,6 +118,10 @@ def compute_loss(params, rng, batch: dict, cfg: Pi0FASTConfig, policy: DtypePoli
     so that one trainer calls every family alike). Each trunk layer is
     recomputed in the backward (gemma.prefill under autograd)."""
     del rng, train, noise, time
+    # the tied table serves the language lookup, the teacher-forced inputs and
+    # the head: over fsdp ranks it is gathered once, and its three gradients
+    # meet in autograd before its one reduce-scatter
+    params = {**params, "vlm_embed": cm.gathered(params["vlm_embed"])}
     if "action_tokens" in batch:
         targets = batch["action_tokens"].long()
         token_keep = batch.get("action_token_mask")

@@ -3,7 +3,10 @@
 `init(cfg, ...)` builds a stacked-block param tree, `encode(params, images,
 cfg)` maps [-1, 1] images [B, H, W, 3] to patch tokens [B, N, width]. The
 classification head is omitted: PaliGemma consumes the post-norm patch
-embeddings. Attention (head_dim 72) stays on the plain path.
+embeddings. Attention (head_dim 72) stays on the plain path. Under autograd
+with the blocks split over fsdp ranks (`Sharded`, ZeRO-3), each layer runs
+under `torch.utils.checkpoint`, so no gathered layer outlives its forward
+(the reference remats it per layer); whole blocks keep their activations.
 """
 
 from __future__ import annotations
@@ -11,10 +14,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from intact_tpu_torch.models import common as cm
 from intact_tpu_torch.models.common import DEFAULT_POLICY, DtypePolicy
 from intact_tpu_torch.ops.attention import multi_head_attention
+from intact_tpu_torch.parallel.sharding import Sharded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +111,11 @@ def encode(
     x = x @ kernel + policy.cast(params["patch_embed"]["bias"])
     x = x + policy.cast(params["pos_embed"])
 
+    blocks = params["blocks"]
+    remat = torch.is_grad_enabled() and any(isinstance(w, Sharded) for w in cm.tree_leaves(blocks))
     for i in range(cfg.depth):
-        x = _block_apply(cfg, policy, x, cm.layer(params["blocks"], i))
+        if remat:  # the layer gathered inside the checkpoint, again in the recompute
+            x = checkpoint(lambda x, i: _block_apply(cfg, policy, x, cm.layer(blocks, i)), x, i, use_reentrant=False)
+        else:
+            x = _block_apply(cfg, policy, x, cm.layer(blocks, i))
     return cm.layer_norm(params["ln_post"], x, cfg.layernorm_eps)

@@ -2,10 +2,14 @@
 its collectives (intact_tpu/parallel's counterpart).
 
 The JAX package declares shardings and lets XLA insert the collectives; the
-port runs one process per card and issues them itself: the trainer's standard
-step and fused step reduce each gradient over the ranks and update this
-rank's global block rows of the optimizer state (ZeRO-2 over fsdp), then
-gather the updated parameters. NCCL on the card, gloo on the CPU.
+port runs one process per card and issues them itself. The trainer's
+standard step is ZeRO-3 over fsdp: each rank holds its slice of every leaf
+the rules split (params, gradients, accumulators, moments), a layer is
+gathered in one collective where it is used and its gradient
+reduce-scattered in one (`sharding.GatherLayer`). The fused step reduces
+each gradient over the ranks and updates this rank's global block rows of
+the optimizer state (ZeRO-2 over fsdp), then gathers the updated parameters.
+NCCL on the card, gloo on the CPU.
 """
 
 from intact_tpu_torch.parallel.mesh import AXIS_NAMES, Mesh, MeshConfig, default_mesh_for, make_mesh

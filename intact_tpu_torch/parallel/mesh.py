@@ -2,10 +2,11 @@
 
 Axes, as in the JAX package:
   data    data parallelism: replicas average their gradients
-  fsdp    data parallelism with the optimizer state and the update split over
-          the ranks in global block rows (train/optim.py, train/fused_joint.py);
-          every rank still holds the whole parameters, gathered after each
-          update (ZeRO-2)
+  fsdp    data parallelism with the state split over the ranks: the standard
+          step's parameters, gradients and optimizer state by the rules
+          (ZeRO-3, parallel/sharding.py, train/optim.py); the fused step's
+          optimizer state in global block rows, the whole parameters gathered
+          after each update (ZeRO-2, train/fused_joint.py)
   tensor  tensor parallelism: not ported (make_mesh refuses tensor > 1)
 
 `MeshConfig.resolve(n)` takes the world size: the port runs one process per

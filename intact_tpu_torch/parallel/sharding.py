@@ -1,10 +1,10 @@
 """What the port shards, and how (intact_tpu/parallel/sharding.py's counterpart).
 
 Two splits:
-  * a leaf's GLOBAL block rows over the fsdp ranks (`RowShard`): a leaf of n
-    elements is ceil(n / block) rows of `block` contiguous elements of its
-    flattened form, the blocks of the 8-bit moments (train/optim8bit.py) and
-    of the fused step's packed rows; rank f of the fsdp group owns rows
+  * a leaf's GLOBAL block rows over the fsdp ranks (`RowShard`, the fused
+    step's ZeRO-2): a leaf of n elements is ceil(n / block) rows of `block`
+    contiguous elements of its flattened form, the blocks of the fused
+    step's packed rows and 8-bit moments; rank f of the fsdp group owns rows
     [f * per, min((f + 1) * per, nb)), `per` being ceil(nb / fsdp) rounded up
     to `align` rows. Shares may be uneven or empty; the collectives pad them
     to `per` rows. A local shard is never re-blocked, so its absmax blocks
@@ -16,24 +16,36 @@ Two splits:
 The gradient and parameter helpers run the collectives of
 parallel/collectives.py, so the steps call them only when the mesh has a
 process group (without one a rank's gradient is the mean, and its rows are
-the leaf's): `mean_rows` (reduce-scatter over fsdp, all-reduce over data,
-divided by the world size: the mean of the ranks' gradients), `mean_full`
-(one all-reduce over the world) and `gather_rows` (all-gather of the updated
-rows over fsdp, bit for bit). A world of one reduces nothing: its results
+the leaf's): the fused step's `mean_rows` (reduce-scatter over fsdp,
+all-reduce over data, divided by the world size: the mean of the ranks'
+gradients) and `gather_rows` (all-gather of the updated rows over fsdp, bit
+for bit), and `mean_full` (one all-reduce over the world: both steps'
+replicated leaves). A world of one reduces nothing: its results
 equal those of no group bit for bit.
 
-The parameters (ZeRO-3 by the JAX package's DEFAULT_RULES, the serving
-path): `spec_for_path` gives a leaf's spec, a tuple of axis names or None
-per dimension, first match wins over the "/"-joined path; an axis whose mesh
-size does not divide its dimension is dropped, and the tensor axis always is
-(it is not ported: its size is 1). The port's int8 `kernel_q` is
-[..., out, in], the transpose of the JAX package's [..., in, out], so a
-`kernel_q` leaf takes its rule's spec with the last two entries swapped. At
-fsdp > 1 `shard_tree` keeps this rank's slice of every leaf the rules shard
-over fsdp as a `Sharded` holder (the slice, its dimension, the fsdp group);
-the towers gather one at a time where they use it (`models/common.py`:
-`layer` for the stacked blocks, `dense`, `embed_lookup`, `unembed_logits`),
-so only one layer is ever whole. At fsdp 1 every leaf stays a plain tensor.
+The parameters (ZeRO-3 by the JAX package's DEFAULT_RULES: serving and the
+standard training step): `spec_for_path` gives a leaf's spec, a tuple of
+axis names or None per dimension, first match wins over the "/"-joined path;
+an axis whose mesh size does not divide its dimension is dropped (the leaf
+stays whole and replicated), and the tensor axis always is (it is not
+ported: its size is 1). The port's int8 `kernel_q` is [..., out, in], the
+transpose of the JAX package's [..., in, out], so a `kernel_q` leaf takes
+its rule's spec with the last two entries swapped. At fsdp > 1 `shard_tree`
+keeps this rank's slice of every leaf the rules shard over fsdp as a
+`Sharded` holder (the slice, its dimension, the fsdp group, its part, and
+where it trains its local gradient); the towers gather one layer at a time
+where they use it (`models/common.py`: `layer` for the stacked blocks,
+`dense`, `embed_lookup`, `unembed_logits`, `whole`), so only one layer is
+ever whole. A layer's split leaves travel as one bucket: their slices packed
+into one byte buffer at 128-byte aligned offsets and gathered with one
+all-gather, each leaf unpacked into a contiguous tensor of its own
+(`gather_bucket`); where they train, `GatherLayer`'s backward packs their
+whole gradients rank-major into one fp32 buffer and reduce-scatters it with
+one collective, adding each part into the leaf's local gradient at the
+layer (`reduce_scatter_bucket`). The bucket gather, its unpack and the
+reduce-scatter are `torch.profiler.record_function` ranges ("bucket
+gather", "bucket unpack", "bucket reduce-scatter"). At fsdp 1 every leaf
+stays a plain tensor.
 """
 
 from __future__ import annotations
@@ -278,30 +290,195 @@ def param_specs(params, mesh: Mesh, rules=None) -> dict:
     return walk(params, ())
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(eq=False)
 class Sharded:
     """This rank's slice `local` of a leaf of shape `shape`, split in `parts`
-    equal slices along `dim` over the fsdp `group` (rank order). Only
-    `gather` makes it whole."""
+    equal slices along `dim` over the fsdp `group` (rank order); `index` is
+    this rank's part. Only a bucket gather (`gather_tree`, `gather_leaf`)
+    makes it whole. `grad`, where the leaf trains, is the local gradient the
+    bucket reduce-scatters add into (train/train_step.py)."""
 
     local: torch.Tensor
     dim: int
     shape: tuple
     group: object
     parts: int
+    index: int = 0
+    grad: torch.Tensor | None = None
 
-    def gather(self, index=None) -> torch.Tensor:
-        """The whole leaf, or `leaf[index]` for an index into the dimensions
-        before `dim` (a layer of a stacked leaf, a range of rows): the group's
-        slices concatenated along the split dimension, contiguous."""
-        x = self.local if index is None else self.local[index]
-        dim = self.dim - (self.local.ndim - x.ndim)
-        if dim < 0 or x.shape[dim] != self.local.shape[self.dim]:
-            raise ValueError(f"index {index!r} reaches the split dimension {self.dim} of a {self.shape} leaf")
-        parts = all_gather_bytes(x, self.group, self.parts)  # [parts, *x.shape]
-        if dim == 0:
-            return parts.reshape(-1, *x.shape[1:])
-        return torch.cat(list(parts.unbind(0)), dim=dim)
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.local.dtype
+
+    @property
+    def requires_grad(self) -> bool:
+        return self.local.requires_grad
+
+    def numel(self) -> int:
+        return self.local.numel() * self.parts
+
+    def is_floating_point(self) -> bool:
+        return self.local.is_floating_point()
+
+    def with_local(self, local: torch.Tensor, grad: torch.Tensor | None = None) -> "Sharded":
+        return dataclasses.replace(self, local=local, grad=grad)
+
+
+# ---------------------------------------------------------------------------
+# layer buckets: one collective per layer
+# ---------------------------------------------------------------------------
+
+ALIGN = 128  # each leaf's offset in a bucket, in bytes: an aligned view for every dtype
+
+
+def _aligned(nbytes: int) -> int:
+    return -(-nbytes // ALIGN) * ALIGN
+
+
+def _layer_slices(leaves: list, index) -> tuple[list, list]:
+    """Each leaf's local slice at `index` and the split dimension in it."""
+    xs, dims = [], []
+    for s in leaves:
+        x = s.local if index is None else s.local[index]
+        dim = s.dim - (s.local.ndim - x.ndim)
+        if dim < 0 or x.shape[dim] != s.local.shape[s.dim]:
+            raise ValueError(f"index {index!r} reaches the split dimension {s.dim} of a {s.shape} leaf")
+        xs.append(x)
+        dims.append(dim)
+    group, parts = leaves[0].group, leaves[0].parts
+    if any(s.group is not group or s.parts != parts for s in leaves):
+        raise ValueError("a bucket's leaves must share one group and one split")
+    return xs, dims
+
+
+def gather_bucket(leaves: list, index=None) -> list[torch.Tensor]:
+    """The leaves whole (at `index`): their local slices packed into one byte
+    buffer, each at a 128-byte aligned offset, gathered over the group with
+    one all-gather, and unpacked leaf by leaf into a tensor of its own
+    (the parts concatenated along the split dimension, contiguous)."""
+    from torch.profiler import record_function
+
+    xs, dims = _layer_slices(leaves, index)
+    group, parts = leaves[0].group, leaves[0].parts
+    with record_function("bucket gather"):
+        offsets, size = [], 0
+        for x in xs:
+            offsets.append(size)
+            size += _aligned(x.numel() * x.element_size())
+        send = torch.empty(size, dtype=torch.uint8, device=xs[0].device)
+        for x, o in zip(xs, offsets):
+            send[o:o + x.numel() * x.element_size()].view(x.dtype).view(x.shape).copy_(x)
+        recv = torch.empty(parts * size, dtype=torch.uint8, device=send.device)
+        collectives.bucket_all_gather(recv, send, group)
+    with record_function("bucket unpack"):
+        out = []
+        for x, dim, o in zip(xs, dims, offsets):
+            n = x.numel() * x.element_size()
+            pieces = [recv[r * size + o:r * size + o + n].view(x.dtype).view(x.shape) for r in range(parts)]
+            out.append(torch.cat(pieces, dim=dim))
+    return out
+
+
+def reduce_scatter_bucket(leaves: list, index, grads: list) -> list[torch.Tensor]:
+    """The reverse of gather_bucket for the gradients of whole leaves (each
+    grads[j] shaped as leaves[j] whole at `index`): each gradient split into
+    its parts, packed rank-major into one fp32 buffer (each leaf at a 128-byte
+    aligned offset) and reduce-scattered as a sum with one collective ->
+    this rank's part of each, fp32, summed over the group."""
+    from torch.profiler import record_function
+
+    xs, dims = _layer_slices(leaves, index)
+    group, parts = leaves[0].group, leaves[0].parts
+    with record_function("bucket reduce-scatter"):
+        offsets, size = [], 0
+        for x in xs:
+            offsets.append(size)
+            size += _aligned(x.numel() * 4) // 4
+        send = torch.empty(parts * size, dtype=torch.float32, device=grads[0].device)
+        for x, dim, o, g in zip(xs, dims, offsets, grads):
+            for r, piece in enumerate(g.chunk(parts, dim=dim)):
+                send[r * size + o:r * size + o + x.numel()].view(x.shape).copy_(piece)
+        recv = torch.empty(size, dtype=torch.float32, device=send.device)
+        collectives.bucket_reduce_scatter(recv, send, group)
+    return [recv[o:o + x.numel()].view(x.shape) for x, o in zip(xs, offsets)]
+
+
+class GatherLayer(torch.autograd.Function):
+    """A layer's split leaves whole, as one bucket: forward = the bucket's
+    all-gather; backward = the bucket's reduce-scatter of the trainable
+    leaves' gradients, added straight into each leaf's local gradient at
+    `index` (`Sharded.grad`), so no whole-size gradient of a stacked leaf is
+    ever formed; it returns no gradient to its inputs. Every rank takes each
+    layer's gather in the same order, and a leaf whose whole gradient is
+    undefined on a rank takes part with zeros."""
+
+    @staticmethod
+    def forward(ctx, leaves, index, *locals_):
+        ctx.leaves, ctx.index = leaves, index
+        return tuple(gather_bucket(leaves, index))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        train = [j for j, s in enumerate(ctx.leaves) if ctx.needs_input_grad[2 + j]]
+        if train:
+            leaves = [ctx.leaves[j] for j in train]
+            parts = reduce_scatter_bucket(leaves, ctx.index, [grads[j] for j in train])
+            for s, part in zip(leaves, parts):
+                if s.grad is None:
+                    s.grad = torch.zeros_like(s.local)
+                dst = s.grad if ctx.index is None else s.grad[ctx.index]
+                dst.add_(part)
+        return (None, None) + (None,) * len(ctx.leaves)
+
+
+def gather_layer(leaves: list, index=None) -> list[torch.Tensor]:
+    """The leaves whole at `index` through one bucket: through GatherLayer
+    where a gradient is recorded and a leaf trains, the plain bucket gather
+    otherwise (no_grad, inference_mode, frozen leaves)."""
+    if torch.is_grad_enabled() and any(s.local.requires_grad for s in leaves):
+        return list(GatherLayer.apply(leaves, index, *(s.local for s in leaves)))
+    return gather_bucket(leaves, index)
+
+
+def gather_tree(tree, index=None):
+    """A (nested dict) tree with its `Sharded` leaves whole (at `index`),
+    all of them through one bucket; the other leaves as they are (`x[index]`)."""
+    flat = dict(_flat_items(tree))
+    sharded = [path for path, x in flat.items() if isinstance(x, Sharded)]
+    whole = dict(zip(sharded, gather_layer([flat[p] for p in sharded], index))) if sharded else {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if path in whole:
+            return whole[path]
+        return node if index is None else node[index]
+
+    return walk(tree, ())
+
+
+def _flat_items(tree, path=()) -> list:
+    if isinstance(tree, dict):
+        return [item for k, v in tree.items() for item in _flat_items(v, path + (k,))]
+    return [(path, tree)]
+
+
+def held(p) -> torch.Tensor:
+    """The tensor a rank holds of a leaf: a `Sharded` leaf's slice, else the leaf."""
+    return p.local if isinstance(p, Sharded) else p
+
+
+def gather_leaf(x: torch.Tensor, like: Sharded) -> torch.Tensor:
+    """A local tensor laid out as `like`'s slice (the leaf's own, a moment's
+    codes, an accumulator) -> the whole tensor, gathered over its group."""
+    return gather_bucket([dataclasses.replace(like, local=x, grad=None)])[0]
+
+
+def take_slice(whole: torch.Tensor, like: Sharded) -> torch.Tensor:
+    """A whole tensor shaped as `like`'s leaf -> this rank's slice of it (a
+    view; `whole` may live on the host)."""
+    n = whole.shape[like.dim] // like.parts
+    return whole.narrow(like.dim, like.index * n, n)
 
 
 def shard_leaf(path: str, x: torch.Tensor, mesh: Mesh, put=None, rules=None):
@@ -317,7 +494,7 @@ def shard_leaf(path: str, x: torch.Tensor, mesh: Mesh, put=None, rules=None):
     local = put(piece.contiguous()) if put else piece
     if local.untyped_storage().data_ptr() == x.untyped_storage().data_ptr():
         local = local.clone(memory_format=torch.contiguous_format)
-    return Sharded(local, dim, tuple(x.shape), mesh.groups["fsdp"], mesh.fsdp)
+    return Sharded(local, dim, tuple(x.shape), mesh.groups["fsdp"], mesh.fsdp, mesh.fsdp_index)
 
 
 def shard_tree(tree, mesh: Mesh, put=None, consume: bool = False, rules=None):

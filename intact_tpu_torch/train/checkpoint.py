@@ -15,11 +15,14 @@ state; a params_template/params_transform pair loads a checkpoint whose
 parameter tree differs from the live one (float pretrained params into a
 quantize_frozen_int8 run), as intact_tpu/train/checkpoint.py does.
 
-Several ranks: a checkpoint holds the one-rank layout (the trainer gathers the
-row-split optimizer state before saving), so it restores onto any world
-size; `save_from_ranks` lets rank 0 clear a stale partial step dir and write,
-and returns on every rank behind a barrier once the step is committed, and
-`restore_train_state`'s `localize` cuts the saved fields to a rank's rows.
+Several ranks: a checkpoint holds the one-rank layout, so it restores onto
+any world size. `save_from_ranks` gathers each split (`Sharded`) parameter
+over its fsdp group one leaf at a time and moves it to rank 0's host, so no
+card ever holds the whole tree (the trainer gathers the split optimizer
+state the same way); rank 0 clears a stale partial step dir and writes, and
+every rank returns behind a barrier once the step is committed.
+`restore_train_state` copies only a rank's slice of each split leaf to its
+card, and its `localize` cuts the saved fields to a rank's slices.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 
 from intact_tpu_torch.models.common import flatten_paths, unflatten_paths
 from intact_tpu_torch.parallel import distributed
+from intact_tpu_torch.parallel.sharding import Sharded, gather_leaf, held, take_slice
 
 PARAMS_FILE = "params.pt"
 STATE_FILE = "train_state.pt"
@@ -96,13 +100,22 @@ def save_checkpoint(ckpt_root: str | Path, params, step: int, aux: dict | None =
 
 def save_from_ranks(ckpt_root: str | Path, params, step: int, aux: dict | None = None,
                     train_state: dict | None = None) -> Path:
-    """save_checkpoint from a process group: every rank calls it with the
-    same (gathered, one-rank layout) state; rank 0 clears a stale partial
-    step dir and writes, and every rank returns after a barrier, when the
-    step is committed. Without a group it is save_checkpoint."""
+    """save_checkpoint from a process group: every rank calls it with its
+    params (split leaves as `Sharded` slices) and the same one-rank-layout
+    state; the split leaves are gathered leaf by leaf to rank 0's host, rank
+    0 clears a stale partial step dir and writes, and every rank returns
+    after a barrier, when the step is committed. Without a group it is
+    save_checkpoint."""
     path = step_dir(ckpt_root, int(step)).resolve()
-    if distributed.process_index() == 0:
-        path = save_checkpoint(ckpt_root, params, step, aux=aux, train_state=train_state)
+    main = distributed.process_index() == 0
+    host = {}
+    for k, v in flatten_paths(params).items():  # every rank takes part in each split leaf's gather
+        leaf = gather_leaf(v.local, v) if isinstance(v, Sharded) else v
+        if main:
+            host[k] = leaf.detach().to("cpu")
+        del leaf
+    if main:
+        path = save_checkpoint(ckpt_root, host, step, aux=aux, train_state=train_state)
     distributed.barrier()
     return path
 
@@ -166,6 +179,15 @@ def _load_into(live, saved, where: str):
     return saved
 
 
+def _restore_leaf(live, saved: torch.Tensor):
+    """Copy a saved whole leaf into the live one, cast to its dtype: a split
+    leaf takes only this rank's slice."""
+    if isinstance(live, Sharded):
+        live.local.copy_(take_slice(saved, live))
+        return live
+    return live.copy_(saved)
+
+
 def restore_train_state(ckpt_path: str | Path, template, resume_run: bool = True, params_template=None,
                         params_transform=None, localize=None):
     """-> (state, aux). `template` is the live training state (TrainState or
@@ -175,20 +197,23 @@ def restore_train_state(ckpt_path: str | Path, template, resume_run: bool = True
     too, or, for a params-only checkpoint, the template's stay with a
     warning. With params_template (a tree of tensors or meta tensors giving
     paths, shapes and dtypes) the params restore into that structure on the
-    template's device and `params_transform` maps them into the live one.
+    template's device (on the host where the live params hold `Sharded`
+    slices) and `params_transform` maps them into the live one.
     `localize` maps the saved state fields (one-rank layout) to the live
-    state's (a rank's rows of its row-split moments)."""
+    state's (a rank's slices of its split moments and accumulators, or its
+    rows of the fused step's row-split moments)."""
     path = Path(ckpt_path)
     if not (path / PARAMS_FILE).exists():
         path = _resolve_latest_step(path)
     live = flatten_paths(template.params)
-    device = next(iter(live.values())).device
+    device = held(next(iter(live.values()))).device
     if params_template is None:
         saved = flatten_paths(restore_params(path, template.params))
-        params = unflatten_paths({k: v.copy_(saved[k]) for k, v in live.items()})  # cast to the live dtype
-    else:
+        params = unflatten_paths({k: _restore_leaf(v, saved[k]) for k, v in live.items()})
+    else:  # where the live leaves are split, the transform places the host tree's shares
+        dest = "cpu" if any(isinstance(v, Sharded) for v in live.values()) else device
         saved = flatten_paths(restore_params(path, params_template))
-        params = unflatten_paths({k: saved[k].to(device=device, dtype=t.dtype)
+        params = unflatten_paths({k: saved[k].to(device=dest, dtype=t.dtype)
                                   for k, t in flatten_paths(params_template).items()})
         if params_transform is not None:
             params = params_transform(params)

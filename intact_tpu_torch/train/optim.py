@@ -16,17 +16,19 @@ one emitted update every k micro-steps), and the freeze partition: frozen
 leaves get no update and no optimizer buffer. The state is a dict of tensors
 and ints, updated in place.
 
-Over a mesh of ranks (parallel/), ZeRO-2 over fsdp: every trainable leaf of
-at least optim8bit.MIN_QUANT_ELEMS elements is split in global block rows of
-optim8bit.BLOCK_SIZE over the fsdp ranks (`parallel.sharding.row_shard`), its
-moments hold only this rank's rows, and its update touches only them; smaller
-leaves are replicated. Each rank accumulates its own micro-steps' gradients;
-at an emitted update each leaf's mean is reduced once over the ranks
-(reduce-scatter over fsdp and all-reduce over data for a row-split leaf, one
-all-reduce over the world otherwise), the clip's sum of squares is summed
-over the fsdp group (data replicas hold the same rows), and after its update
-a row-split leaf is all-gathered over fsdp, so every rank holds the whole
-parameters. On one rank the split is the whole leaf and the arithmetic is
+Over a mesh of ranks (parallel/), ZeRO-3 over fsdp: a leaf the rules split
+(parallel/sharding.py's DEFAULT_RULES) is this rank's `Sharded` slice, and
+its gradient, accumulator and moments are slices of the same layout (8-bit
+codes in the slice's shape, one scale per block of the whole leaf on every
+rank: optim8bit.adam8bit_slice, whose per-block max is one all-reduce over
+fsdp per leaf). Its gradient arrives summed over the fsdp ranks (the layer
+buckets' reduce-scatter in the backward); at an emitted update it is
+all-reduced over data and divided by the world size, and the update writes
+the slice in place, gathering nothing. A leaf the rules leave whole stays
+replicated: each rank accumulates its own gradients, reduced once per update
+with one all-reduce over the world. The clip's sum of squares counts each
+slice once and each replicated leaf once per fsdp group (the fsdp index 0
+rank), summed over fsdp. On one rank nothing is split and the arithmetic is
 the single card's.
 
 The fused step's optimizer (8-bit-state AdamW applied per layer inside the
@@ -43,8 +45,9 @@ import numpy as np
 import torch
 
 from intact_tpu_torch.models.common import flatten_paths
-from intact_tpu_torch.parallel import collectives, sharding
+from intact_tpu_torch.parallel import collectives, distributed, sharding
 from intact_tpu_torch.parallel.mesh import Mesh, single_rank_mesh
+from intact_tpu_torch.parallel.sharding import Sharded
 
 
 def cosine_warmup_restarts(
@@ -101,11 +104,6 @@ class OptimizerConfig:
     quantize_moments: bool = False
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, summed in fp32."""
-    return torch.sqrt(sum(torch.square(t.to(torch.float32)).sum() for t in tensors))
-
-
 def clip_factor(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
     """intact_tpu/train/optim.py::clip_by_global_norm_f32's factor: every
     grad is scaled by min(1, max_norm / max(norm, 1e-16)) in its own dtype."""
@@ -125,13 +123,13 @@ class Optimizer:
     exists, so the whole update tree never lives at once.
 
     `trainable` holds the paths of the trainable leaves (None: every leaf).
-    The state: "count" (emitted updates), "mu"/"nu" ({path: moment}: this
-    rank's rows of a row-split leaf), and with accumulation "acc" ({path:
-    running mean of this rank's micro-step grads}, in the dtype of the
-    updates, as MultiSteps holds it after its first micro-step: fp32 with
-    8-bit moments, else the param dtype), "mini_step" and "gradient_step".
-    `mesh`: the ranks (parallel.make_mesh); one rank without a group by
-    default."""
+    The state: "count" (emitted updates), "mu"/"nu" ({path: moment}: a
+    `Sharded` leaf's in its slice's layout), and with accumulation "acc"
+    ({path: running mean of this rank's micro-step grads, a split leaf's
+    summed over fsdp}, in the dtype of the updates, as MultiSteps holds it
+    after its first micro-step: fp32 with 8-bit moments, else the param
+    dtype), "mini_step" and "gradient_step". `mesh`: the ranks
+    (parallel.make_mesh); one rank without a group by default."""
 
     cfg: OptimizerConfig
     schedule: Callable[[int], float]
@@ -145,24 +143,14 @@ class Optimizer:
                 raise ValueError(f"trainable leaf {k} is {flat_params[k].dtype}; only float leaves train")
         return paths
 
-    def shard_of(self, p: torch.Tensor) -> sharding.RowShard | None:
-        """This rank's block rows of a trainable leaf, or None for a
-        replicated one (below optim8bit.MIN_QUANT_ELEMS elements)."""
+    def _zero_moment(self, p, signed: bool):
         from intact_tpu_torch.train import optim8bit
 
-        if p.numel() < optim8bit.MIN_QUANT_ELEMS:
-            return None
-        return sharding.row_shard(p.numel(), optim8bit.BLOCK_SIZE, self.mesh.fsdp, self.mesh.fsdp_index)
-
-    def _zero_moment(self, p: torch.Tensor, signed: bool):
-        from intact_tpu_torch.train import optim8bit
-
-        shard = self.shard_of(p)
-        if self.cfg.quantize_moments:
-            return optim8bit.init_moment(p, signed, rows=shard.per if shard else None)
-        if shard is None or shard.whole:
-            return torch.zeros_like(p)
-        return torch.zeros(shard.per * shard.block, dtype=p.dtype, device=p.device)
+        if not isinstance(p, Sharded):
+            return optim8bit.init_moment(p, signed) if self.cfg.quantize_moments else torch.zeros_like(p)
+        if self.cfg.quantize_moments and p.numel() >= optim8bit.MIN_QUANT_ELEMS:
+            return optim8bit.init_slice_moment(p.local, p.numel(), signed)
+        return torch.zeros_like(p.local, dtype=torch.float32 if self.cfg.quantize_moments else p.dtype)
 
     def init(self, params) -> dict:
         flat = flatten_paths(params)
@@ -173,14 +161,17 @@ class Optimizer:
         if self.cfg.grad_accumulation_steps > 1:
             # MultiSteps keeps the running mean in the dtype of the inner
             # updates: fp32 from the 8-bit AdamW, the param dtype from AdamW
-            acc_dtype = (lambda p: torch.float32) if self.cfg.quantize_moments else (lambda p: p.dtype)
-            state.update(mini_step=0, gradient_step=0,
-                         acc={k: torch.zeros_like(flat[k], dtype=acc_dtype(flat[k])) for k in self.paths(flat)})
+            acc = {}
+            for k in self.paths(flat):
+                local = sharding.held(flat[k])
+                acc[k] = torch.zeros_like(local, dtype=torch.float32 if self.cfg.quantize_moments else local.dtype)
+            state.update(mini_step=0, gradient_step=0, acc=acc)
         return state
 
     def apply(self, grads, state: dict, params, sink) -> bool:
         """One micro-step on `grads` (a tree or {path: grad} holding at least
-        the trainable leaves). Returns whether an update was emitted."""
+        the trainable leaves; a `Sharded` leaf's is its slice, summed over
+        fsdp). Returns whether an update was emitted."""
         flat_p = flatten_paths(params)
         flat_g = flatten_paths(grads)
         paths = self.paths(flat_p)
@@ -202,30 +193,31 @@ class Optimizer:
             state["gradient_step"] += 1
         return True
 
-    def _reduce(self, g: torch.Tensor, shard) -> torch.Tensor:
+    def _reduce(self, g: torch.Tensor, p) -> torch.Tensor:
         """Overwrite g (the accumulator or a micro-step's gradient) with the
-        world mean of the ranks' g, at this rank's rows of a row-split leaf,
-        one leaf at a time; -> the rows this rank updates (all of g for a
-        replicated or whole leaf, flat rows otherwise). Without a process
-        group g is the mean already."""
+        world mean of the ranks' g, one leaf at a time: a split leaf's slice
+        (already summed over fsdp) summed over data, a replicated leaf's over
+        the world, each divided by the world size. Without a process group g
+        is the mean already."""
         if self.mesh.distributed:
-            if shard is None:
-                g.copy_(sharding.mean_full(g, self.mesh))
+            if isinstance(p, Sharded):
+                x = g.to(torch.float32, copy=True)
+                collectives.all_reduce(x, self.mesh.groups["data"])
+                g.copy_(x / self.mesh.size)
             else:
-                g.view(-1)[shard.e0:shard.e1].copy_(sharding.mean_rows(g, shard, self.mesh))
-        return g if shard is None or shard.whole else g.view(-1)[shard.e0:shard.e1]
+                g.copy_(sharding.mean_full(g, self.mesh))
+        return g
 
     def _inner(self, g: dict, state: dict, flat_p: dict, paths: list, sink) -> None:
         from intact_tpu_torch.train import optim8bit
 
         cfg, mesh = self.cfg, self.mesh
         b1, b2 = cfg.betas
-        shards = {k: self.shard_of(flat_p[k]) for k in paths}
-        g = {k: self._reduce(g[k], shards[k]) for k in paths}
+        g = {k: self._reduce(g[k], flat_p[k]) for k in paths}
         # clip_by_global_norm_f32, one leaf at a time: the sum of squares of
-        # this rank's rows, and of the replicated leaves once per fsdp group
-        counted = [g[k] for k in paths if shards[k] is not None or mesh.fsdp_index == 0]
-        zero = torch.zeros((), dtype=torch.float32, device=flat_p[paths[0]].device)  # a rank may count no leaf
+        # this rank's slices, and of the replicated leaves once per fsdp group
+        counted = [g[k] for k in paths if isinstance(flat_p[k], Sharded) or mesh.fsdp_index == 0]
+        zero = torch.zeros((), dtype=torch.float32, device=g[paths[0]].device)  # a rank may count no leaf
         ss = sum((torch.square(t.to(torch.float32)).sum() for t in counted), zero)
         if mesh.distributed:
             collectives.all_reduce(ss, mesh.groups["fsdp"])
@@ -234,58 +226,80 @@ class Optimizer:
         c1, c2 = _bias_corrections(b1, b2, state["count"])
         lr = self.schedule(state["count"] - 1)  # scale_by_schedule counts from 0
         for k in paths:
-            p, gk, shard = flat_p[k], g.pop(k), shards[k]
+            p, gk = flat_p[k], g.pop(k)
             gk = gk * scale.to(gk.dtype)
-            e0, e1 = (shard.e0, shard.e1) if shard is not None else (0, p.numel())
-            p_rows = p.reshape(-1)[e0:e1]
+            p_flat = sharding.held(p).reshape(-1)
             mu, nu = state["mu"][k], state["nu"][k]
-            if cfg.quantize_moments:
-                if shard is not None:  # the leaf's valid rows of the (padded) local moments
-                    mu = {"q": mu["q"][:shard.rows], "scale": mu["scale"][:shard.rows]}
-                    nu = {"q": nu["q"][:shard.rows], "scale": nu["scale"][:shard.rows]}
-                chunks = optim8bit.adam8bit_leaf(gk, mu, nu, c1=c1, c2=c2, b1=b1, b2=b2, eps=cfg.eps)
+            hyper = dict(c1=c1, c2=c2, b1=b1, b2=b2, eps=cfg.eps)
+            if isinstance(mu, dict) and isinstance(p, Sharded):
+                layout = optim8bit.slice_layout(p.shape, p.dim, p.parts, p.index)
+                chunks = optim8bit.adam8bit_slice(gk, mu, nu, layout,
+                                                  lambda x, group=p.group: collectives.all_reduce_max(x, group),
+                                                  **hyper)
+            elif cfg.quantize_moments:
+                chunks = optim8bit.adam8bit_leaf(gk, mu, nu, **hyper)
             else:
-                if shard is not None and not shard.whole:
-                    mu, nu = mu[:e1 - e0], nu[:e1 - e0]
-                chunks = [(slice(0, e1 - e0), _adam_leaf(gk, mu, nu, c1, c2, b1, b2, cfg.eps).reshape(-1))]
+                chunks = [(slice(0, p_flat.numel()), _adam_leaf(gk, mu, nu, c1, c2, b1, b2, cfg.eps).reshape(-1))]
             for sl, u in chunks:
                 if cfg.weight_decay:
-                    u = u + cfg.weight_decay * p_rows[sl]
-                sink(k, slice(e0 + sl.start, e0 + sl.stop), u * -lr)
+                    u = u + cfg.weight_decay * p_flat[sl]
+                sink(k, sl, u * -lr)
             del gk
-            if shard is not None and mesh.distributed:
-                sharding.gather_rows(p.view(-1), shard, mesh)
 
-    def global_state(self, state: dict, params) -> dict:
-        """The state in the one-rank layout (the fsdp ranks' moment rows
-        gathered; the accumulator is this rank's own): what a checkpoint
-        holds. Every rank must call it."""
-        return self._map_moments(state, params, to_global=True)
+    def global_state(self, state: dict, params, keep: bool | None = None) -> dict:
+        """The state in the one-rank layout: the split leaves' moments and
+        accumulators gathered over fsdp (8-bit codes into block rows), leaf
+        by leaf: what a checkpoint holds. Every rank must call it. A rank
+        that keeps them (`keep`; by default process 0, which writes the
+        checkpoint) moves each to the host as it is gathered; the others
+        drop it and hold None there."""
+        from intact_tpu_torch.train import optim8bit
 
-    def local_state(self, saved: dict, params) -> dict:
-        """A one-rank-layout state (a checkpoint's) cut to this rank's rows."""
-        return self._map_moments(saved, params, to_global=False)
-
-    def _map_moments(self, state: dict, params, to_global: bool) -> dict:
+        if keep is None:
+            keep = distributed.process_index() == 0
         flat = flatten_paths(params)
         out = dict(state)
-        for name in ("mu", "nu"):
+        for name in ("mu", "nu", "acc"):
+            if name not in state:
+                continue
             out[name] = {}
             for k, m in state[name].items():
-                p, shard = flat[k], self.shard_of(flat[k])
-                if shard is None:
+                p = flat[k]
+                if not isinstance(p, Sharded):
                     out[name][k] = m
-                elif isinstance(m, dict):  # 8-bit codes [rows, block] and scales [rows, 1]
-                    out[name][k] = {f: self._move(m[f], shard, shard.per, shard.nb, to_global) for f in m}
-                else:  # fp32 moments: p-shaped when whole, else flat rows
-                    x = self._move(m.reshape(-1), shard, shard.per * shard.block, shard.n, to_global)
-                    out[name][k] = x.view(p.shape) if to_global or shard.whole else x
+                    continue
+                codes = m["q"] if isinstance(m, dict) else m  # 8-bit: codes in the slice's layout
+                whole = sharding.gather_leaf(codes, p)
+                if not keep:
+                    out[name][k] = None
+                elif isinstance(m, dict):  # with the whole leaf's scales, which every rank holds
+                    q = optim8bit.slice_to_rows(whole.cpu(), signed=name == "mu")
+                    out[name][k] = {"q": q, "scale": m["scale"].cpu()}
+                else:
+                    out[name][k] = whole.cpu()
+                del whole
         return out
 
-    def _move(self, x: torch.Tensor, shard, per: int, total: int, to_global: bool) -> torch.Tensor:
-        if to_global:
-            return sharding.gather_leading(x, self.mesh, total)
-        return x if shard.whole else sharding.take_leading(x, shard, per)
+    def local_state(self, saved: dict, params) -> dict:
+        """A one-rank-layout state (a checkpoint's) cut to this rank's slices."""
+        from intact_tpu_torch.train import optim8bit
+
+        flat = flatten_paths(params)
+        out = dict(saved)
+        for name in ("mu", "nu", "acc"):
+            if name not in saved:
+                continue
+            out[name] = {}
+            for k, m in saved[name].items():
+                p = flat[k]
+                if not isinstance(p, Sharded):
+                    out[name][k] = m
+                elif isinstance(m, dict):
+                    q = sharding.take_slice(optim8bit.rows_to_slice(m["q"], p.shape), p)
+                    out[name][k] = {"q": q.contiguous(), "scale": m["scale"]}
+                else:
+                    out[name][k] = sharding.take_slice(m, p).contiguous()
+        return out
 
 
 def _adam_leaf(g, mu, nu, c1: float, c2: float, b1: float, b2: float, eps: float) -> torch.Tensor:

@@ -35,10 +35,21 @@ device "cpu"): `mesh` resolves against the world size (data -1 absorbs what
 is left), every rank reads its own episode shard (shard_index rank of
 num_shards world) at per_device_batch_size rows, and an update averages
 global_batch_size rows: accumulation = global / (per_device x data x fsdp).
-The steps reduce the gradients over the ranks and split the optimizer state
-over fsdp (ZeRO-2, train/optim.py and train/fused_joint.py). Rank 0 logs,
-reports to W&B and writes checkpoints, in the one-rank layout, so a run
-resumes on any world size; validation scores each rank's rows and averages
+  * the standard step is ZeRO-3 over fsdp: the parameters are drawn from
+    the seed on the device as on one rank, each leaf moved to the host as
+    it is made (`cm.made_on_host`), then placed leaf by leaf on the device
+    (`shard_tree(consume=True)`): this rank's `Sharded` slice of every leaf
+    that DEFAULT_RULES split, so no rank's device holds the whole tree
+    (parallel/sharding.py); its gradient, accumulator and moments are slices
+    too (train/optim.py). A layer is whole only inside its forward or its
+    recomputed backward, gathered in one collective and its gradient
+    reduce-scattered in one (models/common.py's `layer`);
+  * the fused step stays ZeRO-2: whole parameters on every rank, its
+    optimizer state split over fsdp in global block rows
+    (train/fused_joint.py).
+Rank 0 logs, reports to W&B and writes checkpoints, in the one-rank layout
+(gathered leaf by leaf), so a run resumes on any world size; validation
+samples through the gathered layers, scores each rank's rows and averages
 the metrics over the ranks.
 
 Not ported yet, and refused: the tensor axis, the tf.data service
@@ -48,6 +59,7 @@ passes device="cpu".
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -281,7 +293,8 @@ class Trainer:
                 params = cm.unflatten_paths({k: v if mask[k] else v.to(torch.bfloat16) for k, v in flat.items()})
             return params
 
-        params = float_params(self.device)
+        with cm.made_on_host() if self.mesh.fsdp > 1 else contextlib.nullcontext():
+            params = float_params(self.device)  # at fsdp > 1 on the host, drawn on the device
         if cfg.quantize_frozen_int8:
             # the tree changes (kernel -> kernel_q/kernel_scale under frozen
             # nodes), so the mask and optimizer are built on the quantized tree
@@ -289,6 +302,7 @@ class Trainer:
             params = cm.quantize_frozen(params, frozen_mask)
             frozen_mask = self._freeze_mask(params)
         self.frozen_mask = frozen_mask
+        params = self._shard(params)
         self.tx, self.lr_schedule = make_optimizer(self.opt_cfg, frozen_mask, mesh=self.mesh)
         self.state = ts.init_train_state(params, self.tx, seed=cfg.seed)
 
@@ -298,6 +312,17 @@ class Trainer:
             return model.compute_loss(p, rng, batch, mc, policy, noise=noise, time=time_)
 
         self.train_step = ts.make_train_step(loss_fn, self.tx, stochastic_rounding=self.bf16_masters)
+
+    def _shard(self, params):
+        """ZeRO-3 at fsdp > 1: a host tree -> this rank's on the device, leaf
+        by leaf: its slice of every leaf the rules split, the rest whole,
+        each host leaf released as it is placed. At fsdp 1 the tree as it
+        is."""
+        if self.mesh.fsdp == 1:
+            return params
+        from intact_tpu_torch.parallel.sharding import shard_tree
+
+        return shard_tree(params, self.mesh, put=lambda x: x.to(self.device), consume=True)
 
     def _freeze_mask(self, params):
         """True = trainable; None when nothing is frozen. The reference's
@@ -428,7 +453,9 @@ class Trainer:
 
     def _global_fields(self) -> dict:
         """The state's fields but its params, with the optimizer state's
-        row-split moments gathered into the one-rank layout."""
+        split moments (and the standard step's accumulators) gathered into
+        the one-rank layout (the standard step's kept on process 0 only,
+        which writes them; None elsewhere)."""
         fields = ckpt.state_fields(self.state)
         if self.cfg.fused_update:
             fields["mu"], fields["nu"] = fj.global_moments(self.state, self.mesh)
@@ -437,7 +464,7 @@ class Trainer:
         return fields
 
     def _local_fields(self, saved: dict) -> dict:
-        """Saved (one-rank layout) fields cut to this rank's rows."""
+        """Saved (one-rank layout) fields cut to this rank's slices or rows."""
         out = dict(saved)
         if self.cfg.fused_update:
             out["mu"], out["nu"] = fj.local_moments(self.state, (saved["mu"], saved["nu"]), self.mesh)
@@ -453,7 +480,7 @@ class Trainer:
             fp_template, mask = self._prequant
             self.state, aux = ckpt.restore_train_state(
                 path, self.state, resume_run=False, params_template=fp_template,
-                params_transform=lambda p: cm.quantize_frozen(p, mask))
+                params_transform=lambda p: self._shard(cm.quantize_frozen(p, mask)))
         else:
             self.state, aux = ckpt.restore_train_state(path, self.state, resume_run=resume_run,
                                                        localize=self._local_fields)

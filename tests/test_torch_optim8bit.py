@@ -228,3 +228,67 @@ def test_metrics_match_jax():
     assert 0.0 < got[2] < 1.0  # the thresholds split the frames
     np.testing.assert_allclose(tmetric.l1_error(torch.from_numpy(gt), torch.from_numpy(pred)).item(),
                                float(jmetric.l1_error(jnp.asarray(gt), jnp.asarray(pred))), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# a rank's slice against the whole leaf's blocks (ZeRO-3)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape, dim, parts, rows_per_chunk", [
+    ((3, 64, 96), 1, 2, t8.ROWS_PER_CHUNK),  # a middle dim: each rank holds whole blocks
+    ((3, 64, 96), 2, 4, 1),  # the last dim: 1/4 of each block per rank, chunks of one block row
+    ((5, 1152, 8), 1, 4, 3),  # rows of 9216 elements: blocks straddle the rows
+    ((4096,), 0, 2, 1),  # one dim, two blocks per rank
+    ((7, 100), 1, 1, t8.ROWS_PER_CHUNK),  # one part: the one-rank layout, its tail block short
+])
+def test_slice_update_is_the_whole_leafs(monkeypatch, shape, dim, parts, rows_per_chunk):
+    """Three 8-bit AdamW steps on each rank's slice (the ranks as threads,
+    their per-block absmax maxed between them as the all-reduce would): the
+    directions, the codes gathered into block rows and the scales are one
+    rank's on the whole leaf, bit for bit."""
+    import threading
+
+    monkeypatch.setattr(t8, "ROWS_PER_CHUNK", rows_per_chunk)
+    torch.manual_seed(0)
+    n, width = int(np.prod(shape)), shape[dim] // parts
+    whole = {signed: {"q": torch.full((-(-n // t8.BLOCK_SIZE), t8.BLOCK_SIZE), t8.zero_index(signed),
+                                      dtype=torch.int8), "scale": torch.zeros(-(-n // t8.BLOCK_SIZE), 1)}
+             for signed in (True, False)}
+    ranks = [(t8.init_slice_moment(torch.zeros(shape).narrow(dim, 0, width), n, True),
+              t8.init_slice_moment(torch.zeros(shape).narrow(dim, 0, width), n, False),
+              t8.slice_layout(shape, dim, parts, f)) for f in range(parts)]
+    hyper = dict(c1=0.1, c2=0.002, b1=0.9, b2=0.999, eps=1e-8)
+    for _ in range(3):
+        g = torch.randn(shape) * torch.logspace(-6, 0, shape[-1])  # blocks of mixed magnitude
+        want = torch.zeros(n)
+        for sl, u in t8.adam8bit_leaf(g, whole[True], whole[False], **hyper):
+            want[sl] = u
+        barrier, shared, got = threading.Barrier(parts, timeout=60), [None] * parts, [None] * parts
+
+        def rank(f):
+            mu, nu, layout = ranks[f]
+
+            def reduce_max(x):
+                shared[f] = x.clone()
+                barrier.wait()
+                x.copy_(torch.stack(shared).amax(dim=0))
+                barrier.wait()
+
+            local = g.narrow(dim, f * width, width).contiguous()
+            out = torch.zeros(local.numel())
+            for sl, u in t8.adam8bit_slice(local, mu, nu, layout, reduce_max, **hyper):
+                out[sl] = u
+            got[f] = out.view(local.shape)
+
+        threads = [threading.Thread(target=rank, args=(f,)) for f in range(parts)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads) and all(x is not None for x in got)
+        assert torch.equal(torch.cat(got, dim).reshape(-1), want)
+    for r, signed in ((0, True), (1, False)):
+        codes = torch.cat([ranks[f][r]["q"] for f in range(parts)], dim)
+        assert torch.equal(t8.slice_to_rows(codes, signed), whole[signed]["q"])
+        assert torch.equal(t8.rows_to_slice(whole[signed]["q"], shape), codes)
+        assert all(torch.equal(ranks[f][r]["scale"], whole[signed]["scale"]) for f in range(parts))

@@ -316,7 +316,7 @@ def test_pi0_at_data_2_matches_one_rank(groups):
     np.testing.assert_allclose(ranks[0]["actions"][0], groups["refs"]["pi0"], rtol=ACTIONS_RTOL, atol=1e-6)
     # per inference: a header and the 5 arrays and the noise broadcast, one gather; then the stop's header
     for r in ranks:
-        assert r["collectives"] == {"broadcast": 8, "all_gather": 1}
+        assert r["collectives"] == {"broadcast": 8, "all_gather": 1, "bucket_all_gather": 0}
 
 
 def test_int8_pi0_at_fsdp_2_matches_one_rank(groups):
@@ -324,7 +324,9 @@ def test_int8_pi0_at_fsdp_2_matches_one_rank(groups):
     for r in ranks:
         assert_sharded_halves(r["sharded"], 2, "int8")
         assert any(k.endswith("kernel_q") for k in r["sharded"])
-        assert r["collectives"] == ranks[0]["collectives"] and r["collectives"]["all_gather"] > 1
+        # the actions' gather, and one bucket gather per layer that uses split leaves
+        assert r["collectives"] == ranks[0]["collectives"] and r["collectives"]["all_gather"] == 1
+        assert r["collectives"]["bucket_all_gather"] > 1
     np.testing.assert_allclose(ranks[0]["actions"][0], groups["refs"]["int8"], rtol=ACTIONS_RTOL, atol=1e-6)
 
 

@@ -110,7 +110,8 @@ NATIVE = {"spatialvla_native_tiny": "predict_tokens", "magma_native_tiny": "gene
 def collective_calls() -> dict:
     from intact_tpu_torch.parallel import collectives
 
-    return {"broadcast": collectives.broadcast.calls, "all_gather": collectives.all_gather.calls}
+    return {"broadcast": collectives.broadcast.calls, "all_gather": collectives.all_gather.calls,
+            "bucket_all_gather": collectives.bucket_all_gather.calls}
 
 
 # ---------------------------------------------------------------------------

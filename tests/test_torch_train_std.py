@@ -204,6 +204,32 @@ def test_expert_only_train_step_matches_jax(cfgs, jparams, batch):
                            before["expert/blocks/mlp/up/kernel"])
 
 
+def test_param_norm_is_taken_after_the_update(cfgs, jparams, batch):
+    """At lr 0.5 one Adam step moves each trained element by ~0.5, so the
+    params' norm before the update lies far from the norm after it; the
+    port's param_norm is the JAX step's, after the update."""
+    opt = {**OPT_KW, "lr": 0.5, "warmup_steps": 0}
+    jmask = {name: jax.tree.map(lambda _: name not in FROZEN, sub) for name, sub in jparams.items()}
+    jtx, _ = j_make_optimizer(JOpt(**opt), jmask)
+    jstate = j_init_state(jparams, jtx, seed=0)
+    jstep = jax.jit(j_make_step(lambda p, k, b: jpi0.compute_loss(p, k, b, cfgs[0], J32), jtx, J32,
+                                trainable_mask=jmask))
+    _, jmetrics = jstep(jstate, j_batch(batch))
+    noise, time = jax_flow_draws(jax.random.split(jstate.rng, 3)[1], cfgs[0], batch["actions"].shape)
+
+    tp = convert.from_jax_params(jax.tree.map(np.asarray, jparams), cfgs[1], device="cpu")
+    before = float(torch.sqrt(sum(torch.square(v).sum() for v in tcm.flatten_paths(tp).values())))
+    tmask = {name: tcm.tree_map(lambda _: name not in FROZEN, sub) for name, sub in tp.items()}
+    ttx, _ = t_make_optimizer(TOpt(**opt), tmask)
+    tstep = tts.make_train_step(
+        lambda p, rng, b, n, t: tpi0.compute_loss(p, rng, b, cfgs[1], T32, noise=n, time=t), ttx)
+    _, tmetrics = tstep(tts.init_train_state(tp, ttx, seed=0), t_batch(batch), noise=torch.from_numpy(noise),
+                        time=torch.from_numpy(time))
+    want = float(jmetrics["param_norm"])
+    assert abs(before - want) > 1e-2 * want
+    np.testing.assert_allclose(tmetrics["param_norm"].item(), want, rtol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # the trainer on the repo's recipes
 # ---------------------------------------------------------------------------
