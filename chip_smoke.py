@@ -64,6 +64,33 @@ Phases, each failing loudly (non-zero exit):
              its time beside the wrapper without one, and, from one profiled
              inference, its device busy share and the host and device ms of
              the buckets' gather and unpack ranges
+  3d. tensor parallelism: two ranks on the one card, each a process of its
+             own in a gloo group over the card's tensors (NCCL refuses two
+             ranks of one device; every collective is staged through the
+             host, counted), mesh (1, 1, 2). First the row-parallel W8A8 entry
+             against its plain versions at Gemma-2B's o and down K / 2 slices
+             of a batch-64 prefill (int32 partials and row scales equal, the
+             finish pass within one bf16 ulp of the row's max, two slices
+             summed and finished bit-equal to w8a8_matmul on the whole rows),
+             with times beside the bound, the plain versions and
+             torch._int_mm. Then the server role's Pi0PolicyWrapper from the
+             ev yaml on each rank (its tensor slices of the split leaves:
+             column-parallel q, gate, up, fc1 and patch embed, row-parallel o,
+             down and fc2, the embedding's vocabulary rows; the one K/V head
+             whole), rank 0 serving int8 at batch 64 and 1, then bf16 at 64
+             and 1, rank 1 following. Gates, per rank and inference: 17
+             flash_attention launches, all on 4 local query heads; in int8
+             1096 w8a8_matmul, 448 w8a8_partial and 448 w8a8_finish (SigLIP's
+             o and fc2, the prefill's o and down, the expert's per Euler
+             step); each rank's actions against the one-card wrapper (built
+             here first, the same weights and noise): int8 bit-equal, bf16
+             within TP_BF16_RTOL. Then, in the same two processes, two
+             expert-only micro-steps on the int8-frozen prefix at full width
+             (fp32, plain attention), held against the same steps without a
+             group on rank 0 (loss rtol 1e-4, params 1e-4 abs, the int8 codes
+             equal). Reported: each inference's time on the ranks, the
+             tensor group's collectives per inference and micro-step, the
+             card's name and power limit
   4. training the 1-chip joint recipe (config/train/pi0_finetune_bridge_1chip.yaml:
              fused step, bf16 params with stochastic rounding, fp8 moments,
              batch 16, synthetic data) at full width and depth through the
@@ -230,7 +257,7 @@ Phases, each failing loudly (non-zero exit):
              untied 128,256-row lm_head; random weights from the seed, hash
              tokenizer, the Bridge adapter in place of the yaml's undefined
              one): int8 at batch 1 and 64 with the W8A8 launches per
-             inference counted from the configuration (904 at 16 layers: 7
+             inference counted from the configuration (456 at 8 layers: 7
              per layer and the lm_head per step) and no attention kernel launch; env
              actions finite, (1, 7); the served actions equal to the decoded
              tokens'; the int8 tokens and every step's teacher-forced logits
@@ -1583,9 +1610,9 @@ def gathered_serving(grouped, plain, calls: dict, mesh, label: str, want: dict, 
     from intact_tpu_torch.parallel import collectives
 
     grouped.policy.params = one_part(grouped.policy.params, mesh)
-    want_coll = {"all_reduce": 0, "all_reduce_max": 0, "reduce_scatter": 0, "all_gather": 1,
+    want_coll = {**dict.fromkeys(collectives.counts(), 0), "all_gather": 1,
                  "bucket_all_gather": buckets_per_inference(grouped.policy.params, grouped.model_cfg),
-                 "bucket_reduce_scatter": 0, "broadcast": GROUP_CALL_BROADCASTS}
+                 "broadcast": GROUP_CALL_BROADCASTS}
     # --- the main path: the grouped wrapper's fused inference on gathered weights ---
     w8a8.w8a8_matmul.launches = flash_attention.launches = 0
     collectives.reset()
@@ -1616,6 +1643,486 @@ def gathered_serving(grouped, plain, calls: dict, mesh, label: str, want: dict, 
     profile_pass(f"group serving {label} on gathered weights", lambda: grouped.infer_batch(calls["group"]),
                  buckets=card)
     return got
+
+
+# ---------------------------------------------------------------------------
+# 3d. tensor parallelism: two ranks on the one card (mesh 1 x 1 x 2)
+# ---------------------------------------------------------------------------
+
+TP_DIR = Path(".chip_smoke_tp")  # the phase's inputs and each rank's results (git-ignored), removed after it
+TP_SERVING = ((True, 64), (True, 1), (False, 64), (False, 1))  # (quantize_int8, rows), in each wrapper's call order
+TP_JOIN_S = 600.0  # the two ranks' limit, then the phase fails and kills them
+# rel L2 of a rank's bf16 actions against the one-card wrapper's: the row-parallel products sum fp32 partials
+# where one card rounds one GEMM (an fp32 ulp before the bf16 cast), carried through 17 layers and 10 Euler steps
+TP_BF16_RTOL = 5e-2
+# two expert-only micro-steps (accumulation 2) on the int8-frozen prefix, fp32 compute and plain attention (the
+# attention kernel takes bf16 only), against the same steps without a group at tests/test_torch_distributed.py's
+# tolerances: the expert-only recipe's AdamW there (eps 1e-3, no warmup: each update moves elements by ~lr)
+TP_TRAIN_ROWS = 4
+TP_TRAIN_OPT = dict(lr=1e-3, weight_decay=1e-4, warmup_steps=0, first_cycle_steps=100, max_grad_norm=0.5,
+                    grad_accumulation_steps=2, eps=1e-3)
+TP_LOSS_RTOL = 1e-4
+TP_PARAMS_ATOL = 1e-4
+TP_NORM_RTOL = 1e-4  # grad_norm (one batch coordinate: one card's) and param_norm of the fp32 micro-steps
+# then two bf16 micro-steps (the recipe's compute dtype, fp32 masters) with the attention kernel on the ranks'
+# local heads, from the state the fp32 update left: the ranks' row-parallel products sum fp32 partials of bf16
+# operands where one card rounds one GEMM, so the loss and grad_norm move by ~1e-3 relative (tests' kernel-vs-plain
+# tolerances: TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL)
+TP_BF16_LOSS_RTOL = 2e-2
+TP_BF16_GNORM_RTOL = 5e-2
+# the new W8A8 entry's shapes: Gemma-2B's o and down at a batch-64 prefill, each rank's K / 2 slice
+TP_W8A8_SHAPES = (("gemma_o_half", 20992, 1024, 2048), ("gemma_down_half", 20992, 8192, 2048))
+TP_FROZEN = ("siglip", "img_proj", "vlm", "vlm_embed")
+
+
+def row_parallel_bound_ms(m: int, k: int, n: int) -> tuple[float, str, float, str]:
+    """(bound ms, by) of w8a8_partial and of w8a8_finish on a K slice: the
+    partial reads x (bf16), the codes and the row absmax and writes the int32
+    partials and the row scales, 2*M*K*N int8 operations; the finish reads the
+    partials, the scales, ws and the bias and writes bf16 y (bytes-bound)."""
+    part_bytes = m * k * 2 + n * k + m * 4 + m * n * 4 + m * 4
+    part_bytes_ms = part_bytes / H100_BYTES_PER_S * 1e3
+    ops_ms = 2 * m * k * n / H100_INT8_OPS * 1e3
+    fin_ms = (m * n * 4 + m * 4 + 2 * n * 4 + m * n * 2) / H100_BYTES_PER_S * 1e3
+    return max(part_bytes_ms, ops_ms), "bytes" if part_bytes_ms >= ops_ms else "operations", fin_ms, "bytes"
+
+
+def tp_kernel_checks(card: str) -> dict:
+    """The row-parallel W8A8 entry at Pi0's o and down K / 2 slices: each
+    slice's int32 partials and row scales equal to the plain version's, the
+    finish pass within one bf16 ulp of the row's max of its plain version,
+    and the two slices' summed partials finished bit-equal to w8a8_matmul on
+    the whole rows; times beside the bound, the plain versions and
+    torch._int_mm on the same codes (the product alone). -> the kernels
+    line's two entries (launches filled in by the phase)."""
+    from intact_tpu_torch.ops import w8a8
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows, max_err = {}, {"w8a8_partial": 0.0, "w8a8_finish": 0.0}
+    for name, m, k, n in TP_W8A8_SHAPES:
+        x, wq, ws, bias = w8a8_case(gen, m, 2 * k, n)
+        halves = [slice(0, k), slice(k, 2 * k)]
+        xs_, ws_ = [x[:, h].contiguous() for h in halves], [wq[:, h].contiguous() for h in halves]
+        amax = torch.maximum(w8a8.row_absmax(xs_[0]), w8a8.row_absmax(xs_[1]))
+        total = torch.zeros((m, n), dtype=torch.int32, device="cuda")
+        p0, f0 = w8a8.w8a8_partial.launches, w8a8.w8a8_finish.launches
+        equal = True
+        for xh, wh in zip(xs_, ws_):
+            part, xs = w8a8.w8a8_partial(xh, wh, amax, weight_layout="nk")
+            rpart, rxs = w8a8.w8a8_partial_reference(xh, wh.t(), amax)
+            equal &= torch.equal(part, rpart) and torch.equal(xs, rxs)
+            total += part
+            del rpart
+        y = w8a8.w8a8_finish(total, xs, ws, bias, out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        if (w8a8.w8a8_partial.launches - p0, w8a8.w8a8_finish.launches - f0) != (2, 1):
+            raise SystemExit(f"the row-parallel W8A8 entry did not launch its kernels on {name}")
+        ref = w8a8.w8a8_finish_reference(total, xs, ws, bias, torch.bfloat16)
+        diff = (y.float() - ref.float()).abs()
+        fin_ok = bool((diff <= W8A8_ROW_RTOL * ref.float().abs().amax(dim=1, keepdim=True)).all())
+        one = w8a8.w8a8_matmul(x, wq, ws, bias, out_dtype=torch.bfloat16, weight_layout="nk")
+        same = torch.equal(y, one)
+        max_err["w8a8_finish"] = max(max_err["w8a8_finish"], diff.max().item())
+        log(f"# row-parallel w8a8 {name} (M {m} K {k} of {2 * k} N {n}, {w8a8.partial_plan(m, n, k)}): partials and "
+            f"row scales equal to the plain version {equal}, finish max abs err {diff.max().item():.3e} (tol "
+            f"{W8A8_ROW_RTOL:.4g} x row max |y|), two slices finished bit-equal to w8a8_matmul on the whole "
+            f"rows {same}")
+        if not (equal and fin_ok and same and bool(torch.isfinite(y).all())):
+            raise SystemExit(f"the row-parallel W8A8 entry disagrees with its plain version or one card's on {name}")
+        xh, wh = xs_[0], ws_[0]
+        ms = cuda_ms(lambda: w8a8.w8a8_partial(xh, wh, amax, weight_layout="nk"))
+        plain_ms = cuda_ms(lambda: w8a8.w8a8_partial_reference(xh, wh.t(), amax), reps=3, warmup=1)
+        fin_ms = cuda_ms(lambda: w8a8.w8a8_finish(total, xs, ws, bias, out_dtype=torch.bfloat16))
+        fin_plain_ms = cuda_ms(lambda: w8a8.w8a8_finish_reference(total, xs, ws, bias, torch.bfloat16), reps=3,
+                               warmup=1)
+        codes = torch.round(xh.float() / xs[:, None]).to(torch.int8)
+        int_mm_ms = cuda_ms(lambda: torch._int_mm(codes, wh.t()))
+        whole_ms = cuda_ms(lambda: w8a8.w8a8_matmul(x, wq, ws, bias, out_dtype=torch.bfloat16, weight_layout="nk"))
+        bound, by, fin_bound, fin_by = row_parallel_bound_ms(m, k, n)
+        log(f"# row-parallel w8a8 timing {name} ({card}): w8a8_partial {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+            f"torch._int_mm on the same codes {int_mm_ms:.4f} ms, bound {bound:.4f} ms by {by}), w8a8_finish "
+            f"{fin_ms:.4f} ms (plain {fin_plain_ms:.4f} ms, bound {fin_bound:.4f} ms by {fin_by}); one card's "
+            f"w8a8_matmul on the whole K {whole_ms:.4f} ms")
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, int_mm_ms=int_mm_ms,
+                          fin_ms=fin_ms, fin_plain_ms=fin_plain_ms, fin_bound_ms=fin_bound, whole_ms=whole_ms)
+        del x, wq, xs_, ws_, total, y, ref, one, codes
+        torch.cuda.empty_cache()
+    w8a8.w8a8_partial.launches = w8a8.w8a8_finish.launches = 0  # comparison launches do not count
+    main = rows["gemma_down_half"]
+    extra = {f"{name}_{k}": v for name, r in rows.items() for k, v in r.items() if k != "bound_by"}
+    partial = {"name": "w8a8_partial", "route": "cuda", "source": "intact_tpu_torch/csrc/w8a8_matmul.cu",
+               "replaces": "intact_tpu/ops/pallas_int8.py:81", "launches": None, "max_abs_err": 0.0,
+               "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+               "bound_by": main["bound_by"],
+               # no single PyTorch call quantizes against a given row scale and multiplies in int8
+               "library_ms": None, "int_mm_product_only_ms": main["int_mm_ms"],
+               "shape": "Gemma-2B down at a batch-64 prefill, one tensor rank's K / 2: M 20992 K 8192 N 2048", **extra}
+    finish = {"name": "w8a8_finish", "route": "cuda", "source": "intact_tpu_torch/csrc/w8a8_matmul.cu",
+              "replaces": "intact_tpu/ops/pallas_int8.py:81", "launches": None,
+              "max_abs_err": max_err["w8a8_finish"], "ms": main["fin_ms"], "plain_ms": main["fin_plain_ms"],
+              "bound_ms": main["fin_bound_ms"], "bound_by": "bytes", "library_ms": None,
+              "shape": "the summed int32 partials of Gemma-2B's down at a batch-64 prefill: M 20992 N 2048"}
+    return {"w8a8_partial": partial, "w8a8_finish": finish}
+
+
+def tp_decode_attention_cost(card: str) -> None:
+    """What the decode attention's zero heads cost: a tensor rank runs its
+    H / t query heads among zero ones at one card's shapes
+    (models/gemma.py::_at_global_heads), so its plain attention does one
+    card's work where its own heads are H / t of it. Times the expert's
+    split-cache attention at Pi0's serving shapes on all 8 heads (what a rank
+    runs at t = 2) and on the rank's 4 alone."""
+    from intact_tpu_torch.ops.attention import xla_attention_cached
+
+    mc = ev_config(False).make_model_config()
+    cfg, p_len, s_len = mc.expert, mc.prefix_len, mc.suffix_len
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    for b in (64, 1):
+        k_cache, v_cache = (torch.randn(b, p_len, 1, cfg.head_dim, generator=gen, device="cuda").to(torch.bfloat16)
+                            for _ in range(2))
+        k_new, v_new = (torch.randn(b, s_len, 1, cfg.head_dim, generator=gen, device="cuda").to(torch.bfloat16)
+                        for _ in range(2))
+        masks = (torch.ones(b, s_len, p_len, dtype=torch.bool, device="cuda"),
+                 torch.ones(b, s_len, s_len, dtype=torch.bool, device="cuda"))
+        wall, dev = {}, {}
+        for heads in (cfg.num_heads, cfg.num_heads // 2):
+            q = torch.randn(b, s_len, heads, cfg.head_dim, generator=gen, device="cuda").to(torch.bfloat16)
+            call = lambda q=q: xla_attention_cached(q, k_cache, v_cache, k_new, v_new, *masks,  # noqa: E731
+                                                    scale=cfg.head_dim**-0.5)
+            wall[heads], dev[heads] = cuda_ms(call), device_ms(call, reps=20)
+        full, half = cfg.num_heads, cfg.num_heads // 2
+        per_inference = cfg.depth * mc.num_steps
+        log(f"# tensor parallel decode attention ({card}), batch {b}, {s_len} query rows over {p_len} + {s_len} keys, "
+            f"per layer: {full} heads (a rank's {half} among zero ones, as it runs) {wall[full]:.4f} ms of wall, "
+            f"{dev[full]:.4f} ms of device; {half} heads alone {wall[half]:.4f} / {dev[half]:.4f} ms; the zero heads "
+            f"x {cfg.depth} layers x {mc.num_steps} steps: {(dev[full] - dev[half]) * per_inference:.3f} ms of device "
+            f"time per inference ({(wall[full] - wall[half]) * per_inference:.2f} ms of wall, host-bound)")
+
+
+def tp_batch(rng: np.random.Generator, rows: int, size: int) -> dict:
+    """One fused device batch as Pi0PolicyWrapper.sample_action_chunk takes it."""
+    obs = make_obs(rng, rows, size)
+    return {"image": obs["image"], "state": np.clip(obs["state"], -1.0, 1.0), "task": list(obs["task"])}
+
+
+def tp_expert_steps(device, mesh, inputs: dict, heads: list) -> dict:
+    """Two expert-only micro-steps (one update) on the int8-frozen prefix at
+    full width in fp32 with the plain attention, then two in bf16 with the
+    attention kernel (its query heads recorded into `heads`): on the tensor
+    ranks, and on rank 0 without a group on the same weights, rows and draws.
+    -> the ranks' losses and norms and, on rank 0, one card's and whether
+    the gathered params after the fp32 update are within TP_PARAMS_ATOL,
+    with the launches of the bf16 micro-steps."""
+    from intact_tpu_torch.models import common as cm
+    from intact_tpu_torch.models.pi0 import model as pi0
+    from intact_tpu_torch.ops import w8a8
+    from intact_tpu_torch.ops.flash_attention import flash_attention
+    from intact_tpu_torch.parallel.mesh import single_rank_mesh
+    from intact_tpu_torch.parallel.sharding import Sharded, gather_leaf, shard_tree
+    from intact_tpu_torch.train.optim import OptimizerConfig, make_optimizer
+    from intact_tpu_torch.train.train_step import init_train_state, make_train_step
+
+    base = dataclasses.replace(ev_config(False).make_model_config(), train_expert_only=True)
+    batches = [{k: v.to(device) for k, v in b.items()} for b in inputs["train_batches"]]
+    out = {}
+    for name, group in (("tensor", mesh), ("one", None)):
+        if name == "one" and mesh.rank != 0:
+            break
+        mc = dataclasses.replace(base, attention_impl="xla")
+        params = pi0.init(mc, inputs["train_seed"], device, torch.float32)
+        mask = {k: cm.tree_map(lambda _, t=k not in TP_FROZEN: t, v) for k, v in params.items()}
+        params = cm.quantize_frozen(params, mask)
+        mask = {k: cm.tree_map(lambda _, t=k not in TP_FROZEN: t, v) for k, v in params.items()}
+        if group is not None:
+            params = shard_tree(params, mesh, consume=True, heads=pi0.tensor_heads(mc))
+        tx, _ = make_optimizer(OptimizerConfig(**TP_TRAIN_OPT), mask, mesh=mesh if group is not None else
+                               single_rank_mesh())
+        state = init_train_state(params, tx, seed=0)
+        res = {"losses": [], "norms": [], "partial": sorted(tx.partial)}
+        for precision, impl, policy in (("fp32", "xla", cm.FP32_POLICY), ("bf16", "pallas", cm.DEFAULT_POLICY)):
+            mc = dataclasses.replace(base, attention_impl=impl)
+            step = make_train_step(lambda p, r, b, n, t, mc=mc, policy=policy: pi0.compute_loss(
+                p, r, b, mc, policy, noise=n, time=t), tx)
+            heads.clear()
+            before = (flash_attention.launches, w8a8.w8a8_matmul.launches, w8a8.w8a8_partial.launches,
+                      w8a8.w8a8_finish.launches)
+            for i, b in enumerate(batches):
+                state, metrics = step(state, b, noise=inputs["train_noise"][i].to(device),
+                                      time=inputs["train_time"][i].to(device))
+                res["losses"].append(metrics["l2_loss"].item())
+                res["norms"].append([metrics["grad_norm"].item(), metrics["param_norm"].item()])
+            torch.cuda.synchronize()
+            res[f"launches_{precision}"] = [a - b for a, b in zip(
+                (flash_attention.launches, w8a8.w8a8_matmul.launches, w8a8.w8a8_partial.launches,
+                 w8a8.w8a8_finish.launches), before)]
+            res[f"heads_{precision}"] = sorted(set(heads))
+            if precision == "fp32":  # every rank joins the gathers; rank 0 keeps the leaves
+                flat = {k: (gather_leaf(v.local, v) if isinstance(v, Sharded) else v) for k, v in
+                        cm.flatten_paths(state.params).items()}
+                if mesh.rank == 0:
+                    res["params"] = {k: v.detach().to("cpu", torch.float32, copy=True) for k, v in flat.items()
+                                     if k in tx.trainable}  # a copy: the bf16 steps update the leaves in place
+                    res["codes"] = {k: v.cpu() for k, v in flat.items() if k.endswith("kernel_q")}
+                del flat
+        out[name] = res
+        del params, state, tx, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    tp = out["tensor"]
+    result = {k: tp[k] for k in ("losses", "norms", "partial", "launches_fp32", "launches_bf16", "heads_fp32",
+                                 "heads_bf16")}
+    if mesh.rank == 0:
+        one = out["one"]
+        diff = max((one["params"][k] - tp["params"][k]).abs().max().item() for k in one["params"])
+        codes_equal = all(torch.equal(one["codes"][k], tp["codes"][k]) for k in one["codes"])
+        result.update(one_losses=one["losses"], one_norms=one["norms"], one_launches=one["launches_fp32"],
+                      one_launches_bf16=one["launches_bf16"], params_max_abs=diff, codes_equal=codes_equal,
+                      n_trainable=len(one["params"]))
+    return result
+
+
+def tp_rank(rank: int, world: int, port: int, workdir: str) -> None:
+    """One of the phase's two ranks: a gloo group over the card's tensors
+    (NCCL refuses two ranks of one device), mesh (1, 1, 2); the server role's
+    int8 and bf16 wrappers (rank 0 serves TP_SERVING, rank 1 follows), then
+    the expert-only micro-steps. Writes workdir/rank{r}.pt."""
+    import os
+
+    from intact_tpu_torch.ops import attention, w8a8
+    from intact_tpu_torch.ops.flash_attention import flash_attention
+    from intact_tpu_torch.parallel import MeshConfig, collectives, distributed, make_mesh
+    from intact_tpu_torch.serve.policy_wrapper import make_policy_wrapper
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    workdir = Path(workdir)
+    inputs = torch.load(workdir / "inputs.pt", weights_only=False)
+    device = distributed.initialize(DEVICE, backend="gloo")
+    mesh = make_mesh(MeshConfig(1, 1, world))
+    heads: list = []
+    real_flash = attention.flash_attention
+
+    def counted_flash(q, *args, **kw):  # the query heads of every launch on the path
+        heads.append(q.shape[2])
+        return real_flash(q, *args, **kw)
+
+    attention.flash_attention = counted_flash
+    result = {"backend": distributed.backend(), "mesh": mesh.shape, "serving": []}
+    try:
+        for quantize in (True, False):
+            wrapper = make_policy_wrapper(ev_config(quantize), device=device, mesh=mesh)
+            policy = wrapper.policy
+            real_rows = policy._sample_rows
+            calls = []
+
+            def rows(*arrays, real_rows=real_rows, calls=calls):  # the rows' arrays, then the noise
+                heads.clear()
+                before = (flash_attention.launches, w8a8.w8a8_matmul.launches, w8a8.w8a8_partial.launches,
+                          w8a8.w8a8_finish.launches)
+                c0 = collectives.counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = real_rows(*arrays)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t
+                after = (flash_attention.launches, w8a8.w8a8_matmul.launches, w8a8.w8a8_partial.launches,
+                         w8a8.w8a8_finish.launches)
+                calls.append({"out": out.float().cpu(), "seconds": seconds, "heads": sorted(set(heads)),
+                              "launches": dict(zip(("flash_attention", "w8a8_matmul", "w8a8_partial", "w8a8_finish"),
+                                                   (a - b for a, b in zip(after, before)))),
+                              "collectives": {k: v - c0[k] for k, v in collectives.counts().items() if v - c0[k]},
+                              "staged": collectives.staged_calls()})
+                return out
+
+            policy._sample_rows = rows
+            wrapper.group.on("sample", rows)
+            if rank == 0:
+                walls = []
+                for q, n in TP_SERVING:
+                    if q != quantize:
+                        continue
+                    t = time.perf_counter()
+                    wrapper.sample_action_chunk(inputs["batches"][n])
+                    walls.append(time.perf_counter() - t)
+                wrapper.group.stop()
+            else:
+                walls = []
+                wrapper.group.follow()
+            result["serving"].append({"quantize": quantize, "calls": calls, "walls": walls,
+                                      "split": sum(1 for _ in _tensor_split(policy.params))})
+            del wrapper, policy, real_rows
+            gc.collect()
+            torch.cuda.empty_cache()
+        collectives.reset()
+        result["train"] = tp_expert_steps(device, mesh, inputs, heads)
+        result["train"]["collectives"] = collectives.counts()
+        result["train"]["staged"] = collectives.staged_calls()
+        result["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        attention.flash_attention = real_flash
+        torch.save(result, workdir / f"rank{rank}.pt")
+        distributed.destroy()
+
+
+def _tensor_split(params):
+    from intact_tpu_torch.models import common as cm
+    from intact_tpu_torch.parallel.sharding import Sharded
+
+    return (k for k, v in cm.flatten_paths(params).items() if isinstance(v, Sharded) and v.tensor is not None)
+
+
+def phase_tensor_parallel() -> tuple[dict, dict]:
+    """-> ({kernel: launches} on the two ranks' serving and training, summed
+    over the ranks; the kernels line's entries of the row-parallel W8A8
+    entry). The one-card references (the server role's int8 and bf16
+    wrappers without a group, as phase 3b builds them) run here first; the
+    two ranks then run in processes of their own on the same card."""
+    import shutil
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from intact_tpu_torch.serve.policy_wrapper import make_policy_wrapper
+
+    card = gpu_name_and_power()
+    kernels = tp_kernel_checks(card)
+    tp_decode_attention_cost(card)
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    refs, batches = {}, {}
+    try:
+        for quantize in (True, False):
+            wrapper = make_policy_wrapper(ev_config(quantize), device=DEVICE)
+            size = wrapper.model_cfg.vision.image_size
+            for q, n in TP_SERVING:
+                if q != quantize:
+                    continue
+                batches.setdefault(n, tp_batch(np.random.default_rng(20 + n), n, size))
+                t = time.perf_counter()
+                refs[(q, n)] = torch.from_numpy(wrapper.sample_action_chunk(batches[n]))
+                log(f"# tensor parallel: one-card reference {'int8' if q else 'bf16'} batch {n}: "
+                    f"{(time.perf_counter() - t) * 1e3:.2f} ms")
+            del wrapper
+            gc.collect()
+            torch.cuda.empty_cache()
+        mc = ev_config(False).make_model_config()
+        rng = np.random.default_rng(31)
+        train_batches = [{k: torch.from_numpy(np.asarray(v)) for k, v in
+                          make_train_batch(rng, mc, TP_TRAIN_ROWS).items()} for _ in range(2)]
+        torch.save({"batches": batches, "train_batches": train_batches, "train_seed": 5,
+                    "train_noise": [torch.from_numpy(rng.standard_normal((TP_TRAIN_ROWS, mc.chunk_size,
+                                                                          mc.max_action_dim), dtype=np.float32))
+                                    for _ in range(2)],
+                    "train_time": [torch.from_numpy(rng.uniform(0.1, 0.9, TP_TRAIN_ROWS).astype(np.float32))
+                                   for _ in range(2)]}, TP_DIR / "inputs.pt")
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(tp_rank, args=(2, port, str(TP_DIR)), nprocs=2, join=False, start_method="spawn")
+        deadline = time.monotonic() + TP_JOIN_S
+        while not ctx.join(timeout=max(0.5, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise SystemExit(f"the tensor-parallel ranks did not finish within {TP_JOIN_S:.0f} s")
+        log(f"# tensor parallel: the two ranks ran in {time.perf_counter() - t0:.1f} s")
+        ranks = [torch.load(TP_DIR / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    finally:
+        shutil.rmtree(TP_DIR, ignore_errors=True)
+    return tp_gates(ranks, refs, mc, card), kernels
+
+
+def make_train_batch(rng: np.random.Generator, mc, rows: int) -> dict:
+    """A training batch at the model's shapes: [-1, 1] frames, the first
+    eight language tokens live, state and actions."""
+    s, n = mc.vision.image_size, mc.tokenizer_max_length
+    lang_masks = np.zeros((rows, n), bool)
+    lang_masks[:, :8] = True
+    return {"images": rng.uniform(-1, 1, (rows, mc.num_cameras, s, s, 3)).astype(np.float32),
+            "img_masks": np.ones((rows, mc.num_cameras), bool),
+            "lang_tokens": rng.integers(0, 256, (rows, n)).astype(np.int32), "lang_masks": lang_masks,
+            "state": rng.standard_normal((rows, mc.max_state_dim), dtype=np.float32),
+            "actions": rng.standard_normal((rows, mc.chunk_size, mc.max_action_dim), dtype=np.float32)}
+
+
+def tp_gates(ranks: list, refs: dict, mc, card: str) -> dict:
+    """The phase's gates over the two ranks' results -> the path's launches."""
+    row_products = 2 * mc.vision.depth + 2 * (mc.vlm.depth - 1) + 2 * mc.num_steps * mc.expert.depth
+    local_heads = mc.vlm.num_heads // 2
+    totals = dict.fromkeys(("flash_attention", "w8a8_matmul", "w8a8_partial", "w8a8_finish"), 0)
+    for r, res in enumerate(ranks):
+        if res["backend"] != "gloo" or res["mesh"] != {"data": 1, "fsdp": 1, "tensor": 2}:
+            raise SystemExit(f"tensor parallel rank {r}: group {res['backend']} mesh {res['mesh']}")
+        for serving in res["serving"]:
+            q = serving["quantize"]
+            want = {"flash_attention": mc.vlm.depth - 1,
+                    "w8a8_matmul": w8a8_per_inference(mc) - row_products if q else 0,
+                    "w8a8_partial": row_products if q else 0, "w8a8_finish": row_products if q else 0}
+            sizes = [n for qq, n in TP_SERVING if qq == q]
+            if len(serving["calls"]) != len(sizes):
+                raise SystemExit(f"tensor parallel rank {r}: {len(serving['calls'])} inferences, not {len(sizes)}")
+            for call, n in zip(serving["calls"], sizes):
+                ref = refs[(q, n)]
+                got = call["out"]
+                label = f"rank {r} {'int8' if q else 'bf16'} batch {n}"
+                rel = ((got - ref).norm() / ref.norm()).item()
+                same = torch.equal(got, ref)
+                log(f"# tensor parallel {label} ({card}): {call['seconds'] * 1e3:.2f} ms on the rank, launches "
+                    f"{call['launches']} (expected {want}), attention on {call['heads']} local heads (expected "
+                    f"[{local_heads}]), collectives {call['collectives']} ({call['staged']} staged through the host "
+                    f"so far), actions vs the one-card wrapper: bit-equal {same}, rel L2 {rel:.3e}, max abs "
+                    f"{(got - ref).abs().max().item():.3e}")
+                for k in totals:
+                    totals[k] += call["launches"][k]
+                ok = call["launches"] == want and call["heads"] == [local_heads] and bool(torch.isfinite(got).all())
+                ok = ok and (same if q else rel <= TP_BF16_RTOL) and got.shape == ref.shape
+                if not ok:
+                    raise SystemExit(f"tensor parallel {label}: the gates failed")
+        if r == 0:
+            for serving in res["serving"]:
+                log(f"# tensor parallel rank 0 {'int8' if serving['quantize'] else 'bf16'} walls through "
+                    f"sample_action_chunk (broadcasts, the rank's rows, the actions' gather): "
+                    f"{[round(w * 1e3, 2) for w in serving['walls']]} ms for batches "
+                    f"{[n for q, n in TP_SERVING if q == serving['quantize']]}; {serving['split']} leaves held as "
+                    f"tensor slices")
+        train = res["train"]
+        log(f"# tensor parallel rank {r} expert-only micro-steps (2 fp32 with the plain attention, then 2 bf16 with "
+            f"the kernel): losses {train['losses']}, [grad_norm, param_norm] {train['norms']}, launches "
+            f"(flash_attention, w8a8_matmul, w8a8_partial, w8a8_finish) fp32 {train['launches_fp32']} bf16 "
+            f"{train['launches_bf16']}, the kernel on {train['heads_bf16']} local heads (expected [{local_heads}]), "
+            f"collectives { {k: v for k, v in train['collectives'].items() if v} } ({train['staged']} staged), K/V "
+            f"and biases summed over tensor {train['partial']}, peak {res['peak_gib']:.2f} GiB")
+        for launches in (train["launches_fp32"], train["launches_bf16"]):
+            for k, n in zip(("flash_attention", "w8a8_matmul", "w8a8_partial", "w8a8_finish"), launches):
+                totals[k] += n
+        ok = train["launches_fp32"][0] == 0 and train["launches_bf16"][0] == 2 * (mc.vlm.depth - 1)
+        ok = ok and train["launches_fp32"][2] > 0 and train["launches_bf16"][2] > 0
+        ok = ok and train["heads_bf16"] == [local_heads] and bool(np.isfinite(train["losses"] + sum(train["norms"], [])).all())
+        if not ok:
+            raise SystemExit(f"tensor parallel rank {r}: the expert-only micro-steps failed")
+    lead = ranks[0]["train"]
+    got, one = np.array(lead["norms"]), np.array(lead["one_norms"])
+    loss_ok = np.allclose(lead["losses"][:2], lead["one_losses"][:2], rtol=TP_LOSS_RTOL, atol=0)
+    norms_ok = np.allclose(got[:2], one[:2], rtol=TP_NORM_RTOL, atol=0)
+    bf16_ok = np.allclose(lead["losses"][2:], lead["one_losses"][2:], rtol=TP_BF16_LOSS_RTOL, atol=0)
+    bf16_ok = bf16_ok and np.allclose(got[2:], one[2:], rtol=TP_BF16_GNORM_RTOL, atol=0)
+    log(f"# tensor parallel expert-only against one card without a group: fp32 losses {lead['one_losses'][:2]} "
+        f"(rtol {TP_LOSS_RTOL}: {loss_ok}), [grad_norm, param_norm] {lead['one_norms'][:2]} (rtol {TP_NORM_RTOL}: "
+        f"{norms_ok}; max rel {np.abs(got[:2] / one[:2] - 1).max():.3e}), {lead['n_trainable']} trainable leaves max abs "
+        f"diff {lead['params_max_abs']:.3e} (atol {TP_PARAMS_ATOL}), int8 codes equal {lead['codes_equal']}; bf16 "
+        f"with the kernel losses {lead['one_losses'][2:]} (max rel "
+        f"{np.abs(np.array(lead['losses'][2:]) / np.array(lead['one_losses'][2:]) - 1).max():.3e}, rtol "
+        f"{TP_BF16_LOSS_RTOL}), norms {lead['one_norms'][2:]} (max rel {np.abs(got[2:] / one[2:] - 1).max():.3e}, "
+        f"rtol {TP_BF16_GNORM_RTOL}): {bf16_ok}; one card's launches fp32 {lead['one_launches']} bf16 "
+        f"{lead['one_launches_bf16']}")
+    if not (loss_ok and norms_ok and bf16_ok and lead["params_max_abs"] <= TP_PARAMS_ATOL and lead["codes_equal"]):
+        raise SystemExit("tensor parallel: the expert-only micro-steps disagree with one card's")
+    if ranks[1]["train"]["losses"] != lead["losses"]:
+        raise SystemExit("tensor parallel: the two ranks' losses differ")
+    return totals
 
 
 # ---------------------------------------------------------------------------
@@ -2646,11 +3153,11 @@ def expected_collectives(trainer) -> dict:
     as the code issues them (train/optim.py, train/fused_joint.py), plus the
     log line's all-reduce (log_freq 1)."""
     from intact_tpu_torch.models.common import flatten_paths
+    from intact_tpu_torch.parallel import collectives
     from intact_tpu_torch.parallel.sharding import Sharded
     from intact_tpu_torch.train import fused_joint as fj
 
-    want = {"all_reduce": 0, "all_reduce_max": 0, "reduce_scatter": 0, "all_gather": 0, "bucket_all_gather": 0,
-            "bucket_reduce_scatter": 0, "broadcast": 0}
+    want = dict.fromkeys(collectives.counts(), 0)
     if trainer.cfg.fused_update:
         state, mesh = trainer.state, trainer.mesh
         depth = trainer.model_cfg.vlm.depth
@@ -2922,9 +3429,9 @@ FAST_KV_RTOL = 5e-2
 FAST_LOGITS_RTOL = 5e-2
 FAST_MARGIN = 0.1
 FAST_TIMING_REPS = 3  # timed inferences per wrapper and batch (5 before phase 5b joined the script's budget)
-# Gemma layers of the served Pi0FAST (18 before phase 5b joined the script's budget): the launches and every
-# gate follow the configuration
-FAST_SERVING_DEPTH = 9
+# Gemma layers of the served Pi0FAST (18 before phase 5b joined the script's budget, 9 before phase 3d joined
+# it): the launches and every gate follow the configuration
+FAST_SERVING_DEPTH = 4
 
 
 def w8a8_per_fast_inference(cfg) -> int:
@@ -3748,8 +4255,9 @@ SVLA_EV_CONFIG = "config/experiment/simpler/spatialvla_finetune_bridge_ev.yaml"
 SVLA_OVERRIDES = {"eval_cfg.env_adapter": "BridgeSimplerAdapter"}
 SVLA_FP32_DEPTH = 4  # Gemma2 layers of the bf16-against-fp32 comparison (views of the bf16 tree), as Magma's
 SVLA_TIMING_REPS = 3  # timed inferences per wrapper and batch (5 before phase 5b joined the script's budget)
-# Gemma2 layers served of SpatialVLA-4B's 26 (full width), the script's time limit's cut since phase 3c
-SVLA_SERVING_DEPTH = 13
+# Gemma2 layers served of SpatialVLA-4B's 26 (full width), the script's time limit's cut since phase 3c (13
+# until phase 3d joined the budget)
+SVLA_SERVING_DEPTH = 7
 
 
 def svla_config(quantize: bool):
@@ -3980,7 +4488,8 @@ MAGMA_EV_CONFIG = "config/experiment/simpler/magma_bridge_ev.yaml"
 MAGMA_OVERRIDES = {"eval_cfg.env_adapter": "BridgeSimplerAdapter"}
 MAGMA_FP32_DEPTH = 4  # LLaMA layers of the bf16-against-fp32 comparison (all 32 in fp32 next to both wrappers is 36 GB)
 # LLaMA layers served of Magma-8B's 32 (full width), the script's time limit's cut since phase 3c's gathered step
-MAGMA_SERVING_DEPTH = 16
+# (16 until phase 3d joined the budget)
+MAGMA_SERVING_DEPTH = 8
 
 
 def magma_config(quantize: bool):
@@ -4751,6 +5260,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     int8 = run(phase_int8_serving)
     group_serving = run(phase_multirank_serving)
+    tensor_parallel, tp_kernels = run(phase_tensor_parallel)
+    kernels.update(tp_kernels)
     training = run(phase_training)
     run(phase_rlds_data)
     standard = run(phase_standard_training)
@@ -4764,6 +5275,7 @@ def main() -> int:
     octo_serving = run(phase_octo_serving)
     client = run(phase_client)
     paths = {"serving": {"flash_attention": serving}, "int8": int8, "group_serving": group_serving,
+             "tensor_parallel": tensor_parallel,
              "training": training, "standard": standard,
              "multirank": multirank, "fast_serving": fast_serving, "fast_training": fast_training, "mvla_serving": mvla_serving,
              "mvla_training": mvla_training, "svla_serving": svla_serving, "magma_serving": magma_serving,
@@ -4782,6 +5294,9 @@ def main() -> int:
         f"serving + {fast_training['flash_attention']} Pi0FAST training, fused_adam_rows {training['fused_adam_rows']} "
         f"fused training + {multirank['fused_adam_rows']} multi-card fused recipe, w8a8_matmul "
         f"{int8['w8a8_matmul']} int8 serving + {group_serving['w8a8_matmul']} int8 group serving + "
+        f"{tensor_parallel['w8a8_matmul']} on the two tensor ranks (with w8a8_partial "
+        f"{tensor_parallel['w8a8_partial']} and w8a8_finish {tensor_parallel['w8a8_finish']}; flash_attention "
+        f"{tensor_parallel['flash_attention']} on local heads) + "
         f"{standard['w8a8_matmul']} expert-only training + "
         f"{multirank['w8a8_matmul']} multi-card expert-only + "
         f"{fast_serving['w8a8_matmul']} Pi0FAST int8 serving + {mvla_serving['w8a8_matmul']} MVLA int8 serving; "

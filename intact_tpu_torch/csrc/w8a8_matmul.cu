@@ -64,6 +64,16 @@
 //  where out's rows are 16-byte aligned, stages the tile in shared memory and
 //  writes it with TMA stores (which clip the ragged M and N edges); else it
 //  stores pairs of outputs from registers, masking the edges.
+//
+// The row-parallel entries (tensor parallelism: each rank holds K / t of the
+// product's input rows, per-row semantics): intact_w8a8_partial quantizes x
+// against a row absmax given from outside (the whole row's, a MAX all-reduce
+// over the ranks), then runs the split mode's product and leaves its exact
+// int32 partial sums [M, N] in `part` (no finish pass; where one block holds
+// the whole K, n_splits 1, it stores them, with no zeroing and no atomics,
+// else the blocks add them into the zeroed workspace); the caller sums the
+// ranks' partials, and intact_w8a8_finish runs the finish pass on the sum.
+// Integer sums are exact, so the product is bit-equal to one card's.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -117,7 +127,8 @@ __device__ __forceinline__ float nan_max(float a, float b) { return (a != a || a
 template <typename T>
 __global__ void __launch_bounds__(kQuantThreads) quantize_kernel(
     const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ xs,
-    int K, int K_pad, int chunk, int n_chunks, int* __restrict__ part, size_t part_len) {
+    int K, int K_pad, int chunk, int n_chunks, int* __restrict__ part, size_t part_len,
+    const float* __restrict__ amax_in) {
   // the split mode's int32 workspace starts at 0 (the product runs after this pass)
   for (size_t i = (size_t)blockIdx.x * kQuantThreads + threadIdx.x; i < part_len; i += (size_t)gridDim.x * kQuantThreads)
     part[i] = 0;
@@ -133,7 +144,9 @@ __global__ void __launch_bounds__(kQuantThreads) quantize_kernel(
   const bool vec = K % V == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
 
   float m = 0.0f;
-  if (vec) {
+  if (amax_in != nullptr) {
+    // the row's absmax comes from outside (one chunk per row): no reduction here
+  } else if (vec) {
     for (int k = k0 + threadIdx.x * V; k < k_end; k += kQuantThreads * V) {
       const uint4 raw = __ldg(reinterpret_cast<const uint4*>(xr + k));
       const T* v = reinterpret_cast<const T*>(&raw);
@@ -151,6 +164,7 @@ __global__ void __launch_bounds__(kQuantThreads) quantize_kernel(
   if (threadIdx.x == 0) {
     float t = warp_max[0];
     for (int w = 1; w < kQuantThreads / 32; ++w) t = nan_max(t, warp_max[w]);
+    if (amax_in != nullptr) t = amax_in[row];
     t = (t != t) ? t : fmaxf(t, 1e-6f);  // jnp.maximum(amax, 1e-6) keeps a NaN
     scale = __fmul_rn(t, kInv127);
     xs[row * n_chunks + c] = scale;
@@ -355,7 +369,12 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(
 #pragma unroll
               for (int e = 0; e < 2; ++e) {
                 const int col = n0 + 8 * j + c0 + e;
-                if (col < N) atomicAdd(part + ((size_t)c * M + row) * N + col, acc[4 * j + 2 * h + e]);
+                if (col >= N) continue;
+                int* dst = part + ((size_t)c * M + row) * N + col;
+                if (gridDim.z == 1)
+                  *dst = acc[4 * j + 2 * h + e];  // one block holds the whole K: the only write
+                else
+                  atomicAdd(dst, acc[4 * j + 2 * h + e]);
               }
           }
         }
@@ -518,7 +537,7 @@ cudaError_t launch(const void* x, const int8_t* wk, long long w_stride, const fl
   TO* out = static_cast<TO*>(out_);
   const size_t part_len = mode == kSplit ? (size_t)n_chunks * M * N : 0;  // the split mode's workspace
   quantize_kernel<TI><<<M * n_chunks, kQuantThreads, 0, stream>>>(static_cast<const TI*>(x), xq, xs, K, K_pad,
-                                                                  chunk, n_chunks, part, part_len);
+                                                                  chunk, n_chunks, part, part_len, nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // A: xq [M, K_pad]; B: the codes [N, K] with row stride w_stride; boxes of
@@ -565,6 +584,33 @@ cudaError_t launch(const void* x, const int8_t* wk, long long w_stride, const fl
   }
 }
 
+// the row-parallel product: quantize against the given row absmax, then the
+// split mode's product into the zeroed int32 workspace part [M, N]
+template <typename TI>
+cudaError_t launch_partial(const void* x, const int8_t* wk, long long w_stride, const float* amax, int8_t* xq,
+                           float* xs, int* part, int M, int K, int N, int K_pad, int split_len, int n_splits,
+                           cudaStream_t stream) {
+  // one split stores its sums (no zeroing); several add theirs into the zeroed workspace
+  quantize_kernel<TI><<<M, kQuantThreads, 0, stream>>>(static_cast<const TI*>(x), xq, xs, K, K_pad, K_pad, 1, part,
+                                                       n_splits == 1 ? 0 : (size_t)M * N, amax);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  CUtensorMap amap, bmap, omap = {};
+  const cuuint64_t a_dims[2] = {(cuuint64_t)K_pad, (cuuint64_t)M};
+  const cuuint64_t a_strides[1] = {(cuuint64_t)K_pad};
+  const cuuint32_t a_box[2] = {kBK, kBM};
+  const cuuint64_t b_dims[2] = {(cuuint64_t)K, (cuuint64_t)N};
+  const cuuint64_t b_strides[1] = {(cuuint64_t)w_stride};
+  const cuuint32_t b_box[2] = {kBK, (cuuint32_t)Cfg<kSplit>::BN};
+  const auto ty = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!make_map(&amap, ty, 2, xq, a_dims, a_strides, a_box, sw) ||
+      !make_map(&bmap, ty, 2, wk, b_dims, b_strides, b_box, sw))
+    return cudaErrorInvalidValue;
+  return launch_gemm<kSplit, float>(amap, bmap, omap, 0, xs, nullptr, nullptr, nullptr, part, M, N, K_pad, K_pad, 1,
+                                    split_len, n_splits, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -606,6 +652,53 @@ int intact_w8a8_matmul(const void* x, int x_bf16, const void* wk, long long w_st
     err = launch<float, float>(x, w, w_stride, sc, b, out, q, f, p, M, K, N, K_pad, chunk, n_chunks, mode, split_len,
                                n_splits, s);
   return (int)err;
+}
+
+// The row-parallel entry's first pass. x [M, K] bf16 (x_bf16 != 0) or fp32; wk
+// the int8 codes K-major as for intact_w8a8_matmul; amax [M] fp32, each row's
+// absmax over the whole row (all ranks' K); scratch xq [M, K_pad] int8 and
+// xs [M] fp32 (the row scales, for the finish pass); part [M, N] int32, the
+// exact partial sums of this K (stored at n_splits 1, else zeroed here and
+// added into). Split mode: blocks take split_len K-bytes each (a multiple of
+// 128), n_splits of them.
+int intact_w8a8_partial(const void* x, int x_bf16, const void* wk, long long w_stride, const void* amax, void* xq,
+                        void* xs, void* part, int M, int K, int N, int K_pad, int split_len, int n_splits,
+                        void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return 0;
+  if (K_pad % 64 || K_pad < K || w_stride % 16 || w_stride < K || split_len <= 0 || split_len % kBK ||
+      n_splits <= 0 || amax == nullptr || part == nullptr)
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto w = static_cast<const int8_t*>(wk);
+  auto a = static_cast<const float*>(amax);
+  auto q = static_cast<int8_t*>(xq);
+  auto f = static_cast<float*>(xs);
+  auto p = static_cast<int*>(part);
+  cudaError_t err = x_bf16 ? launch_partial<__nv_bfloat16>(x, w, w_stride, a, q, f, p, M, K, N, K_pad, split_len,
+                                                           n_splits, s)
+                           : launch_partial<float>(x, w, w_stride, a, q, f, p, M, K, N, K_pad, split_len, n_splits, s);
+  return (int)err;
+}
+
+// The row-parallel entry's finish pass on the ranks' summed partials part
+// [M, N] int32 with the row scales xs [M]: acc = fma(float(part), xs, 0), then
+// acc * ws or fma(acc, ws, bias), into out [M, N] bf16 (out_bf16 != 0) or fp32.
+int intact_w8a8_finish(const void* part, const void* xs, const void* ws, const void* bias, void* out, int out_bf16,
+                       int M, int N, void* stream) {
+  if (M <= 0 || N <= 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  const size_t total = (size_t)M * N;
+  const unsigned blocks = (unsigned)((total + kFinishThreads - 1) / kFinishThreads);
+  auto p = static_cast<const int*>(part);
+  auto f = static_cast<const float*>(xs);
+  auto w = static_cast<const float*>(ws);
+  auto b = static_cast<const float*>(bias);
+  if (out_bf16)
+    finish_kernel<__nv_bfloat16><<<blocks, kFinishThreads, 0, s>>>(p, f, w, b, static_cast<__nv_bfloat16*>(out), M, N,
+                                                                   1);
+  else
+    finish_kernel<float><<<blocks, kFinishThreads, 0, s>>>(p, f, w, b, static_cast<float*>(out), M, N, 1);
+  return (int)cudaGetLastError();
 }
 
 // the product's dynamic shared memory per block in mode 0 row, 1 chunk, 2 split

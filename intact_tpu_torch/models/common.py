@@ -16,6 +16,16 @@ leaf the rules split is a `Sharded` holder of this rank's slice; only
 and `whole` gather it, each through one layer bucket (one all-gather for all
 the split leaves it needs; where a leaf trains, the backward reduce-scatters
 its gradient the same way: `sharding.GatherLayer`).
+
+Over tensor ranks (Megatron-style, parallel/tensor.py) a split product holds
+this rank's columns or rows: `dense_column` multiplies by its output columns
+(slicing a whole bias to them), `dense_row` by its input rows, all-reduces
+the fp32 partials over tensor and then adds the bias and casts, as one card
+rounds the whole product. An int8 row-parallel product stays bit-equal to one
+card's: the activation rows are quantized against the whole row's absmax (a
+MAX all-reduce over tensor), the exact int32 partials are summed over tensor,
+and the finish pass rescales them (`ops/w8a8.py`'s row-parallel entry).
+`embed_lookup` looks up a vocabulary-parallel table.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from intact_tpu_torch.parallel import tensor as tensor_parallel
 from intact_tpu_torch.parallel.sharding import Sharded, gather_tree
 
 Params = dict  # nested dict of tensors
@@ -162,6 +173,73 @@ def dense(p: Params, x: torch.Tensor, policy: DtypePolicy = DEFAULT_POLICY) -> t
     return y
 
 
+def dense_column(p: Params, x: torch.Tensor, policy: DtypePolicy = DEFAULT_POLICY,
+                 tp: tensor_parallel.TensorParallel | None = None) -> torch.Tensor:
+    """A column-parallel product: x (replicated: the region's input, through
+    `tensor_parallel.copy_in` where a gradient flows) times this rank's output
+    columns -> its columns of the output. A bias or an int8 node's per-channel
+    `kernel_scale` held whole (the rules replicate them) is sliced to them.
+    Without `tp`, `dense`."""
+    p = _whole_node(p)
+    if tp is not None:
+        n = tensor_parallel.out_features(p)
+        p = {k: v[..., tp.columns(n)] if k in ("bias", "kernel_scale") and v.shape[-1] != n else v
+             for k, v in p.items()}
+    return dense(p, x, policy)
+
+
+def _fp32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w accumulated and returned in fp32 (bf16 operands: fp32 sums of
+    their exact products)."""
+    if x.dtype == torch.float32:
+        return x @ w
+    if x.is_cuda and not (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
+        return torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32).reshape(*x.shape[:-1], w.shape[-1])
+    return x.float() @ w.float()
+
+
+def dense_row(p: Params, x: torch.Tensor, policy: DtypePolicy = DEFAULT_POLICY,
+              tp: tensor_parallel.TensorParallel | None = None) -> torch.Tensor:
+    """A row-parallel product: x (this rank's columns of the region, e.g. its
+    heads' attention) times this rank's input rows; the fp32 partials summed
+    over tensor (`tensor_parallel.reduce_out`), then the whole bias added
+    and the result cast, in one card's order. int8: `_dense_int8_row`.
+    Without `tp`, `dense`."""
+    p = _whole_node(p)
+    if tp is None:
+        return dense(p, x, policy)
+    if "kernel_q" in p:
+        return _dense_int8_row(p, x, policy, tp)
+    y = tensor_parallel.reduce_out(_fp32_product(policy.cast(x), p["kernel"].to(policy.compute_dtype)), tp)
+    y = y.to(policy.compute_dtype)
+    if "bias" in p:
+        y = y + p["bias"].to(policy.compute_dtype)
+    return y
+
+
+def _dense_int8_row(p: Params, x: torch.Tensor, policy: DtypePolicy,
+                    tp: tensor_parallel.TensorParallel) -> torch.Tensor:
+    """The row-parallel W8A8 product, bit-equal to `_dense_int8` on the whole
+    row: each activation row's absmax over this rank's K slice, its max over
+    tensor (one MAX all-reduce), this rank's exact int32 partial product with
+    its rows of the codes quantized against that whole-row scale
+    (`w8a8_partial`), the partials summed over tensor (one int32 all-reduce),
+    and the finish pass: acc = fma(float(sum), xs, 0), then * wscale or
+    fma(acc, wscale, bias), cast (`w8a8_finish`). No gradient, as `_dense_int8`."""
+    from intact_tpu_torch.ops.w8a8 import row_absmax, w8a8_finish, w8a8_partial
+    from intact_tpu_torch.parallel import collectives
+
+    if p["kernel_q"].ndim != 2:
+        raise ValueError(f"_dense_int8_row takes one layer's kernel [out, in]; got {tuple(p['kernel_q'].shape)}")
+    lead, k = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, k)
+    amax = collectives.tensor_all_reduce_max(row_absmax(x2), tp.group)
+    part, xs = w8a8_partial(x2, p["kernel_q"], amax, weight_layout="nk")
+    collectives.tensor_all_reduce(part, tp.group)
+    y = w8a8_finish(part, xs, p["kernel_scale"], p.get("bias"), out_dtype=policy.compute_dtype)
+    return y.reshape(*lead, y.shape[-1])
+
+
 def _dense_int8(p: Params, x: torch.Tensor, policy: DtypePolicy) -> torch.Tensor:
     """W8A8 dynamic-quant matmul with the reference's per-row semantics
     (activations quantized per row over the whole K, int32 product, fp32
@@ -179,6 +257,13 @@ def _dense_int8(p: Params, x: torch.Tensor, policy: DtypePolicy) -> torch.Tensor
 
 def embed_lookup(p: Params, ids: torch.Tensor, policy: DtypePolicy = DEFAULT_POLICY) -> torch.Tensor:
     # out-of-range ids clip to the table (never index past it)
+    tp = tensor_parallel.of(p)
+    if tp is not None and "embedding" in p:  # vocabulary-parallel: this rank's rows of the table
+        vocab = p["embedding"].whole_shape[0]
+        p = _whole_node(p)
+        return tensor_parallel.vocab_lookup(p["embedding"], ids, vocab, tp).to(policy.compute_dtype)
+    if tp is not None:
+        raise NotImplementedError("a vocabulary-parallel int8 embedding is not ported (Pi0's table stays float)")
     p = _whole_node(p)
     if "embedding_q" in p:  # int8 rows + per-row scale (quantize_embed)
         idx = ids.long().clamp(0, p["embedding_q"].shape[0] - 1)
@@ -225,17 +310,23 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def gelu_mlp(p: Params, x: torch.Tensor, policy: DtypePolicy = DEFAULT_POLICY) -> torch.Tensor:
-    """ViT MLP: dense -> gelu(tanh) -> dense."""
-    h = F.gelu(dense(p["fc1"], x, policy), approximate="tanh")
-    return dense(p["fc2"], h, policy)
+def gelu_mlp(p: Params, x: torch.Tensor, policy: DtypePolicy = DEFAULT_POLICY,
+             tp: tensor_parallel.TensorParallel | None = None) -> torch.Tensor:
+    """ViT MLP: dense -> gelu(tanh) -> dense; over tensor (`tp`: the
+    region's group, `tensor_parallel.region`) fc1 column- and fc2
+    row-parallel."""
+    h = F.gelu(dense_column(p["fc1"], tensor_parallel.copy_in(x, tp), policy, tp), approximate="tanh")
+    return dense_row(p["fc2"], h, policy, tp)
 
 
-def gemma_mlp(p: Params, x: torch.Tensor, policy: DtypePolicy = DEFAULT_POLICY) -> torch.Tensor:
-    """Gemma gated MLP: gelu(gate(x)) * up(x) -> down."""
-    gate = F.gelu(dense(p["gate"], x, policy), approximate="tanh")
-    up = dense(p["up"], x, policy)
-    return dense(p["down"], gate * up, policy)
+def gemma_mlp(p: Params, x: torch.Tensor, policy: DtypePolicy = DEFAULT_POLICY,
+              tp: tensor_parallel.TensorParallel | None = None) -> torch.Tensor:
+    """Gemma gated MLP: gelu(gate(x)) * up(x) -> down; over tensor (`tp`)
+    gate and up column- and down row-parallel."""
+    x = tensor_parallel.copy_in(x, tp)
+    gate = F.gelu(dense_column(p["gate"], x, policy, tp), approximate="tanh")
+    up = dense_column(p["up"], x, policy, tp)
+    return dense_row(p["down"], gate * up, policy, tp)
 
 
 def sinusoidal_embedding(time: torch.Tensor, dim: int, min_period: float,

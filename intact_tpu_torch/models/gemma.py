@@ -15,6 +15,16 @@ through `multi_head_attention(impl=attention_impl)`, which reaches the
 hand-written CUDA kernel for "pallas" (with the plain backward where a
 gradient is required); decode's split-cache attention and the suffix-only last
 layer of the joint pass stay on the plain path.
+
+Over tensor ranks (Megatron-style, parallel/tensor.py; Pi0 at mesh.tensor >
+1) each rank runs its local query heads: q, gate and up are column-parallel
+(their inputs through `copy_in`), o and down row-parallel (their partials
+all-reduced), and the attention takes the rank's H / t heads against the K/V
+head. Pi0's one K/V head does not split: k and v are computed whole on every
+tensor rank (their kernels replicated, their gradient summed over tensor by
+the optimizer). Each entry point finds its tensor group in its parameters
+(`tensor_parallel.of`), so a tree without tensor-split leaves runs as on one
+card.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from intact_tpu_torch.models import common as cm
 from intact_tpu_torch.models.common import DEFAULT_POLICY, DtypePolicy
 from intact_tpu_torch.ops.attention import multi_head_attention, xla_attention_cached
 from intact_tpu_torch.ops.rope import apply_rope
+from intact_tpu_torch.parallel import tensor as tensor_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,26 +118,40 @@ def init_embed(cfg: GemmaConfig, seed: int = 0, device=None, dtype=torch.float32
 # layer pieces
 # ---------------------------------------------------------------------------
 
-def _kv(bp, x, positions, cfg: GemmaConfig, policy: DtypePolicy):
+def _attention_region(bp, cfg: GemmaConfig, tp):
+    """`tp` where the layer's query heads are split over tensor, else None."""
+    return tensor_parallel.region(tp, bp["attn"]["q"], cfg.num_heads * cfg.head_dim)
+
+
+def _kv(bp, x, positions, cfg: GemmaConfig, policy: DtypePolicy, tp=None):
+    """K (roped) and V [B, T, KVH, head_dim]: this rank's K/V heads where they
+    split over tensor, all of them where they do not (Pi0's one). x is the
+    region's input, already through `copy_in` where a gradient flows."""
     b, t, _ = x.shape
-    k = cm.dense(bp["attn"]["k"], x, policy).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-    v = cm.dense(bp["attn"]["v"], x, policy).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    k = cm.dense_column(bp["attn"]["k"], x, policy, tp).reshape(b, t, -1, cfg.head_dim)
+    v = cm.dense_column(bp["attn"]["v"], x, policy, tp).reshape(b, t, -1, cfg.head_dim)
     return apply_rope(k, positions, cfg.rope_base), v
 
 
-def _qkv(bp, x, positions, cfg: GemmaConfig, policy: DtypePolicy):
+def _qkv(bp, x, positions, cfg: GemmaConfig, policy: DtypePolicy, tp=None):
+    """q (this rank's heads over tensor), k, v."""
     b, t, _ = x.shape
-    q = cm.dense(bp["attn"]["q"], x, policy).reshape(b, t, cfg.num_heads, cfg.head_dim)
+    tp = _attention_region(bp, cfg, tp)
+    x = tensor_parallel.copy_in(x, tp)
+    q = cm.dense_column(bp["attn"]["q"], x, policy, tp).reshape(b, t, -1, cfg.head_dim)
     q = apply_rope(q, positions, cfg.rope_base)
-    k, v = _kv(bp, x, positions, cfg, policy)
+    k, v = _kv(bp, x, positions, cfg, policy, tp)
     return q, k, v
 
 
-def _post_attention(bp, x, att_out, cfg: GemmaConfig, policy: DtypePolicy):
+def _post_attention(bp, x, att_out, cfg: GemmaConfig, policy: DtypePolicy, tp=None):
+    """The out-projection (row-parallel over split heads) and the gated MLP
+    (gate and up column-, down row-parallel where split)."""
     b, t = att_out.shape[:2]
-    x = x + cm.dense(bp["attn"]["o"], att_out.reshape(b, t, -1), policy)
+    x = x + cm.dense_row(bp["attn"]["o"], att_out.reshape(b, t, -1), policy, _attention_region(bp, cfg, tp))
     y = cm.rms_norm(bp["ln2"], x, cfg.norm_eps)
-    return x + cm.gemma_mlp(bp["mlp"], y, policy)
+    mlp = bp["mlp"]
+    return x + cm.gemma_mlp(mlp, y, policy, tensor_parallel.region(tp, mlp["gate"], cfg.mlp_dim))
 
 
 # ---------------------------------------------------------------------------
@@ -165,7 +190,8 @@ def forward_joint(
     """
     p_len = x_pre.shape[1]
     pos_pre, pos_suf = positions[:, :p_len], positions[:, p_len:]
-    body = _joint_body(mask, pos_pre, pos_suf, vlm_cfg, expert_cfg, policy, attention_impl)
+    tps = (tensor_parallel.of(vlm_params), tensor_parallel.of(expert_params))
+    body = _joint_body(mask, pos_pre, pos_suf, vlm_cfg, expert_cfg, policy, attention_impl, tps)
     vb, eb = vlm_params["blocks"], expert_params["blocks"]
     depth = _depth(vb)
     n_full = depth if not suffix_only else depth - 1
@@ -179,7 +205,7 @@ def forward_joint(
         return x_pre, x_suf
     x_suf = joint_last_pair(
         cm.layer(vb, depth - 1), cm.layer(eb, depth - 1), x_pre, x_suf, mask[:, p_len:, :],
-        pos_pre, pos_suf, vlm_cfg, expert_cfg, policy,
+        pos_pre, pos_suf, vlm_cfg, expert_cfg, policy, tps,
     )
     return None, cm.rms_norm(expert_params["final_norm"], x_suf, expert_cfg.norm_eps)
 
@@ -196,26 +222,27 @@ def _remat_layer(body, carry, vb, eb, i: int):
 
 
 def _joint_body(mask, pos_pre, pos_suf, vlm_cfg: GemmaConfig, expert_cfg: GemmaConfig,
-                policy: DtypePolicy, attention_impl: str):
+                policy: DtypePolicy, attention_impl: str, tps=(None, None)):
     """One joint prefix+suffix layer pair, body(carry, (bp_v, bp_e)) ->
     (carry, None), shared by forward_joint and the fused training step's
-    forward and per-layer recompute."""
+    forward and per-layer recompute. tps: the two streams' tensor groups."""
     p_len = pos_pre.shape[1]
     scale = vlm_cfg.head_dim**-0.5
+    tp_v, tp_e = tps
 
     def body(carry, bps):
         xp, xs = carry
         bp_v, bp_e = bps
         yp = cm.rms_norm(bp_v["ln1"], xp, vlm_cfg.norm_eps)
         ys = cm.rms_norm(bp_e["ln1"], xs, expert_cfg.norm_eps)
-        qp, kp, vp = _qkv(bp_v, yp, pos_pre, vlm_cfg, policy)
-        qs, ks, vs = _qkv(bp_e, ys, pos_suf, expert_cfg, policy)
+        qp, kp, vp = _qkv(bp_v, yp, pos_pre, vlm_cfg, policy, tp_v)
+        qs, ks, vs = _qkv(bp_e, ys, pos_suf, expert_cfg, policy, tp_e)
         q = torch.cat([qp, qs], dim=1)
         k = torch.cat([kp, ks], dim=1)
         v = torch.cat([vp, vs], dim=1)
         att = multi_head_attention(q, k, v, mask=mask, impl=attention_impl, scale=scale)
-        xp = _post_attention(bp_v, xp, att[:, :p_len], vlm_cfg, policy)
-        xs = _post_attention(bp_e, xs, att[:, p_len:], expert_cfg, policy)
+        xp = _post_attention(bp_v, xp, att[:, :p_len], vlm_cfg, policy, tp_v)
+        xs = _post_attention(bp_e, xs, att[:, p_len:], expert_cfg, policy, tp_e)
         return (xp, xs), None
 
     return body
@@ -223,20 +250,24 @@ def _joint_body(mask, pos_pre, pos_suf, vlm_cfg: GemmaConfig, expert_cfg: GemmaC
 
 def joint_last_pair(last_v, last_e, x_pre, x_suf, suffix_mask, pos_pre, pos_suf,
                     vlm_cfg: GemmaConfig, expert_cfg: GemmaConfig,
-                    policy: DtypePolicy = DEFAULT_POLICY):
+                    policy: DtypePolicy = DEFAULT_POLICY, tps=(None, None)):
     """The suffix_only last layer: the prefix side contributes only ln1 + K/V;
     the suffix side runs the full layer against [prefix K/V; suffix K/V].
     suffix_mask is mask[:, p_len:, :]. The attention is the plain path: the
-    suffix has only 1 + chunk query rows."""
+    suffix has only 1 + chunk query rows. Over tensor the prefix K/V serve the
+    suffix's local heads only, so the prefix's region input goes through
+    `copy_in` as a column-parallel input would."""
     scale = vlm_cfg.head_dim**-0.5
+    tp_v, tp_e = tps
     yp = cm.rms_norm(last_v["ln1"], x_pre, vlm_cfg.norm_eps)
-    kp, vp = _kv(last_v, yp, pos_pre, vlm_cfg, policy)
+    region_v = _attention_region(last_v, vlm_cfg, tp_v)
+    kp, vp = _kv(last_v, tensor_parallel.copy_in(yp, region_v), pos_pre, vlm_cfg, policy, region_v)
     ys = cm.rms_norm(last_e["ln1"], x_suf, expert_cfg.norm_eps)
-    qs, ks, vs = _qkv(last_e, ys, pos_suf, expert_cfg, policy)
+    qs, ks, vs = _qkv(last_e, ys, pos_suf, expert_cfg, policy, tp_e)
     k = torch.cat([kp, ks], dim=1)
     v = torch.cat([vp, vs], dim=1)
     att = multi_head_attention(qs, k, v, mask=suffix_mask, impl="xla", scale=scale)
-    return _post_attention(last_e, x_suf, att, expert_cfg, policy)
+    return _post_attention(last_e, x_suf, att, expert_cfg, policy, tp_e)
 
 
 def prefill(
@@ -271,12 +302,13 @@ def prefill(
     """
     scale = cfg.head_dim**-0.5
     blocks = vlm_params["blocks"]
+    tp = tensor_parallel.of(vlm_params)
 
     def layer(x, bp):
         y = cm.rms_norm(bp["ln1"], x, cfg.norm_eps)
-        q, k, v = _qkv(bp, y, positions, cfg, policy)
+        q, k, v = _qkv(bp, y, positions, cfg, policy, tp)
         att = multi_head_attention(q, k, v, mask=mask, impl=attention_impl, scale=scale)
-        return _post_attention(bp, x, att, cfg, policy), k, v
+        return _post_attention(bp, x, att, cfg, policy, tp), k, v
 
     if torch.is_grad_enabled() and (x_pre.requires_grad or any(w.requires_grad for w in cm.tree_leaves(blocks))):
         if kv_only or cache_len is not None:
@@ -304,8 +336,22 @@ def prefill(
 
     last = cm.layer(blocks, cfg.depth - 1)
     y = cm.rms_norm(last["ln1"], x_pre, cfg.norm_eps)
-    cache_k[-1, :, :p_len], cache_v[-1, :, :p_len] = _kv(last, y, positions, cfg, policy)
+    cache_k[-1, :, :p_len], cache_v[-1, :, :p_len] = _kv(last, y, positions, cfg, policy,
+                                                         _attention_region(last, cfg, tp))
     return None, (cache_k, cache_v)
+
+
+def _at_global_heads(q: torch.Tensor, heads: int, tp) -> torch.Tensor:
+    """A tensor rank's query heads [B, T, H / t, D] placed at their columns of
+    all H heads, the others zero: the decode attention's library GEMMs then
+    run at one card's shapes, whose rows round as one card's (a GEMM of H / t
+    heads' rows may take another kernel, as the card's library does at batch
+    1, and round a row otherwise). The price: each rank does one card's
+    decode attention, t times its share of it."""
+    b, t, local, d = q.shape
+    before = torch.zeros((b, t, tp.index * local, d), dtype=q.dtype, device=q.device)
+    after = torch.zeros((b, t, heads - (tp.index + 1) * local, d), dtype=q.dtype, device=q.device)
+    return torch.cat([before, q, after], dim=2)
 
 
 def decode(
@@ -323,20 +369,29 @@ def decode(
     The attention scale is the EXPERT's head_dim**-0.5. The attention is the
     split-cache form: the prefix K/V stay where prefill wrote them.
     `attention_impl` is accepted for signature parity; the suffix's few query
-    rows always take the plain path, as in the reference.
+    rows always take the plain path, as in the reference. Over tensor the
+    rank's heads enter that plain attention among zero ones, at one card's
+    shapes (`_at_global_heads`).
     """
     cache_k, cache_v = kv_cache
     scale = cfg.head_dim**-0.5
     p_len = cache_k.shape[2]
     mask_cache, mask_new = mask[:, :, :p_len], mask[:, :, p_len:]
+    tp = tensor_parallel.of(expert_params)
 
     for i in range(cfg.depth):
         bp = cm.layer(expert_params["blocks"], i)
         y = cm.rms_norm(bp["ln1"], x_suf, cfg.norm_eps)
-        q, k, v = _qkv(bp, y, positions, cfg, policy)
+        q, k, v = _qkv(bp, y, positions, cfg, policy, tp)
+        region = _attention_region(bp, cfg, tp)
+        local = q.shape[2]
+        if region is not None:  # this rank's heads at their places among zero ones
+            q = _at_global_heads(q, cfg.num_heads, region)
         att = xla_attention_cached(
             q, cache_k[i].to(k.dtype), cache_v[i].to(v.dtype), k, v,
             mask_cache, mask_new, scale=scale,
         )
-        x_suf = _post_attention(bp, x_suf, att, cfg, policy)
+        if region is not None:
+            att = att[:, :, region.columns(local)]
+        x_suf = _post_attention(bp, x_suf, att, cfg, policy, tp)
     return cm.rms_norm(expert_params["final_norm"], x_suf, cfg.norm_eps)

@@ -54,6 +54,13 @@ def init_params(init: cm.Initializer, cfg: Pi0Config) -> cm.Params:
     }
 
 
+def tensor_heads(cfg: Pi0Config) -> dict:
+    """{tower: (query heads, K/V heads)}: what the tensor axis must divide on
+    each tower's attention projections (parallel/sharding.py)."""
+    return {"siglip": (cfg.vision.num_heads, cfg.vision.num_heads), "vlm": (cfg.vlm.num_heads, cfg.vlm.num_kv_heads),
+            "expert": (cfg.expert.num_heads, cfg.expert.num_kv_heads)}
+
+
 def init(cfg: Pi0Config, seed: int = 0, device=None, dtype=torch.float32) -> cm.Params:
     """Random parameters from a generator seeded with `seed`, made on the
     device (CUDA unless `device` says otherwise) directly in `dtype`."""

@@ -8,7 +8,8 @@ everything else is numpy.
 
 Over several ranks (`mesh` with a process group, one process per card) the
 policy holds this rank's shard of the parameters (parallel/sharding.py's
-rules at fsdp > 1, gathered layer by layer). The serving wrapper
+rules at fsdp > 1, gathered layer by layer; at tensor > 1, Pi0 only, its
+tensor slice of the split leaves, whose towers then run their local heads). The serving wrapper
 (serve/policy_wrapper.py) owns the ranks' serving group: it pads the batch,
 draws the padded batch's noise with `_draw_noise` on rank 0, and every rank
 runs `_sample_rows` on its rows.
@@ -60,6 +61,10 @@ class Pi0Policy:
             tokenizer_path, cfg.tokenizer_max_length, vocab_size=cfg.vlm.vocab_size
         )
         self.mesh = mesh
+        if mesh is not None:
+            from intact_tpu_torch.parallel.mesh import MeshConfig, refuse_tensor
+
+            refuse_tensor(MeshConfig(mesh.data, mesh.fsdp, mesh.tensor), self.model.__name__.rsplit(".", 2)[-2])
         own = params is None
         if own:
             params = self.model.init(cfg, seed, self.device, self.policy.param_dtype)
@@ -70,15 +75,18 @@ class Pi0Policy:
         self._queue: deque = deque()
 
     def _sharded(self) -> bool:
-        return self.mesh is not None and self.mesh.fsdp > 1
+        return self.mesh is not None and (self.mesh.fsdp > 1 or self.mesh.tensor > 1)
+
+    def _heads(self) -> dict | None:
+        return pi0.tensor_heads(self.cfg) if self.mesh is not None and self.mesh.tensor > 1 else None
 
     def _shard(self, params, consume: bool = False, put=None):
-        """This rank's share of a whole tree (the tree itself at fsdp 1)."""
+        """This rank's share of a whole tree (the tree itself at fsdp 1 and tensor 1)."""
         if not self._sharded():
             return params if put is None else cm.tree_map(put, params)
         from intact_tpu_torch.parallel.sharding import shard_tree
 
-        return shard_tree(params, self.mesh, put=put, consume=consume)
+        return shard_tree(params, self.mesh, put=put, consume=consume, heads=self._heads())
 
     # ------------------------------------------------------------------
     # checkpoints (step_{n} contract, hot-swappable)
@@ -101,7 +109,7 @@ class Pi0Policy:
             if self._sharded():
                 from intact_tpu_torch.parallel.sharding import shard_leaf
 
-                place = lambda path, x: shard_leaf(path, x, self.mesh)  # noqa: E731
+                place = lambda path, x: shard_leaf(path, x, self.mesh, heads=self._heads())  # noqa: E731
             params = cm.quantize_host_tree(restored, self.policy, self.device, place=place)
         else:  # each rank moves only its share of a leaf to its card
             params = self._shard(restored, put=lambda x: x.to(device=self.device, dtype=self.policy.param_dtype))

@@ -38,6 +38,13 @@ def module(name: str):
     return importlib.import_module(get(name)["module"])
 
 
+def family(name: str) -> str:
+    """A type's family: its model module's package ("pi0", "pi0fast", "mvla",
+    "spatialvla", "magma", "octo"), or the type itself without a module."""
+    module_name = get(name).get("module")
+    return module_name.rsplit(".", 2)[-2] if module_name else name
+
+
 # model modules without a type (no wrapper, no pipeline config, as in the
 # reference), whose trees the weight bridge maps all the same
 _UNREGISTERED = ("intact_tpu_torch.models.t5:T5Config", "intact_tpu_torch.models.dreamvla:DreamVLAConfig")

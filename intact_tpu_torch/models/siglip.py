@@ -7,6 +7,14 @@ embeddings. Attention (head_dim 72) stays on the plain path. Under autograd
 with the blocks split over fsdp ranks (`Sharded`, ZeRO-3), each layer runs
 under `torch.utils.checkpoint`, so no gathered layer outlives its forward
 (the reference remats it per layer); whole blocks keep their activations.
+
+Over tensor ranks (Megatron-style, parallel/tensor.py): where the heads split,
+q, k and v are column-parallel (this rank's heads; their biases, which the
+rules keep whole, sliced with their columns), o row-parallel with its bias
+added once after the all-reduce; fc1 column- and fc2 row-parallel likewise
+(`cm.gelu_mlp`). The patch embed stays whole on every tensor rank (the rules'
+tensor axis on it is dropped: the blocks take the whole embedded image on
+every rank). The tower finds its tensor group in its parameters.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 from intact_tpu_torch.models import common as cm
 from intact_tpu_torch.models.common import DEFAULT_POLICY, DtypePolicy
 from intact_tpu_torch.ops.attention import multi_head_attention
+from intact_tpu_torch.parallel import tensor as tensor_parallel
 from intact_tpu_torch.parallel.sharding import Sharded
 
 
@@ -79,19 +88,22 @@ def init(cfg: SigLIPConfig, seed: int = 0, device=None, dtype=torch.float32) -> 
     return init_params(cm.Initializer(seed, cm.resolve_device(device), dtype), cfg)
 
 
-def _block_apply(cfg: SigLIPConfig, policy: DtypePolicy, x: torch.Tensor, bp: cm.Params) -> torch.Tensor:
+def _block_apply(cfg: SigLIPConfig, policy: DtypePolicy, x: torch.Tensor, bp: cm.Params,
+                 tp: tensor_parallel.TensorParallel | None = None) -> torch.Tensor:
     b, n, d = x.shape
-    h, hd = cfg.num_heads, cfg.head_dim
+    hd = cfg.head_dim
 
     y = cm.layer_norm(bp["ln1"], x, cfg.layernorm_eps)
-    q = cm.dense(bp["attn"]["q"], y, policy).reshape(b, n, h, hd)
-    k = cm.dense(bp["attn"]["k"], y, policy).reshape(b, n, h, hd)
-    v = cm.dense(bp["attn"]["v"], y, policy).reshape(b, n, h, hd)
+    attn = bp["attn"]
+    tpa = tensor_parallel.region(tp, attn["q"], d)
+    y = tensor_parallel.copy_in(y, tpa)
+    q, k, v = (cm.dense_column(attn[name], y, policy, tpa).reshape(b, n, -1, hd) for name in ("q", "k", "v"))
     att = multi_head_attention(q, k, v, mask=None)  # full bidirectional
-    x = x + cm.dense(bp["attn"]["o"], att.reshape(b, n, d), policy)
+    x = x + cm.dense_row(attn["o"], att.reshape(b, n, -1), policy, tpa)
 
     y = cm.layer_norm(bp["ln2"], x, cfg.layernorm_eps)
-    return x + cm.gelu_mlp(bp["mlp"], y, policy)
+    mlp = bp["mlp"]
+    return x + cm.gelu_mlp(mlp, y, policy, tensor_parallel.region(tp, mlp["fc1"], cfg.mlp_dim))
 
 
 def encode(
@@ -107,15 +119,17 @@ def encode(
     b, g, p = images.shape[0], cfg.grid, cfg.patch_size
     x = policy.cast(images).reshape(b, g, p, g, p, 3).permute(0, 1, 3, 2, 4, 5)
     x = x.reshape(b, cfg.num_patches, p * p * 3)
-    kernel = policy.cast(params["patch_embed"]["kernel"]).reshape(p * p * 3, cfg.width)
-    x = x @ kernel + policy.cast(params["patch_embed"]["bias"])
+    kernel = policy.cast(cm.whole(params["patch_embed"]["kernel"]))
+    x = x @ kernel.reshape(p * p * 3, cfg.width) + policy.cast(params["patch_embed"]["bias"])
     x = x + policy.cast(params["pos_embed"])
 
     blocks = params["blocks"]
-    remat = torch.is_grad_enabled() and any(isinstance(w, Sharded) for w in cm.tree_leaves(blocks))
+    tp = tensor_parallel.of(blocks)
+    remat = torch.is_grad_enabled() and any(isinstance(w, Sharded) and w.fsdp_split for w in cm.tree_leaves(blocks))
     for i in range(cfg.depth):
         if remat:  # the layer gathered inside the checkpoint, again in the recompute
-            x = checkpoint(lambda x, i: _block_apply(cfg, policy, x, cm.layer(blocks, i)), x, i, use_reentrant=False)
+            x = checkpoint(lambda x, i: _block_apply(cfg, policy, x, cm.layer(blocks, i), tp), x, i,
+                           use_reentrant=False)
         else:
-            x = _block_apply(cfg, policy, x, cm.layer(blocks, i))
+            x = _block_apply(cfg, policy, x, cm.layer(blocks, i), tp)
     return cm.layer_norm(params["ln_post"], x, cfg.layernorm_eps)

@@ -31,6 +31,22 @@ true division. The plain version forms each fused multiply-add in float64
 (exact product, then one rounding to fp32 of a float64 sum, which differs from
 a true fma only when that sum lands on an fp32 tie: about 2^-29 of values).
 
+The row-parallel entry (tensor parallelism, models/common.py::_dense_int8_row):
+a rank holds K / t of a product's input rows and x's matching columns, so
+its own absmax would give each row another scale than one card's.
+`row_absmax` forms the rank's per-row absmax, the caller takes its max over
+the ranks, `w8a8_partial` quantizes x against that whole-row scale and
+returns the exact int32 partial product [M, N] (the split mode's workspace,
+without its finish pass) with the row scales, the caller sums the ranks'
+partials, and `w8a8_finish` runs the finish pass: acc = fma(float(sum), xs,
+0), y = acc * wscale or fma(acc, wscale, bias). Integer sums are exact and
+the fp32 steps are the per-row mode's, so the product is bit-equal to
+`w8a8_matmul` on the whole row. The per-(row, K-chunk) mode needs no such
+entry where the slices fall on chunk boundaries: each chunk's scale is then
+one rank's alone. The two wrappers count their own launches
+(`w8a8_partial.launches`, `w8a8_finish.launches`), and their plain versions
+are `w8a8_partial_reference` and `w8a8_finish_reference`.
+
 `plan` chooses the kernel's mode from the shape: 128 x 256 output tiles
 (per row) or 128 x 128 (per chunk) where the tiles fill the card, else K
 split across blocks with exact int32 partial sums (the expert's small-M
@@ -94,15 +110,18 @@ def plan(m: int, n: int, k: int, k_chunk: int | None = None, n_sm: int = NUM_SMS
     tiles = -(-m // BLOCK_M) * -(-n // BLOCK_N[mode])
     if tiles >= n_sm:
         return Plan(mode, k_pad, 1)
+    p = _split_plan(m, n, k_pad, STAGE_K if chunk is None else math.lcm(STAGE_K, chunk), n_sm)
+    return Plan(mode, k_pad, 1) if p.n_splits == 1 else p
+
+
+def _split_plan(m: int, n: int, k_pad: int, unit: int, n_sm: int) -> Plan:
+    """The split mode's plan: K in whole `unit`s split across blocks, about
+    one block per SM over the output tiles."""
     tiles = -(-m // BLOCK_M) * -(-n // BLOCK_N["split"])
-    unit = STAGE_K if chunk is None else math.lcm(STAGE_K, chunk)
     n_units = -(-k_pad // unit)
     splits = max(1, min(n_units, -(-n_sm // tiles)))
     split_len = -(-n_units // splits) * unit
-    n_splits = -(-k_pad // split_len)
-    if n_splits == 1:
-        return Plan(mode, k_pad, 1)
-    return Plan("split", split_len, n_splits)
+    return Plan("split", split_len, -(-k_pad // split_len))
 
 
 def split_partials(xq: torch.Tensor, wq: torch.Tensor, k_chunk: int | None, p: Plan) -> torch.Tensor:
@@ -181,6 +200,37 @@ def w8a8_matmul_reference(
     return y.to(out_dtype).reshape(*lead, wq.shape[1])
 
 
+def row_absmax(x: torch.Tensor) -> torch.Tensor:
+    """fp32 [M]: each row's max |x| of x [M, K] (NaN propagates)."""
+    return x.abs().amax(dim=-1).to(torch.float32)
+
+
+def _row_scales(amax: torch.Tensor) -> torch.Tensor:
+    return torch.maximum(amax, _full(amax, 1e-6)) * _full(amax, INV127)
+
+
+def w8a8_partial_reference(x: torch.Tensor, wq: torch.Tensor, amax: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [M, K] against wq [K, N] int8, quantized with the given row absmax
+    amax [M] -> (int32 [M, N], the exact product of the codes; xs [M] fp32)."""
+    xs = _row_scales(amax.to(torch.float32))
+    xq = torch.round(x.to(torch.float32) / xs[:, None]).to(torch.int8)  # round half to even
+    if x.device.type == "cpu":
+        part = xq.to(torch.int64) @ wq.to(torch.int64)
+    else:
+        part = xq.to(torch.float64) @ wq.to(torch.float64)
+    return part.to(torch.int32), xs
+
+
+def w8a8_finish_reference(part: torch.Tensor, xs: torch.Tensor, wscale: torch.Tensor,
+                          bias: torch.Tensor | None = None, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The finish pass in plain torch: acc = fma(float(part), xs, 0); y = acc *
+    wscale or fma(acc, wscale, bias); cast."""
+    acc = _fma(part.to(torch.float32), xs[:, None], torch.zeros_like(part, dtype=torch.float32))
+    ws = wscale.to(torch.float32)
+    y = acc * ws if bias is None else _fma(acc, ws, bias.to(torch.float32))
+    return y.to(out_dtype)
+
+
 _IO_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -228,6 +278,15 @@ def kmajor(wq: torch.Tensor, weight_layout: str) -> tuple[torch.Tensor, int]:
 _MODES = {"row": 0, "chunk": 1, "split": 2}
 
 
+@functools.lru_cache(maxsize=1024)
+def partial_plan(m: int, n: int, k: int, n_sm: int = NUM_SMS) -> Plan:
+    """The row-parallel product's plan: always the split mode (its int32
+    workspace is the partial product), K split across blocks as `plan`
+    splits it where the output tiles do not fill the card, in one piece
+    where they do."""
+    return _split_plan(m, n, _round_up(k, K_TILE), STAGE_K, n_sm)
+
+
 def _lib():
     lib = build.load("w8a8_matmul")
     if not getattr(lib, "_intact_typed", False):
@@ -235,6 +294,10 @@ def _lib():
         lib.intact_w8a8_matmul.argtypes = [p, i, p, ctypes.c_longlong, p, p, p, i, p, p, p,
                                            i, i, i, i, i, i, i, i, i, p]
         lib.intact_w8a8_matmul.restype = i
+        lib.intact_w8a8_partial.argtypes = [p, i, p, ctypes.c_longlong, p, p, p, p, i, i, i, i, i, i, p]
+        lib.intact_w8a8_partial.restype = i
+        lib.intact_w8a8_finish.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.intact_w8a8_finish.restype = i
         lib.intact_cuda_error_string.argtypes = [i]
         lib.intact_cuda_error_string.restype = ctypes.c_char_p
         lib._intact_typed = True
@@ -305,16 +368,88 @@ def _run(x, wq, wscale, bias, k_chunk, out_dtype, weight_layout):
                 bias.data_ptr() if bias is not None else None, out.data_ptr(), int(out_dtype == torch.bfloat16),
                 base, base + xs_off, base + part_off, m, k, n, k_pad, chunk, n_chunks, _MODES[p.mode],
                 p.split_len, p.n_splits, torch._C._cuda_getCurrentRawStream(dev))
-        lib = _lib()
-        if dev == torch.cuda.current_device():
-            err = lib.intact_w8a8_matmul(*args)
-        else:
-            with torch.cuda.device(dev):
-                err = lib.intact_w8a8_matmul(*args)
-        if err:
-            raise RuntimeError(f"w8a8_matmul kernel launch failed: {lib.intact_cuda_error_string(err).decode()}")
+        _call(dev, _lib().intact_w8a8_matmul, *args)
         w8a8_matmul.launches += 1
     return out, scratch, (m, k_pad, n_chunks, xs_off)
+
+
+def _call(dev: int, fn, *args) -> None:
+    lib = _lib()
+    if dev == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args)
+    if err:
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: {lib.intact_cuda_error_string(err).decode()}")
+
+
+def w8a8_partial(
+    x: torch.Tensor,  # [M, K] bf16 or fp32: this rank's columns of the rows
+    wq: torch.Tensor,  # int8 [K, N] ("kn") or [N, K] ("nk"): this rank's input rows
+    amax: torch.Tensor,  # [M] fp32: each row's absmax over the whole row
+    weight_layout: str = "kn",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (int32 [M, N], the exact partial product of x's codes quantized
+    against amax; xs [M] fp32, the row scales). Launches the kernel's
+    row-parallel pass on CUDA tensors (or raises), its plain version on CPU
+    tensors."""
+    if x.ndim != 2 or amax.shape != (x.shape[0],):
+        raise ValueError(f"x must be [M, K] and amax [M]; got {tuple(x.shape)}, {tuple(amax.shape)}")
+    if x.device.type == "cpu":
+        _dims(wq, weight_layout)
+        return w8a8_partial_reference(x, wq if weight_layout == "kn" else wq.t(), amax)
+    if x.device.type != "cuda":
+        raise ValueError(f"the w8a8_partial kernel runs on CUDA tensors, not {x.device}")
+    k, n = _dims(wq, weight_layout)
+    if x.shape[-1] != k or x.dtype not in _IO_DTYPES or amax.device != x.device or wq.device != x.device:
+        raise ValueError(f"x {x.dtype} {tuple(x.shape)} does not fit wq {tuple(wq.shape)} ({weight_layout}) on one device")
+    x = x if x.is_contiguous() else x.contiguous()
+    amax = amax.to(torch.float32).contiguous()
+    m = x.shape[0]
+    k_pad = _round_up(k, K_TILE)
+    dev = x.device.index
+    part = torch.empty((m, n), dtype=torch.int32, device=x.device)
+    xs = torch.empty(m, dtype=torch.float32, device=x.device)
+    if part.numel():
+        p = partial_plan(m, n, k, _sm_count(dev))
+        xq = torch.empty((m, k_pad), dtype=torch.int8, device=x.device)
+        w, w_stride = kmajor(wq, weight_layout)
+        _call(dev, _lib().intact_w8a8_partial, x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(), w_stride,
+              amax.data_ptr(), xq.data_ptr(), xs.data_ptr(), part.data_ptr(), m, k, n, k_pad, p.split_len, p.n_splits,
+              torch._C._cuda_getCurrentRawStream(dev))
+        w8a8_partial.launches += 1
+    return part, xs
+
+
+def w8a8_finish(
+    part: torch.Tensor,  # [M, N] int32: the ranks' summed partial products
+    xs: torch.Tensor,  # [M] fp32 row scales
+    wscale: torch.Tensor,  # [N] fp32
+    bias: torch.Tensor | None = None,  # [N]
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """-> [M, N] in out_dtype: the finish pass of the row-parallel product.
+    Launches the kernel's finish pass on CUDA tensors (or raises), its plain
+    version on CPU tensors."""
+    m, n = part.shape
+    if part.dtype != torch.int32 or xs.shape != (m,) or wscale.shape != (n,) or (bias is not None and bias.shape != (n,)):
+        raise ValueError(f"part must be int32 [M, N], xs [M], wscale and bias [N]; got {tuple(part.shape)}")
+    if part.device.type == "cpu":
+        return w8a8_finish_reference(part, xs, wscale, bias, out_dtype)
+    if part.device.type != "cuda" or out_dtype not in _IO_DTYPES:
+        raise ValueError(f"the w8a8_finish kernel runs on CUDA tensors into bf16 or fp32, not {part.device} {out_dtype}")
+    out = torch.empty((m, n), dtype=out_dtype, device=part.device)
+    if out.numel():
+        dev = part.device.index
+        part = part.contiguous()
+        ws = wscale.to(torch.float32).contiguous()
+        b = bias.to(torch.float32).contiguous() if bias is not None else None
+        _call(dev, _lib().intact_w8a8_finish, part.data_ptr(), xs.contiguous().data_ptr(), ws.data_ptr(),
+              b.data_ptr() if b is not None else None, out.data_ptr(), int(out_dtype == torch.bfloat16), m, n,
+              torch._C._cuda_getCurrentRawStream(dev))
+        w8a8_finish.launches += 1
+    return out
 
 
 _SMS: dict = {}
@@ -327,3 +462,5 @@ def _sm_count(dev: int) -> int:
 
 
 w8a8_matmul.launches = 0
+w8a8_partial.launches = 0
+w8a8_finish.launches = 0

@@ -9,7 +9,9 @@ gathered in one collective where it is used and its gradient
 reduce-scattered in one (`sharding.GatherLayer`). The fused step reduces
 each gradient over the ranks and updates this rank's global block rows of
 the optimizer state (ZeRO-2 over fsdp), then gathers the updated parameters.
-NCCL on the card, gloo on the CPU.
+Pi0 also runs the tensor axis (Megatron-style: `tensor.py`'s regions over
+the tensor slices the rules give each rank). NCCL on the card, gloo on the
+CPU.
 """
 
 from intact_tpu_torch.parallel.mesh import AXIS_NAMES, Mesh, MeshConfig, default_mesh_for, make_mesh

@@ -7,7 +7,10 @@ per process:
     PROCESS_ID, mapped onto them (LOCAL_RANK defaults to the rank).
 Without either it is a world of one with no group. The backend follows the
 device the caller asked for: NCCL on CUDA, after torch.cuda.set_device(
-LOCAL_RANK), and gloo for device "cpu". A failed NCCL init raises; nothing
+LOCAL_RANK), and gloo for device "cpu". A caller that runs several ranks on
+one card (NCCL refuses a second rank of a device) asks for backend="gloo"
+on CUDA: its CUDA tensors then go through the host in every collective
+(parallel/collectives.py's staging rule). A failed NCCL init raises; nothing
 falls back to gloo. It returns this rank's device: cuda:LOCAL_RANK, or the
 CPU. Like every entry point it runs on CUDA unless given "cpu", and raises
 without a CUDA device.
@@ -51,10 +54,11 @@ def _launch_env() -> dict | None:
     return None
 
 
-def initialize(device: str | torch.device | None = None) -> torch.device:
+def initialize(device: str | torch.device | None = None, backend: str | None = None) -> torch.device:
     """Join the launcher's process group, once per process -> this rank's
     device. Without a launcher (and without a group) it only resolves the
-    device, so a later call can still join one."""
+    device, so a later call can still join one. backend: "nccl" on CUDA and
+    "gloo" on the CPU unless given ("gloo" on CUDA: several ranks on one card)."""
     from intact_tpu_torch.models.common import resolve_device
 
     device = resolve_device(device)
@@ -66,10 +70,13 @@ def initialize(device: str | torch.device | None = None) -> torch.device:
     launch = _launch_env()
     if launch is None:
         return device
+    if backend not in (None, "nccl", "gloo") or (backend == "nccl" and device.type != "cuda"):
+        raise ValueError(f"backend {backend!r} does not run on {device}")
     if device.type == "cuda":
         torch.cuda.set_device(launch["local_rank"])
         device = torch.device("cuda", launch["local_rank"])
-        backend, kw = "nccl", {"device_id": device}
+        backend = backend or "nccl"
+        kw = {"device_id": device} if backend == "nccl" else {}
     else:
         backend, kw = "gloo", {}
     dist.init_process_group(backend, init_method=f"tcp://{launch['addr']}:{launch['port']}",

@@ -7,15 +7,29 @@ Axes, as in the JAX package:
           (ZeRO-3, parallel/sharding.py, train/optim.py); the fused step's
           optimizer state in global block rows, the whole parameters gathered
           after each update (ZeRO-2, train/fused_joint.py)
-  tensor  tensor parallelism: not ported (make_mesh refuses tensor > 1)
+  tensor  Megatron-style tensor parallelism (Pi0 serving and its standard
+          step only): column-parallel q, gate, up, fc1 and the patch embed's
+          output channels, row-parallel o, down and fc2, the embedding split
+          over its vocabulary (models/common.py, parallel/tensor.py); every
+          other family and the fused step refuse tensor > 1 (`refuse_tensor`)
 
 `MeshConfig.resolve(n)` takes the world size: the port runs one process per
 card, where the JAX package runs one process over all local devices. Rank r
-sits at (d, f, t) with r = (d * fsdp + f) * tensor + t. `make_mesh` returns a
-`Mesh` holding the rank's coordinates and its process groups: the ranks that
-share its fsdp coordinate (its data group), those that share its data
-coordinate (its fsdp group), and the world. Without a process group (one
-process, nothing initialized) the groups are None and the collectives of
+sits at (d, f, t) with r = (d * fsdp + f) * tensor + t: tensor is the
+fastest axis, as in the JAX package. `make_mesh` returns a `Mesh` holding the
+rank's coordinates and its process groups, each the ranks that share the
+coordinates the axis does not move:
+  data    the ranks of its (f, t), over the data axis
+  fsdp    the ranks of its (d, t), over the fsdp axis
+  tensor  the ranks of its (d, f): its batch coordinate, over the tensor axis
+  batch   the ranks of its t, over data x fsdp (a tensor slice's replicas)
+  model   the ranks of its d, over fsdp x tensor (one model's parts)
+  world   every rank.
+At tensor 1 the batch group is the world and the model group the fsdp group
+(no communicator is made for them). A batch is split over data x fsdp and
+replicated over tensor: the ranks of one batch coordinate d * fsdp + f take
+the same rows (`Mesh.batch_index`). Without a process group (one process,
+nothing initialized) the groups are None and the collectives of
 `parallel/collectives.py` are never called.
 """
 
@@ -66,7 +80,7 @@ class Mesh:
     fsdp: int
     tensor: int
     rank: int
-    groups: dict  # "data", "fsdp", "world" -> ProcessGroup, or None without a process group
+    groups: dict  # "data", "fsdp", "tensor", "batch", "model", "world" -> ProcessGroup, or None without a group
 
     @property
     def shape(self) -> dict[str, int]:
@@ -81,23 +95,49 @@ class Mesh:
         return self.rank // self.tensor % self.fsdp
 
     @property
+    def tensor_index(self) -> int:
+        return self.rank % self.tensor
+
+    @property
+    def batch_index(self) -> int:
+        """The rank's batch coordinate d * fsdp + f: the rows it takes."""
+        return self.rank // self.tensor
+
+    @property
+    def batch_size(self) -> int:
+        """The batch coordinates, data x fsdp: the ranks' distinct rows."""
+        return self.data * self.fsdp
+
+    @property
     def distributed(self) -> bool:
         """True when the ranks talk through a process group (even a world of one)."""
         return self.groups["world"] is not None
 
 
-def refuse_tensor(cfg: MeshConfig) -> None:
-    if cfg.tensor != 1:
+TENSOR_FAMILIES = ("pi0",)  # the model modules that run at tensor > 1
+
+
+def refuse_tensor(cfg: MeshConfig, family: str | None = None, fused: bool = False) -> None:
+    """Raise unless the mesh's tensor axis is 1 or the path runs it: Pi0
+    (`family` "pi0", the model module's name) serving and its standard
+    step. The fused step and every other family keep refusing it."""
+    if cfg.tensor == 1:
+        return
+    if fused:
         raise NotImplementedError(
-            f"the tensor axis (mesh.tensor={cfg.tensor}) is not ported: the port shards over data and fsdp only "
-            "(Megatron-style tensor parallelism needs its K/V head split worked out at one KV head)")
+            f"the tensor axis (mesh.tensor={cfg.tensor}) is not ported for the fused step: the tensor-parallel "
+            "slice covers Pi0 serving and its standard step; train the fused recipe at tensor 1")
+    if family not in TENSOR_FAMILIES:
+        raise NotImplementedError(
+            f"the tensor axis (mesh.tensor={cfg.tensor}) is not ported for {family or 'this model'}: the "
+            "tensor-parallel slice covers Pi0 serving and its standard step only; run it at tensor 1")
 
 
 def single_rank_mesh() -> Mesh:
-    return Mesh(1, 1, 1, 0, {"data": None, "fsdp": None, "world": None})
+    return Mesh(1, 1, 1, 0, {k: None for k in ("data", "fsdp", "tensor", "batch", "model", "world")})
 
 
-_GROUPS: dict = {}  # (the world group, data, fsdp) -> this rank's groups, made once per process group
+_GROUPS: dict = {}  # (the world group, data, fsdp, tensor) -> this rank's groups, made once per process group
 
 
 def make_mesh(cfg: MeshConfig | None = None) -> Mesh:
@@ -109,22 +149,36 @@ def make_mesh(cfg: MeshConfig | None = None) -> Mesh:
     import torch.distributed as dist
 
     cfg = cfg or MeshConfig()
-    refuse_tensor(cfg)
     if not (dist.is_available() and dist.is_initialized()):
         cfg.resolve(1)  # raises as the JAX package does on one device
         return single_rank_mesh()
     world, rank = dist.get_world_size(), dist.get_rank()
-    data, fsdp, _ = cfg.resolve(world)
-    key = (dist.group.WORLD, data, fsdp)
+    data, fsdp, tensor = cfg.resolve(world)
+    key = (dist.group.WORLD, data, fsdp, tensor)
     if key not in _GROUPS:
+        def r(d, f, t):
+            return (d * fsdp + f) * tensor + t
+
+        mine = (rank // (fsdp * tensor), rank // tensor % fsdp, rank % tensor)
+        axes = {  # group name -> (the coordinates it fixes, its members for those coordinates)
+            "data": (lambda d, f, t: (f, t), lambda f, t: [r(d, f, t) for d in range(data)]),
+            "fsdp": (lambda d, f, t: (d, t), lambda d, t: [r(d, f, t) for f in range(fsdp)]),
+        }
+        if tensor > 1:
+            axes.update({
+                "tensor": (lambda d, f, t: (d, f), lambda d, f: [r(d, f, t) for t in range(tensor)]),
+                "batch": (lambda d, f, t: (t,), lambda t: [r(d, f, t) for d in range(data) for f in range(fsdp)]),
+                "model": (lambda d, f, t: (d,), lambda d: [r(d, f, t) for f in range(fsdp) for t in range(tensor)]),
+            })
         groups = {"world": dist.group.WORLD}
-        for f in range(fsdp):  # the ranks of one fsdp coordinate, over the data axis
-            g = dist.new_group([d * fsdp + f for d in range(data)])
-            if rank % fsdp == f:
-                groups["data"] = g
-        for d in range(data):  # the ranks of one data coordinate, over the fsdp axis
-            g = dist.new_group([d * fsdp + f for f in range(fsdp)])
-            if rank // fsdp == d:
-                groups["fsdp"] = g
+        for name, (fixed, members) in axes.items():
+            # every rank creates every group of the axis, in the same order
+            keys = sorted({fixed(d, f, t) for d in range(data) for f in range(fsdp) for t in range(tensor)})
+            for k in keys:
+                g = dist.new_group(members(*k))
+                if k == fixed(*mine):
+                    groups[name] = g
+        if tensor == 1:
+            groups.update(tensor=None, batch=dist.group.WORLD, model=groups["fsdp"])
         _GROUPS[key] = groups
-    return Mesh(data, fsdp, 1, rank, dict(_GROUPS[key]))
+    return Mesh(data, fsdp, tensor, rank, dict(_GROUPS[key]))

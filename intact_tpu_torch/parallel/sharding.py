@@ -9,9 +9,11 @@ Two splits:
     to `align` rows. Shares may be uneven or empty; the collectives pad them
     to `per` rows. A local shard is never re-blocked, so its absmax blocks
     and codes are one card's;
-  * a batch's rows over the ranks (`local_rows`): rank r of a world of w
-    holds rows [r * b / w, (r + 1) * b / w), as the JAX package's
-    put_global_batch places a host's rows.
+  * a batch's rows over the batch coordinates (`local_rows`): coordinate c
+    of w (a rank's d * fsdp + f, `Mesh.batch_index`: the tensor ranks of one
+    coordinate take the same rows) holds rows [c * b / w, (c + 1) * b / w),
+    as the JAX package's put_global_batch places a host's rows over (data,
+    fsdp).
 
 The gradient and parameter helpers run the collectives of
 parallel/collectives.py, so the steps call them only when the mesh has a
@@ -27,25 +29,32 @@ The parameters (ZeRO-3 by the JAX package's DEFAULT_RULES: serving and the
 standard training step): `spec_for_path` gives a leaf's spec, a tuple of
 axis names or None per dimension, first match wins over the "/"-joined path;
 an axis whose mesh size does not divide its dimension is dropped (the leaf
-stays whole and replicated), and the tensor axis always is (it is not
-ported: its size is 1). The port's int8 `kernel_q` is [..., out, in], the
-transpose of the JAX package's [..., in, out], so a `kernel_q` leaf takes
-its rule's spec with the last two entries swapped. At fsdp > 1 `shard_tree`
-keeps this rank's slice of every leaf the rules shard over fsdp as a
-`Sharded` holder (the slice, its dimension, the fsdp group, its part, and
-where it trains its local gradient); the towers gather one layer at a time
+stays whole and replicated over it). The tensor axis is kept at tensor > 1
+only where it divides, and on an attention projection only where it divides
+the projection's heads (`heads`: {tower: (query heads, K/V heads)}, from the
+model; without it the projections stay replicated over tensor): Pi0's one
+K/V head keeps its k and v whole on every tensor rank, where the JAX rule
+would split their head_dim. At tensor 1 the axis is dropped. The port's int8
+`kernel_q` is [..., out, in], the transpose of the JAX package's [..., in,
+out], so a `kernel_q` leaf takes its rule's spec with the last two entries
+swapped. `shard_tree` keeps this rank's part of every leaf the rules split
+over fsdp or tensor as a `Sharded` holder: the tensor rank's slice of the
+leaf (Megatron's column, row or vocabulary part: `Sharded.tensor`), that
+slice's fsdp part (ZeRO-3: its dimension, the fsdp group, its part, and
+where it trains its local gradient). The towers gather one layer at a time
 where they use it (`models/common.py`: `layer` for the stacked blocks,
-`dense`, `embed_lookup`, `unembed_logits`, `whole`), so only one layer is
-ever whole. A layer's split leaves travel as one bucket: their slices packed
-into one byte buffer at 128-byte aligned offsets and gathered with one
-all-gather, each leaf unpacked into a contiguous tensor of its own
-(`gather_bucket`); where they train, `GatherLayer`'s backward packs their
-whole gradients rank-major into one fp32 buffer and reduce-scatters it with
-one collective, adding each part into the leaf's local gradient at the
+`dense`, `embed_lookup`, `unembed_logits`, `whole`) over fsdp only, so only
+one layer of the tensor slice is ever whole; a leaf split over tensor alone
+is used as it is held. A layer's fsdp-split leaves travel as one bucket:
+their slices packed into one byte buffer at 128-byte aligned offsets and
+gathered with one all-gather, each leaf unpacked into a contiguous tensor of
+its own (`gather_bucket`); where they train, `GatherLayer`'s backward packs
+their whole gradients rank-major into one fp32 buffer and reduce-scatters it
+with one collective, adding each part into the leaf's local gradient at the
 layer (`reduce_scatter_bucket`). The bucket gather, its unpack and the
 reduce-scatter are `torch.profiler.record_function` ranges ("bucket
-gather", "bucket unpack", "bucket reduce-scatter"). At fsdp 1 every leaf
-stays a plain tensor.
+gather", "bucket unpack", "bucket reduce-scatter"). At fsdp 1 and tensor 1
+every leaf stays a plain tensor.
 """
 
 from __future__ import annotations
@@ -116,8 +125,9 @@ def pad_rows(arrays: list, world: int) -> list:
 
 
 def local_rows(tree, rank: int, world: int):
-    """This rank's rows of a batch (a dict of arrays or tensors with a
-    leading batch axis divisible by the world size)."""
+    """Batch coordinate `rank`'s rows of a batch (a dict of arrays or tensors
+    with a leading batch axis divisible by `world`, the coordinates: a
+    mesh's batch_index and batch_size)."""
     if isinstance(tree, dict):
         return {k: local_rows(v, rank, world) for k, v in tree.items()}
     b = tree.shape[0]
@@ -201,9 +211,10 @@ def take_leading(x: torch.Tensor, shard: RowShard, per_axis: int, axis: int = 0)
 
 def data_draw_key(seed: int, step: int, mesh: Mesh) -> tuple:
     """The numpy key of this rank's random draws at a micro-step: (seed, step)
-    on one rank, (seed, step, rank) on several, so ranks draw their own rows'
-    noise."""
-    return (seed, step) if mesh.size == 1 else (seed, step, mesh.rank)
+    with one batch coordinate, (seed, step, d * fsdp + f) with several, so
+    each coordinate draws its own rows' noise and the tensor ranks of one
+    coordinate draw the same."""
+    return (seed, step) if mesh.batch_size == 1 else (seed, step, mesh.batch_index)
 
 
 
@@ -254,21 +265,47 @@ def _path_str(path) -> str:
     return "/".join(keystr(p) for p in path)
 
 
-def _sanitize(spec: tuple, shape: tuple, mesh: Mesh) -> tuple:
+_PROJECTION = re.compile(r"(.*?)/(?:blocks|pairs/(?:self|cross))/attn/([qkvo])/kernel(?:_q)?$")
+
+
+def _tensor_units(path_str: str, dim: int, heads) -> int:
+    """What the tensor axis must divide on a leaf's dimension: an attention
+    projection's heads (query heads for q and o, K/V heads for k and v; 0,
+    which nothing divides, without `heads` for its tower), else the
+    dimension itself. The patch embed's kernel takes 0: the towers use the
+    whole embedded image on every tensor rank, so its channels stay whole."""
+    if path_str.endswith("patch_embed/kernel"):
+        return 0
+    m = _PROJECTION.match(path_str)
+    if m is None:
+        return dim
+    tower, name = m.groups()
+    if not heads or tower not in heads:
+        return 0
+    q_heads, kv_heads = heads[tower]
+    return kv_heads if name in "kv" else q_heads
+
+
+def _sanitize(spec: tuple, shape: tuple, mesh: Mesh, path_str: str = "", heads=None) -> tuple:
     """One entry per dimension: an axis kept where its mesh size divides the
-    dimension, None elsewhere; the tensor axis always goes (not ported)."""
+    dimension (the tensor axis: at tensor > 1, and on an attention projection
+    where it divides the heads), None elsewhere."""
     spec = tuple(spec)[:len(shape)]
     out = []
     for dim, axis in zip(shape, spec + (None,) * (len(shape) - len(spec))):
-        keep = axis is not None and axis != "tensor" and dim % mesh.shape[axis] == 0
+        keep = axis is not None and dim % mesh.shape[axis] == 0
+        if axis == "tensor":
+            units = _tensor_units(path_str, dim, heads)
+            keep = keep and mesh.tensor > 1 and units > 0 and units % mesh.tensor == 0
         out.append(axis if keep else None)
     return tuple(out)
 
 
-def spec_for_path(path_str: str, shape, mesh: Mesh, rules=None) -> tuple:
+def spec_for_path(path_str: str, shape, mesh: Mesh, rules=None, heads=None) -> tuple:
     """The leaf's spec on this mesh (the first matching rule, sanitized); a
     `kernel_q` leaf ([..., out, in] here) takes its rule with the last two
-    entries swapped."""
+    entries swapped. `heads`: {tower: (query heads, K/V heads)} for the
+    tensor axis on attention projections."""
     shape = tuple(shape)
     for pattern, spec in rules or DEFAULT_RULES:
         if re.match(pattern, path_str):
@@ -276,27 +313,43 @@ def spec_for_path(path_str: str, shape, mesh: Mesh, rules=None) -> tuple:
                 spec = tuple(spec)[:len(shape)]
                 spec = spec + (None,) * (len(shape) - len(spec))
                 spec = spec[:-2] + (spec[-1], spec[-2])
-            return _sanitize(spec, shape, mesh)
+            return _sanitize(spec, shape, mesh, path_str, heads)
     return (None,) * len(shape)
 
 
-def param_specs(params, mesh: Mesh, rules=None) -> dict:
+def param_specs(params, mesh: Mesh, rules=None, heads=None) -> dict:
     """A parameter tree (anything with .shape at the leaves) -> the tree of its specs."""
     def walk(node, path):
         if isinstance(node, dict):
             return {k: walk(v, path + (k,)) for k, v in node.items()}
-        return spec_for_path(_path_str(path), node.shape, mesh, rules)
+        return spec_for_path(_path_str(path), node.shape, mesh, rules, heads)
 
     return walk(params, ())
 
 
+@dataclasses.dataclass(frozen=True)
+class TensorSplit:
+    """A leaf split over the tensor axis: `parts` equal slices along `dim` of
+    the whole leaf of shape `shape`, over the tensor `group` (rank order);
+    `index` is this rank's."""
+
+    dim: int
+    parts: int
+    index: int
+    group: object
+    shape: tuple
+
+
 @dataclasses.dataclass(eq=False)
 class Sharded:
-    """This rank's slice `local` of a leaf of shape `shape`, split in `parts`
-    equal slices along `dim` over the fsdp `group` (rank order); `index` is
-    this rank's part. Only a bucket gather (`gather_tree`, `gather_leaf`)
-    makes it whole. `grad`, where the leaf trains, is the local gradient the
-    bucket reduce-scatters add into (train/train_step.py)."""
+    """This rank's part `local` of a leaf: of its tensor slice (`tensor`, or
+    the whole leaf without one) of shape `shape`, split in `parts` equal
+    slices along `dim` over the fsdp `group` (rank order); `index` is this
+    rank's fsdp part (group None: the tensor slice is held whole).
+    Only a bucket gather (`gather_tree`, `gather_leaf`) makes the fsdp parts
+    whole; `gather_leaf` also joins the tensor slices. `grad`, where a leaf
+    split over fsdp trains, is the local gradient the bucket reduce-scatters
+    add into (train/train_step.py)."""
 
     local: torch.Tensor
     dim: int
@@ -305,6 +358,7 @@ class Sharded:
     parts: int
     index: int = 0
     grad: torch.Tensor | None = None
+    tensor: TensorSplit | None = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -314,8 +368,23 @@ class Sharded:
     def requires_grad(self) -> bool:
         return self.local.requires_grad
 
+    @property
+    def fsdp_split(self) -> bool:
+        """Held over an fsdp group (as its parts, one part included), where a
+        leaf split over tensor alone has none."""
+        return self.group is not None
+
+    @property
+    def whole_shape(self) -> tuple:
+        """The whole leaf's shape (over fsdp and tensor)."""
+        return self.tensor.shape if self.tensor is not None else self.shape
+
     def numel(self) -> int:
+        """The elements of the tensor slice (the leaf's, without one)."""
         return self.local.numel() * self.parts
+
+    def whole_numel(self) -> int:
+        return self.numel() * (self.tensor.parts if self.tensor is not None else 1)
 
     def is_floating_point(self) -> bool:
         return self.local.is_floating_point()
@@ -441,9 +510,14 @@ def gather_layer(leaves: list, index=None) -> list[torch.Tensor]:
 
 
 def gather_tree(tree, index=None):
-    """A (nested dict) tree with its `Sharded` leaves whole (at `index`),
-    all of them through one bucket; the other leaves as they are (`x[index]`)."""
+    """A (nested dict) tree with its fsdp-split `Sharded` leaves whole over
+    fsdp (at `index`), all of them through one bucket; a leaf split over
+    tensor alone as this rank holds it, the other leaves as they are
+    (`x[index]`)."""
     flat = dict(_flat_items(tree))
+    for path, x in flat.items():
+        if isinstance(x, Sharded) and not x.fsdp_split:
+            flat[path] = x.local
     sharded = [path for path, x in flat.items() if isinstance(x, Sharded)]
     whole = dict(zip(sharded, gather_layer([flat[p] for p in sharded], index))) if sharded else {}
 
@@ -452,6 +526,7 @@ def gather_tree(tree, index=None):
             return {k: walk(v, path + (k,)) for k, v in node.items()}
         if path in whole:
             return whole[path]
+        node = flat[path]
         return node if index is None else node[index]
 
     return walk(tree, ())
@@ -469,41 +544,64 @@ def held(p) -> torch.Tensor:
 
 
 def gather_leaf(x: torch.Tensor, like: Sharded) -> torch.Tensor:
-    """A local tensor laid out as `like`'s slice (the leaf's own, a moment's
-    codes, an accumulator) -> the whole tensor, gathered over its group."""
-    return gather_bucket([dataclasses.replace(like, local=x, grad=None)])[0]
+    """A local tensor laid out as `like`'s part (the leaf's own, a moment's
+    codes, an accumulator) -> the whole tensor: gathered over its fsdp group,
+    then its tensor slices joined over the tensor group."""
+    if like.fsdp_split:
+        x = gather_bucket([dataclasses.replace(like, local=x, grad=None)])[0]
+    t = like.tensor
+    if t is None:
+        return x
+    out = torch.empty(t.parts * x.numel() * x.element_size(), dtype=torch.uint8, device=x.device)
+    collectives.tensor_all_gather(out, _as_bytes(x), t.group)
+    return torch.cat(list(out.view(x.dtype).view(t.parts, *x.shape).unbind(0)), dim=t.dim)
 
 
 def take_slice(whole: torch.Tensor, like: Sharded) -> torch.Tensor:
-    """A whole tensor shaped as `like`'s leaf -> this rank's slice of it (a
-    view; `whole` may live on the host)."""
+    """A whole tensor shaped as `like`'s leaf -> this rank's part of it (a
+    view: the tensor slice's fsdp part; `whole` may live on the host)."""
+    t = like.tensor
+    if t is not None:
+        n = whole.shape[t.dim] // t.parts
+        whole = whole.narrow(t.dim, t.index * n, n)
     n = whole.shape[like.dim] // like.parts
     return whole.narrow(like.dim, like.index * n, n)
 
 
-def shard_leaf(path: str, x: torch.Tensor, mesh: Mesh, put=None, rules=None):
-    """A whole leaf -> this rank's: a `Sharded` slice where the rules split
-    it over fsdp (fsdp > 1), else the leaf. `put` moves the (sliced) leaf to
-    its device and dtype first; the slice never shares the whole leaf's storage."""
-    spec = spec_for_path(path, x.shape, mesh, rules) if mesh.fsdp > 1 else ()
-    if "fsdp" not in spec:
+def shard_leaf(path: str, x: torch.Tensor, mesh: Mesh, put=None, rules=None, heads=None):
+    """A whole leaf -> this rank's: a `Sharded` part where the rules split it
+    over fsdp (fsdp > 1) or tensor (tensor > 1; `heads` as for
+    spec_for_path), else the leaf. `put` moves the (sliced) leaf to its
+    device and dtype first; the part never shares the whole leaf's storage."""
+    spec = spec_for_path(path, x.shape, mesh, rules, heads) if mesh.fsdp > 1 or mesh.tensor > 1 else ()
+    fsdp = "fsdp" in spec and mesh.fsdp > 1
+    if not fsdp and "tensor" not in spec:
         return put(x) if put else x
-    dim = spec.index("fsdp")
-    n = x.shape[dim] // mesh.fsdp
-    piece = x.narrow(dim, mesh.fsdp_index * n, n)
+    piece, tensor = x, None
+    if "tensor" in spec:
+        tdim = spec.index("tensor")
+        n = x.shape[tdim] // mesh.tensor
+        piece = x.narrow(tdim, mesh.tensor_index * n, n)
+        tensor = TensorSplit(tdim, mesh.tensor, mesh.tensor_index, mesh.groups["tensor"], tuple(x.shape))
+    shape = tuple(piece.shape)
+    dim, group, parts, index = 0, None, 1, 0
+    if fsdp:
+        dim, group, parts, index = spec.index("fsdp"), mesh.groups["fsdp"], mesh.fsdp, mesh.fsdp_index
+        n = piece.shape[dim] // parts
+        piece = piece.narrow(dim, index * n, n)
     local = put(piece.contiguous()) if put else piece
     if local.untyped_storage().data_ptr() == x.untyped_storage().data_ptr():
         local = local.clone(memory_format=torch.contiguous_format)
-    return Sharded(local, dim, tuple(x.shape), mesh.groups["fsdp"], mesh.fsdp, mesh.fsdp_index)
+    return Sharded(local, dim, shape, group, parts, index, tensor=tensor)
 
 
-def shard_tree(tree, mesh: Mesh, put=None, consume: bool = False, rules=None):
+def shard_tree(tree, mesh: Mesh, put=None, consume: bool = False, rules=None, heads=None):
     """A whole parameter tree -> this rank's, leaf by leaf (`shard_leaf`).
     consume=True empties `tree` as it goes, so the whole leaves go as their
     slices are made."""
     def walk(node, path):
         if not isinstance(node, dict):
-            return shard_leaf(_path_str(path), node, mesh, put, rules)
+            return shard_leaf(_path_str(path), node, mesh, put, rules, heads)
         out = {}
         for k in list(node):
             out[k] = walk(node[k], path + (k,))

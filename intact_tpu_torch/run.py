@@ -11,7 +11,7 @@
         [--tokenizer_path hash] [--device cpu]
     torchrun --standalone --nproc_per_node N -m intact_tpu_torch.run \
         --config_path config/experiment/simpler/pi0_finetune_bridge_ev.yaml \
-        --eval_cfg.role server [--mesh.fsdp F] [--device cpu]
+        --eval_cfg.role server [--mesh.fsdp F] [--mesh.tensor T] [--device cpu]
     python -m intact_tpu_torch.run --config_path config/experiment/simpler/pi0_finetune_bridge_ev.yaml \
         --eval_cfg.role client [--eval_cfg.host HOST --eval_cfg.port PORT]
 
@@ -23,8 +23,9 @@ multi-card recipes) must fill the world size. Without `eval_cfg`
 the config trains; with it, `eval_cfg.role` server serves the configured
 policy over the websocket protocol (under torchrun every rank holds its
 share of the parameters, rank 0 serves and the others run their rows of
-each fused batch, serve/group.py; the mesh must fill the world and
-mesh.tensor > 1 is refused; Octo runs whole on rank 0), and client runs the simulator evaluator
+each fused batch, serve/group.py; the mesh must fill the world; at
+mesh.tensor > 1, Pi0 only, the tensor ranks of a batch coordinate run their
+slices of the model on the same rows; Octo runs whole on rank 0), and client runs the simulator evaluator
 that `eval_cfg.simulator_path` names (built from simulator_name) against such
 a server; it touches no device, and its simulator (SimplerEnv, ManiSkill3 or
 LIBERO) must be installed.
@@ -53,13 +54,17 @@ def serve_on_ranks(cfg: TrainPipelineConfig, device) -> None:
     wrapper serves as on one card; in a group every rank builds the wrapper
     on its share of the parameters, rank 0 serves and sends "stop" when its
     server ends, and the others follow it (serve/group.py)."""
+    from intact_tpu_torch.models import registry
     from intact_tpu_torch.parallel import MeshConfig, make_mesh
+    from intact_tpu_torch.parallel.mesh import refuse_tensor
     from intact_tpu_torch.serve.group import ServeGroup
     from intact_tpu_torch.serve.policy_wrapper import make_policy_wrapper, wrapper_class
     from intact_tpu_torch.serve.server import serve
 
     log = logging.getLogger("run")
-    mesh = make_mesh(MeshConfig(cfg.mesh.data, cfg.mesh.fsdp, cfg.mesh.tensor))
+    mesh_cfg = MeshConfig(cfg.mesh.data, cfg.mesh.fsdp, cfg.mesh.tensor)
+    refuse_tensor(mesh_cfg, registry.family(cfg.model_type))
+    mesh = make_mesh(mesh_cfg)
     if not mesh.distributed:
         policy = make_policy_wrapper(cfg, device=device)
     elif wrapper_class(cfg).serves_on_ranks:

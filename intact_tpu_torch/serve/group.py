@@ -10,10 +10,12 @@ as on one card. At each device call it broadcasts over the world group:
   2. the arrays (as bytes), already tokenized and padded on rank 0.
 
 A row op ("sample", "predict", "generate"; the serving wrapper pads its
-batch to a multiple of the world) then runs its handler on every rank over
-the rank's rows [r * b / w, (r + 1) * b / w) of each array, and the
-ranks' outputs are all-gathered in rank order (rank 0 slices the padding
-off). A whole op ("switch") runs its handler on the whole arrays on every
+batch to a multiple of data x fsdp, the batch coordinates) then runs its
+handler on every rank over its coordinate's rows [c * b / n, (c + 1) * b / n)
+of each array (c = d * fsdp + f: the tensor ranks of one coordinate take the
+same rows and run their tensor slices of the model together), and the ranks'
+outputs are all-gathered in rank order, each coordinate's taken from its
+tensor rank 0 (rank 0 slices the padding off). A whole op ("switch") runs its handler on the whole arrays on every
 rank. "stop", which rank 0 sends when its server ends, ends the followers'
 loop. Every broadcast and gather goes through parallel/collectives.py and is
 counted there. Nothing catches a follower's exception: the rank exits
@@ -54,6 +56,7 @@ class ServeGroup:
             raise ValueError("a serving group needs a process group (parallel.distributed.initialize)")
         self.mesh = mesh
         self.rank, self.world = mesh.rank, mesh.size
+        self.rows = mesh.batch_size  # the batch coordinates a row op's batch is split over
         self.device = torch.device(device)  # where the arrays arrive: the card on NCCL, the CPU on gloo
         self._group = mesh.groups["world"]
         self._handlers: dict = {}
@@ -118,8 +121,9 @@ class ServeGroup:
         if not rows:
             fn(*tensors)
             return None
-        out = fn(*(local_rows(t, self.rank, self.world) for t in tensors)).contiguous()
-        return all_gather_bytes(out, self._group, self.world).reshape(-1, *out.shape[1:])
+        out = fn(*(local_rows(t, self.mesh.batch_index, self.rows) for t in tensors)).contiguous()
+        gathered = all_gather_bytes(out, self._group, self.world)[::self.mesh.tensor]  # each coordinate's tensor rank 0
+        return gathered.reshape(-1, *out.shape[1:])
 
     def _send_header(self, op: str, tensors: list) -> None:
         head = [OPS.index(op), len(tensors)]

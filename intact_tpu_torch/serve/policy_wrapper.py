@@ -20,7 +20,10 @@ fsdp > 1) and run their device calls through serve/group.py: rank 0 serves
 and pads each fused batch to a multiple of the world (`effective_fused_size`),
 every rank runs its rows, and `switch_model` restores each rank's share. Octo
 and the HF-scaffold wrappers (`serves_on_ranks` False) run whole on rank 0,
-as the JAX package serves Octo on one device.
+as the JAX package serves Octo on one device. At mesh.tensor > 1 only the
+Pi0 family serves (each rank its tensor slice of the split leaves, the
+tensor ranks of one batch coordinate on the same rows); the other families
+refuse it.
 """
 
 from __future__ import annotations
@@ -237,8 +240,11 @@ class BasePolicyWrapper:
         and whose "switch" runs `_switch`. Without a group, nothing."""
         if mesh is None or not mesh.distributed:
             return
+        from intact_tpu_torch.models import registry
+        from intact_tpu_torch.parallel.mesh import MeshConfig, refuse_tensor
         from intact_tpu_torch.serve.group import ServeGroup, path_of
 
+        refuse_tensor(MeshConfig(mesh.data, mesh.fsdp, mesh.tensor), registry.family(self.config.model_type))
         self.mesh = mesh
         self.group = ServeGroup(mesh, self.device)
         self.group.on(op, rows_fn)
@@ -256,7 +262,7 @@ class BasePolicyWrapper:
         from intact_tpu_torch.parallel.sharding import pad_rows
 
         n = arrays[0].shape[0]
-        arrays = pad_rows(list(arrays), self.group.world)
+        arrays = pad_rows(list(arrays), self.group.rows)
         if extra is not None:
             arrays += extra(arrays[0].shape[0])
         return self.group.call(op, arrays)[:n]

@@ -148,8 +148,9 @@ def restore_params(ckpt_path: str | Path, template=None) -> dict:
         if missing or extra:
             raise ValueError(f"checkpoint {path} does not fit: missing {missing}, unexpected {extra}")
         for k, t in want.items():
-            if tuple(flat[k].shape) != tuple(t.shape):
-                raise ValueError(f"{k}: checkpoint shape {tuple(flat[k].shape)} != {tuple(t.shape)}")
+            shape = t.whole_shape if isinstance(t, Sharded) else tuple(t.shape)  # a split leaf: the whole one's
+            if tuple(flat[k].shape) != tuple(shape):
+                raise ValueError(f"{k}: checkpoint shape {tuple(flat[k].shape)} != {tuple(shape)}")
     return unflatten_paths(flat)
 
 

@@ -31,6 +31,20 @@ slice once and each replicated leaf once per fsdp group (the fsdp index 0
 rank), summed over fsdp. On one rank nothing is split and the arithmetic is
 the single card's.
 
+Over tensor (Pi0, Megatron-style): a leaf split over tensor is this rank's
+tensor slice (split further over fsdp where the rules say so); its gradient
+is complete for the slice and is averaged over the batch coordinates (the
+data group where it is also fsdp-split, else the batch group: data x fsdp).
+A leaf replicated over tensor is averaged over the world; where its use is
+partial (`partial`, from `tensor.partial_paths`: Pi0's K/V kernels, the
+sliced SigLIP biases), each tensor rank's gradient is its part, which the
+standard step sums over tensor at every micro-step
+(train/train_step.py), so it reaches the optimizer whole. The clip counts a
+leaf on the ranks that hold distinct parts of it (fsdp index 0 where it is
+not fsdp-split, tensor index 0 where it is not tensor-split), summed over
+the model group (fsdp x tensor). An 8-bit slice's block scales are the whole
+leaf's: one MAX all-reduce over the model group.
+
 The fused step's optimizer (8-bit-state AdamW applied per layer inside the
 backward) lives in `train/fused_joint.py`.
 """
@@ -46,6 +60,7 @@ import torch
 
 from intact_tpu_torch.models.common import flatten_paths
 from intact_tpu_torch.parallel import collectives, distributed, sharding
+from intact_tpu_torch.parallel import tensor as tensor_parallel
 from intact_tpu_torch.parallel.mesh import Mesh, single_rank_mesh
 from intact_tpu_torch.parallel.sharding import Sharded
 
@@ -135,6 +150,7 @@ class Optimizer:
     schedule: Callable[[int], float]
     trainable: frozenset | None = None
     mesh: Mesh = dataclasses.field(default_factory=single_rank_mesh)
+    partial: frozenset = frozenset()  # trainable leaves replicated over tensor whose use is partial (init; the step sums them)
 
     def paths(self, flat_params: dict) -> list[str]:
         paths = [k for k in flat_params if self.trainable is None or k in self.trainable]
@@ -148,12 +164,13 @@ class Optimizer:
 
         if not isinstance(p, Sharded):
             return optim8bit.init_moment(p, signed) if self.cfg.quantize_moments else torch.zeros_like(p)
-        if self.cfg.quantize_moments and p.numel() >= optim8bit.MIN_QUANT_ELEMS:
-            return optim8bit.init_slice_moment(p.local, p.numel(), signed)
+        if self.cfg.quantize_moments and p.whole_numel() >= optim8bit.MIN_QUANT_ELEMS:
+            return optim8bit.init_slice_moment(p.local, p.whole_numel(), signed)
         return torch.zeros_like(p.local, dtype=torch.float32 if self.cfg.quantize_moments else p.dtype)
 
     def init(self, params) -> dict:
         flat = flatten_paths(params)
+        self.partial = tensor_parallel.partial_paths(flat) & frozenset(self.paths(flat))
         state: dict = {"count": 0, "mu": {}, "nu": {}}
         for k in self.paths(flat):
             state["mu"][k] = self._zero_moment(flat[k], signed=True)
@@ -193,19 +210,31 @@ class Optimizer:
             state["gradient_step"] += 1
         return True
 
+    def counts_here(self, p) -> bool:
+        """Whether this rank's part of leaf p enters a sum over the model
+        group (fsdp x tensor) once: a part split over an axis on every rank of
+        it, a whole one on the axis's index 0."""
+        mesh = self.mesh
+        fsdp_split = isinstance(p, Sharded) and p.fsdp_split
+        tensor_split = isinstance(p, Sharded) and p.tensor is not None
+        return (fsdp_split or mesh.fsdp_index == 0) and (tensor_split or mesh.tensor_index == 0)
+
     def _reduce(self, g: torch.Tensor, p) -> torch.Tensor:
         """Overwrite g (the accumulator or a micro-step's gradient) with the
-        world mean of the ranks' g, one leaf at a time: a split leaf's slice
-        (already summed over fsdp) summed over data, a replicated leaf's over
-        the world, each divided by the world size. Without a process group g
-        is the mean already."""
-        if self.mesh.distributed:
+        mean over the batch coordinates of the ranks' g, one leaf at a time:
+        a fsdp-split leaf's slice (already summed over fsdp) summed over data,
+        a leaf split over tensor alone over the batch group, each divided by
+        the batch coordinates; a replicated leaf's (a partial one's already
+        summed over tensor by the step) over the world, divided by the world
+        size. Without a process group g is the mean already."""
+        mesh = self.mesh
+        if mesh.distributed:
             if isinstance(p, Sharded):
                 x = g.to(torch.float32, copy=True)
-                collectives.all_reduce(x, self.mesh.groups["data"])
-                g.copy_(x / self.mesh.size)
+                collectives.all_reduce(x, mesh.groups["data" if p.fsdp_split else "batch"])
+                g.copy_(x / mesh.batch_size)
             else:
-                g.copy_(sharding.mean_full(g, self.mesh))
+                g.copy_(sharding.mean_full(g, mesh))
         return g
 
     def _inner(self, g: dict, state: dict, flat_p: dict, paths: list, sink) -> None:
@@ -215,12 +244,12 @@ class Optimizer:
         b1, b2 = cfg.betas
         g = {k: self._reduce(g[k], flat_p[k]) for k in paths}
         # clip_by_global_norm_f32, one leaf at a time: the sum of squares of
-        # this rank's slices, and of the replicated leaves once per fsdp group
-        counted = [g[k] for k in paths if isinstance(flat_p[k], Sharded) or mesh.fsdp_index == 0]
+        # this rank's slices, and of the replicated leaves once per model group
+        counted = [g[k] for k in paths if self.counts_here(flat_p[k])]
         zero = torch.zeros((), dtype=torch.float32, device=g[paths[0]].device)  # a rank may count no leaf
         ss = sum((torch.square(t.to(torch.float32)).sum() for t in counted), zero)
         if mesh.distributed:
-            collectives.all_reduce(ss, mesh.groups["fsdp"])
+            collectives.all_reduce(ss, mesh.groups["model"])
         scale = clip_factor(torch.sqrt(ss), cfg.max_grad_norm)
         state["count"] += 1
         c1, c2 = _bias_corrections(b1, b2, state["count"])
@@ -232,9 +261,9 @@ class Optimizer:
             mu, nu = state["mu"][k], state["nu"][k]
             hyper = dict(c1=c1, c2=c2, b1=b1, b2=b2, eps=cfg.eps)
             if isinstance(mu, dict) and isinstance(p, Sharded):
-                layout = optim8bit.slice_layout(p.shape, p.dim, p.parts, p.index)
+                layout = optim8bit.slice_layout(p.shape, p.dim, p.parts, p.index, p.tensor)
                 chunks = optim8bit.adam8bit_slice(gk, mu, nu, layout,
-                                                  lambda x, group=p.group: collectives.all_reduce_max(x, group),
+                                                  lambda x: collectives.all_reduce_max(x, mesh.groups["model"]),
                                                   **hyper)
             elif cfg.quantize_moments:
                 chunks = optim8bit.adam8bit_leaf(gk, mu, nu, **hyper)
@@ -295,7 +324,7 @@ class Optimizer:
                 if not isinstance(p, Sharded):
                     out[name][k] = m
                 elif isinstance(m, dict):
-                    q = sharding.take_slice(optim8bit.rows_to_slice(m["q"], p.shape), p)
+                    q = sharding.take_slice(optim8bit.rows_to_slice(m["q"], p.whole_shape), p)
                     out[name][k] = {"q": q.contiguous(), "scale": m["scale"]}
                 else:
                     out[name][k] = sharding.take_slice(m, p).contiguous()

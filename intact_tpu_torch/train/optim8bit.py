@@ -173,33 +173,69 @@ def adam8bit_leaf(g: torch.Tensor, mu_s, nu_s, *, c1: float, c2: float, b1: floa
 
 @dataclasses.dataclass(frozen=True)
 class SliceLayout:
-    """Where a rank's slice lies in its leaf's flat order: the whole leaf of
-    `n` elements is `outer` rows of `row` elements (the dimensions from the
-    split one on), and the slice holds `width` of each row from column
-    `start`. Element e of the flattened slice is the leaf's element
-    (e // width) * row + start + e % width."""
+    """Where a rank's slice lies in its leaf's flat order: a box of shape
+    `local` at `offsets` in the whole leaf of shape `shape` (a tensor slice's
+    fsdp part splits two dimensions; element e of the flattened slice is the
+    leaf's element at the box's e-th position in row-major order)."""
 
-    n: int
-    outer: int
-    row: int
-    width: int
-    start: int
+    shape: tuple
+    local: tuple
+    offsets: tuple
+
+    @property
+    def n(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64))
 
     @property
     def nb(self) -> int:
         return -(-self.n // BLOCK_SIZE)
 
     @property
+    def start(self) -> int:
+        """The leaf's flat index of the slice's first element."""
+        return self.at(0)
+
+    @property
     def contiguous(self) -> bool:
-        return self.outer == 1 or self.width == self.row
+        """The slice is one run of the leaf's flat order."""
+        split = [i for i, (a, b) in enumerate(zip(self.local, self.shape)) if a != b]
+        if not split:
+            return True
+        first = split[0]
+        return all(self.local[i] == 1 for i in range(first)) and split == [first]
+
+    def at(self, e: int) -> int:
+        """The leaf's flat index of the slice's element e."""
+        out, stride = 0, 1
+        for size, whole, off in zip(reversed(self.local), reversed(self.shape), reversed(self.offsets)):
+            out += (e % size + off) * stride
+            e //= size
+            stride *= whole
+        return out
+
+    def where(self, e0: int, e1: int, device) -> torch.Tensor:
+        """The leaf's flat indices of the slice's elements [e0, e1) (int64)."""
+        e = torch.arange(e0, e1, dtype=torch.int64, device=device)
+        out = torch.zeros_like(e)
+        stride = 1
+        for size, whole, off in zip(reversed(self.local), reversed(self.shape), reversed(self.offsets)):
+            out += (e % size + off) * stride
+            e = torch.div(e, size, rounding_mode="floor")
+            stride *= whole
+        return out
 
 
-def slice_layout(shape, dim: int, parts: int, index: int) -> SliceLayout:
-    """The layout of part `index` of `parts` along `dim` of a leaf of `shape`."""
-    outer = int(np.prod(shape[:dim], dtype=np.int64))
-    row = int(np.prod(shape[dim:], dtype=np.int64))
-    width = row // parts
-    return SliceLayout(outer * row, outer, row, width, index * width)
+def slice_layout(shape, dim: int, parts: int, index: int, tensor=None) -> SliceLayout:
+    """The layout of part `index` of `parts` along `dim` of a leaf's slice of
+    shape `shape`: of the whole leaf, or of its tensor slice `tensor` (a
+    sharding.TensorSplit, whose shape is the whole leaf's)."""
+    local, offsets = list(shape), [0] * len(shape)
+    local[dim] //= parts
+    offsets[dim] = index * local[dim]
+    if tensor is None:
+        return SliceLayout(tuple(shape), tuple(local), tuple(offsets))
+    offsets[tensor.dim] += tensor.index * shape[tensor.dim]
+    return SliceLayout(tuple(tensor.shape), tuple(local), tuple(offsets))
 
 
 def _blocks(layout: SliceLayout, e0: int, e1: int, device):
@@ -209,12 +245,7 @@ def _blocks(layout: SliceLayout, e0: int, e1: int, device):
     if layout.contiguous and (layout.start + e0) % BLOCK_SIZE == 0:
         b0 = (layout.start + e0) // BLOCK_SIZE
         return b0, b0 + -(-(e1 - e0) // BLOCK_SIZE), None
-    def at(e):
-        return e // layout.width * layout.row + layout.start + e % layout.width
-
-    e = torch.arange(e0, e1, dtype=torch.int64, device=device)
-    where = torch.div(e, layout.width, rounding_mode="floor") * layout.row + layout.start + e % layout.width
-    return at(e0) // BLOCK_SIZE, at(e1 - 1) // BLOCK_SIZE + 1, where
+    return layout.at(e0) // BLOCK_SIZE, layout.at(e1 - 1) // BLOCK_SIZE + 1, layout.where(e0, e1, device)
 
 
 def _per_element(scale: torch.Tensor, b0: int, b1: int, where, count: int) -> torch.Tensor:

@@ -27,6 +27,17 @@ gradient, summed over fsdp, into a zeroed slice-sized buffer
 slice rounds with a generator seeded from that seed and the fsdp index, so
 fsdp ranks never repeat each other's bits. The optimizer reduces the
 gradients once per emitted update (train/optim.py).
+
+Over tensor (Pi0, parallel/tensor.py): the draws are keyed on the batch
+coordinate d * fsdp + f, so the tensor ranks of one coordinate draw the same
+noise and time for the same rows; a leaf split over tensor alone is
+differentiated as the slice it is (autograd forms its gradient); the
+gradient of a leaf replicated over tensor whose use is partial (the
+optimizer's `partial`: Pi0's K/V kernels, SigLIP's q/k/v biases) is each
+rank's part, summed over tensor at once, before the norms and the
+accumulation; a tensor slice rounds with a generator seeded from the
+rounding seed, its fsdp index and its tensor index, while the leaves
+replicated over tensor round alike on every tensor rank.
 """
 
 from __future__ import annotations
@@ -62,8 +73,9 @@ def make_train_step(loss_fn: Callable, tx: Optimizer, stochastic_rounding: bool 
     loss_fn(params, rng, batch, noise, time) -> (loss, aux dict), where rng is
     the micro-step's numpy Generator (the loss draws the noise and time that
     are not given). metrics hold 0-dim tensors: l2_loss, grad_norm (the
-    micro-step gradients at one rank's scale: its own of the replicated
-    leaves, the fsdp mean of the split ones), param_norm (of the whole
+    micro-step gradients at one rank's scale: its own rows' of every leaf
+    not split over fsdp, over all its tensor slices, the fsdp mean of the
+    fsdp-split ones; at one batch coordinate, one card's), param_norm (of the whole
     leaves after the update, as the JAX step's; float leaves only: int8
     codes would wrap) and aux's scalars. With split leaves the two norms'
     split parts are summed over fsdp in one all-reduce after the update."""
@@ -76,30 +88,43 @@ def make_train_step(loss_fn: Callable, tx: Optimizer, stochastic_rounding: bool 
         with torch.enable_grad():
             loss, aux = loss_fn(unflatten_paths({**flat, **views}), draws, batch, noise, time)
             grads = torch.autograd.grad(loss, [held(v) for v in views.values()], allow_unused=True)
-        grads = {k: v.grad if isinstance(v, Sharded) else g if g is not None else torch.zeros_like(v)
-                 for (k, v), g in zip(views.items(), grads)}
+        grads = {k: v.grad if isinstance(v, Sharded) and v.fsdp_split else g if g is not None else
+                 torch.zeros_like(held(v)) for (k, v), g in zip(views.items(), grads)}
         del views
         device = loss.device
-        generator = row_generator = None
+        generators: dict = {}
+        sr_seed = None
         if stochastic_rounding:
-            shared = draws if mesh.size == 1 else np.random.default_rng((state.seed, state.step))
+            shared = draws if mesh.batch_size == 1 else np.random.default_rng((state.seed, state.step))
             sr_seed = int(shared.integers(0, 2**63 - 1))
-            generator = row_generator = torch.Generator(device=device).manual_seed(sr_seed)
-            if mesh.fsdp > 1:
-                row_seed = int(np.random.default_rng((sr_seed, mesh.fsdp_index)).integers(0, 2**63 - 1))
-                row_generator = torch.Generator(device=device).manual_seed(row_seed)
-        grad_sums = _grad_squares(grads, flat, device)
+
+        def generator_of(p):
+            """The leaf's rounding generator: one per (fsdp part, tensor slice)
+            it is split into, the shared one for a leaf held whole."""
+            key = (p.index if p.fsdp_split and mesh.fsdp > 1 else None, p.tensor.index if p.tensor else None) \
+                if isinstance(p, Sharded) else (None, None)
+            if key not in generators:
+                seed = sr_seed
+                if key != (None, None):  # (fsdp part), (fsdp part, tensor slice) or (2^32 - 1, tensor slice)
+                    salt = (key[0],) if key[1] is None else (2**32 - 1 if key[0] is None else key[0], key[1])
+                    seed = int(np.random.default_rng((sr_seed, *salt)).integers(0, 2**63 - 1))
+                generators[key] = torch.Generator(device=device).manual_seed(seed)
+            return generators[key]
+
+        if tx.partial:
+            _sum_partials(grads, tx)
+        grad_sums = _grad_squares(grads, flat, tx, device)
 
         def apply(path, sl, u):
             p = flat[path]
             seg = held(p).view(-1)[sl]
-            gen = row_generator if isinstance(p, Sharded) else generator
+            gen = generator_of(p) if stochastic_rounding else None
             seg.copy_(add_rounded(seg, u, gen, stochastic_rounding))
 
         with torch.no_grad():
             tx.apply(grads, state.opt_state, state.params, apply)
         del grads
-        grad_norm, param_norm = _norms(grad_sums, flat, device)
+        grad_norm, param_norm = _norms(grad_sums, flat, tx, device)
         metrics = {"l2_loss": loss.detach(), "grad_norm": grad_norm, "param_norm": param_norm}
         for k, v in aux.items():
             if v.ndim == 0:
@@ -111,11 +136,12 @@ def make_train_step(loss_fn: Callable, tx: Optimizer, stochastic_rounding: bool 
 
 
 def _trainable_view(p):
-    """A detached view of a trainable leaf that records its gradient: a split
-    leaf's slice with a zeroed gradient buffer for the layer buckets'
-    reduce-scatters to add into."""
+    """A detached view of a trainable leaf that records its gradient: a
+    fsdp-split leaf's slice with a zeroed gradient buffer for the layer
+    buckets' reduce-scatters to add into (a leaf split over tensor alone:
+    its slice, whose gradient autograd forms)."""
     if isinstance(p, Sharded):
-        return p.with_local(p.local.detach().requires_grad_(), grad=torch.zeros_like(p.local))
+        return p.with_local(p.local.detach().requires_grad_(), grad=torch.zeros_like(p.local) if p.fsdp_split else None)
     return p.detach().requires_grad_()
 
 
@@ -124,26 +150,48 @@ def _squares(tensors, device) -> torch.Tensor:
                torch.zeros((), dtype=torch.float32, device=device))
 
 
-def _grad_squares(grads: dict, flat: dict, device) -> torch.Tensor:
-    """[replicated, split] sums of squares of the micro-step gradients, taken
-    before the optimizer reduces them in place: a split leaf's slice (the
-    fsdp sum) divided by its parts, the fsdp mean, so a split gradient counts
-    at one rank's scale as a replicated one does."""
-    split = {k: g for k, g in grads.items() if isinstance(flat[k], Sharded)}
-    rep = _squares((g for k, g in grads.items() if k not in split), device)
-    return torch.stack([rep, _squares((g / flat[k].parts for k, g in split.items()), device)])
+def _sum_partials(grads: dict, tx: Optimizer) -> None:
+    """The gradients of the leaves replicated over tensor whose use is
+    partial (`tx.partial`: each tensor rank's holds its heads' part) summed
+    over tensor in place, in fp32, in one all-reduce: after it every tensor
+    rank holds the leaf's whole gradient of its rows, as for any replicated
+    leaf."""
+    paths = sorted(tx.partial)  # one order on every rank
+    flat = torch.cat([grads[k].reshape(-1).to(torch.float32) for k in paths])
+    collectives.tensor_all_reduce(flat, tx.mesh.groups["tensor"])
+    for k, x in zip(paths, flat.split([grads[k].numel() for k in paths])):
+        grads[k].copy_(x.view_as(grads[k]))
 
 
-def _norms(grad_sums: torch.Tensor, flat: dict, device) -> tuple[torch.Tensor, torch.Tensor]:
+def _grad_squares(grads: dict, flat: dict, tx: Optimizer, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sums of squares of the micro-step gradients at one rank's scale,
+    taken before the optimizer reduces them in place -> (this rank's whole
+    leaves', [the fsdp-split slices', the tensor-only slices' in the slot of
+    this rank's fsdp index of `mesh.fsdp` slots]). A fsdp-split slice (the
+    fsdp sum) counts divided by its parts, the fsdp mean, on the ranks
+    `tx.counts_here`; a slice split over tensor alone counts its own rows on
+    every rank, summed over tensor through its slot."""
+    whole = _squares((g for k, g in grads.items() if not isinstance(flat[k], Sharded)), device)
+    fsdp = [k for k in grads if isinstance(flat[k], Sharded) and flat[k].fsdp_split and tx.counts_here(flat[k])]
+    slots = torch.zeros(tx.mesh.fsdp, dtype=torch.float32, device=device)
+    slots[tx.mesh.fsdp_index] = _squares((g for k, g in grads.items()
+                                          if isinstance(flat[k], Sharded) and not flat[k].fsdp_split), device)
+    return whole, torch.cat([_squares((grads[k] / flat[k].parts for k in fsdp), device)[None], slots])
+
+
+def _norms(grad_sums: tuple, flat: dict, tx: Optimizer, device) -> tuple[torch.Tensor, torch.Tensor]:
     """(grad_norm, param_norm) in fp32, the params' after the update: the
-    replicated leaves' squares as this rank holds them, the split leaves'
-    slices summed over their fsdp group, both norms' in one all-reduce."""
+    whole leaves' squares as this rank holds them, the split leaves' parts
+    summed over the model group (fsdp x tensor), each part once, both
+    norms' in one all-reduce."""
     floats = {k: p for k, p in flat.items() if p.is_floating_point()}
     split = [k for k, p in floats.items() if isinstance(p, Sharded)]
-    rep = torch.stack([grad_sums[0], _squares((p for p in floats.values() if not isinstance(p, Sharded)), device)])
+    grad_whole, grad_parts = grad_sums
+    param_whole = _squares((p for p in floats.values() if not isinstance(p, Sharded)), device)
     if not split:
-        return torch.sqrt(rep[0]), torch.sqrt(rep[1])
-    parts = torch.stack([grad_sums[1], _squares((floats[k].local for k in split), device)])
-    collectives.all_reduce(parts, flat[split[0]].group)
-    sums = rep + parts
-    return torch.sqrt(sums[0]), torch.sqrt(sums[1])
+        return torch.sqrt(grad_whole), torch.sqrt(param_whole)
+    param_parts = _squares((floats[k].local for k in split if tx.counts_here(floats[k])), device)
+    parts = torch.cat([param_parts[None], grad_parts])
+    collectives.all_reduce(parts, tx.mesh.groups["model"])
+    grad = grad_whole + parts[1] + parts[2 + tx.mesh.fsdp_index]
+    return torch.sqrt(grad), torch.sqrt(param_whole + parts[0])

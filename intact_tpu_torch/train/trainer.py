@@ -47,12 +47,19 @@ global_batch_size rows: accumulation = global / (per_device x data x fsdp).
   * the fused step stays ZeRO-2: whole parameters on every rank, its
     optimizer state split over fsdp in global block rows
     (train/fused_joint.py).
+  * the tensor axis (Pi0's standard step only, Megatron-style): the ranks
+    of one batch coordinate d * fsdp + f read the same episode shard and
+    draw the same noise; each holds its tensor slice of the split leaves
+    (column-parallel q, gate, up, fc1 and patch embed, row-parallel o, down
+    and fc2, the embedding's vocabulary rows), split further over fsdp by
+    ZeRO-3 (parallel/tensor.py, train/optim.py). The fused step and every
+    other family refuse mesh.tensor > 1.
 Rank 0 logs, reports to W&B and writes checkpoints, in the one-rank layout
-(gathered leaf by leaf), so a run resumes on any world size; validation
-samples through the gathered layers, scores each rank's rows and averages
-the metrics over the ranks.
+(gathered leaf by leaf, over fsdp and tensor), so a run resumes on any mesh;
+validation samples through the gathered layers, scores each batch
+coordinate's rows and averages the metrics over the ranks.
 
-Not ported yet, and refused: the tensor axis, the tf.data service
+Not ported yet, and refused: the tf.data service
 (data.train.service_address). Runs on the CUDA device unless the caller
 passes device="cpu".
 """
@@ -222,7 +229,8 @@ class Trainer:
         # the scheme the serving adapters invert ("gaussian" there is "normal" here)
         norm_type = "normal" if cfg.env.action_normalization_type == "gaussian" else "bound"
         data_kw = dict(stats=norm_stats, normalization_type=norm_type, image_size=self.model_cfg.vision.image_size)
-        shards = dict(shard_index=self.mesh.rank, num_shards=self.mesh.size)  # this rank's episodes
+        # this batch coordinate's episodes (the tensor ranks of a coordinate read the same)
+        shards = dict(shard_index=self.mesh.batch_index, num_shards=self.mesh.batch_size)
         self.train_data = InterleavedDataset(cfg.data, self.micro_batch_size, split="train", seed=cfg.seed,
                                              task_paraphrase=cfg.task_paraphrase, **shards, **data_kw)
         self.val_data = InterleavedDataset(cfg.data, self.micro_batch_size, split="val", seed=cfg.seed + 1,
@@ -293,7 +301,7 @@ class Trainer:
                 params = cm.unflatten_paths({k: v if mask[k] else v.to(torch.bfloat16) for k, v in flat.items()})
             return params
 
-        with cm.made_on_host() if self.mesh.fsdp > 1 else contextlib.nullcontext():
+        with cm.made_on_host() if self.mesh.fsdp > 1 or self.mesh.tensor > 1 else contextlib.nullcontext():
             params = float_params(self.device)  # at fsdp > 1 on the host, drawn on the device
         if cfg.quantize_frozen_int8:
             # the tree changes (kernel -> kernel_q/kernel_scale under frozen
@@ -318,11 +326,12 @@ class Trainer:
         by leaf: its slice of every leaf the rules split, the rest whole,
         each host leaf released as it is placed. At fsdp 1 the tree as it
         is."""
-        if self.mesh.fsdp == 1:
+        if self.mesh.fsdp == 1 and self.mesh.tensor == 1:
             return params
         from intact_tpu_torch.parallel.sharding import shard_tree
 
-        return shard_tree(params, self.mesh, put=lambda x: x.to(self.device), consume=True)
+        heads = self.model.tensor_heads(self.model_cfg) if self.mesh.tensor > 1 else None
+        return shard_tree(params, self.mesh, put=lambda x: x.to(self.device), consume=True, heads=heads)
 
     def _freeze_mask(self, params):
         """True = trainable; None when nothing is frozen. The reference's
@@ -357,7 +366,8 @@ class Trainer:
 
     @staticmethod
     def _refuse_unported(cfg: TrainPipelineConfig) -> None:
-        refuse_tensor(MeshConfig(cfg.mesh.data, cfg.mesh.fsdp, cfg.mesh.tensor))
+        refuse_tensor(MeshConfig(cfg.mesh.data, cfg.mesh.fsdp, cfg.mesh.tensor), registry.family(cfg.model_type),
+                      fused=cfg.fused_update)
         if getattr(cfg.data.train, "service_address", None):
             raise NotImplementedError(
                 "not ported yet: the tf.data service the RLDS backend would read through "
@@ -377,9 +387,9 @@ class Trainer:
         start, start_update = time.time(), self.cnt_update
         last = start
         window: list[dict] = []
-        self.logger.info("training: %d updates x %d accumulation (micro-batch %d on each of %d ranks, global %d) "
-                         "on %s, mesh %s", cfg.n_updates, accum, self.micro_batch_size, self.mesh.size,
-                         cfg.global_batch_size, self.device, self.mesh.shape)
+        self.logger.info("training: %d updates x %d accumulation (micro-batch %d on each of %d batch coordinates of "
+                         "%d ranks, global %d) on %s, mesh %s", cfg.n_updates, accum, self.micro_batch_size,
+                         self.mesh.batch_size, self.mesh.size, cfg.global_batch_size, self.device, self.mesh.shape)
         # the host side (data, preprocess, host-to-device copy) runs a batch ahead
         data = PrefetchIterator(iter(self.train_data), prepare=self.device_batch, depth=2)
         try:
@@ -413,7 +423,7 @@ class Trainer:
         i) against eval_size // micro_batch val batches: mean l1_loss and
         acc@t for each of cfg.eval_thresholds."""
         cfg, mc = self.cfg, self.model_cfg
-        n_batches = max(1, cfg.eval_size // (self.micro_batch_size * self.mesh.size))
+        n_batches = max(1, cfg.eval_size // (self.micro_batch_size * self.mesh.batch_size))
         accs, l1s = [], []
         val_iter = iter(self.val_data)
         for i in range(n_batches):

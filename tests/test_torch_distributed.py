@@ -456,7 +456,7 @@ def test_standard_step_splits_the_moments_over_fsdp(groups):
         assert res["collectives"] == {
             "all_reduce": 2 + n_layers + n_replicated + 1, "all_reduce_max": quantized, "reduce_scatter": 0,
             "all_gather": 0, "bucket_all_gather": 2 * gathers, "bucket_reduce_scatter": 2 * scatters,
-            "broadcast": 0}
+            "broadcast": 0, "tensor_all_reduce": 0, "tensor_all_reduce_max": 0, "tensor_all_gather": 0}
 
 
 def test_gather_layer_buckets_mixed_dtypes(groups):

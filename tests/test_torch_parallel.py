@@ -16,6 +16,7 @@ from intact_tpu.parallel import mesh as jmesh
 from intact_tpu_torch.ops.fused_adam import hash_noise_u16, shift_salt
 from intact_tpu_torch.parallel import AXIS_NAMES, MeshConfig, default_mesh_for, local_rows, make_mesh, row_shard
 from intact_tpu_torch.parallel import distributed, sharding
+from intact_tpu_torch.parallel.mesh import refuse_tensor
 from intact_tpu_torch.train import fused_joint as fj
 from intact_tpu_torch.train.optim import OptimizerConfig
 
@@ -93,14 +94,17 @@ def test_local_rows():
 
 def test_make_mesh_without_a_group():
     """One process, no launcher: a world of one. The repo's fsdp 4 mesh does
-    not fit it (the JAX package's error); the tensor axis is refused first."""
+    not fit it (the JAX package's error), nor a tensor-2 mesh; the tensor axis
+    is refused for every family but Pi0."""
     mesh = make_mesh(MeshConfig())
     assert mesh.shape == {"data": 1, "fsdp": 1, "tensor": 1} and mesh.size == 1 and not mesh.distributed
-    assert (mesh.rank, mesh.fsdp_index) == (0, 0)
+    assert (mesh.rank, mesh.fsdp_index, mesh.tensor_index, mesh.batch_index, mesh.batch_size) == (0, 0, 0, 0, 1)
     with pytest.raises(ValueError, match="1 devices not divisible by fsdp\\*tensor=4"):
         make_mesh(MeshConfig(data=-1, fsdp=4))
-    with pytest.raises(NotImplementedError, match="tensor axis"):
+    with pytest.raises(ValueError, match="1 devices not divisible by fsdp\\*tensor=2"):
         make_mesh(MeshConfig(data=-1, fsdp=1, tensor=2))
+    with pytest.raises(NotImplementedError, match="tensor axis"):
+        refuse_tensor(MeshConfig(data=-1, fsdp=1, tensor=2), "pi0fast")
     assert distributed.process_mean({"b": 2.0, "a": 1.0}) == {"b": 2.0, "a": 1.0}
     assert np.array_equal(distributed.broadcast_from_host0(np.arange(3)), np.arange(3))
     assert (distributed.process_index(), distributed.process_count(), distributed.backend()) == (0, 1, None)

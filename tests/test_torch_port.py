@@ -75,10 +75,11 @@ def test_port_files_found():
 
 def test_port_walk_covers_parallel():
     """The import walks above cover the parallel package (the mesh, the
-    process group, the block-row split, the collectives)."""
+    process group, the block-row split, the collectives, the tensor axis's
+    regions)."""
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     assert {f"intact_tpu_torch/parallel/{m}.py" for m in ("__init__", "mesh", "distributed", "sharding",
-                                                           "collectives")} <= names
+                                                           "collectives", "tensor")} <= names
 
 
 def _fields(cls_or_obj):
@@ -184,6 +185,15 @@ def test_config_fields_and_defaults_match():
                                                        jc.max_action_dim, jc.chunk_size, jc.n_action_steps,
                                                        jc.num_cameras)
     assert tup.octo_base().n_patches == jup.octo_base().n_patches == 256
+
+    # the mesh: its config, axis order (tensor fastest) and the parameter rules, tensor axis included
+    from intact_tpu.parallel import mesh as jmesh
+    from intact_tpu.parallel import sharding as jsharding
+    from intact_tpu_torch.parallel import mesh as tmesh
+    from intact_tpu_torch.parallel import sharding as tsharding
+
+    assert _fields(tmesh.MeshConfig) == _fields(jmesh.MeshConfig) and tmesh.AXIS_NAMES == jmesh.AXIS_NAMES
+    assert [(p, tuple(s)) for p, s in jsharding.DEFAULT_RULES] == [(p, tuple(s)) for p, s in tsharding.DEFAULT_RULES]
 
 
 def test_pipeline_config_fields_and_defaults_match():

@@ -434,7 +434,7 @@ def test_trainer_is_freed_on_del(make_cfg, recipe):
     pytest.param("expertonly", {"mesh.fsdp": 4}, r"1 devices not divisible by fsdp\*tensor=4",
                  id="expertonly-overrides2-meshes"),
     ("expertonly", {"global_batch_size": 5}, "not a multiple"),
-    pytest.param("joint", {"mesh.tensor": 2}, "the tensor axis", id="joint-tensor-axis"),
+    pytest.param("joint", {"mesh.tensor": 2, "fused_update": "true"}, "the tensor axis", id="joint-tensor-axis"),
 ])
 def test_refusals(make_cfg, recipe, overrides, error):
     from intact_tpu_torch.train.trainer import Trainer

@@ -141,6 +141,46 @@ class TestW8A8Kernel:
         ref = w8a8.w8a8_matmul_reference(hidden, head["kernel_q"].t(), head["kernel_scale"], out_dtype=torch.bfloat16)
         assert torch.equal(y, ref.float())
 
+    @pytest.mark.parametrize("m,k,n,parts", [
+        (2624, 1024, 2048, 2),  # Gemma's o at K / 2 (an eighth of a batch-64 prefill's rows)
+        (2624, 8192, 2048, 2),  # Gemma's down at K / 2
+        (320, 8192, 2048, 2),  # ... at the expert's batch-64 rows: split K
+        (257, 2152, 1152, 2),  # SigLIP's fc2 at K / 2: a row stride off 16 bytes (a K-major copy)
+        (5, 1024, 1024, 4),  # a batch-1 expert o at K / 4
+    ])
+    def test_row_parallel_entry_matches_plain_and_one_card(self, cuda, m, k, n, parts):
+        """The row-parallel entry on K / parts slices: each slice's int32
+        partial and the row scales equal to the plain version's, the finish
+        pass within one bf16 ulp of its plain version, and the summed
+        partials' finish bit-equal to the one-card kernel on the whole rows
+        (with a bias); one launch of each wrapper per call."""
+        rng = np.random.default_rng(m + k + n)
+        k_all = k * parts
+        x = t_(rng.standard_normal((m, k_all), dtype=np.float32)).to(cuda, torch.bfloat16)
+        wq = t_(rng.integers(-127, 128, (n, k_all)).astype(np.int8)).to(cuda)
+        ws = t_((rng.random(n) + 0.5).astype(np.float32) * 1e-3).to(cuda)
+        bias = t_(rng.standard_normal(n).astype(np.float32)).to(cuda)
+        cols = [slice(i * k, (i + 1) * k) for i in range(parts)]
+        amax = torch.stack([w8a8.row_absmax(x[:, c]) for c in cols]).amax(dim=0)
+        total = torch.zeros((m, n), dtype=torch.int32, device=cuda)
+        for c in cols:
+            xc, wc = x[:, c].contiguous(), wq[:, c].contiguous()
+            before = w8a8.w8a8_partial.launches
+            part, xs = w8a8.w8a8_partial(xc, wc, amax, weight_layout="nk")
+            torch.cuda.synchronize()
+            assert w8a8.w8a8_partial.launches == before + 1
+            rpart, rxs = w8a8.w8a8_partial_reference(xc, wc.t(), amax)
+            assert torch.equal(part, rpart) and torch.equal(xs, rxs)
+            total += part
+        before = w8a8.w8a8_finish.launches
+        y = w8a8.w8a8_finish(total, xs, ws, bias, out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert w8a8.w8a8_finish.launches == before + 1
+        ref = w8a8.w8a8_finish_reference(total, xs, ws, bias, torch.bfloat16)
+        assert ((y.float() - ref.float()).abs() <= ROW_RTOL * ref.float().abs().amax(dim=1, keepdim=True)).all()
+        one, _, _ = w8a8.launch(x, wq, ws, bias, None, torch.bfloat16, "nk")
+        assert torch.equal(y, one)
+
     def test_kernel_raises_on_fp16(self, cuda):
         wq = torch.zeros(64, 8, dtype=torch.int8, device=cuda)
         with pytest.raises(TypeError, match="bf16 or fp32"):
