@@ -15,7 +15,9 @@ Phases, each failing loudly (non-zero exit):
              Gemma2 prefill at M 19,456 and a decode product; Magma's untied
              lm_head at N 128,256 with bf16 out, batch 64 and 1, the LLaMA
              prefill's down (K 14,336), gate and k at M 20,544 and the
-             decode's down at M 64; bit-equal),
+             decode's down at M 64; one tensor rank's slices at t = 2: the
+             unembedding's 129,857 rows and the lm_head's 64,128 columns;
+             bit-equal),
              per row and per 2048-chunk, beside
              torch._int_mm on its codes and the bf16 matmul it replaces, with
              effective rates and device time per call; fused_adam_rows at
@@ -68,7 +70,8 @@ Phases, each failing loudly (non-zero exit):
              own in a gloo group over the card's tensors (NCCL refuses two
              ranks of one device; every collective is staged through the
              host, counted), mesh (1, 1, 2). First the row-parallel W8A8 entry
-             against its plain versions at Gemma-2B's o and down K / 2 slices
+             against its plain versions at Gemma-2B's o and down, Magma-8B's
+             o and down and SpatialVLA-4B's down K / 2 slices
              of a batch-64 prefill (int32 partials and row scales equal, the
              finish pass within one bf16 ulp of the row's max, two slices
              summed and finished bit-equal to w8a8_matmul on the whole rows),
@@ -91,6 +94,25 @@ Phases, each failing loudly (non-zero exit):
              equal). Reported: each inference's time on the ranks, the
              tensor group's collectives per inference and micro-step, the
              card's name and power limit
+  3e. the tensor axis for the token-decoding families: as 3d, two ranks on
+             the one card over gloo, mesh (1, 1, 2). The server role's
+             Pi0FAST, native SpatialVLA and native Magma wrappers from their ev
+             yamls, at full width and the depths the script serves them
+             (FAST_SERVING_DEPTH, SVLA_SERVING_DEPTH, MAGMA_SERVING_DEPTH),
+             each rank holding its tensor slices (the tables and Magma's
+             lm_head split over the vocabulary, the K/V heads where they
+             divide), rank 0 serving int8 and then bf16 at batch 1 and 16,
+             rank 1 following. Gates, per rank and inference: the launches of
+             each kernel and the tensor group's all-reduces and MAX
+             all-reduces as counted from the configuration; int8 tokens
+             bit-equal to the one-card wrapper's (built here first, the same
+             weights and requests); bf16 tokens held by one card's logits
+             teacher-forced with them (each within TPA_MARGIN standard
+             deviations of the step's maximum; the agreement reported).
+             Reported: each inference's time on the ranks and in the staged
+             collectives, peak memory per rank and family, and the device
+             time the one padding costs (Pi0FAST's decode attention on a
+             rank's 4 query heads among zero ones at its 8)
   4. training the 1-chip joint recipe (config/train/pi0_finetune_bridge_1chip.yaml:
              fused step, bf16 params with stochastic rounding, fp8 moments,
              batch 16, synthetic data) at full width and depth through the
@@ -207,27 +229,34 @@ Phases, each failing loudly (non-zero exit):
              config/models/mvla_bridge.json as its model (SigLIP So400m,
              Gemma-2B over a 436-token prefix with 108 metaqueries, the
              12-layer connector, the 18-layer self/cross expert, chunk 50, 10
-             Euler steps; random weights from the seed, hash tokenizer): int8
+             Euler steps; the VLM cut to MVLA_VLM_DEPTH and the expert to
+             MVLA_EXPERT_DEPTH of their 18 layers; random weights from the
+             seed, hash tokenizer): int8
              at batch 1 and 64 with the launches of both kernels per
              inference checked against the count from the configuration
-             (108 flash_attention, 1471 w8a8_matmul); env actions finite and
+             (54 flash_attention and 885 w8a8_matmul at 4 and 10 layers,
+             108 and 1471 at 18 and 18); env actions finite and
              of the right shape; the int8 actions bit-equal with only the W8A8
              product plain; then bf16 behind the same wrapper (the connector
              prompt within MVLA_PROMPT_RTOL and the actions within
              ACTIONS_RTOL of the plain-attention path); latency at batch 1
              and 64 (int8 beside bf16), peak memory and profiles; then
-             mmmvla (the joint expert, 35 attention launches) in bf16 at
+             mmmvla (the joint expert, 13 attention launches at 4 and 10
+             layers, 35 at 18 and 18) in bf16 at
              batch 64, and the DiT head (action_head "dit", its zero-init
              leaves drawn from the seed) through sample_actions at batch 64,
              each against its plain-attention path
   9. MVLA training: config/train/pi0_finetune_bridge.yaml with
              mvla_bridge.json (bf16 masters, 8-bit AdamW, SR, remat, the
-             full tower; the recipe freezes nothing for mvla) through the
+             full tower at MVLA_VLM_DEPTH VLM and MVLA_EXPERT_DEPTH expert
+             layers; the recipe freezes nothing for mvla) through the
              Trainer at micro-batch 16 x 2, 2 updates, validation on one
              batch, a save at update 2 and a resume equal to it: every
-             micro-step's metrics finite and its 45 flash_attention launches
-             (18 prefill layers, their recompute, 9 expert self layers), 108
-             per validation batch; update time, samples/s, peak memory and a
+             micro-step's metrics finite and its flash_attention launches
+             (13 at 4 and 10 layers: the prefill's layers, their recompute,
+             the expert's self layers; 45 at 18 and 18), 54 per validation
+             batch (108 at 18 and 18); update time, samples/s, peak memory
+             and a
              profile; one micro-step's gradient of every leaf through the
              kernel against through plain attention at full width, 4 layers
   10. SpatialVLA serving: the server role's SpatialVLANativePolicyWrapper from
@@ -930,6 +959,10 @@ W8A8_SHAPES = (
     ("magma_lm_head", 64, 4096, 128_256), ("magma_lm_head_b1", 1, 4096, 128_256),
     ("magma_down", 20544, 14336, 4096), ("magma_gate", 20544, 4096, 14336), ("magma_k", 20544, 4096, 1024),
     ("magma_decode_down", 64, 14336, 4096),
+    # one tensor rank's column slice at t = 2 (phase 3e): SpatialVLA's unembedding rows 129,857 (fp32 out, rows not
+    # 16-byte aligned) and Magma's lm_head columns 64,128, at batch 64 and 1
+    ("svla_unembed_t2", 64, 2304, 129_857), ("svla_unembed_t2_b1", 1, 2304, 129_857),
+    ("magma_lm_head_t2", 64, 4096, 64_128), ("magma_lm_head_t2_b1", 1, 4096, 64_128),
 )
 W8A8_TIMED = "gemma_up"  # the shape of the kernels line
 W8A8_DECODE = "fast_decode_k"  # Pi0FAST's decode shape the kernels line reports beside it
@@ -938,9 +971,11 @@ W8A8_DECODE = "fast_decode_k"  # Pi0FAST's decode shape the kernels line reports
 W8A8_MVLA = ("mvla_conn_up", "mvla_cross_k", "mvla_expert_q")
 # SpatialVLA's, reported beside it; held bit-equal to the plain version (no
 # bias: each output is round(round(float(sum) * xs) * ws) on both sides)
-W8A8_SVLA = ("svla_unembed", "svla_unembed_b1", "svla_q", "svla_k", "svla_gate", "svla_down", "svla_decode_gate")
+W8A8_SVLA = ("svla_unembed", "svla_unembed_b1", "svla_q", "svla_k", "svla_gate", "svla_down", "svla_decode_gate",
+             "svla_unembed_t2", "svla_unembed_t2_b1")
 # Magma's, reported beside it and held bit-equal the same way (no bias)
-W8A8_MAGMA = ("magma_lm_head", "magma_lm_head_b1", "magma_down", "magma_gate", "magma_k", "magma_decode_down")
+W8A8_MAGMA = ("magma_lm_head", "magma_lm_head_b1", "magma_down", "magma_gate", "magma_k", "magma_decode_down",
+              "magma_lm_head_t2", "magma_lm_head_t2_b1")
 W8A8_EXACT = ("svla", "magma")  # the name prefixes of the shapes held bit-equal
 
 
@@ -1670,8 +1705,11 @@ TP_NORM_RTOL = 1e-4  # grad_norm (one batch coordinate: one card's) and param_no
 # tolerances: TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL)
 TP_BF16_LOSS_RTOL = 2e-2
 TP_BF16_GNORM_RTOL = 5e-2
-# the new W8A8 entry's shapes: Gemma-2B's o and down at a batch-64 prefill, each rank's K / 2 slice
-TP_W8A8_SHAPES = (("gemma_o_half", 20992, 1024, 2048), ("gemma_down_half", 20992, 8192, 2048))
+# the row-parallel W8A8 entry's shapes, each rank's K / 2 slice at a batch-64 prefill: Gemma-2B's o and down (Pi0),
+# Magma-8B's o and down (LLaMA-3, M 64 x 321) and SpatialVLA-4B's down (Gemma2, M 64 x 304)
+TP_W8A8_SHAPES = (("gemma_o_half", 20992, 1024, 2048), ("gemma_down_half", 20992, 8192, 2048),
+                  ("magma_o_half", 20544, 2048, 4096), ("magma_down_half", 20544, 7168, 4096),
+                  ("svla_down_half", 19456, 4608, 2304))
 TP_FROZEN = ("siglip", "img_proj", "vlm", "vlm_embed")
 
 
@@ -1688,7 +1726,7 @@ def row_parallel_bound_ms(m: int, k: int, n: int) -> tuple[float, str, float, st
 
 
 def tp_kernel_checks(card: str) -> dict:
-    """The row-parallel W8A8 entry at Pi0's o and down K / 2 slices: each
+    """The row-parallel W8A8 entry at the K / 2 slices of TP_W8A8_SHAPES: each
     slice's int32 partials and row scales equal to the plain version's, the
     finish pass within one bf16 ulp of the row's max of its plain version,
     and the two slices' summed partials finished bit-equal to w8a8_matmul on
@@ -1738,14 +1776,17 @@ def tp_kernel_checks(card: str) -> dict:
         codes = torch.round(xh.float() / xs[:, None]).to(torch.int8)
         int_mm_ms = cuda_ms(lambda: torch._int_mm(codes, wh.t()))
         whole_ms = cuda_ms(lambda: w8a8.w8a8_matmul(x, wq, ws, bias, out_dtype=torch.bfloat16, weight_layout="nk"))
+        wb = wh.t().to(torch.bfloat16)
+        bf16_ms = cuda_ms(lambda: torch.matmul(xh, wb))  # the bf16 product of the same slice, as bf16 serving runs it
         bound, by, fin_bound, fin_by = row_parallel_bound_ms(m, k, n)
         log(f"# row-parallel w8a8 timing {name} ({card}): w8a8_partial {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-            f"torch._int_mm on the same codes {int_mm_ms:.4f} ms, bound {bound:.4f} ms by {by}), w8a8_finish "
+            f"torch._int_mm on the same codes {int_mm_ms:.4f} ms, the slice's bf16 torch.matmul {bf16_ms:.4f} ms, "
+            f"bound {bound:.4f} ms by {by}), w8a8_finish "
             f"{fin_ms:.4f} ms (plain {fin_plain_ms:.4f} ms, bound {fin_bound:.4f} ms by {fin_by}); one card's "
             f"w8a8_matmul on the whole K {whole_ms:.4f} ms")
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, int_mm_ms=int_mm_ms,
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, int_mm_ms=int_mm_ms, bf16_ms=bf16_ms,
                           fin_ms=fin_ms, fin_plain_ms=fin_plain_ms, fin_bound_ms=fin_bound, whole_ms=whole_ms)
-        del x, wq, xs_, ws_, total, y, ref, one, codes
+        del x, wq, xs_, ws_, total, y, ref, one, codes, wb
         torch.cuda.empty_cache()
     w8a8.w8a8_partial.launches = w8a8.w8a8_finish.launches = 0  # comparison launches do not count
     main = rows["gemma_down_half"]
@@ -1768,7 +1809,7 @@ def tp_kernel_checks(card: str) -> dict:
 def tp_decode_attention_cost(card: str) -> None:
     """What the decode attention's zero heads cost: a tensor rank runs its
     H / t query heads among zero ones at one card's shapes
-    (models/gemma.py::_at_global_heads), so its plain attention does one
+    (parallel/tensor.py::whole_groups), so its plain attention does one
     card's work where its own heads are H / t of it. Times the expert's
     split-cache attention at Pi0's serving shapes on all 8 heads (what a rank
     runs at t = 2) and on the rank's 4 alone."""
@@ -2122,6 +2163,352 @@ def tp_gates(ranks: list, refs: dict, mc, card: str) -> dict:
         raise SystemExit("tensor parallel: the expert-only micro-steps disagree with one card's")
     if ranks[1]["train"]["losses"] != lead["losses"]:
         raise SystemExit("tensor parallel: the two ranks' losses differ")
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# 3e. the tensor axis for the token-decoding families (two ranks on one card)
+# ---------------------------------------------------------------------------
+
+TPA_DIR = Path(".chip_smoke_tp_ar")  # the phase's inputs and each rank's results (git-ignored), removed after it
+TPA_ROWS = (1, 16)  # rows of each fused device call: 16 bound the host staging of the row-parallel partials
+TPA_JOIN_S = 900.0  # the two ranks' limit, then the phase fails and kills them
+# bf16 on the ranks against one card: the row-parallel products sum fp32 partials where one card rounds one GEMM,
+# so a greedy token may flip where two logits lie within that rounding. Held as phases 6, 10 and 11 hold the
+# attention kernel: one card's logits teacher-forced with the ranks' tokens, each rank token's logit within
+# TPA_MARGIN standard deviations of the step's maximum; the agreement is reported
+TPA_MARGIN = 0.1
+TPA_OPS = {"pi0fast": "sample", "spatialvla": "predict", "magma": "generate"}  # each wrapper's serving-group op
+
+
+def tpa_config(family: str, quantize: bool):
+    """The server role's config of a family, from its ev yaml."""
+    if family == "pi0fast":
+        return ev_config(quantize, path=FAST_EV_CONFIG)
+    return svla_config(quantize) if family == "spatialvla" else magma_config(quantize)
+
+
+class cut_depths:
+    """Registry types' default configs with a tower cut to a depth, as
+    ((type, tower, depth), ...), restored on exit: the script's full-width
+    models at the depths its time limit allows."""
+
+    def __init__(self, *cuts):
+        self.cuts = cuts
+
+    def __enter__(self):
+        from intact_tpu_torch.models import registry
+
+        self.saved = {}
+        for name, tower, depth in self.cuts:
+            entry = registry.get(name)
+            full = entry["default_config"]  # a second cut of a type applies over the first
+            self.saved.setdefault(name, full)
+            entry["default_config"] = lambda full=full, tower=tower, depth=depth: dataclasses.replace(
+                full(), **{tower: dataclasses.replace(getattr(full(), tower), depth=depth)})
+        return self
+
+    def __exit__(self, *exc):
+        from intact_tpu_torch.models import registry
+
+        for name, full in self.saved.items():
+            registry.get(name)["default_config"] = full
+
+
+def served_depths() -> cut_depths:
+    """Pi0FAST, SpatialVLA and Magma at the depths the script serves them."""
+    return cut_depths(("pi0fast", "vlm", FAST_SERVING_DEPTH), ("spatialvla_native", "lm", SVLA_SERVING_DEPTH),
+                      ("magma_native", "lm", MAGMA_SERVING_DEPTH))
+
+
+def tpa_request(family: str, mc, rng: np.random.Generator, rows: int) -> dict:
+    """One fused device call's host arrays for the model config `mc`, as the
+    family's sessions emit them."""
+    if family == "pi0fast":
+        return {"batch": fast_request(rng, rows, mc.vision.image_size)}
+    reqs = svla_requests(rng, mc, rows) if family == "spatialvla" else magma_requests(rng, mc, rows)
+    return {"reqs": reqs}
+
+
+def tpa_call(family: str, wrapper, request: dict) -> np.ndarray:
+    """The wrapper's fused device call -> its greedy tokens [B, T] (Pi0FAST's
+    bin-center actions mapped back to their tokens)."""
+    if family == "pi0fast":
+        return fast_tokens(wrapper.sample_action_chunk(request["batch"]), wrapper.model_cfg)
+    reqs = request["reqs"]
+    images, tasks = np.concatenate([r["image"] for r in reqs]), [r["task"][0] for r in reqs]
+    if family == "spatialvla":
+        return wrapper.predict_tokens(images, np.concatenate([r["depth"] for r in reqs]), tasks)
+    return wrapper.generate_tokens(images, tasks)
+
+
+def fast_tokens(actions: np.ndarray, mc) -> np.ndarray:
+    """Pi0FAST's detokenized bin centers [B, chunk, dim] -> their tokens [B, chunk * dim]."""
+    step = (mc.action_high - mc.action_low) / mc.n_action_bins
+    idx = np.clip(np.floor((actions - mc.action_low) / step), 0, mc.n_action_bins - 1).astype(np.int64)
+    return (mc.vlm.vocab_size - idx - 1).reshape(actions.shape[0], -1)
+
+
+def tpa_forced_logits(family: str, wrapper, request: dict, forced: torch.Tensor) -> torch.Tensor:
+    """One card's per-step logits [T, B, window or V] with `forced` tokens fed back."""
+    mc, policy = wrapper.model_cfg, wrapper.policy
+    if family == "pi0fast":
+        first = mc.vlm.vocab_size - (mc.action_vocab_size or mc.n_action_bins)
+        inputs = policy.device_inputs(request["batch"])
+        return greedy_logits(policy.params, inputs, mc, policy.policy, forced=forced)[1], first
+    if family == "spatialvla":
+        return svla_greedy_logits(wrapper.params, svla_inputs(wrapper, request["reqs"]), mc, policy, forced)[1], 0
+    return magma_greedy_logits(wrapper.params, magma_inputs(wrapper, request["reqs"]), mc, policy, forced)[1], 0
+
+
+def tpa_expected(family: str, mc, quantize: bool, rows: int) -> tuple[dict, dict]:
+    """(kernel launches, tensor collectives) of one inference on a rank at
+    tensor 2, from the configuration. Row-parallel products (o and down, and
+    SigLIP's o and fc2): w8a8_partial and w8a8_finish in int8, one all-reduce
+    each, and in int8 one MAX all-reduce of their row absmax; every other
+    W8A8 product runs w8a8_matmul on the rank's columns or whole. Each lookup
+    of the vocabulary-parallel table is one all-reduce, each greedy token one
+    MAX all-reduce."""
+    if family == "pi0fast":
+        n_tok, depth = mc.n_action_tokens, mc.vlm.depth
+        row = 2 * mc.vision.depth + 2 * (depth - 1) + 2 * n_tok * depth
+        total, flash, lookups = w8a8_per_fast_inference(mc), depth - 1, 1 + n_tok
+    elif family == "spatialvla":
+        n_tok = mc.tokens_per_action * mc.n_action_steps
+        row = 2 * mc.vision.depth + 2 * mc.lm.depth * n_tok
+        total, flash, lookups = svla_per_inference(mc), 0, n_tok
+    else:
+        n_tok = mc.n_action_tokens + 1
+        row = 2 * mc.lm.depth * n_tok
+        total, flash, lookups = magma_per_inference(mc), 0, n_tok
+    launches = {"flash_attention": flash, "w8a8_matmul": total - row if quantize else 0,
+                "w8a8_partial": row if quantize else 0, "w8a8_finish": row if quantize else 0}
+    coll = {"tensor_all_reduce": row + lookups, "tensor_all_reduce_max": (row if quantize else 0) + n_tok}
+    return launches, coll
+
+
+def tpa_rank(rank: int, world: int, port: int, workdir: str) -> None:
+    """One of the phase's two ranks: a gloo group over the card's tensors,
+    mesh (1, 1, 2); for each family the server role's int8 and then bf16
+    wrapper (rank 0 serves the fused calls, rank 1 follows), each call's
+    tokens on this rank, its launches and tensor collectives, the seconds its
+    staged collectives took, and the family's peak memory. Writes
+    workdir/rank{r}.pt."""
+    import os
+
+    from intact_tpu_torch.ops import w8a8
+    from intact_tpu_torch.ops.flash_attention import flash_attention
+    from intact_tpu_torch.parallel import MeshConfig, collectives, distributed, make_mesh
+    from intact_tpu_torch.serve.policy_wrapper import make_policy_wrapper
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    workdir = Path(workdir)
+    inputs = torch.load(workdir / "inputs.pt", weights_only=False)
+    device = distributed.initialize(DEVICE, backend="gloo")
+    mesh = make_mesh(MeshConfig(1, 1, world))
+    kernels = {"flash_attention": flash_attention, "w8a8_matmul": w8a8.w8a8_matmul,
+               "w8a8_partial": w8a8.w8a8_partial, "w8a8_finish": w8a8.w8a8_finish}
+    real_host, staged_s = collectives._on_host, [0.0]
+
+    def timed_host(*args):  # the staged collectives' seconds (the host copies and gloo's reduction)
+        t = time.perf_counter()
+        real_host(*args)
+        staged_s[0] += time.perf_counter() - t
+
+    timed_host.calls = 0
+    collectives._on_host = timed_host
+    result = {"backend": distributed.backend(), "mesh": mesh.shape, "runs": []}
+    try:
+        with served_depths():
+            for family in TPA_OPS:
+                torch.cuda.reset_peak_memory_stats()
+                for quantize in (True, False):
+                    wrapper = make_policy_wrapper(tpa_config(family, quantize), device=device, mesh=mesh)
+                    owner = wrapper.policy if family == "pi0fast" else wrapper
+                    name = {"pi0fast": "_sample_rows", "spatialvla": "_predict_rows", "magma": "_generate_rows"}
+                    real_rows, calls = getattr(owner, name[family]), []
+
+                    def rows(*arrays, real_rows=real_rows, calls=calls):
+                        before = {k: c.launches for k, c in kernels.items()}
+                        c0, s0 = collectives.counts(), staged_s[0]
+                        torch.cuda.synchronize()
+                        t = time.perf_counter()
+                        out = real_rows(*arrays)
+                        torch.cuda.synchronize()
+                        calls.append({"out": out.cpu(), "seconds": time.perf_counter() - t,
+                                      "staged_s": staged_s[0] - s0,
+                                      "launches": {k: c.launches - before[k] for k, c in kernels.items()},
+                                      "collectives": {k: v - c0[k] for k, v in collectives.counts().items()
+                                                      if v - c0[k]}})
+                        return out
+
+                    setattr(owner, name[family], rows)
+                    wrapper.group.on(TPA_OPS[family], rows)
+                    if rank == 0:
+                        for n in TPA_ROWS:
+                            tpa_call(family, wrapper, inputs[family][n])
+                        wrapper.group.stop()
+                    else:
+                        wrapper.group.follow()
+                    params = wrapper.policy.params if family == "pi0fast" else wrapper.params
+                    result["runs"].append({"family": family, "quantize": quantize, "calls": calls,
+                                           "split": sum(1 for _ in _tensor_split(params))})
+                    del wrapper, owner, params, real_rows
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                result[f"peak_gib_{family}"] = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        collectives._on_host = real_host
+        torch.save(result, workdir / f"rank{rank}.pt")
+        distributed.destroy()
+
+
+def tpa_padding_cost(card: str) -> None:
+    """What the one padding the phase keeps costs: a rank's Pi0FAST query
+    heads (4 of 8 at t = 2) run the decode attention among zero ones at one
+    card's 8 heads over the one K/V head (`tensor_parallel.whole_groups`),
+    so its plain attention does one card's work. Times the decode step's
+    attention over the cache (prefix + action slots) on 8 heads and on the
+    rank's 4 alone, per layer and per inference (layers x greedy steps)."""
+    from intact_tpu_torch.ops.attention import xla_attention
+
+    mc = ev_config(False, path=FAST_EV_CONFIG).make_model_config()
+    vc = mc.vlm
+    slots = mc.num_cameras * mc.vision.num_patches + mc.tokenizer_max_length + 1 + mc.n_action_tokens
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    for b in TPA_ROWS[::-1]:
+        k, v = (torch.randn(b, slots, vc.num_kv_heads, vc.head_dim, generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        mask = torch.ones(b, 1, slots, dtype=torch.bool, device="cuda")
+        dev = {}
+        for heads in (vc.num_heads, vc.num_heads // 2):
+            q = torch.randn(b, 1, heads, vc.head_dim, generator=gen, device="cuda").to(torch.bfloat16)
+            dev[heads] = device_ms(lambda q=q: xla_attention(q, k, v, mask, vc.head_dim**-0.5), reps=20)
+        full, half = vc.num_heads, vc.num_heads // 2
+        steps = mc.n_action_tokens
+        extra = dev[full] - dev[half]
+        log(f"# tensor parallel AR padding ({card}): Pi0FAST's decode attention at batch {b} over {slots} keys, per "
+            f"layer: {full} heads (a rank's {half} among zero ones, as it runs) {dev[full]:.4f} ms of device, {half} "
+            f"alone {dev[half]:.4f} ms; the zero heads per inference: {extra * FAST_SERVING_DEPTH * steps:.3f} ms at "
+            f"the {FAST_SERVING_DEPTH} layers served here, {extra * vc.depth * steps:.3f} ms at {vc.depth} ({steps} "
+            f"greedy steps)")
+
+
+def phase_tensor_parallel_ar() -> dict:
+    """-> {kernel: launches} of the three token-decoding families served at
+    tensor 2 by two ranks on the one card (gloo, every collective staged
+    through the host), summed over the ranks. The one-card references (each
+    family's int8 and bf16 wrapper without a group, at the depths the script
+    serves) run here first; the bf16 ones stay for the teacher-forced check
+    of the ranks' tokens."""
+    import shutil
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from intact_tpu_torch.serve.policy_wrapper import make_policy_wrapper
+
+    card = gpu_name_and_power()
+    tpa_padding_cost(card)
+    shutil.rmtree(TPA_DIR, ignore_errors=True)
+    TPA_DIR.mkdir(parents=True)
+    refs, bf16 = {}, {}
+    try:
+        with served_depths():
+            requests = {(family, n): tpa_request(family, tpa_config(family, True).make_model_config(),
+                                                 np.random.default_rng(40 + n), n)
+                        for family in TPA_OPS for n in TPA_ROWS}
+            for family in TPA_OPS:
+                for quantize in (True, False):
+                    wrapper = make_policy_wrapper(tpa_config(family, quantize), device=DEVICE)
+                    for n in TPA_ROWS:
+                        refs[family, quantize, n] = tpa_call(family, wrapper, requests[family, n])
+                    if quantize:
+                        del wrapper
+                        gc.collect()
+                        torch.cuda.empty_cache()
+                    else:
+                        bf16[family] = wrapper
+            torch.save({family: {n: requests[family, n] for n in TPA_ROWS} for family in TPA_OPS},
+                       TPA_DIR / "inputs.pt")
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            t0 = time.perf_counter()
+            ctx = mp.start_processes(tpa_rank, args=(2, port, str(TPA_DIR)), nprocs=2, join=False,
+                                     start_method="spawn")
+            deadline = time.monotonic() + TPA_JOIN_S
+            while not ctx.join(timeout=max(0.5, deadline - time.monotonic())):
+                if time.monotonic() >= deadline:
+                    for p in ctx.processes:
+                        p.kill()
+                    raise SystemExit(f"the tensor-parallel AR ranks did not finish within {TPA_JOIN_S:.0f} s")
+            ranks_s = time.perf_counter() - t0
+            log(f"# tensor parallel AR: the two ranks ran in {ranks_s:.1f} s")
+            ranks = [torch.load(TPA_DIR / f"rank{r}.pt", weights_only=False) for r in range(2)]
+            totals = tpa_gates(ranks, refs, requests, bf16, card, ranks_s)
+    finally:
+        shutil.rmtree(TPA_DIR, ignore_errors=True)
+        bf16.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return totals
+
+
+def tpa_gates(ranks: list, refs: dict, requests: dict, bf16: dict, card: str, ranks_s: float) -> dict:
+    """The phase's gates over the two ranks' results -> the path's launches."""
+    totals = dict.fromkeys(("flash_attention", "w8a8_matmul", "w8a8_partial", "w8a8_finish"), 0)
+    staged = 0.0
+    for r, res in enumerate(ranks):
+        if res["backend"] != "gloo" or res["mesh"] != {"data": 1, "fsdp": 1, "tensor": 2}:
+            raise SystemExit(f"tensor parallel AR rank {r}: group {res['backend']} mesh {res['mesh']}")
+        for run in res["runs"]:
+            family, q = run["family"], run["quantize"]
+            wrapper = bf16[family]
+            mc = wrapper.model_cfg
+            label = f"rank {r} {family} {'int8' if q else 'bf16'}"
+            if len(run["calls"]) != len(TPA_ROWS):
+                raise SystemExit(f"tensor parallel AR {label}: {len(run['calls'])} inferences, not {len(TPA_ROWS)}")
+            for call, n in zip(run["calls"], TPA_ROWS):
+                want, coll = tpa_expected(family, mc, q, n)
+                got = call["out"].numpy()
+                if family == "pi0fast":
+                    got = fast_tokens(got, mc)
+                ref = refs[family, q, n]
+                same = np.array_equal(got, ref)
+                agree = float((got == ref).mean()) if got.shape == ref.shape else 0.0
+                tensor_coll = {k: call["collectives"].get(k, 0) for k in coll}
+                staged += call["staged_s"]
+                ok = call["launches"] == want and tensor_coll == coll and got.shape == ref.shape
+                margin = ""
+                if not q and ok:  # one card's logits teacher-forced with the rank's tokens
+                    forced = torch.from_numpy(got).to(DEVICE)
+                    logits, first = tpa_forced_logits(family, wrapper, requests[family, n], forced)
+                    chosen = logits.gather(-1, (forced - first).T[..., None])[..., 0]
+                    below = (logits.amax(dim=-1) - chosen) / logits.std()
+                    margin = (f", one card's teacher-forced logit of the rank's token below the maximum by at most "
+                              f"{below.max().item():.3e} std (at {int((below > 0).sum())} of {below.numel()} steps "
+                              f"and rows; gate {TPA_MARGIN})")
+                    ok = ok and below.max().item() <= TPA_MARGIN
+                    del logits
+                else:
+                    ok = ok and same
+                log(f"# tensor parallel AR {label} batch {n} ({card}): {call['seconds'] * 1e3:.2f} ms on the rank "
+                    f"({call['staged_s'] * 1e3:.2f} ms in staged collectives), launches {call['launches']} (expected "
+                    f"{want}), tensor collectives {tensor_coll} (expected {coll}; all {call['collectives']}), tokens "
+                    f"vs the one-card wrapper: bit-equal {same}, agreement {agree:.4f}{margin}")
+                if not ok:
+                    raise SystemExit(f"tensor parallel AR {label} batch {n}: the gates failed")
+                for k in totals:
+                    totals[k] += call["launches"][k]
+        log(f"# tensor parallel AR rank {r}: peak device memory per family "
+            f"{ {f: round(res[f'peak_gib_{f}'], 2) for f in TPA_OPS} } GiB; leaves held as tensor slices "
+            f"{ {(x['family'], 'int8' if x['quantize'] else 'bf16'): x['split'] for x in res['runs']} }")
+    log(f"# tensor parallel AR: the staged collectives took {staged:.1f} s of the ranks' inferences over both ranks; "
+        f"the ranks' processes {ranks_s:.1f} s")
     return totals
 
 
@@ -3476,16 +3863,8 @@ def greedy_logits(params, inputs, cfg, policy, forced=None):
 def phase_fast_serving() -> dict:
     """-> {kernel: launches} on Pi0FAST's serving path, at full width and
     FAST_SERVING_DEPTH Gemma layers."""
-    from intact_tpu_torch.models import registry
-
-    entry = registry.get("pi0fast")
-    full = entry["default_config"]
-    entry["default_config"] = lambda: dataclasses.replace(
-        full(), vlm=dataclasses.replace(full().vlm, depth=FAST_SERVING_DEPTH))
-    try:
+    with cut_depths(("pi0fast", "vlm", FAST_SERVING_DEPTH)):
         return fast_serving()
-    finally:
-        entry["default_config"] = full
 
 
 def fast_serving() -> dict:
@@ -3816,6 +4195,11 @@ MVLA_JSON = "config/models/mvla_bridge.json"
 # connector layers) through the attention kernel against through the plain
 # attention, in bf16: relative L2
 MVLA_PROMPT_RTOL = 5e-2
+# VLM and expert layers of the served and trained MVLA (18 and 18 before phase 3e joined the script's budget): the
+# VLM is independent of the expert's depth (the expert reads the connector's prompt), the expert runs self/cross
+# pairs (an even depth), and the launches and every gate follow the configuration
+MVLA_VLM_DEPTH = 4
+MVLA_EXPERT_DEPTH = 10
 
 
 def mvla_model_cfg(model_type: str = "mvla") -> dict:
@@ -3894,7 +4278,14 @@ def time_wrappers(label: str, runs: dict, requests: dict, steps: int, reps: dict
 
 def phase_mvla_serving() -> dict:
     """-> {kernel: launches} on MVLA's serving paths (int8 mvla, bf16
-    mmmvla, the DiT head), each path's counts set to 0 just before it."""
+    mmmvla, the DiT head), each path's counts set to 0 just before it, at
+    MVLA_VLM_DEPTH VLM and MVLA_EXPERT_DEPTH expert layers."""
+    with cut_depths(("mvla", "vlm", MVLA_VLM_DEPTH), ("mmmvla", "vlm", MVLA_VLM_DEPTH),
+                    ("mvla", "expert", MVLA_EXPERT_DEPTH), ("mmmvla", "expert", MVLA_EXPERT_DEPTH)):
+        return mvla_serving()
+
+
+def mvla_serving() -> dict:
     from intact_tpu_torch.models import common as cm
     from intact_tpu_torch.models.mvla import model as mvla
     from intact_tpu_torch.models.pi0 import model as pi0
@@ -4070,11 +4461,17 @@ MVLA_LEAF_RTOL = 5e-2
 
 def phase_mvla_training() -> dict:
     """config/train/pi0_finetune_bridge.yaml with mvla_bridge.json as its
-    model (bf16 masters, 8-bit AdamW, SR, remat, the full tower) through the
-    Trainer: 2 updates of 2 micro-steps of 32 (the recipe's per-device
-    batch), validation at update 2 on one batch, a save at update 2 and a
-    resume from it; then the gradients against the plain attention and the
-    frozen leaves of a freeze_vlm run. -> {kernel: launches}."""
+    model (bf16 masters, 8-bit AdamW, SR, remat, the full tower at
+    MVLA_VLM_DEPTH VLM and MVLA_EXPERT_DEPTH expert layers) through the Trainer: 2 updates of 2
+    micro-steps of 32 (the recipe's per-device batch), validation at update
+    2 on one batch, a save at update 2 and a resume from it; then the
+    gradients against the plain attention and the frozen leaves of a
+    freeze_vlm run. -> {kernel: launches}."""
+    with cut_depths(("mvla", "vlm", MVLA_VLM_DEPTH), ("mvla", "expert", MVLA_EXPERT_DEPTH)):
+        return mvla_training()
+
+
+def mvla_training() -> dict:
     import shutil
 
     from intact_tpu_torch.models.common import flatten_paths
@@ -4256,8 +4653,8 @@ SVLA_OVERRIDES = {"eval_cfg.env_adapter": "BridgeSimplerAdapter"}
 SVLA_FP32_DEPTH = 4  # Gemma2 layers of the bf16-against-fp32 comparison (views of the bf16 tree), as Magma's
 SVLA_TIMING_REPS = 3  # timed inferences per wrapper and batch (5 before phase 5b joined the script's budget)
 # Gemma2 layers served of SpatialVLA-4B's 26 (full width), the script's time limit's cut since phase 3c (13
-# until phase 3d joined the budget)
-SVLA_SERVING_DEPTH = 7
+# until phase 3d joined the budget, 7 until phase 3e did)
+SVLA_SERVING_DEPTH = 4
 
 
 def svla_config(quantize: bool):
@@ -4324,16 +4721,8 @@ def phase_svla_serving() -> dict:
     launches none of the three kernels: SigLIP and Gemma2 attention are
     plain, as in the reference), at full width and SVLA_SERVING_DEPTH Gemma2
     layers."""
-    from intact_tpu_torch.models import registry
-
-    entry = registry.get("spatialvla_native")
-    full = entry["default_config"]
-    entry["default_config"] = lambda: dataclasses.replace(
-        full(), lm=dataclasses.replace(full().lm, depth=SVLA_SERVING_DEPTH))
-    try:
+    with cut_depths(("spatialvla_native", "lm", SVLA_SERVING_DEPTH)):
         return svla_serving()
-    finally:
-        entry["default_config"] = full
 
 
 def svla_serving() -> dict:
@@ -4488,8 +4877,8 @@ MAGMA_EV_CONFIG = "config/experiment/simpler/magma_bridge_ev.yaml"
 MAGMA_OVERRIDES = {"eval_cfg.env_adapter": "BridgeSimplerAdapter"}
 MAGMA_FP32_DEPTH = 4  # LLaMA layers of the bf16-against-fp32 comparison (all 32 in fp32 next to both wrappers is 36 GB)
 # LLaMA layers served of Magma-8B's 32 (full width), the script's time limit's cut since phase 3c's gathered step
-# (16 until phase 3d joined the budget)
-MAGMA_SERVING_DEPTH = 8
+# (16 until phase 3d joined the budget, 8 until phase 3e did)
+MAGMA_SERVING_DEPTH = 4
 
 
 def magma_config(quantize: bool):
@@ -4565,16 +4954,8 @@ def phase_magma_serving() -> dict:
     launches none of the three kernels: ConvNeXt, the projector and LLaMA's
     attention are plain, as in the reference), at full width and
     MAGMA_SERVING_DEPTH LLaMA layers."""
-    from intact_tpu_torch.models import registry
-
-    entry = registry.get("magma_native")
-    full = entry["default_config"]
-    entry["default_config"] = lambda: dataclasses.replace(
-        full(), lm=dataclasses.replace(full().lm, depth=MAGMA_SERVING_DEPTH))
-    try:
+    with cut_depths(("magma_native", "lm", MAGMA_SERVING_DEPTH)):
         return magma_serving()
-    finally:
-        entry["default_config"] = full
 
 
 def magma_serving() -> dict:
@@ -5262,6 +5643,7 @@ def main() -> int:
     group_serving = run(phase_multirank_serving)
     tensor_parallel, tp_kernels = run(phase_tensor_parallel)
     kernels.update(tp_kernels)
+    tensor_parallel_ar = run(phase_tensor_parallel_ar)
     training = run(phase_training)
     run(phase_rlds_data)
     standard = run(phase_standard_training)
@@ -5275,7 +5657,7 @@ def main() -> int:
     octo_serving = run(phase_octo_serving)
     client = run(phase_client)
     paths = {"serving": {"flash_attention": serving}, "int8": int8, "group_serving": group_serving,
-             "tensor_parallel": tensor_parallel,
+             "tensor_parallel": tensor_parallel, "tensor_parallel_ar": tensor_parallel_ar,
              "training": training, "standard": standard,
              "multirank": multirank, "fast_serving": fast_serving, "fast_training": fast_training, "mvla_serving": mvla_serving,
              "mvla_training": mvla_training, "svla_serving": svla_serving, "magma_serving": magma_serving,

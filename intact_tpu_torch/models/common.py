@@ -25,7 +25,9 @@ rounds the whole product. An int8 row-parallel product stays bit-equal to one
 card's: the activation rows are quantized against the whole row's absmax (a
 MAX all-reduce over tensor), the exact int32 partials are summed over tensor,
 and the finish pass rescales them (`ops/w8a8.py`'s row-parallel entry).
-`embed_lookup` looks up a vocabulary-parallel table.
+`embed_lookup` looks up a vocabulary-parallel table (float or int8) and
+`unembed_logits` gives a rank's logit columns of one
+(`tensor_parallel.vocab_argmax` takes the greedy token over all of them).
 """
 
 from __future__ import annotations
@@ -258,12 +260,12 @@ def _dense_int8(p: Params, x: torch.Tensor, policy: DtypePolicy) -> torch.Tensor
 def embed_lookup(p: Params, ids: torch.Tensor, policy: DtypePolicy = DEFAULT_POLICY) -> torch.Tensor:
     # out-of-range ids clip to the table (never index past it)
     tp = tensor_parallel.of(p)
-    if tp is not None and "embedding" in p:  # vocabulary-parallel: this rank's rows of the table
-        vocab = p["embedding"].whole_shape[0]
+    if tp is not None:  # vocabulary-parallel: this rank's rows of the table (float, or int8 codes and scales)
+        name = "embedding_q" if "embedding_q" in p else "embedding"
+        vocab = p[name].whole_shape[0]
         p = _whole_node(p)
-        return tensor_parallel.vocab_lookup(p["embedding"], ids, vocab, tp).to(policy.compute_dtype)
-    if tp is not None:
-        raise NotImplementedError("a vocabulary-parallel int8 embedding is not ported (Pi0's table stays float)")
+        rows = tensor_parallel.vocab_lookup(p[name], ids, vocab, tp, p.get("embed_scale"))
+        return rows.to(policy.compute_dtype)
     p = _whole_node(p)
     if "embedding_q" in p:  # int8 rows + per-row scale (quantize_embed)
         idx = ids.long().clamp(0, p["embedding_q"].shape[0] - 1)
@@ -274,7 +276,9 @@ def embed_lookup(p: Params, ids: torch.Tensor, policy: DtypePolicy = DEFAULT_POL
 
 
 def unembed_logits(p: Params, hidden: torch.Tensor, policy: DtypePolicy | None = None) -> torch.Tensor:
-    """Tied unembedding: hidden [..., D] x embed [V, D]^T -> fp32 [..., V].
+    """Tied unembedding: hidden [..., D] x embed [V, D]^T -> fp32 [..., V];
+    of a vocabulary-parallel table, this rank's columns [..., V / t] (its
+    rows of the table; `tensor_parallel.vocab_argmax` reduces them).
 
     A quantized table (`quantize_embed`: int8 rows [V, D], already the
     K-major [N, K] codes the W8A8 kernel reads, and fp32 per-row scales)
@@ -327,6 +331,42 @@ def gemma_mlp(p: Params, x: torch.Tensor, policy: DtypePolicy = DEFAULT_POLICY,
     gate = F.gelu(dense_column(p["gate"], x, policy, tp), approximate="tanh")
     up = dense_column(p["up"], x, policy, tp)
     return dense_row(p["down"], gate * up, policy, tp)
+
+
+def attention_qkv(p: Params, y: torch.Tensor, positions: torch.Tensor, heads: int, kv: int, head_dim: int,
+                  rope_base: float, policy: DtypePolicy = DEFAULT_POLICY,
+                  tp: tensor_parallel.TensorParallel | None = None):
+    """q and k (roped) and v [B, T, *, head_dim] of a grouped-query layer's
+    projections p (q, k, v) on its normed input y: over tensor (`tp`, where
+    the rules split the query heads) q column-parallel, k and v too where
+    their heads split, else whole with only the K/V heads this rank's
+    queries read kept (`tensor_parallel.kv_heads`)."""
+    from intact_tpu_torch.ops.rope import apply_rope
+
+    b, t, _ = y.shape
+    tpa = tensor_parallel.region(tp, p["q"], heads * head_dim)
+    y = tensor_parallel.copy_in(y, tpa)
+    tkv = tensor_parallel.region(tpa, p["k"], kv * head_dim)
+    q = dense_column(p["q"], y, policy, tpa).reshape(b, t, -1, head_dim)
+    k = dense_column(p["k"], y, policy, tkv).reshape(b, t, -1, head_dim)
+    v = dense_column(p["v"], y, policy, tkv).reshape(b, t, -1, head_dim)
+    if tpa is not None and tkv is None:
+        used = tensor_parallel.kv_heads(tpa, heads, kv)
+        k, v = k[:, :, used], v[:, :, used]
+    return apply_rope(q, positions, rope_base), apply_rope(k, positions, rope_base), v
+
+
+def new_kv_cache(depth: int, k: torch.Tensor, slots: int, policy: DtypePolicy) -> tuple[torch.Tensor, torch.Tensor]:
+    """An empty (k, v) cache [depth, B, slots, heads, head_dim] for keys
+    shaped as k [B, T, heads, head_dim] (a rank's K/V heads over tensor), in
+    the compute dtype; the slots past T zero."""
+    b, t, h, d = k.shape
+    cache_k = torch.empty((depth, b, slots, h, d), dtype=policy.compute_dtype, device=k.device)
+    cache_v = torch.empty_like(cache_k)
+    if slots > t:
+        cache_k[:, :, t:].zero_()
+        cache_v[:, :, t:].zero_()
+    return cache_k, cache_v
 
 
 def sinusoidal_embedding(time: torch.Tensor, dim: int, min_period: float,

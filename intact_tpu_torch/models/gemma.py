@@ -341,19 +341,6 @@ def prefill(
     return None, (cache_k, cache_v)
 
 
-def _at_global_heads(q: torch.Tensor, heads: int, tp) -> torch.Tensor:
-    """A tensor rank's query heads [B, T, H / t, D] placed at their columns of
-    all H heads, the others zero: the decode attention's library GEMMs then
-    run at one card's shapes, whose rows round as one card's (a GEMM of H / t
-    heads' rows may take another kernel, as the card's library does at batch
-    1, and round a row otherwise). The price: each rank does one card's
-    decode attention, t times its share of it."""
-    b, t, local, d = q.shape
-    before = torch.zeros((b, t, tp.index * local, d), dtype=q.dtype, device=q.device)
-    after = torch.zeros((b, t, heads - (tp.index + 1) * local, d), dtype=q.dtype, device=q.device)
-    return torch.cat([before, q, after], dim=2)
-
-
 def decode(
     expert_params: cm.Params,
     kv_cache,  # (k, v) from prefill: [L, B, P, KVH, head_dim]
@@ -371,7 +358,9 @@ def decode(
     `attention_impl` is accepted for signature parity; the suffix's few query
     rows always take the plain path, as in the reference. Over tensor the
     rank's heads enter that plain attention among zero ones, at one card's
-    shapes (`_at_global_heads`).
+    shapes (`tensor_parallel.whole_groups`: Pi0's one K/V head's group is
+    all 8 heads), so each rank does one card's decode attention, t times its
+    share of it.
     """
     cache_k, cache_v = kv_cache
     scale = cfg.head_dim**-0.5
@@ -383,15 +372,11 @@ def decode(
         bp = cm.layer(expert_params["blocks"], i)
         y = cm.rms_norm(bp["ln1"], x_suf, cfg.norm_eps)
         q, k, v = _qkv(bp, y, positions, cfg, policy, tp)
-        region = _attention_region(bp, cfg, tp)
-        local = q.shape[2]
-        if region is not None:  # this rank's heads at their places among zero ones
-            q = _at_global_heads(q, cfg.num_heads, region)
+        # this rank's heads at their places among zero ones
+        q, own = tensor_parallel.whole_groups(q, _attention_region(bp, cfg, tp), cfg.num_heads, cfg.num_kv_heads)
         att = xla_attention_cached(
             q, cache_k[i].to(k.dtype), cache_v[i].to(v.dtype), k, v,
             mask_cache, mask_new, scale=scale,
         )
-        if region is not None:
-            att = att[:, :, region.columns(local)]
-        x_suf = _post_attention(bp, x_suf, att, cfg, policy, tp)
+        x_suf = _post_attention(bp, x_suf, att[:, :, own], cfg, policy, tp)
     return cm.rms_norm(expert_params["final_norm"], x_suf, cfg.norm_eps)

@@ -14,6 +14,16 @@ The attention is the plain path: the softcap keeps it off the flash kernel,
 as in the reference. Parameters are stacked [L, ...] under "blocks"; a
 quantized tree (`cm.quantize_params`) sends every block product through the
 W8A8 kernel and the tied unembedding through `cm.unembed_logits`.
+
+Over tensor ranks (Megatron-style, parallel/tensor.py; SpatialVLA serving at
+mesh.tensor > 1) each rank runs its local heads: q, k, v (where the K/V
+heads split; else the whole K/V, of which it keeps the heads its queries
+read), gate and up column-parallel, o and down row-parallel, and its cache
+holds those K/V heads. The tied table splits over its vocabulary: a rank
+looks up its rows, softcaps its logit columns, and the greedy token is
+reduced over tensor (`tensor_parallel.vocab_argmax`). The blocks and the
+table find their tensor groups in their parameters, so a tree without
+tensor-split leaves runs as on one card.
 """
 
 from __future__ import annotations
@@ -25,7 +35,7 @@ import torch
 from intact_tpu_torch.models import common as cm
 from intact_tpu_torch.models.common import DEFAULT_POLICY, DtypePolicy
 from intact_tpu_torch.ops.attention import BIG_NEG
-from intact_tpu_torch.ops.rope import apply_rope
+from intact_tpu_torch.parallel import tensor as tensor_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +119,15 @@ def _softcap_attention(q, k, v, mask, scale: float, cap: float) -> torch.Tensor:
     return out.reshape(b, t, h, d)
 
 
+def _attention(bp, q, k, v, mask, scale: float, cfg: Gemma2Config, tp) -> torch.Tensor:
+    """The softcapped attention of a layer's (local) heads; over tensor a
+    rank's query heads fewer than a K/V head's group run among zero ones
+    (`tensor_parallel.whole_groups`)."""
+    region = tensor_parallel.region(tp, bp["attn"]["q"], cfg.num_heads * cfg.head_dim)
+    q, own = tensor_parallel.whole_groups(q, region, cfg.num_heads, cfg.num_kv_heads)
+    return _softcap_attention(q, k, v, mask, scale, cfg.attn_logit_softcap)[:, :, own]
+
+
 def _sliding_mask(positions_q: torch.Tensor, positions_k: torch.Tensor, window: int) -> torch.Tensor:
     """bool [B, T, S]: |q - k| < window. Symmetric: causality comes from the
     caller's mask, so a bidirectional prefix keeps sliding layers
@@ -117,21 +136,26 @@ def _sliding_mask(positions_q: torch.Tensor, positions_k: torch.Tensor, window: 
     return delta.abs() < window
 
 
-def _qkv(bp, x, positions, cfg: Gemma2Config, policy: DtypePolicy):
+def _qkv(bp, x, positions, cfg: Gemma2Config, policy: DtypePolicy, tp=None):
+    """q, k, v [B, T, heads, hd]: over tensor this rank's query heads and the
+    K/V heads they read."""
     b, t, _ = x.shape
     y = cm.rms_norm(bp["ln1"], x, cfg.norm_eps)
-    q = cm.dense(bp["attn"]["q"], y, policy).reshape(b, t, cfg.num_heads, cfg.head_dim)
-    k = cm.dense(bp["attn"]["k"], y, policy).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-    v = cm.dense(bp["attn"]["v"], y, policy).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-    return apply_rope(q, positions, cfg.rope_base), apply_rope(k, positions, cfg.rope_base), v
+    return cm.attention_qkv(bp["attn"], y, positions, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.rope_base,
+                            policy, tp)
 
 
-def _post_attention(bp, x, att, cfg: Gemma2Config, policy: DtypePolicy) -> torch.Tensor:
+def _post_attention(bp, x, att, cfg: Gemma2Config, policy: DtypePolicy, tp=None) -> torch.Tensor:
+    """The out-projection (row-parallel over split heads) and the gated MLP
+    (gate and up column-, down row-parallel where split), each branch
+    post-normed before its residual add."""
     b, t = att.shape[:2]
-    x = x + cm.rms_norm(bp["post_attn_norm"], cm.dense(bp["attn"]["o"], att.reshape(b, t, -1), policy),
-                        cfg.norm_eps)
+    o = cm.dense_row(bp["attn"]["o"], att.reshape(b, t, -1), policy,
+                     tensor_parallel.region(tp, bp["attn"]["q"], cfg.num_heads * cfg.head_dim))
+    x = x + cm.rms_norm(bp["post_attn_norm"], o, cfg.norm_eps)
     y = cm.rms_norm(bp["pre_ffw_norm"], x, cfg.norm_eps)
-    return x + cm.rms_norm(bp["post_ffw_norm"], cm.gemma_mlp(bp["mlp"], y, policy), cfg.norm_eps)
+    mlp = cm.gemma_mlp(bp["mlp"], y, policy, tensor_parallel.region(tp, bp["mlp"]["gate"], cfg.mlp_dim))
+    return x + cm.rms_norm(bp["post_ffw_norm"], mlp, cfg.norm_eps)
 
 
 def forward(
@@ -154,28 +178,25 @@ def forward(
     scale = cfg.query_pre_attn_scalar**-0.5
     sliding = mask & _sliding_mask(positions, positions, cfg.sliding_window)
     b, t, _ = embeds.shape
-    slots = t if cache_len is None else cache_len
-    shape = (cfg.depth, b, slots, cfg.num_kv_heads, cfg.head_dim)
-    cache_k = torch.empty(shape, dtype=policy.compute_dtype, device=embeds.device)
-    cache_v = torch.empty_like(cache_k)
-    if slots > t:
-        cache_k[:, :, t:].zero_()
-        cache_v[:, :, t:].zero_()
+    tp = tensor_parallel.of(params["blocks"])
+    cache = None
     x = embeds
     for i in range(cfg.depth):
         bp = cm.layer(params["blocks"], i)
-        q, k, v = _qkv(bp, x, positions, cfg, policy)
-        cache_k[i, :, :t], cache_v[i, :, :t] = k, v
-        att = _softcap_attention(q, k, v, sliding if use_sliding and i % 2 == 0 else mask, scale,
-                                 cfg.attn_logit_softcap)
-        x = _post_attention(bp, x, att, cfg, policy)
-    return cm.rms_norm(params["final_norm"], x, cfg.norm_eps), (cache_k, cache_v)
+        q, k, v = _qkv(bp, x, positions, cfg, policy, tp)
+        if cache is None:  # of the K/V heads this rank reads
+            cache = cm.new_kv_cache(cfg.depth, k, t if cache_len is None else cache_len, policy)
+        cache[0][i, :, :t], cache[1][i, :, :t] = k, v
+        att = _attention(bp, q, k, v, sliding if use_sliding and i % 2 == 0 else mask, scale, cfg, tp)
+        x = _post_attention(bp, x, att, cfg, policy, tp)
+    return cm.rms_norm(params["final_norm"], x, cfg.norm_eps), cache
 
 
 def logits(params: cm.Params, hidden: torch.Tensor, cfg: Gemma2Config,
            policy: DtypePolicy = DEFAULT_POLICY) -> torch.Tensor:
-    """Tied-embedding head with the final softcap -> fp32 [..., V]. A
-    quantized table streams int8 through the W8A8 kernel."""
+    """Tied-embedding head with the final softcap -> fp32 [..., V] (this
+    rank's columns of a vocabulary-parallel table). A quantized table
+    streams int8 through the W8A8 kernel."""
     out = cm.unembed_logits(params["embed"], hidden, policy)
     cap = cfg.final_logit_softcap
     return cap * torch.tanh(out / cap)
@@ -233,13 +254,13 @@ def decode_step(params, token, cache, slot: int, key_valid, key_pos, pos, cfg: G
     delta = pos[:, None] - key_pos
     global_m = key_valid & (delta >= 0)
     in_window = global_m & (delta < cfg.sliding_window)
+    tp = tensor_parallel.of(params["blocks"])
     for i in range(cfg.depth):
         bp = cm.layer(params["blocks"], i)
-        q, k, v = _qkv(bp, x, pos[:, None], cfg, policy)
+        q, k, v = _qkv(bp, x, pos[:, None], cfg, policy, tp)
         ck[i, :, slot], cv[i, :, slot] = k[:, 0], v[:, 0]
         m = (in_window if i % 2 == 0 else global_m)[:, None, :]
-        x = _post_attention(bp, x, _softcap_attention(q, ck[i], cv[i], m, scale, cfg.attn_logit_softcap), cfg,
-                            policy)
+        x = _post_attention(bp, x, _attention(bp, q, ck[i], cv[i], m, scale, cfg, tp), cfg, policy, tp)
     return cm.rms_norm(params["final_norm"], x, cfg.norm_eps)[:, 0]
 
 
@@ -257,18 +278,20 @@ def greedy_decode(
 
     The prompt is prefilled once; token s + 1 comes from feeding token s into
     cache slot P + s at the next position. The argmax takes the first index
-    of the softcapped fp32 logits' maximum, as jnp.argmax does. The
-    reference's decode loop also feeds the last token through the trunk and
-    discards the result; that step is not run here (the tokens are the same).
+    of the softcapped fp32 logits' maximum, as jnp.argmax does (over a
+    vocabulary-parallel table, reduced over tensor). The reference's decode
+    loop also feeds the last token through the trunk and discards the result;
+    that step is not run here (the tokens are the same).
     prefix_full_attention=True makes the prompt bidirectional (the
     PaliGemma2 prefix-LM convention)."""
     last, cache, key_valid, key_pos, pos = prefill(params, prompt_embeds, prompt_mask, max_new_tokens, cfg, policy,
                                                    prefix_full_attention)
     p_len = prompt_embeds.shape[1]
-    tokens = [logits(params, last, cfg, policy).argmax(dim=-1)]
+    tp = tensor_parallel.of(params["embed"])
+    tokens = [tensor_parallel.vocab_argmax(logits(params, last, cfg, policy), tp)]
     for s in range(max_new_tokens - 1):
         h = decode_step(params, tokens[-1], cache, p_len + s, key_valid, key_pos, pos + s, cfg, policy)
-        tokens.append(logits(params, h, cfg, policy).argmax(dim=-1))
+        tokens.append(tensor_parallel.vocab_argmax(logits(params, h, cfg, policy), tp))
     return torch.stack(tokens, dim=1)
 
 

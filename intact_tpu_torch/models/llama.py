@@ -14,6 +14,15 @@ Parameters are stacked [L, ...] under "blocks". A quantized tree
 (`cm.quantize_params`) sends every block product and the untied `lm_head`
 through the W8A8 kernel (`cm.dense`); the int8 `lm/embed` rows are only
 gathered (`cm.embed_lookup`).
+
+Over tensor ranks (Megatron-style, parallel/tensor.py; Magma serving at
+mesh.tensor > 1) each rank runs its local heads: q, k and v (where the K/V
+heads split; else the whole K/V, of which it keeps the heads its queries
+read), gate and up column-parallel, o and down row-parallel, its cache of
+those K/V heads; the untied `lm_head` column-parallel (this rank's
+vocabulary columns), the embedding split over its vocabulary, and the
+greedy token reduced over tensor (`tensor_parallel.vocab_argmax`). The
+blocks, the table and the head find their tensor groups in their parameters.
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ import torch.nn.functional as F
 from intact_tpu_torch.models import common as cm
 from intact_tpu_torch.models.common import DEFAULT_POLICY, DtypePolicy
 from intact_tpu_torch.ops.attention import multi_head_attention
-from intact_tpu_torch.ops.rope import apply_rope
+from intact_tpu_torch.parallel import tensor as tensor_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,23 +108,36 @@ def llama_rms_norm(p: cm.Params, x: torch.Tensor, eps: float) -> torch.Tensor:
 # forward
 # ---------------------------------------------------------------------------
 
-def _qkv(bp, x, positions, cfg: LlamaConfig, policy: DtypePolicy):
-    b, t, _ = x.shape
-    q = cm.dense(bp["attn"]["q"], x, policy).reshape(b, t, cfg.num_heads, cfg.head_dim)
-    k = cm.dense(bp["attn"]["k"], x, policy).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-    v = cm.dense(bp["attn"]["v"], x, policy).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-    return apply_rope(q, positions, cfg.rope_base), apply_rope(k, positions, cfg.rope_base), v
+def _qkv(bp, x, positions, cfg: LlamaConfig, policy: DtypePolicy, tp=None):
+    """q, k, v [B, T, heads, hd]: over tensor this rank's query heads and the
+    K/V heads they read."""
+    return cm.attention_qkv(bp["attn"], x, positions, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.rope_base,
+                            policy, tp)
 
 
-def _silu_mlp(bp, x, policy: DtypePolicy) -> torch.Tensor:
-    gate = F.silu(cm.dense(bp["mlp"]["gate"], x, policy))
-    return cm.dense(bp["mlp"]["down"], gate * cm.dense(bp["mlp"]["up"], x, policy), policy)
+def _silu_mlp(bp, x, cfg: LlamaConfig, policy: DtypePolicy, tp=None) -> torch.Tensor:
+    """gate and up column-, down row-parallel where the rules split them."""
+    mlp = bp["mlp"]
+    tp = tensor_parallel.region(tp, mlp["gate"], cfg.mlp_dim)
+    x = tensor_parallel.copy_in(x, tp)
+    gate = F.silu(cm.dense_column(mlp["gate"], x, policy, tp))
+    return cm.dense_row(mlp["down"], gate * cm.dense_column(mlp["up"], x, policy, tp), policy, tp)
 
 
-def _block_out(bp, x, att, cfg: LlamaConfig, policy: DtypePolicy) -> torch.Tensor:
+def _block_out(bp, x, att, cfg: LlamaConfig, policy: DtypePolicy, tp=None) -> torch.Tensor:
     b, t = att.shape[:2]
-    x = x + cm.dense(bp["attn"]["o"], att.reshape(b, t, -1), policy)
-    return x + _silu_mlp(bp, llama_rms_norm(bp["ln2"], x, cfg.norm_eps), policy)
+    region = tensor_parallel.region(tp, bp["attn"]["q"], cfg.num_heads * cfg.head_dim)
+    x = x + cm.dense_row(bp["attn"]["o"], att.reshape(b, t, -1), policy, region)
+    return x + _silu_mlp(bp, llama_rms_norm(bp["ln2"], x, cfg.norm_eps), cfg, policy, tp)
+
+
+def _attention(bp, q, k, v, mask, scale: float, cfg: LlamaConfig, tp) -> torch.Tensor:
+    """The grouped-query attention of a layer's (local) heads on the plain
+    path; over tensor a rank's query heads fewer than a K/V head's group run
+    among zero ones (`tensor_parallel.whole_groups`)."""
+    region = tensor_parallel.region(tp, bp["attn"]["q"], cfg.num_heads * cfg.head_dim)
+    q, own = tensor_parallel.whole_groups(q, region, cfg.num_heads, cfg.num_kv_heads)
+    return multi_head_attention(q, k, v, mask=mask, scale=scale)[:, :, own]
 
 
 def forward(
@@ -130,31 +152,35 @@ def forward(
     """-> (final-normed hidden [B, T, D], (k, v) cache [L, B, cache_len, KVH,
     hd] with the K rotated; cache_len T by default, zeros past T)."""
     scale = cfg.head_dim**-0.5
-    b, t, _ = embeds.shape
-    slots = t if cache_len is None else cache_len
-    shape = (cfg.depth, b, slots, cfg.num_kv_heads, cfg.head_dim)
-    cache_k = torch.empty(shape, dtype=policy.compute_dtype, device=embeds.device)
-    cache_v = torch.empty_like(cache_k)
-    if slots > t:
-        cache_k[:, :, t:].zero_()
-        cache_v[:, :, t:].zero_()
+    t = embeds.shape[1]
+    tp = tensor_parallel.of(params["blocks"])
+    cache = None
     x = embeds
     for i in range(cfg.depth):
         bp = cm.layer(params["blocks"], i)
-        q, k, v = _qkv(bp, llama_rms_norm(bp["ln1"], x, cfg.norm_eps), positions, cfg, policy)
-        cache_k[i, :, :t], cache_v[i, :, :t] = k, v
-        x = _block_out(bp, x, multi_head_attention(q, k, v, mask=mask, scale=scale), cfg, policy)
-    return llama_rms_norm(params["final_norm"], x, cfg.norm_eps), (cache_k, cache_v)
+        q, k, v = _qkv(bp, llama_rms_norm(bp["ln1"], x, cfg.norm_eps), positions, cfg, policy, tp)
+        if cache is None:  # of the K/V heads this rank reads
+            cache = cm.new_kv_cache(cfg.depth, k, t if cache_len is None else cache_len, policy)
+        cache[0][i, :, :t], cache[1][i, :, :t] = k, v
+        x = _block_out(bp, x, _attention(bp, q, k, v, mask, scale, cfg, tp), cfg, policy, tp)
+    return llama_rms_norm(params["final_norm"], x, cfg.norm_eps), cache
+
+
+def _head(params: cm.Params, cfg: LlamaConfig) -> cm.Params:
+    """The output head's parameters: the untied `lm_head`, else the table."""
+    return params["embed"] if cfg.tie_embeddings or "lm_head" not in params else params["lm_head"]
 
 
 def logits(params: cm.Params, hidden: torch.Tensor, cfg: LlamaConfig,
            policy: DtypePolicy = DEFAULT_POLICY) -> torch.Tensor:
-    """-> fp32 [..., V]: the untied `lm_head` through `cm.dense` (the W8A8
-    kernel when quantized; its compute-dtype output cast to fp32 after the
-    product, as in the reference), else the tied table."""
-    if cfg.tie_embeddings or "lm_head" not in params:
-        return cm.unembed_logits(params["embed"], hidden, policy)
-    return cm.dense(params["lm_head"], hidden, policy).to(torch.float32)
+    """-> fp32 [..., V] (this rank's vocabulary columns over tensor): the
+    untied `lm_head` through `cm.dense_column` (the W8A8 kernel when
+    quantized; its compute-dtype output cast to fp32 after the product, as
+    in the reference), else the tied table."""
+    head = _head(params, cfg)
+    if head is params["embed"]:
+        return cm.unembed_logits(head, hidden, policy)
+    return cm.dense_column(head, hidden, policy, tensor_parallel.of(head)).to(torch.float32)
 
 
 def prefill(params, prompt_embeds, prompt_mask, max_new_tokens: int, cfg: LlamaConfig,
@@ -187,11 +213,12 @@ def decode_step(params, token, cache, slot: int, key_valid, pos, cfg: LlamaConfi
     x = cm.embed_lookup(params["embed"], token[:, None], policy)
     key_valid[:, slot] = True
     mask = key_valid[:, None, :]
+    tp = tensor_parallel.of(params["blocks"])
     for i in range(cfg.depth):
         bp = cm.layer(params["blocks"], i)
-        q, k, v = _qkv(bp, llama_rms_norm(bp["ln1"], x, cfg.norm_eps), pos[:, None], cfg, policy)
+        q, k, v = _qkv(bp, llama_rms_norm(bp["ln1"], x, cfg.norm_eps), pos[:, None], cfg, policy, tp)
         ck[i, :, slot], cv[i, :, slot] = k[:, 0], v[:, 0]
-        x = _block_out(bp, x, multi_head_attention(q, ck[i], cv[i], mask=mask, scale=scale), cfg, policy)
+        x = _block_out(bp, x, _attention(bp, q, ck[i], cv[i], mask, scale, cfg, tp), cfg, policy, tp)
     return llama_rms_norm(params["final_norm"], x, cfg.norm_eps)[:, 0]
 
 
@@ -208,15 +235,17 @@ def greedy_decode(
 
     Token s + 1 comes from feeding token s into cache slot P + s at position
     last valid + 1 + s. The argmax takes the first index of the fp32
-    logits' maximum, as jnp.argmax does. The reference's scan also feeds the
+    logits' maximum, as jnp.argmax does (over vocabulary columns split over
+    tensor, reduced over tensor). The reference's scan also feeds the
     last token through the trunk and discards the result; that step is not
     run here (the tokens are the same)."""
     last, cache, key_valid, pos = prefill(params, prompt_embeds, prompt_mask, max_new_tokens, cfg, policy)
     p_len = prompt_embeds.shape[1]
-    tokens = [logits(params, last, cfg, policy).argmax(dim=-1)]
+    tp = tensor_parallel.of(_head(params, cfg))
+    tokens = [tensor_parallel.vocab_argmax(logits(params, last, cfg, policy), tp)]
     for s in range(max_new_tokens - 1):
         h = decode_step(params, tokens[-1], cache, p_len + s, key_valid, pos + s, cfg, policy)
-        tokens.append(logits(params, h, cfg, policy).argmax(dim=-1))
+        tokens.append(tensor_parallel.vocab_argmax(logits(params, h, cfg, policy), tp))
     return torch.stack(tokens, dim=1)
 
 

@@ -11,6 +11,11 @@ Tokens become continuous actions on the host (serve/decoding).
 Weight import reads the microsoft/Magma-8B layout (`vision_tower.*` in
 open_clip/timm ConvNeXt naming, `multi_modal_projector`, `language_model.*`
 in LlamaForCausalLM naming), held against the meta-device init.
+
+Over tensor ranks (serving at mesh.tensor > 1, `tensor_heads`) LLaMA runs
+its local query and K/V heads, the embedding and the untied `lm_head` split
+over the vocabulary (models/llama.py); ConvNeXt and the projector stay whole
+on every rank (no tensor rule matches them).
 """
 
 from __future__ import annotations
@@ -43,6 +48,12 @@ def init_params(init: cm.Initializer, cfg: MagmaConfig) -> cm.Params:
         "projector": proj,
         "lm": llama.init_params(init, cfg.lm),
     }
+
+
+def tensor_heads(cfg: MagmaConfig) -> dict:
+    """{tower: (query heads, K/V heads)}: what the tensor axis must divide on
+    LLaMA's attention projections (parallel/sharding.py)."""
+    return {"lm": (cfg.lm.num_heads, cfg.lm.num_kv_heads)}
 
 
 def init(cfg: MagmaConfig, seed: int = 0, device=None, dtype=torch.float32) -> cm.Params:

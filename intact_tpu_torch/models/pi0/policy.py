@@ -8,8 +8,9 @@ everything else is numpy.
 
 Over several ranks (`mesh` with a process group, one process per card) the
 policy holds this rank's shard of the parameters (parallel/sharding.py's
-rules at fsdp > 1, gathered layer by layer; at tensor > 1, Pi0 only, its
-tensor slice of the split leaves, whose towers then run their local heads). The serving wrapper
+rules at fsdp > 1, gathered layer by layer; at tensor > 1, Pi0 and
+Pi0FAST, its tensor slice of the split leaves, whose towers then run their
+local heads, by the model module's `tensor_heads`). The serving wrapper
 (serve/policy_wrapper.py) owns the ranks' serving group: it pads the batch,
 draws the padded batch's noise with `_draw_noise` on rank 0, and every rank
 runs `_sample_rows` on its rows.
@@ -64,7 +65,8 @@ class Pi0Policy:
         if mesh is not None:
             from intact_tpu_torch.parallel.mesh import MeshConfig, refuse_tensor
 
-            refuse_tensor(MeshConfig(mesh.data, mesh.fsdp, mesh.tensor), self.model.__name__.rsplit(".", 2)[-2])
+            refuse_tensor(MeshConfig(mesh.data, mesh.fsdp, mesh.tensor), self.model.__name__.rsplit(".", 2)[-2],
+                          serving=True)
         own = params is None
         if own:
             params = self.model.init(cfg, seed, self.device, self.policy.param_dtype)
@@ -78,7 +80,7 @@ class Pi0Policy:
         return self.mesh is not None and (self.mesh.fsdp > 1 or self.mesh.tensor > 1)
 
     def _heads(self) -> dict | None:
-        return pi0.tensor_heads(self.cfg) if self.mesh is not None and self.mesh.tensor > 1 else None
+        return self.model.tensor_heads(self.cfg) if self.mesh is not None and self.mesh.tensor > 1 else None
 
     def _shard(self, params, consume: bool = False, put=None):
         """This rank's share of a whole tree (the tree itself at fsdp 1 and tensor 1)."""

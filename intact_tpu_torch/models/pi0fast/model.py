@@ -14,6 +14,13 @@ previous token times sqrt(width).
 
 Interface as the other model modules (init / compute_loss / sample_actions),
 so the trainer, Pi0Policy and the serving wrapper apply.
+
+Over tensor ranks (serving at mesh.tensor > 1, `tensor_heads`) SigLIP and
+the trunk run their local heads (models/gemma.py; the one K/V head whole on
+every rank, so the cache holds it whole), the table is split over its
+vocabulary: a rank looks up its rows, forms the logits of its rows of the
+action window (the window's tail rows sit on the last rank or ranks) and the
+greedy token is reduced over tensor (`tensor_parallel.vocab_argmax`).
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ from intact_tpu_torch.models.pi0 import model as pi0
 from intact_tpu_torch.models.pi0fast.config import Pi0FASTConfig
 from intact_tpu_torch.ops.attention import xla_attention
 from intact_tpu_torch.ops.masks import make_att_2d_masks
+from intact_tpu_torch.parallel import tensor as tensor_parallel
+from intact_tpu_torch.parallel.sharding import held
 
 GREEDY = True  # sample_actions draws no noise: a serving group broadcasts none (serve/policy_wrapper.py)
 
@@ -41,6 +50,12 @@ def init_params(init: cm.Initializer, cfg: Pi0FASTConfig) -> cm.Params:
         "state_proj": cm.dense_init(init, cfg.max_state_dim, cfg.vlm.width),
         "action_start": init.normal((1, 1, cfg.vlm.width), 0.02),
     }
+
+
+def tensor_heads(cfg: Pi0FASTConfig) -> dict:
+    """{tower: (query heads, K/V heads)}: what the tensor axis must divide on
+    each tower's attention projections (parallel/sharding.py)."""
+    return {"siglip": (cfg.vision.num_heads, cfg.vision.num_heads), "vlm": (cfg.vlm.num_heads, cfg.vlm.num_kv_heads)}
 
 
 def init(cfg: Pi0FASTConfig, seed: int = 0, device=None, dtype=torch.float32) -> cm.Params:
@@ -95,8 +110,9 @@ def embed_tokens(params, ids: torch.Tensor, cfg: Pi0FASTConfig, policy: DtypePol
 
 def _logits(params, h: torch.Tensor, policy: DtypePolicy, first: int = 0) -> torch.Tensor:
     """Tied head: h [..., D] against the embedding rows first.. -> fp32
-    [..., V - first]. The product runs in the compute dtype, as the
-    reference's does, so its ties are the reference's ties."""
+    [..., V - first] (of a vocabulary-parallel table, this rank's rows
+    first..). The product runs in the compute dtype, as the reference's
+    does, so its ties are the reference's ties."""
     emb = cm.whole(params["vlm_embed"]["embedding"], slice(first, None)).to(policy.compute_dtype)
     return (h.to(policy.compute_dtype) @ emb.T).to(torch.float32)
 
@@ -188,11 +204,14 @@ def decode_token(params, x, kv_cache, slot: int, key_valid, position, cfg: Pi0FA
     vc = cfg.vlm
     scale = vc.head_dim**-0.5
     mask = key_valid[:, None, :]
+    tp = tensor_parallel.of(params["vlm"])
     for i in range(vc.depth):
         bp = cm.layer(params["vlm"]["blocks"], i)
-        q, k, v = gemma._qkv(bp, cm.rms_norm(bp["ln1"], x, vc.norm_eps), position, vc, policy)
+        q, k, v = gemma._qkv(bp, cm.rms_norm(bp["ln1"], x, vc.norm_eps), position, vc, policy, tp)
         ck[i, :, slot], cv[i, :, slot] = k[:, 0], v[:, 0]
-        x = gemma._post_attention(bp, x, xla_attention(q, ck[i], cv[i], mask, scale), vc, policy)
+        # the rank's heads among zero ones, at one card's shapes, as in gemma.decode
+        q, own = tensor_parallel.whole_groups(q, gemma._attention_region(bp, vc, tp), vc.num_heads, vc.num_kv_heads)
+        x = gemma._post_attention(bp, x, xla_attention(q, ck[i], cv[i], mask, scale)[:, :, own], vc, policy, tp)
     return cm.rms_norm(params["vlm"]["final_norm"], x, vc.norm_eps)[:, 0]
 
 
@@ -204,11 +223,15 @@ def sample_actions(params, generator, images, img_masks, lang_tokens, lang_masks
     the FAST path decodes on the host (fast_tokenizer.decode_batch). The
     argmax runs over the last action_vocab_size (else n_action_bins) ids;
     the product is formed against those rows of the table alone, since
-    nothing else is read. `generator` and `noise` are unused (greedy)."""
+    nothing else is read. Over a vocabulary-parallel table a rank forms its
+    rows of the window and the argmax is reduced over tensor.
+    `generator` and `noise` are unused (greedy)."""
     del generator, noise
     (ck, cv), pre_pad = prefix_cache(params, images, img_masks, lang_tokens, lang_masks, state, cfg, policy)
     b, p_len = pre_pad.shape
     first = cfg.vlm.vocab_size - (cfg.action_vocab_size or cfg.n_action_bins)
+    tp = tensor_parallel.of(params["vlm_embed"])
+    lo, offset = tensor_parallel.vocab_window(tp, held(params["vlm_embed"]["embedding"]).shape[0], first)
     key_valid = torch.cat([pre_pad, pre_pad.new_zeros((b, cfg.n_action_tokens))], dim=1)
     prefix_count = pre_pad.sum(dim=1, keepdim=True).to(torch.int32)  # [B, 1]
     x = policy.cast(params["action_start"]).expand(b, 1, cfg.vlm.width)
@@ -216,7 +239,7 @@ def sample_actions(params, generator, images, img_masks, lang_tokens, lang_masks
     for s in range(cfg.n_action_tokens):
         key_valid[:, p_len + s] = True
         h = decode_token(params, x, (ck, cv), p_len + s, key_valid, prefix_count + s, cfg, policy)
-        tokens.append(first + _logits(params, h, policy, first).argmax(dim=-1))
+        tokens.append(first + tensor_parallel.vocab_argmax(_logits(params, h, policy, lo), tp, offset))
         x = embed_tokens(params, tokens[-1][:, None], cfg, policy)
     tokens = torch.stack(tokens, dim=1)
     if return_tokens:

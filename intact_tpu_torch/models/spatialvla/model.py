@@ -16,6 +16,11 @@ prior of `flat_depth`).
 Weight import reads the HF SpatialVLA/PaliGemma2 layout (`vision_tower`
 SiglipVisionModel naming, `multi_modal_projector`, `language_model` Gemma2
 naming, the `position_embedding_3d` MLP), held against the meta-device init.
+
+Over tensor ranks (serving at mesh.tensor > 1, `tensor_heads`) SigLIP and
+Gemma2 run their local heads and the tied table splits over its vocabulary
+(models/gemma2.py); Ego3D, the patch embed and the projector stay whole on
+every rank (no tensor rule matches them).
 """
 
 from __future__ import annotations
@@ -41,6 +46,12 @@ def init_params(init: cm.Initializer, cfg: SpatialVLAConfig) -> cm.Params:
         "img_proj": cm.dense_init(init, cfg.vision.width, cfg.lm.width),
         "lm": gemma2.init_params(init, cfg.lm),
     }
+
+
+def tensor_heads(cfg: SpatialVLAConfig) -> dict:
+    """{tower: (query heads, K/V heads)}: what the tensor axis must divide on
+    each tower's attention projections (parallel/sharding.py)."""
+    return {"siglip": (cfg.vision.num_heads, cfg.vision.num_heads), "lm": (cfg.lm.num_heads, cfg.lm.num_kv_heads)}
 
 
 def init(cfg: SpatialVLAConfig, seed: int = 0, device=None, dtype=torch.float32) -> cm.Params:

@@ -7,11 +7,13 @@ Axes, as in the JAX package:
           (ZeRO-3, parallel/sharding.py, train/optim.py); the fused step's
           optimizer state in global block rows, the whole parameters gathered
           after each update (ZeRO-2, train/fused_joint.py)
-  tensor  Megatron-style tensor parallelism (Pi0 serving and its standard
-          step only): column-parallel q, gate, up, fc1 and the patch embed's
-          output channels, row-parallel o, down and fc2, the embedding split
-          over its vocabulary (models/common.py, parallel/tensor.py); every
-          other family and the fused step refuse tensor > 1 (`refuse_tensor`)
+  tensor  Megatron-style tensor parallelism (serving Pi0, Pi0FAST, native
+          SpatialVLA and native Magma; Pi0's standard step): column-parallel
+          q, k, v (where their heads split), gate, up, fc1 and Magma's
+          lm_head, row-parallel o, down and fc2, the embeddings split over
+          their vocabulary, the greedy argmax reduced over tensor
+          (models/common.py, parallel/tensor.py); every other path refuses
+          tensor > 1 (`refuse_tensor`)
 
 `MeshConfig.resolve(n)` takes the world size: the port runs one process per
 card, where the JAX package runs one process over all local devices. Rank r
@@ -114,23 +116,31 @@ class Mesh:
         return self.groups["world"] is not None
 
 
-TENSOR_FAMILIES = ("pi0",)  # the model modules that run at tensor > 1
+TENSOR_FAMILIES = ("pi0",)  # the model modules whose training step runs at tensor > 1
+# the model modules whose serving runs at tensor > 1: Pi0 and the token-decoding families (their
+# logits split over the vocabulary, the greedy argmax reduced over tensor: parallel/tensor.py)
+TENSOR_SERVING_FAMILIES = ("pi0", "pi0fast", "spatialvla", "magma")
+_SLICE = ("the tensor-parallel slice covers serving Pi0, Pi0FAST, native SpatialVLA and native Magma and Pi0's "
+          "standard training step")
 
 
-def refuse_tensor(cfg: MeshConfig, family: str | None = None, fused: bool = False) -> None:
-    """Raise unless the mesh's tensor axis is 1 or the path runs it: Pi0
-    (`family` "pi0", the model module's name) serving and its standard
-    step. The fused step and every other family keep refusing it."""
+def refuse_tensor(cfg: MeshConfig, family: str | None = None, fused: bool = False, serving: bool = False) -> None:
+    """Raise unless the mesh's tensor axis is 1 or the path runs it: serving
+    (`serving`) a family of TENSOR_SERVING_FAMILIES (`family`, the model
+    module's package name), or Pi0's standard training step. The fused step,
+    every other family's training (Pi0FAST's vocabulary-parallel cross
+    entropy is not ported) and every other family's serving (MVLA, mmmvla,
+    Octo, the HF-scaffold types) refuse it."""
     if cfg.tensor == 1:
         return
     if fused:
         raise NotImplementedError(
-            f"the tensor axis (mesh.tensor={cfg.tensor}) is not ported for the fused step: the tensor-parallel "
-            "slice covers Pi0 serving and its standard step; train the fused recipe at tensor 1")
-    if family not in TENSOR_FAMILIES:
+            f"the tensor axis (mesh.tensor={cfg.tensor}) is not ported for the fused step: {_SLICE}; "
+            "train the fused recipe at tensor 1")
+    if family not in (TENSOR_SERVING_FAMILIES if serving else TENSOR_FAMILIES):
+        what = f"serving {family or 'this model'}" if serving else f"training {family or 'this model'}"
         raise NotImplementedError(
-            f"the tensor axis (mesh.tensor={cfg.tensor}) is not ported for {family or 'this model'}: the "
-            "tensor-parallel slice covers Pi0 serving and its standard step only; run it at tensor 1")
+            f"the tensor axis (mesh.tensor={cfg.tensor}) is not ported for {what}: {_SLICE}; run it at tensor 1")
 
 
 def single_rank_mesh() -> Mesh:

@@ -1,4 +1,4 @@
-"""Megatron-style tensor parallelism: the regions' collectives (Pi0 at mesh.tensor > 1).
+"""Megatron-style tensor parallelism: the regions' collectives (mesh.tensor > 1).
 
 The rules (parallel/sharding.py) give each tensor rank a slice of the split
 leaves: the output columns of the column-parallel products (q, gate, up,
@@ -17,8 +17,15 @@ autograd Functions:
      sum over its input rows); all-reduced over tensor in the forward,
      identity backward
 
-and `vocab_lookup` (each rank looks up the ids in its rows, zeros
-elsewhere, summed by g). Every collective is one
+and the vocabulary-parallel pieces of the token-decoding families:
+`vocab_lookup` (each rank looks up the ids in its rows of a float or int8
+table, zeros elsewhere, summed by g: one non-zero term, so exact),
+`vocab_window` (a rank's rows of a window of the vocabulary, Pi0FAST's
+action tail) and `vocab_argmax` (the first index of the maximum over logits
+split over tensor, as argmax over the whole: one MAX all-reduce of a packed
+int64 per row). `kv_heads` gives the K/V heads a rank's query heads read
+where the K/V heads do not split, `whole_groups` pads a rank's query heads
+to whole groups of one K/V head. Every collective is one
 of parallel/collectives.py's tensor_* wrappers, counted there; without a
 recorded gradient the forwards run the collective alone. A leaf replicated
 over tensor whose use is partial (Pi0's K/V kernels, which every rank applies
@@ -121,15 +128,92 @@ def reduce_out(x: torch.Tensor, tp: TensorParallel | None) -> torch.Tensor:
     return collectives.tensor_all_reduce(x.contiguous().clone(), tp.group)
 
 
-def vocab_lookup(table: torch.Tensor, ids: torch.Tensor, vocab: int, tp: TensorParallel) -> torch.Tensor:
+def vocab_lookup(table: torch.Tensor, ids: torch.Tensor, vocab: int, tp: TensorParallel,
+                 scale: torch.Tensor | None = None) -> torch.Tensor:
     """Rows of a vocabulary-parallel table (this rank's `table` holds rows
     [index * n, (index + 1) * n) of `vocab`): ids clipped to the vocabulary,
-    each rank's own rows looked up and the rest zero, summed over tensor."""
+    each rank's own rows looked up and the rest zero, summed over tensor.
+    An int8 table (`scale`: this rank's per-row scales) gives its rows as
+    fp32 codes times scales, one card's products: the sum over tensor has one
+    non-zero term, so it is exact."""
     n = table.shape[0]
     ids = ids.long().clamp(0, vocab - 1) - tp.index * n
     mine = (ids >= 0) & (ids < n)
-    rows = table[ids.clamp(0, n - 1)] * mine[..., None].to(table.dtype)
-    return reduce_out(rows, tp)
+    local = ids.clamp(0, n - 1)
+    rows = table[local]
+    if scale is not None:
+        rows = rows.to(torch.float32) * scale[local].to(torch.float32)[..., None]
+    return reduce_out(torch.where(mine[..., None], rows, rows.new_zeros(())), tp)
+
+
+def vocab_window(tp: TensorParallel | None, rows: int, first: int) -> tuple[int, int]:
+    """A rank's part of the window [first, V) of a vocabulary split over
+    tensor (each rank holding `rows` rows; a whole table on every rank
+    without `tp`) -> (lo, offset): its held rows lo.. are the window's
+    entries offset.. (lo == rows: it holds none of the window)."""
+    start = 0 if tp is None else tp.index * rows
+    lo = min(max(first - start, 0), rows)
+    return lo, start + lo - first
+
+
+_LOW = 0xFFFFFFFF  # the packed argmax's low 32 bits: the complemented index
+
+
+def vocab_argmax(logits: torch.Tensor, tp: TensorParallel | None, offset: int | None = None) -> torch.Tensor:
+    """The index of the first maximum of logits [..., V] split over tensor,
+    as argmax over the whole: this rank's columns are entries offset.. of
+    the whole (a rank may hold none: [..., 0]); offset None: the columns
+    split in equal slices in rank order (a table's or a head's split). Without
+    `tp` the logits are whole on every rank: argmax + offset. Over tensor each rank packs its
+    first maximum into an int64, the fp32 value mapped to an order-preserving
+    int32 (-0.0 as +0.0, as argmax compares them) above the complemented
+    global index, and one MAX all-reduce over tensor gives the largest value
+    at the smallest index; a rank without a column contributes the least
+    int64 (as -inf). -> int64 [...]."""
+    if offset is None:
+        offset = 0 if tp is None else tp.index * logits.shape[-1]
+    if tp is None:
+        return logits.argmax(dim=-1) + offset
+    if logits.shape[-1] == 0:
+        packed = torch.full(logits.shape[:-1], torch.iinfo(torch.int64).min, dtype=torch.int64, device=logits.device)
+    else:
+        index = logits.argmax(dim=-1, keepdim=True)
+        value = logits.gather(-1, index)[..., 0].to(torch.float32)
+        value = torch.where(value == 0, value.new_zeros(()), value)
+        bits = value.view(torch.int32)
+        key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+        packed = (key << 32) | (_LOW - (index[..., 0] + offset))
+    collectives.tensor_all_reduce_max(packed, tp.group)
+    return _LOW - (packed & _LOW)
+
+
+def whole_groups(q: torch.Tensor, tp: TensorParallel | None, heads: int, kv: int) -> tuple[torch.Tensor, slice]:
+    """A rank's query heads q [B, T, h_t, D], where they are fewer than a
+    K/V head's group (heads // kv), placed at their places among the
+    group's other heads as zeros: the grouped attention's products then run
+    at one card's shapes per K/V head, whose rows round as one card's (a
+    library GEMM of fewer rows may take another kernel and round a row
+    otherwise). -> (q, the slice of the rank's heads in the attention's
+    output); q and slice(None) where its heads fill whole groups or without
+    `tp`. The price: the group's work for the rank's share of it."""
+    group, local = heads // kv, q.shape[2]
+    if tp is None or local >= group:
+        return q, slice(None)
+    at = tp.index * local % group
+    zeros = q.new_zeros((*q.shape[:2], group - local, q.shape[3]))
+    return torch.cat([zeros[:, :, :at], q, zeros[:, :, at:]], dim=2), slice(at, at + local)
+
+
+def kv_heads(tp: TensorParallel | None, heads: int, kv: int) -> slice:
+    """The K/V heads (of all `kv`) that this rank's query heads read, where
+    the query heads split over tensor and the K/V heads are held whole:
+    grouped-query attention's query head h reads K/V head h // (heads //
+    kv), so a rank's heads [index * h_t, (index + 1) * h_t) read a run of
+    them (one where h_t is below the group)."""
+    if tp is None:
+        return slice(0, kv)
+    local, group = heads // tp.parts, heads // kv
+    return slice(tp.index * local // group, -(-(tp.index + 1) * local // group))
 
 
 _PARTIAL = (

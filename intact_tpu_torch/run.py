@@ -24,8 +24,9 @@ the config trains; with it, `eval_cfg.role` server serves the configured
 policy over the websocket protocol (under torchrun every rank holds its
 share of the parameters, rank 0 serves and the others run their rows of
 each fused batch, serve/group.py; the mesh must fill the world; at
-mesh.tensor > 1, Pi0 only, the tensor ranks of a batch coordinate run their
-slices of the model on the same rows; Octo runs whole on rank 0), and client runs the simulator evaluator
+mesh.tensor > 1, Pi0, Pi0FAST, native SpatialVLA and native Magma, the tensor
+ranks of a batch coordinate run their slices of the model on the same rows;
+Octo runs whole on rank 0), and client runs the simulator evaluator
 that `eval_cfg.simulator_path` names (built from simulator_name) against such
 a server; it touches no device, and its simulator (SimplerEnv, ManiSkill3 or
 LIBERO) must be installed.
@@ -63,7 +64,7 @@ def serve_on_ranks(cfg: TrainPipelineConfig, device) -> None:
 
     log = logging.getLogger("run")
     mesh_cfg = MeshConfig(cfg.mesh.data, cfg.mesh.fsdp, cfg.mesh.tensor)
-    refuse_tensor(mesh_cfg, registry.family(cfg.model_type))
+    refuse_tensor(mesh_cfg, registry.family(cfg.model_type), serving=True)
     mesh = make_mesh(mesh_cfg)
     if not mesh.distributed:
         policy = make_policy_wrapper(cfg, device=device)

@@ -20,10 +20,10 @@ fsdp > 1) and run their device calls through serve/group.py: rank 0 serves
 and pads each fused batch to a multiple of the world (`effective_fused_size`),
 every rank runs its rows, and `switch_model` restores each rank's share. Octo
 and the HF-scaffold wrappers (`serves_on_ranks` False) run whole on rank 0,
-as the JAX package serves Octo on one device. At mesh.tensor > 1 only the
-Pi0 family serves (each rank its tensor slice of the split leaves, the
-tensor ranks of one batch coordinate on the same rows); the other families
-refuse it.
+as the JAX package serves Octo on one device. At mesh.tensor > 1 Pi0, Pi0FAST,
+native SpatialVLA and native Magma serve (each rank its tensor slice of the
+split leaves, by the model module's `tensor_heads`; the tensor ranks of one
+batch coordinate on the same rows); the other families refuse it.
 """
 
 from __future__ import annotations
@@ -244,7 +244,8 @@ class BasePolicyWrapper:
         from intact_tpu_torch.parallel.mesh import MeshConfig, refuse_tensor
         from intact_tpu_torch.serve.group import ServeGroup, path_of
 
-        refuse_tensor(MeshConfig(mesh.data, mesh.fsdp, mesh.tensor), registry.family(self.config.model_type))
+        refuse_tensor(MeshConfig(mesh.data, mesh.fsdp, mesh.tensor), registry.family(self.config.model_type),
+                      serving=True)
         self.mesh = mesh
         self.group = ServeGroup(mesh, self.device)
         self.group.on(op, rows_fn)
@@ -404,8 +405,6 @@ class SpatialVLASession(PolicySession):
         self.ensembler = ActionEnsembler(pred_horizon=wrapper.model_cfg.n_action_steps)
 
     def preprocess(self, obs: dict) -> dict:
-        import cv2
-
         from intact_tpu_torch.utils.device import float_to_u8
 
         cfg = self.wrapper.model_cfg
@@ -416,7 +415,9 @@ class SpatialVLASession(PolicySession):
                              f"{inputs['image'].shape[0]}-row request")
         image = float_to_u8(np.asarray(inputs["image"]))  # [1, H, W, 3] uint8
         s = cfg.vision.image_size
-        if image.shape[1] != s or image.shape[2] != s:
+        if image.shape[1] != s or image.shape[2] != s:  # cv2 only where a frame is resized
+            import cv2
+
             image = np.stack([cv2.resize(im, (s, s), interpolation=cv2.INTER_LINEAR) for im in image])
         depth = obs.get("observation.depth")
         if depth is None:
@@ -427,7 +428,11 @@ class SpatialVLASession(PolicySession):
             d = np.asarray(depth, np.float32)
             if d.ndim == 2:
                 d = d[None]
-            depth = np.stack([cv2.resize(di, (g, g), interpolation=cv2.INTER_AREA) for di in d])
+            if d.shape[1:] != (g, g):
+                import cv2
+
+                d = np.stack([cv2.resize(di, (g, g), interpolation=cv2.INTER_AREA) for di in d])
+            depth = d
         return {"image": image, "depth": np.asarray(depth, np.float32), "task": inputs["task"]}
 
     def reset(self) -> None:
@@ -435,46 +440,55 @@ class SpatialVLASession(PolicySession):
         self.ensembler.reset()
 
 
+def _native_shards(mod, cfg, mesh) -> tuple[bool, dict | None]:
+    """(whether a rank keeps a share of the tree: over fsdp or tensor ranks,
+    the family's heads map at tensor > 1, as `shard_tree` takes it)."""
+    sharded = mesh is not None and (mesh.fsdp > 1 or mesh.tensor > 1)
+    return sharded, mod.tensor_heads(cfg) if sharded and mesh.tensor > 1 else None
+
+
 def _init_native_serving(mod, cfg, config, policy, device, mesh=None, materialize: bool = True):
     """The parameter tree of a native AR wrapper on its card -> (params,
     quantize). Random weights from config.seed, made on the device in the
     param dtype; with eval_cfg.quantize_int8 they are quantized leaf by leaf
     (`cm.quantize_params(consume=True)`), so the fp tree and the int8 tree
-    never coexist whole. Over fsdp ranks (`mesh`) each rank then keeps its
-    share (`shard_tree(consume=True)`). materialize=False makes the whole
-    tree on the meta device (shapes only), for a wrapper about to load a
-    checkpoint."""
+    never coexist whole. Over fsdp or tensor ranks (`mesh`) each rank then
+    keeps its share (`shard_tree(consume=True)`, the family's heads map
+    at tensor > 1). materialize=False makes the whole tree on the meta
+    device (shapes only), for a wrapper about to load a checkpoint."""
     from intact_tpu_torch.models import common as cm
 
     quantize = bool(getattr(config.eval_cfg, "quantize_int8", False))
     params = mod.init(cfg, config.seed, device if materialize else "meta", policy.param_dtype)
     if quantize:
         params = cm.quantize_params(params, consume=True)
-    if materialize and mesh is not None and mesh.fsdp > 1:
+    sharded, heads = _native_shards(mod, cfg, mesh)
+    if materialize and sharded:
         from intact_tpu_torch.parallel.sharding import shard_tree
 
-        params = shard_tree(params, mesh, consume=True)
+        params = shard_tree(params, mesh, consume=True, heads=heads)
     return params, quantize
 
 
-def _put_native_checkpoint(raw, policy, quantize: bool, device, mesh=None):
-    """A host parameter tree (an importer's or a restored step's) -> the
-    serving tree on the device, leaf by leaf: int8 through
+def _put_native_checkpoint(raw, mod, cfg, policy, quantize: bool, device, mesh=None):
+    """A host parameter tree (an importer's or a restored step's) of `mod`'s
+    model -> the serving tree on the device, leaf by leaf: int8 through
     `cm.quantize_host_tree` (the fp tree never lands on the device whole),
-    else the param dtype; over fsdp ranks (`mesh`) each rank keeps its share
-    of every leaf the rules split."""
+    else the param dtype; over fsdp or tensor ranks (`mesh`) each rank keeps
+    its share of every leaf the rules split (a checkpoint holds the
+    one-rank layout)."""
     from intact_tpu_torch.models import common as cm
     from intact_tpu_torch.parallel.sharding import shard_leaf, shard_tree
 
-    sharded = mesh is not None and mesh.fsdp > 1
+    sharded, heads = _native_shards(mod, cfg, mesh)
     if quantize:
-        place = (lambda path, x: shard_leaf(path, x, mesh)) if sharded else None  # noqa: E731
+        place = (lambda path, x: shard_leaf(path, x, mesh, heads=heads)) if sharded else None  # noqa: E731
         return cm.quantize_host_tree(raw, policy, device, place=place)
 
     def put(x):
         return torch.as_tensor(x).to(device=device, dtype=policy.param_dtype)
 
-    return shard_tree(raw, mesh, put=put) if sharded else cm.tree_map(put, raw)
+    return shard_tree(raw, mesh, put=put, heads=heads) if sharded else cm.tree_map(put, raw)
 
 
 def _native_switch_model(wrapper, mod, load_fn, new_model_path) -> None:
@@ -493,7 +507,8 @@ def _native_switch_model(wrapper, mod, load_fn, new_model_path) -> None:
         raw = load_fn(new_model_path, wrapper.model_cfg)
     else:
         raw = ckpt_lib.restore_params(new_model_path, mod.init(wrapper.model_cfg, device="meta"))
-    wrapper.params = _put_native_checkpoint(raw, wrapper.policy, wrapper.quantize, wrapper.device, wrapper.mesh)
+    wrapper.params = _put_native_checkpoint(raw, mod, wrapper.model_cfg, wrapper.policy, wrapper.quantize,
+                                            wrapper.device, wrapper.mesh)
     wrapper.model_generation += 1
 
 
@@ -578,8 +593,6 @@ class MagmaSession(PolicySession):
     wants_uint8 = True
 
     def preprocess(self, obs: dict) -> dict:
-        import cv2
-
         from intact_tpu_torch.utils.device import float_to_u8
 
         inputs = self.adapter.preprocess(obs)
@@ -588,7 +601,9 @@ class MagmaSession(PolicySession):
                              f"{inputs['image'].shape[0]}-row request")
         s = self.wrapper.model_cfg.image_size
         u8 = float_to_u8(np.asarray(inputs["image"]))
-        if u8.shape[1] != s or u8.shape[2] != s:
+        if u8.shape[1] != s or u8.shape[2] != s:  # cv2 only where a frame is resized
+            import cv2
+
             u8 = np.stack([cv2.resize(im, (s, s), interpolation=cv2.INTER_LINEAR) for im in u8])
         return {"image": u8, "task": inputs["task"]}
 

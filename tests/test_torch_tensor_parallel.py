@@ -457,31 +457,55 @@ def test_flash_attention_takes_local_heads(heads):
 @pytest.mark.parametrize("model_type", ["pi0fast_tiny", "mvla_tiny", "mmmvla_tiny", "spatialvla_native_tiny",
                                         "magma_native_tiny", "octo_tiny", "spatialvla", "magma", "pi0-fused"])
 def test_every_other_path_refuses_the_tensor_axis(model_type):
-    """Only Pi0 serving and Pi0's standard step run at tensor > 1: every other
-    family, the HF-scaffold types and the fused step refuse it with a reason
-    that names the slice; Pi0 and tensor 1 pass."""
+    """What the tensor-parallel slice leaves out refuses tensor > 1 with a
+    reason that names the slice: training every family but Pi0 (Pi0FAST's,
+    SpatialVLA's and Magma's among them), serving MVLA, mmmvla, Octo and the
+    HF-scaffold types, and the fused step; Pi0's training and tensor 1
+    pass."""
     from intact_tpu_torch.models import registry
-    from intact_tpu_torch.parallel.mesh import MeshConfig, refuse_tensor
+    from intact_tpu_torch.parallel.mesh import TENSOR_SERVING_FAMILIES, MeshConfig, refuse_tensor
 
     fused = model_type == "pi0-fused"
     family = "pi0" if fused else registry.family(model_type)
-    with pytest.raises(NotImplementedError, match="tensor axis .* not ported .*Pi0 serving and its standard step"):
+    slice_named = "tensor axis .* not ported .*serving Pi0, Pi0FAST, native SpatialVLA and native Magma"
+    with pytest.raises(NotImplementedError, match=slice_named):
         refuse_tensor(MeshConfig(data=1, fsdp=1, tensor=2), family, fused=fused)
+    if fused or family not in TENSOR_SERVING_FAMILIES:
+        with pytest.raises(NotImplementedError, match=slice_named):
+            refuse_tensor(MeshConfig(data=1, fsdp=1, tensor=2), family, fused=fused, serving=True)
     refuse_tensor(MeshConfig(data=1, fsdp=2, tensor=1), family, fused=fused)
     refuse_tensor(MeshConfig(data=1, fsdp=1, tensor=2), registry.family("pi0_tiny"))
 
 
-def test_policy_refuses_the_tensor_axis_for_pi0fast():
-    """Pi0Policy with Pi0FAST's module on a tensor-2 mesh refuses before
-    building anything."""
-    from intact_tpu_torch.models.pi0fast import model as fast
-    from intact_tpu_torch.models.pi0fast.config import Pi0FASTConfig
+@pytest.mark.parametrize("model_type", ["pi0fast_tiny", "spatialvla_native_tiny", "magma_native_tiny", "pi0_tiny"])
+def test_serving_takes_the_tensor_axis_for_the_token_decoding_families(model_type):
+    """Serving Pi0, Pi0FAST, native SpatialVLA and native Magma passes at
+    tensor 2 and 4 (the trainer's refusal of the last three stands)."""
+    from intact_tpu_torch.models import registry
+    from intact_tpu_torch.parallel.mesh import MeshConfig, refuse_tensor
+
+    for tensor in (2, 4):
+        refuse_tensor(MeshConfig(data=1, fsdp=1, tensor=tensor), registry.family(model_type), serving=True)
+
+
+def test_policy_refuses_the_tensor_axis_for_mvla():
+    """Pi0Policy with MVLA's module on a tensor-2 mesh refuses before
+    building anything; with Pi0FAST's it holds its tensor slices."""
+    from intact_tpu_torch.models.mvla import model as mvla
+    from intact_tpu_torch.models.mvla.config import MVLAConfig
     from intact_tpu_torch.models.pi0.policy import Pi0Policy
     from intact_tpu_torch.parallel.mesh import Mesh
 
+    from intact_tpu_torch.models.pi0fast import model as fast
+    from intact_tpu_torch.models.pi0fast.config import Pi0FASTConfig
+    from intact_tpu_torch.parallel.sharding import Sharded
+
     mesh = Mesh(1, 1, 2, 0, dict.fromkeys(("data", "fsdp", "tensor", "batch", "model", "world")))
-    with pytest.raises(NotImplementedError, match="tensor axis"):
-        Pi0Policy(Pi0FASTConfig.tiny(), tokenizer_path="hash", device="cpu", model_module=fast, mesh=mesh)
+    with pytest.raises(NotImplementedError, match="tensor axis .* serving mvla"):
+        Pi0Policy(MVLAConfig.tiny(), tokenizer_path="hash", device="cpu", model_module=mvla, mesh=mesh)
+    policy = Pi0Policy(Pi0FASTConfig.tiny(), tokenizer_path="hash", device="cpu", model_module=fast, mesh=mesh)
+    q, k = (policy.params["vlm"]["blocks"]["attn"][n]["kernel"] for n in ("q", "k"))
+    assert isinstance(q, Sharded) and q.tensor.parts == 2 and not isinstance(k, Sharded)
 
 
 def test_rules_keep_the_tensor_axis_at_head_granularity():
