@@ -76,24 +76,28 @@ Phases, each failing loudly (non-zero exit):
              finish pass within one bf16 ulp of the row's max, two slices
              summed and finished bit-equal to w8a8_matmul on the whole rows),
              with times beside the bound, the plain versions and
-             torch._int_mm. Then the server role's Pi0PolicyWrapper from the
-             ev yaml on each rank (its tensor slices of the split leaves:
-             column-parallel q, gate, up, fc1 and patch embed, row-parallel o,
-             down and fc2, the embedding's vocabulary rows; the one K/V head
-             whole), rank 0 serving int8 at batch 64 and 1, then bf16 at 64
-             and 1, rank 1 following. Gates, per rank and inference: 17
-             flash_attention launches, all on 4 local query heads; in int8
-             1096 w8a8_matmul, 448 w8a8_partial and 448 w8a8_finish (SigLIP's
-             o and fc2, the prefill's o and down, the expert's per Euler
-             step); each rank's actions against the one-card wrapper (built
-             here first, the same weights and noise): int8 bit-equal, bf16
-             within TP_BF16_RTOL. Then, in the same two processes, two
-             expert-only micro-steps on the int8-frozen prefix at full width
-             (fp32, plain attention), held against the same steps without a
-             group on rank 0 (loss rtol 1e-4, params 1e-4 abs, the int8 codes
-             equal). Reported: each inference's time on the ranks, the
-             tensor group's collectives per inference and micro-step, the
-             card's name and power limit
+             torch._int_mm (and MVLA's expert down K / 2 at batch 64 and
+             16). Then the server role's Pi0PolicyWrapper from the ev yaml at
+             TP_PI0_DEPTH of its 18 Gemma layers (both towers) and
+             TP_PI0_VISION_DEPTH of SigLIP's 27 on each rank
+             (its tensor slices of the split leaves: column-parallel q, gate,
+             up and fc1, row-parallel o, down and fc2, the embedding's
+             vocabulary rows; the one K/V head and the patch embed whole),
+             rank 0 serving int8 at batch 64 and 1, then bf16 at 64 and 1,
+             rank 1 following. Gates, per rank and inference: the
+             flash_attention launches (3 at 4 layers, 17 at 18), all on 4
+             local query heads; in int8 234 w8a8_matmul, 94 w8a8_partial and
+             94 w8a8_finish at 4 and 4 layers (1096, 448, 448 at 27 and 18:
+             SigLIP's o and fc2, the prefill's o and down, the expert's per
+             Euler step); each rank's actions against the one-card wrapper
+             (built here first, the same weights and noise): int8 bit-equal,
+             bf16 within TP_BF16_RTOL. Then, in the same two processes, two
+             expert-only micro-steps on the int8-frozen prefix (fp32, plain
+             attention), held against the same steps without a group on rank
+             0 (loss rtol 1e-4, params 1e-4 abs, the int8 codes equal), and
+             two in bf16 with the kernel. Reported: each inference's time on
+             the ranks, the tensor group's collectives per inference and
+             micro-step, the card's name and power limit
   3e. the tensor axis for the token-decoding families: as 3d, two ranks on
              the one card over gloo, mesh (1, 1, 2). The server role's
              Pi0FAST, native SpatialVLA and native Magma wrappers from their ev
@@ -113,6 +117,26 @@ Phases, each failing loudly (non-zero exit):
              collectives, peak memory per rank and family, and the device
              time the one padding costs (Pi0FAST's decode attention on a
              rank's 4 query heads among zero ones at its 8)
+  3f. the tensor axis for MVLA: as 3d, two ranks on the one card over
+             gloo, mesh (1, 1, 2). The server role's Pi0PolicyWrapper from
+             the ev yaml with config/models/mvla_bridge.json, at phase 8's
+             depths (MVLA_VLM_DEPTH, MVLA_EXPERT_DEPTH) and full width, for
+             the self/cross expert (mvla), the joint expert (mmmvla) and the
+             DiT head (its zero-initialised modulation drawn from the seed),
+             each rank holding its tensor slices (the connector's, the
+             expert pairs' and the DiT's heads and MLPs; the cross layers'
+             one K/V head whole), rank 0 serving int8 and then bf16 at batch
+             1 and 16, rank 1 following. Gates, per rank and inference: the
+             launches of each kernel and the tensor group's all-reduces and
+             MAX all-reduces as counted from the configuration, the attention
+             kernel on 4 local query heads; actions against the one-card
+             wrapper (built here first: the same weights, requests and
+             noise): int8 bit-equal, bf16 within ACTIONS_RTOL. Then two
+             expert-only micro-steps of the self/cross model on 4 rows in
+             fp32 (plain attention) and two in bf16 (the kernel), against the
+             same steps without a group on rank 0 (as 3d's). Reported: each
+             inference's time on the ranks and in the staged collectives,
+             peak memory per rank
   4. training the 1-chip joint recipe (config/train/pi0_finetune_bridge_1chip.yaml:
              fused step, bf16 params with stochastic rounding, fp8 moments,
              batch 16, synthetic data) at full width and depth through the
@@ -234,14 +258,14 @@ Phases, each failing loudly (non-zero exit):
              seed, hash tokenizer): int8
              at batch 1 and 64 with the launches of both kernels per
              inference checked against the count from the configuration
-             (54 flash_attention and 885 w8a8_matmul at 4 and 10 layers,
+             (34 flash_attention and 641 w8a8_matmul at 4 and 6 layers,
              108 and 1471 at 18 and 18); env actions finite and
              of the right shape; the int8 actions bit-equal with only the W8A8
              product plain; then bf16 behind the same wrapper (the connector
              prompt within MVLA_PROMPT_RTOL and the actions within
              ACTIONS_RTOL of the plain-attention path); latency at batch 1
              and 64 (int8 beside bf16), peak memory and profiles; then
-             mmmvla (the joint expert, 13 attention launches at 4 and 10
+             mmmvla (the joint expert, 9 attention launches at 4 and 6
              layers, 35 at 18 and 18) in bf16 at
              batch 64, and the DiT head (action_head "dit", its zero-init
              leaves drawn from the seed) through sample_actions at batch 64,
@@ -253,8 +277,8 @@ Phases, each failing loudly (non-zero exit):
              Trainer at micro-batch 16 x 2, 2 updates, validation on one
              batch, a save at update 2 and a resume equal to it: every
              micro-step's metrics finite and its flash_attention launches
-             (13 at 4 and 10 layers: the prefill's layers, their recompute,
-             the expert's self layers; 45 at 18 and 18), 54 per validation
+             (11 at 4 and 6 layers: the prefill's layers, their recompute,
+             the expert's self layers; 45 at 18 and 18), 34 per validation
              batch (108 at 18 and 18); update time, samples/s, peak memory
              and a
              profile; one micro-step's gradient of every leaf through the
@@ -342,6 +366,7 @@ line is {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -635,6 +660,9 @@ def phase_kernels() -> list[dict]:
     timed["mvla_suffix"] = attention_case(rng, 64, 51, 51, h, kvh, d, torch.bfloat16, suffix_mask(64, 50))
     timed["mvla_joint"] = attention_case(rng, 64, 108, 108, h, kvh, d, torch.bfloat16,
                                          torch.ones((64, 108, 108), dtype=torch.bool, device="cuda"))
+    # and MVLA's prefix on one tensor rank's 4 local query heads at t = 2 (phase 3f)
+    timed["mvla_prefix_local"] = attention_case(rng, 64, 436, 436, h // 2, kvh, d, torch.bfloat16,
+                                                mvla_prefix_mask(64, rng))
     q, k, v, _ = timed["mvla_joint"]
     err = (flash_attention(q, k, v, None).float() - flash_attention_reference(q, k, v, None).float()).abs().max().item()
     log(f"# flash_attention mvla_joint without a mask: max_abs_err {err:.3e} (atol {KERNEL_ATOL})")
@@ -656,7 +684,7 @@ def phase_kernels() -> list[dict]:
         library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mt, enable_gqa=True))
         moved = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size() + mask.numel()
-        flops = 4 * h * d * int(mask.sum())  # QK^T and P.V over the live (query, key) pairs only
+        flops = 4 * q.shape[2] * d * int(mask.sum())  # QK^T and P.V over the live (query, key) pairs only
         bytes_ms, ops_ms = moved / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
         times[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bytes_ms=bytes_ms, ops_ms=ops_ms)
         log(f"# flash_attention {name} timing (B={b_}, T=S={t_}, max_abs_err {err:.3e}): kernel {ms:.4f} ms, "
@@ -682,7 +710,7 @@ def phase_kernels() -> list[dict]:
         "train_ms": times["train"]["ms"], "train_library_ms": times["train"]["library_ms"],
         **{f"{name}_{key}": (max(times[name]["bytes_ms"], times[name]["ops_ms"]) if key == "bound_ms"
                              else times[name][key])
-           for name in ("fast_serve", "fast_train", "mvla_prefix", "mvla_suffix", "mvla_joint")
+           for name in ("fast_serve", "fast_train", "mvla_prefix", "mvla_suffix", "mvla_joint", "mvla_prefix_local")
            for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
     }, phase_adam_kernel(), phase_w8a8_kernel()]
 
@@ -1709,8 +1737,37 @@ TP_BF16_GNORM_RTOL = 5e-2
 # Magma-8B's o and down (LLaMA-3, M 64 x 321) and SpatialVLA-4B's down (Gemma2, M 64 x 304)
 TP_W8A8_SHAPES = (("gemma_o_half", 20992, 1024, 2048), ("gemma_down_half", 20992, 8192, 2048),
                   ("magma_o_half", 20544, 2048, 4096), ("magma_down_half", 20544, 7168, 4096),
-                  ("svla_down_half", 19456, 4608, 2304))
+                  ("svla_down_half", 19456, 4608, 2304),
+                  # MVLA's expert down at batch 64 and 16 (M 51 suffix rows each, phase 3f)
+                  ("mvla_expert_down_half", 3264, 2048, 1024), ("mvla_expert_down_half_b16", 816, 2048, 1024))
 TP_FROZEN = ("siglip", "img_proj", "vlm", "vlm_embed")
+# Pi0's layers on the ranks and their references (SigLIP 27, Gemma 18 and 18 before phase 3f joined the script's
+# budget): the VLM and the expert run layer by layer together, so both take one depth; SigLIP's batch-64 partials
+# are most of the ranks' host staging
+TP_PI0_DEPTH = 4
+TP_PI0_VISION_DEPTH = 4
+
+
+@contextlib.contextmanager
+def pi0_depth(depth: int = TP_PI0_DEPTH, vision: int = TP_PI0_VISION_DEPTH):
+    """The pi0 type's config from its model JSON (pipeline.pi0_config_from_json)
+    with both Gemma towers cut to `depth` layers and SigLIP to `vision`,
+    restored on exit."""
+    from intact_tpu_torch.config import pipeline
+
+    real = pipeline.pi0_config_from_json
+
+    def cut(d):
+        cfg = real(d)
+        return dataclasses.replace(cfg, vlm=dataclasses.replace(cfg.vlm, depth=depth),
+                                   expert=dataclasses.replace(cfg.expert, depth=depth),
+                                   vision=dataclasses.replace(cfg.vision, depth=vision))
+
+    pipeline.pi0_config_from_json = cut
+    try:
+        yield
+    finally:
+        pipeline.pi0_config_from_json = real
 
 
 def row_parallel_bound_ms(m: int, k: int, n: int) -> tuple[float, str, float, str]:
@@ -1846,16 +1903,18 @@ def tp_batch(rng: np.random.Generator, rows: int, size: int) -> dict:
     return {"image": obs["image"], "state": np.clip(obs["state"], -1.0, 1.0), "task": list(obs["task"])}
 
 
-def tp_expert_steps(device, mesh, inputs: dict, heads: list) -> dict:
-    """Two expert-only micro-steps (one update) on the int8-frozen prefix at
-    full width in fp32 with the plain attention, then two in bf16 with the
-    attention kernel (its query heads recorded into `heads`): on the tensor
-    ranks, and on rank 0 without a group on the same weights, rows and draws.
-    -> the ranks' losses and norms and, on rank 0, one card's and whether
-    the gathered params after the fp32 update are within TP_PARAMS_ATOL,
-    with the launches of the bf16 micro-steps."""
+def tp_expert_steps(device, mesh, inputs: dict, heads: list, cfg=None) -> dict:
+    """Two expert-only micro-steps (one update) at full width in fp32 with
+    the plain attention, then two in bf16 with the attention kernel (its
+    query heads recorded into `heads`): on the tensor ranks, and on rank 0
+    without a group on the same weights, rows and draws. Pi0 (the ev yaml's
+    config) on its int8-frozen prefix, or the model config `cfg` (MVLA) on
+    its float frozen tower, as the trainer keeps it. -> the ranks' losses
+    and norms and, on rank 0, one card's and whether the gathered params
+    after the fp32 update are within TP_PARAMS_ATOL, with the launches of
+    the bf16 micro-steps."""
     from intact_tpu_torch.models import common as cm
-    from intact_tpu_torch.models.pi0 import model as pi0
+    from intact_tpu_torch.models import registry
     from intact_tpu_torch.ops import w8a8
     from intact_tpu_torch.ops.flash_attention import flash_attention
     from intact_tpu_torch.parallel.mesh import single_rank_mesh
@@ -1863,26 +1922,29 @@ def tp_expert_steps(device, mesh, inputs: dict, heads: list) -> dict:
     from intact_tpu_torch.train.optim import OptimizerConfig, make_optimizer
     from intact_tpu_torch.train.train_step import init_train_state, make_train_step
 
-    base = dataclasses.replace(ev_config(False).make_model_config(), train_expert_only=True)
+    frozen_int8 = cfg is None  # the trainer's quantize_frozen_int8 is sound for Pi0 only
+    base = dataclasses.replace(cfg or ev_config(False).make_model_config(), train_expert_only=True)
+    model = registry.module_for_config(base)
     batches = [{k: v.to(device) for k, v in b.items()} for b in inputs["train_batches"]]
     out = {}
     for name, group in (("tensor", mesh), ("one", None)):
         if name == "one" and mesh.rank != 0:
             break
         mc = dataclasses.replace(base, attention_impl="xla")
-        params = pi0.init(mc, inputs["train_seed"], device, torch.float32)
+        params = model.init(mc, inputs["train_seed"], device, torch.float32)
         mask = {k: cm.tree_map(lambda _, t=k not in TP_FROZEN: t, v) for k, v in params.items()}
-        params = cm.quantize_frozen(params, mask)
-        mask = {k: cm.tree_map(lambda _, t=k not in TP_FROZEN: t, v) for k, v in params.items()}
+        if frozen_int8:
+            params = cm.quantize_frozen(params, mask)
+            mask = {k: cm.tree_map(lambda _, t=k not in TP_FROZEN: t, v) for k, v in params.items()}
         if group is not None:
-            params = shard_tree(params, mesh, consume=True, heads=pi0.tensor_heads(mc))
+            params = shard_tree(params, mesh, consume=True, heads=model.tensor_heads(mc))
         tx, _ = make_optimizer(OptimizerConfig(**TP_TRAIN_OPT), mask, mesh=mesh if group is not None else
                                single_rank_mesh())
         state = init_train_state(params, tx, seed=0)
         res = {"losses": [], "norms": [], "partial": sorted(tx.partial)}
         for precision, impl, policy in (("fp32", "xla", cm.FP32_POLICY), ("bf16", "pallas", cm.DEFAULT_POLICY)):
             mc = dataclasses.replace(base, attention_impl=impl)
-            step = make_train_step(lambda p, r, b, n, t, mc=mc, policy=policy: pi0.compute_loss(
+            step = make_train_step(lambda p, r, b, n, t, mc=mc, policy=policy: model.compute_loss(
                 p, r, b, mc, policy, noise=n, time=t), tx)
             heads.clear()
             before = (flash_attention.launches, w8a8.w8a8_matmul.launches, w8a8.w8a8_partial.launches,
@@ -1922,6 +1984,7 @@ def tp_expert_steps(device, mesh, inputs: dict, heads: list) -> dict:
     return result
 
 
+@pi0_depth()
 def tp_rank(rank: int, world: int, port: int, workdir: str) -> None:
     """One of the phase's two ranks: a gloo group over the card's tensors
     (NCCL refuses two ranks of one device), mesh (1, 1, 2); the server role's
@@ -2014,12 +2077,14 @@ def _tensor_split(params):
     return (k for k, v in cm.flatten_paths(params).items() if isinstance(v, Sharded) and v.tensor is not None)
 
 
+@pi0_depth()
 def phase_tensor_parallel() -> tuple[dict, dict]:
     """-> ({kernel: launches} on the two ranks' serving and training, summed
     over the ranks; the kernels line's entries of the row-parallel W8A8
     entry). The one-card references (the server role's int8 and bf16
-    wrappers without a group, as phase 3b builds them) run here first; the
-    two ranks then run in processes of their own on the same card."""
+    wrappers without a group, as phase 3b builds them, at TP_PI0_DEPTH) run
+    here first; the two ranks then run in processes of their own on the same
+    card."""
     import shutil
     import socket
 
@@ -2144,13 +2209,24 @@ def tp_gates(ranks: list, refs: dict, mc, card: str) -> dict:
         ok = ok and train["heads_bf16"] == [local_heads] and bool(np.isfinite(train["losses"] + sum(train["norms"], [])).all())
         if not ok:
             raise SystemExit(f"tensor parallel rank {r}: the expert-only micro-steps failed")
+    tp_steps_against_one_card(ranks, "tensor parallel")
+    return totals
+
+
+def tp_steps_against_one_card(ranks: list, label: str) -> None:
+    """The gates of the ranks' expert-only micro-steps (tp_expert_steps)
+    against the same steps on one card without a group: the fp32 losses
+    and norms within TP_LOSS_RTOL / TP_NORM_RTOL and the params after the
+    update within TP_PARAMS_ATOL (the int8 codes, where the tower is int8,
+    equal); the bf16 ones within TP_BF16_LOSS_RTOL / TP_BF16_GNORM_RTOL; the
+    two ranks' losses equal."""
     lead = ranks[0]["train"]
     got, one = np.array(lead["norms"]), np.array(lead["one_norms"])
     loss_ok = np.allclose(lead["losses"][:2], lead["one_losses"][:2], rtol=TP_LOSS_RTOL, atol=0)
     norms_ok = np.allclose(got[:2], one[:2], rtol=TP_NORM_RTOL, atol=0)
     bf16_ok = np.allclose(lead["losses"][2:], lead["one_losses"][2:], rtol=TP_BF16_LOSS_RTOL, atol=0)
     bf16_ok = bf16_ok and np.allclose(got[2:], one[2:], rtol=TP_BF16_GNORM_RTOL, atol=0)
-    log(f"# tensor parallel expert-only against one card without a group: fp32 losses {lead['one_losses'][:2]} "
+    log(f"# {label} expert-only against one card without a group: fp32 losses {lead['one_losses'][:2]} "
         f"(rtol {TP_LOSS_RTOL}: {loss_ok}), [grad_norm, param_norm] {lead['one_norms'][:2]} (rtol {TP_NORM_RTOL}: "
         f"{norms_ok}; max rel {np.abs(got[:2] / one[:2] - 1).max():.3e}), {lead['n_trainable']} trainable leaves max abs "
         f"diff {lead['params_max_abs']:.3e} (atol {TP_PARAMS_ATOL}), int8 codes equal {lead['codes_equal']}; bf16 "
@@ -2160,10 +2236,9 @@ def tp_gates(ranks: list, refs: dict, mc, card: str) -> dict:
         f"rtol {TP_BF16_GNORM_RTOL}): {bf16_ok}; one card's launches fp32 {lead['one_launches']} bf16 "
         f"{lead['one_launches_bf16']}")
     if not (loss_ok and norms_ok and bf16_ok and lead["params_max_abs"] <= TP_PARAMS_ATOL and lead["codes_equal"]):
-        raise SystemExit("tensor parallel: the expert-only micro-steps disagree with one card's")
+        raise SystemExit(f"{label}: the expert-only micro-steps disagree with one card's")
     if ranks[1]["train"]["losses"] != lead["losses"]:
-        raise SystemExit("tensor parallel: the two ranks' losses differ")
-    return totals
+        raise SystemExit(f"{label}: the two ranks' losses differ")
 
 
 # ---------------------------------------------------------------------------
@@ -2190,7 +2265,8 @@ def tpa_config(family: str, quantize: bool):
 
 class cut_depths:
     """Registry types' default configs with a tower cut to a depth, as
-    ((type, tower, depth), ...), restored on exit: the script's full-width
+    ((type, tower, depth), ...), or with top-level fields replaced, as
+    (type, None, {field: value}), restored on exit: the script's full-width
     models at the depths its time limit allows."""
 
     def __init__(self, *cuts):
@@ -2205,7 +2281,7 @@ class cut_depths:
             full = entry["default_config"]  # a second cut of a type applies over the first
             self.saved.setdefault(name, full)
             entry["default_config"] = lambda full=full, tower=tower, depth=depth: dataclasses.replace(
-                full(), **{tower: dataclasses.replace(getattr(full(), tower), depth=depth)})
+                full(), **({tower: dataclasses.replace(getattr(full(), tower), depth=depth)} if tower else depth))
         return self
 
     def __exit__(self, *exc):
@@ -2509,6 +2585,318 @@ def tpa_gates(ranks: list, refs: dict, requests: dict, bf16: dict, card: str, ra
             f"{ {(x['family'], 'int8' if x['quantize'] else 'bf16'): x['split'] for x in res['runs']} }")
     log(f"# tensor parallel AR: the staged collectives took {staged:.1f} s of the ranks' inferences over both ranks; "
         f"the ranks' processes {ranks_s:.1f} s")
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# 3f. the tensor axis for MVLA (two ranks on one card)
+# ---------------------------------------------------------------------------
+
+TPM_DIR = Path(".chip_smoke_tp_mvla")  # the phase's inputs and each rank's results (git-ignored), removed after it
+TPM_CASES = ("mvla", "mmmvla", "dit")  # the self/cross expert, the joint expert, the DiT head
+TPM_ROWS = (1, 16)  # rows of each fused device call, as phase 3e's
+TPM_JOIN_S = 900.0  # the two ranks' limit, then the phase fails and kills them
+TPM_TRAIN_ROWS = 4
+
+
+def tpm_wrapper(case: str, quantize: bool, device, mesh=None):
+    """The server role's Pi0PolicyWrapper of a case from the ev yaml with
+    MVLA_JSON: the mvla or mmmvla type, or the DiT head (the mvla type with
+    action_head "dit"), whose adaLN-Zero modulation and output projection
+    start at 0 (the blocks would not reach the actions) and are drawn from
+    the seed here, on every rank alike: they are whole on each."""
+    from intact_tpu_torch.models import common as cm
+    from intact_tpu_torch.serve.policy_wrapper import make_policy_wrapper
+
+    cfg = ev_config(quantize, model_cfg=mvla_model_cfg("mmmvla" if case == "mmmvla" else "mvla"))
+    with cut_depths(("mvla", None, {"action_head": "dit"})) if case == "dit" else contextlib.nullcontext():
+        wrapper = make_policy_wrapper(cfg, device=device, mesh=mesh)
+    if case == "dit":
+        gen = torch.Generator(device=device).manual_seed(SERVING_SEED + 1)
+        flat = cm.flatten_paths(wrapper.policy.params["dit"])
+        for path in sorted(p for p in flat if p.startswith(("blocks/ada/", "final/"))):
+            flat[path].copy_(torch.randn(flat[path].shape, generator=gen, device=device) * 0.02)
+    return wrapper
+
+
+def tpm_padding_cost(card: str) -> None:
+    """What the cross attention's zero heads cost: a rank's 4 of the
+    expert's 8 query heads over the prompt's one K/V head run among zero
+    ones at one card's 8 (`tensor_parallel.whole_groups`). Times that plain
+    attention over the 108 prompt keys on the padded 8 heads and on the
+    rank's 4 alone, per layer and per inference (cross layers x Euler
+    steps), and reports whether the 4 alone give the padded run's output
+    bit for bit at these shapes."""
+    from intact_tpu_torch.models.mvla.config import MVLAConfig
+    from intact_tpu_torch.ops.attention import xla_attention
+    from intact_tpu_torch.parallel import tensor as tensor_parallel
+
+    with mvla_depths():
+        mc = ev_config(False, model_cfg=mvla_model_cfg()).make_model_config()
+    e, rows, keys = mc.expert, 1 + mc.chunk_size, mc.num_metaqueries
+    whole_pairs = MVLAConfig().expert.depth // 2  # the whole expert's cross layers
+    rank0 = tensor_parallel.TensorParallel(None, 2, 0)
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    for b in TPM_ROWS[::-1]:
+        k, v = (torch.randn(b, keys, e.num_kv_heads, e.head_dim, generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        q = torch.randn(b, rows, e.num_heads // 2, e.head_dim, generator=gen, device="cuda").to(torch.bfloat16)
+        padded, own = tensor_parallel.whole_groups(q, rank0, e.num_heads, e.num_kv_heads)
+        same = torch.equal(xla_attention(padded, k, v, None, e.head_dim**-0.5)[:, :, own],
+                           xla_attention(q, k, v, None, e.head_dim**-0.5))
+        dev = {n: device_ms(lambda x=x: xla_attention(x, k, v, None, e.head_dim**-0.5), reps=20)
+               for n, x in ((padded.shape[2], padded), (q.shape[2], q))}
+        (full, dev_full), (half, dev_half) = dev.items()
+        extra = dev_full - dev_half
+        log(f"# tensor parallel MVLA padding ({card}): the cross attention at batch {b}, {rows} query rows over "
+            f"{keys} prompt keys, per layer: {full} heads (a rank's {half} among zero ones, as it runs) "
+            f"{dev_full:.4f} ms of device, {half} alone {dev_half:.4f} ms (bit-equal to the padded run's heads: "
+            f"{same}); the zero heads per inference: {extra * (e.depth // 2) * mc.num_steps:.3f} ms at the "
+            f"{e.depth // 2} cross layers served here, {extra * whole_pairs * mc.num_steps:.3f} ms at {whole_pairs} "
+            f"({mc.num_steps} Euler steps)")
+
+
+def ddim_steps(mc) -> int:
+    """The DDIM sampler's steps (models/diffusion.py::ddim_sample's respacing)."""
+    return len(range(mc.diffusion_steps - 1, -1, -max(mc.diffusion_steps // mc.num_steps, 1)))
+
+
+def tpm_expected(mc, quantize: bool) -> tuple[dict, dict]:
+    """(kernel launches, tensor collectives) of one inference on a rank at
+    tensor 2, from the configuration, every tower's heads and MLP split.
+    Row-parallel products: SigLIP's o and fc2, the VLM prefill's, the
+    connector's, the expert's and the DiT's o and down/fc2, each one
+    all-reduce and, in int8, w8a8_partial, w8a8_finish and one MAX
+    all-reduce of its row absmax; the other W8A8 products run w8a8_matmul on
+    the rank's columns (q, gate, up, fc1; the connector's and the DiT's k
+    and v) or whole (the one-head K/V, img_proj). One all-reduce more: the
+    embedding's vocabulary-parallel lookup. The attention kernel: every VLM
+    layer, then the self layers of every Euler step (self/cross), the joint
+    expert's kv_only prompt prefill, or nothing (the DiT's attention is
+    plain)."""
+    e, steps = mc.expert, mc.num_steps
+    column = mc.vision.depth * 4 + 1 + mc.vlm.depth * 5 + mc.connector.depth * 5
+    row = 2 * (mc.vision.depth + mc.vlm.depth + mc.connector.depth)
+    flash = mc.vlm.depth
+    if mc.action_head == "dit":
+        column += ddim_steps(mc) * mc.dit_depth * 4
+        row += ddim_steps(mc) * mc.dit_depth * 2
+    elif mc.alternate_pattern == "joint":
+        column += (e.depth - 1) * 5 + 2 + steps * e.depth * 5
+        row += (e.depth - 1) * 2 + steps * e.depth * 2
+        flash += e.depth - 1
+    else:
+        pairs = e.depth // 2
+        column += 2 * pairs + steps * pairs * (5 + 3)
+        row += steps * pairs * (2 + 2)
+        flash += steps * pairs
+    launches = {"flash_attention": flash, "w8a8_matmul": column if quantize else 0,
+                "w8a8_partial": row if quantize else 0, "w8a8_finish": row if quantize else 0}
+    return launches, {"tensor_all_reduce": row + 1, "tensor_all_reduce_max": row if quantize else 0}
+
+
+def tpm_rank(rank: int, world: int, port: int, workdir: str) -> None:
+    """One of the phase's two ranks: a gloo group over the card's tensors,
+    mesh (1, 1, 2); for each case the server role's int8 and then bf16
+    wrapper (rank 0 serves TPM_ROWS, rank 1 follows), each call's actions on
+    this rank, its launches, the query heads of its attention launches, its
+    tensor collectives and staged seconds; then the expert-only micro-steps.
+    Writes workdir/rank{r}.pt."""
+    import os
+
+    from intact_tpu_torch.ops import attention, w8a8
+    from intact_tpu_torch.ops.flash_attention import flash_attention
+    from intact_tpu_torch.parallel import MeshConfig, collectives, distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    workdir = Path(workdir)
+    inputs = torch.load(workdir / "inputs.pt", weights_only=False)
+    device = distributed.initialize(DEVICE, backend="gloo")
+    mesh = make_mesh(MeshConfig(1, 1, world))
+    kernels = {"flash_attention": flash_attention, "w8a8_matmul": w8a8.w8a8_matmul,
+               "w8a8_partial": w8a8.w8a8_partial, "w8a8_finish": w8a8.w8a8_finish}
+    heads: list = []
+    real_flash, real_host, staged_s = attention.flash_attention, collectives._on_host, [0.0]
+
+    def counted_flash(q, *args, **kw):  # the query heads of every launch on the path
+        heads.append(q.shape[2])
+        return real_flash(q, *args, **kw)
+
+    def timed_host(*args):  # the staged collectives' seconds (the host copies and gloo's reduction)
+        t = time.perf_counter()
+        real_host(*args)
+        staged_s[0] += time.perf_counter() - t
+
+    timed_host.calls = 0
+    attention.flash_attention, collectives._on_host = counted_flash, timed_host
+    result = {"backend": distributed.backend(), "mesh": mesh.shape, "runs": []}
+    try:
+        with mvla_depths():
+            for case in TPM_CASES:
+                for quantize in (True, False):
+                    wrapper = tpm_wrapper(case, quantize, device, mesh)
+                    policy = wrapper.policy
+                    real_rows, calls = policy._sample_rows, []
+
+                    def rows(*arrays, real_rows=real_rows, calls=calls):  # the rows' arrays, then the noise
+                        heads.clear()
+                        before = {k: c.launches for k, c in kernels.items()}
+                        c0, s0 = collectives.counts(), staged_s[0]
+                        torch.cuda.synchronize()
+                        t = time.perf_counter()
+                        out = real_rows(*arrays)
+                        torch.cuda.synchronize()
+                        calls.append({"out": out.float().cpu(), "seconds": time.perf_counter() - t,
+                                      "staged_s": staged_s[0] - s0, "heads": sorted(set(heads)),
+                                      "launches": {k: c.launches - before[k] for k, c in kernels.items()},
+                                      "collectives": {k: v - c0[k] for k, v in collectives.counts().items()
+                                                      if v - c0[k]}})
+                        return out
+
+                    policy._sample_rows = rows
+                    wrapper.group.on("sample", rows)
+                    if rank == 0:
+                        for n in TPM_ROWS:
+                            wrapper.sample_action_chunk(inputs["batches"][n])
+                        wrapper.group.stop()
+                    else:
+                        wrapper.group.follow()
+                    result["runs"].append({"case": case, "quantize": quantize, "calls": calls,
+                                           "split": sum(1 for _ in _tensor_split(policy.params))})
+                    del wrapper, policy, real_rows
+                    gc.collect()
+                    torch.cuda.empty_cache()
+            result["serving_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            collectives.reset()
+            mc = ev_config(False, model_cfg=mvla_model_cfg()).make_model_config()
+            result["train"] = tp_expert_steps(device, mesh, inputs, heads, cfg=mc)
+            result["train"]["collectives"] = {k: v for k, v in collectives.counts().items() if v}
+            result["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        attention.flash_attention, collectives._on_host = real_flash, real_host
+        torch.save(result, workdir / f"rank{rank}.pt")
+        distributed.destroy()
+
+
+def phase_tensor_parallel_mvla() -> dict:
+    """-> {kernel: launches} of MVLA served (the self/cross expert, the joint
+    expert, the DiT head) and trained expert-only at tensor 2 by two ranks on
+    the one card (gloo, every collective staged through the host), summed
+    over the ranks, at phase 8's depths. The one-card references (each
+    case's int8 and bf16 wrapper without a group, the same seed, requests
+    and call order, so the same noise) run here first."""
+    import shutil
+    import socket
+
+    import torch.multiprocessing as mp
+
+    card = gpu_name_and_power()
+    tpm_padding_cost(card)
+    shutil.rmtree(TPM_DIR, ignore_errors=True)
+    TPM_DIR.mkdir(parents=True)
+    refs, mcs = {}, {}
+    try:
+        with mvla_depths():
+            mc = ev_config(False, model_cfg=mvla_model_cfg()).make_model_config()
+            batches = {n: tp_batch(np.random.default_rng(50 + n), n, mc.vision.image_size) for n in TPM_ROWS}
+            for case in TPM_CASES:
+                for quantize in (True, False):
+                    wrapper = tpm_wrapper(case, quantize, DEVICE)
+                    mcs[case] = wrapper.model_cfg
+                    for n in TPM_ROWS:
+                        t = time.perf_counter()
+                        refs[case, quantize, n] = torch.from_numpy(wrapper.sample_action_chunk(batches[n]))
+                        log(f"# tensor parallel MVLA: one-card reference {case} {'int8' if quantize else 'bf16'} batch "
+                            f"{n}: {(time.perf_counter() - t) * 1e3:.2f} ms")
+                    del wrapper
+                    gc.collect()
+                    torch.cuda.empty_cache()
+            rng = np.random.default_rng(51)
+            torch.save({"batches": batches, "train_seed": 5,
+                        "train_batches": [{k: torch.from_numpy(np.asarray(v)) for k, v in
+                                           make_train_batch(rng, mc, TPM_TRAIN_ROWS).items()} for _ in range(2)],
+                        "train_noise": [torch.from_numpy(rng.standard_normal((TPM_TRAIN_ROWS, mc.chunk_size,
+                                                                              mc.max_action_dim), dtype=np.float32))
+                                        for _ in range(2)],
+                        "train_time": [torch.from_numpy(rng.uniform(0.1, 0.9, TPM_TRAIN_ROWS).astype(np.float32))
+                                       for _ in range(2)]}, TPM_DIR / "inputs.pt")
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            t0 = time.perf_counter()
+            ctx = mp.start_processes(tpm_rank, args=(2, port, str(TPM_DIR)), nprocs=2, join=False, start_method="spawn")
+            deadline = time.monotonic() + TPM_JOIN_S
+            while not ctx.join(timeout=max(0.5, deadline - time.monotonic())):
+                if time.monotonic() >= deadline:
+                    for p in ctx.processes:
+                        p.kill()
+                    raise SystemExit(f"the tensor-parallel MVLA ranks did not finish within {TPM_JOIN_S:.0f} s")
+            ranks_s = time.perf_counter() - t0
+            log(f"# tensor parallel MVLA: the two ranks ran in {ranks_s:.1f} s")
+            ranks = [torch.load(TPM_DIR / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    finally:
+        shutil.rmtree(TPM_DIR, ignore_errors=True)
+    return tpm_gates(ranks, refs, mcs, card, ranks_s)
+
+
+def tpm_gates(ranks: list, refs: dict, mcs: dict, card: str, ranks_s: float) -> dict:
+    """The phase's gates over the two ranks' results -> the path's launches."""
+    totals = dict.fromkeys(("flash_attention", "w8a8_matmul", "w8a8_partial", "w8a8_finish"), 0)
+    local_heads = mcs["mvla"].vlm.num_heads // 2
+    staged = 0.0
+    for r, res in enumerate(ranks):
+        if res["backend"] != "gloo" or res["mesh"] != {"data": 1, "fsdp": 1, "tensor": 2}:
+            raise SystemExit(f"tensor parallel MVLA rank {r}: group {res['backend']} mesh {res['mesh']}")
+        for run in res["runs"]:
+            case, q = run["case"], run["quantize"]
+            label = f"rank {r} {case} {'int8' if q else 'bf16'}"
+            if len(run["calls"]) != len(TPM_ROWS):
+                raise SystemExit(f"tensor parallel MVLA {label}: {len(run['calls'])} inferences, not {len(TPM_ROWS)}")
+            want, coll = tpm_expected(mcs[case], q)
+            for call, n in zip(run["calls"], TPM_ROWS):
+                ref, got = refs[case, q, n], call["out"]
+                same = got.shape == ref.shape and torch.equal(got, ref)
+                rel = rel_l2(got, ref) if got.shape == ref.shape else float("inf")
+                tensor_coll = {k: call["collectives"].get(k, 0) for k in coll}
+                staged += call["staged_s"]
+                want_heads = [local_heads] if want["flash_attention"] else []
+                log(f"# tensor parallel MVLA {label} batch {n} ({card}): {call['seconds'] * 1e3:.2f} ms on the rank "
+                    f"({call['staged_s'] * 1e3:.2f} ms in staged collectives), launches {call['launches']} (expected "
+                    f"{want}), attention on {call['heads']} local heads (expected {want_heads}), tensor collectives "
+                    f"{tensor_coll} (expected {coll}; all {call['collectives']}), actions vs the one-card wrapper: "
+                    f"bit-equal {same}, rel L2 {rel:.3e} (bf16 gate {ACTIONS_RTOL})")
+                ok = call["launches"] == want and tensor_coll == coll and call["heads"] == want_heads
+                ok = ok and bool(torch.isfinite(got).all()) and (same if q else rel <= ACTIONS_RTOL)
+                if not ok:
+                    raise SystemExit(f"tensor parallel MVLA {label} batch {n}: the gates failed")
+                for k in totals:
+                    totals[k] += call["launches"][k]
+        train = res["train"]
+        mc = mcs["mvla"]
+        want_flash = 2 * (2 * mc.vlm.depth + mc.expert.depth // 2)
+        log(f"# tensor parallel MVLA rank {r} expert-only micro-steps (2 fp32 with the plain attention, then 2 bf16 "
+            f"with the kernel): losses {train['losses']}, [grad_norm, param_norm] {train['norms']}, launches "
+            f"(flash_attention, w8a8_matmul, w8a8_partial, w8a8_finish) fp32 {train['launches_fp32']} bf16 "
+            f"{train['launches_bf16']} (flash_attention expected {want_flash}: each micro-step's VLM layers twice, "
+            f"the checkpointed prefill's forward and recompute, and the expert's self layers), the kernel on "
+            f"{train['heads_bf16']} local heads, collectives {train['collectives']}, summed over tensor "
+            f"{train['partial']}; peak {res['serving_peak_gib']:.2f} GiB serving, {res['peak_gib']:.2f} GiB with "
+            f"training")
+        for launches in (train["launches_fp32"], train["launches_bf16"]):
+            for k, n in zip(("flash_attention", "w8a8_matmul", "w8a8_partial", "w8a8_finish"), launches):
+                totals[k] += n
+        ok = train["launches_fp32"] == [0, 0, 0, 0] and train["launches_bf16"] == [want_flash, 0, 0, 0]
+        finite = bool(np.isfinite(train["losses"] + sum(train["norms"], [])).all())
+        ok = ok and train["heads_bf16"] == [local_heads] and finite
+        ok = ok and {"connector/blocks/attn/q_norm/scale", "expert/pairs/cross/attn/k/kernel"} <= set(train["partial"])
+        if not ok:
+            raise SystemExit(f"tensor parallel MVLA rank {r}: the expert-only micro-steps failed")
+    tp_steps_against_one_card(ranks, "tensor parallel MVLA")
+    log(f"# tensor parallel MVLA: the staged collectives took {staged:.1f} s of the ranks' inferences over both "
+        f"ranks; the ranks' processes {ranks_s:.1f} s")
     return totals
 
 
@@ -3817,8 +4205,8 @@ FAST_LOGITS_RTOL = 5e-2
 FAST_MARGIN = 0.1
 FAST_TIMING_REPS = 3  # timed inferences per wrapper and batch (5 before phase 5b joined the script's budget)
 # Gemma layers of the served Pi0FAST (18 before phase 5b joined the script's budget, 9 before phase 3d joined
-# it): the launches and every gate follow the configuration
-FAST_SERVING_DEPTH = 4
+# it, 4 before phase 3f): the launches and every gate follow the configuration
+FAST_SERVING_DEPTH = 2
 
 
 def w8a8_per_fast_inference(cfg) -> int:
@@ -4195,11 +4583,17 @@ MVLA_JSON = "config/models/mvla_bridge.json"
 # connector layers) through the attention kernel against through the plain
 # attention, in bf16: relative L2
 MVLA_PROMPT_RTOL = 5e-2
-# VLM and expert layers of the served and trained MVLA (18 and 18 before phase 3e joined the script's budget): the
-# VLM is independent of the expert's depth (the expert reads the connector's prompt), the expert runs self/cross
-# pairs (an even depth), and the launches and every gate follow the configuration
+# VLM and expert layers of the served and trained MVLA (18 and 18 before phase 3e joined the script's budget, the
+# expert 10 before phase 3f): the VLM is independent of the expert's depth (the expert reads the connector's
+# prompt), the expert runs self/cross pairs (an even depth), and the launches and every gate follow the configuration
 MVLA_VLM_DEPTH = 4
-MVLA_EXPERT_DEPTH = 10
+MVLA_EXPERT_DEPTH = 6
+
+
+def mvla_depths() -> cut_depths:
+    """MVLA and mmmvla at the depths the script serves them."""
+    return cut_depths(("mvla", "vlm", MVLA_VLM_DEPTH), ("mmmvla", "vlm", MVLA_VLM_DEPTH),
+                      ("mvla", "expert", MVLA_EXPERT_DEPTH), ("mmmvla", "expert", MVLA_EXPERT_DEPTH))
 
 
 def mvla_model_cfg(model_type: str = "mvla") -> dict:
@@ -4280,8 +4674,7 @@ def phase_mvla_serving() -> dict:
     """-> {kernel: launches} on MVLA's serving paths (int8 mvla, bf16
     mmmvla, the DiT head), each path's counts set to 0 just before it, at
     MVLA_VLM_DEPTH VLM and MVLA_EXPERT_DEPTH expert layers."""
-    with cut_depths(("mvla", "vlm", MVLA_VLM_DEPTH), ("mmmvla", "vlm", MVLA_VLM_DEPTH),
-                    ("mvla", "expert", MVLA_EXPERT_DEPTH), ("mmmvla", "expert", MVLA_EXPERT_DEPTH)):
+    with mvla_depths():
         return mvla_serving()
 
 
@@ -5644,6 +6037,7 @@ def main() -> int:
     tensor_parallel, tp_kernels = run(phase_tensor_parallel)
     kernels.update(tp_kernels)
     tensor_parallel_ar = run(phase_tensor_parallel_ar)
+    tensor_parallel_mvla = run(phase_tensor_parallel_mvla)
     training = run(phase_training)
     run(phase_rlds_data)
     standard = run(phase_standard_training)
@@ -5658,6 +6052,7 @@ def main() -> int:
     client = run(phase_client)
     paths = {"serving": {"flash_attention": serving}, "int8": int8, "group_serving": group_serving,
              "tensor_parallel": tensor_parallel, "tensor_parallel_ar": tensor_parallel_ar,
+             "tensor_parallel_mvla": tensor_parallel_mvla,
              "training": training, "standard": standard,
              "multirank": multirank, "fast_serving": fast_serving, "fast_training": fast_training, "mvla_serving": mvla_serving,
              "mvla_training": mvla_training, "svla_serving": svla_serving, "magma_serving": magma_serving,
@@ -5678,7 +6073,9 @@ def main() -> int:
         f"{int8['w8a8_matmul']} int8 serving + {group_serving['w8a8_matmul']} int8 group serving + "
         f"{tensor_parallel['w8a8_matmul']} on the two tensor ranks (with w8a8_partial "
         f"{tensor_parallel['w8a8_partial']} and w8a8_finish {tensor_parallel['w8a8_finish']}; flash_attention "
-        f"{tensor_parallel['flash_attention']} on local heads) + "
+        f"{tensor_parallel['flash_attention']} on local heads) + {tensor_parallel_mvla['w8a8_matmul']} MVLA on the "
+        f"two tensor ranks (w8a8_partial {tensor_parallel_mvla['w8a8_partial']}, w8a8_finish "
+        f"{tensor_parallel_mvla['w8a8_finish']}, flash_attention {tensor_parallel_mvla['flash_attention']}) + "
         f"{standard['w8a8_matmul']} expert-only training + "
         f"{multirank['w8a8_matmul']} multi-card expert-only + "
         f"{fast_serving['w8a8_matmul']} Pi0FAST int8 serving + {mvla_serving['w8a8_matmul']} MVLA int8 serving; "

@@ -4,6 +4,14 @@ A non-causal encoder with RMSNorm, per-head QK RMSNorm, a gated MLP and
 optional RoPE that maps the VLM's metaquery outputs into the action expert's
 prompt space. Layers are stacked [L, ...] and run one at a time. Its
 attention is the plain path (no mask), as in the reference.
+
+Over tensor ranks (Megatron-style, parallel/tensor.py): where the heads
+split, q, k and v are column-parallel, the per-head q/k norms act on the
+rank's heads (their scales replicated, each rank's gradient its heads'
+part), the attention runs the rank's heads (multi-head: they fill whole
+groups) and o is row-parallel; gate and up column-, down row-parallel
+(`cm.gemma_mlp`). in_proj and out_proj stay whole on every rank. The tower
+finds its tensor group in its parameters.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ from intact_tpu_torch.models import common as cm
 from intact_tpu_torch.models.common import DEFAULT_POLICY, DtypePolicy
 from intact_tpu_torch.ops.attention import multi_head_attention
 from intact_tpu_torch.ops.rope import apply_rope
+from intact_tpu_torch.parallel import tensor as tensor_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,21 +79,22 @@ def apply(params: cm.Params, x: torch.Tensor, cfg: ConnectorConfig,
     b, n, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
     positions = torch.arange(n, device=x.device)[None].expand(b, n)
+    tp = tensor_parallel.of(params["blocks"])
     for i in range(cfg.depth):
         bp = cm.layer(params["blocks"], i)
-        y = cm.rms_norm(bp["ln1"], x, cfg.norm_eps)
-        q = cm.dense(bp["attn"]["q"], y, policy).reshape(b, n, h, hd)
-        k = cm.dense(bp["attn"]["k"], y, policy).reshape(b, n, h, hd)
-        v = cm.dense(bp["attn"]["v"], y, policy).reshape(b, n, h, hd)
+        attn, mlp = bp["attn"], bp["mlp"]
+        tpa = tensor_parallel.region(tp, attn["q"], h * hd)
+        y = tensor_parallel.copy_in(cm.rms_norm(bp["ln1"], x, cfg.norm_eps), tpa)
+        q, k, v = (cm.dense_column(attn[name], y, policy, tpa).reshape(b, n, -1, hd) for name in ("q", "k", "v"))
         if cfg.qk_norm:
-            q = cm.rms_norm(bp["attn"]["q_norm"], q, cfg.norm_eps)
-            k = cm.rms_norm(bp["attn"]["k_norm"], k, cfg.norm_eps)
+            q = cm.rms_norm(attn["q_norm"], q, cfg.norm_eps)
+            k = cm.rms_norm(attn["k_norm"], k, cfg.norm_eps)
         if cfg.use_rope:
             q = apply_rope(q, positions)
             k = apply_rope(k, positions)
         att = multi_head_attention(q, k, v, mask=None)
-        x = x + cm.dense(bp["attn"]["o"], att.reshape(b, n, h * hd), policy)
+        x = x + cm.dense_row(attn["o"], att.reshape(b, n, -1), policy, tpa)
         y = cm.rms_norm(bp["ln2"], x, cfg.norm_eps)
-        x = x + cm.gemma_mlp(bp["mlp"], y, policy)
+        x = x + cm.gemma_mlp(mlp, y, policy, tensor_parallel.region(tp, mlp["gate"], cfg.mlp_dim))
     x = cm.rms_norm(params["final_norm"], x, cfg.norm_eps)
     return cm.dense(params["out_proj"], x, policy)

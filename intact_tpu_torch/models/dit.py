@@ -4,6 +4,14 @@ Noisy action tokens are denoised by transformer blocks whose layernorm
 shift, scale and gate come from an MLP over the timestep embedding plus the
 condition embedding: MVLA's alternative action decoder, driven through
 models/diffusion.py. Its attention is the plain path (no mask).
+
+Over tensor ranks (Megatron-style, parallel/tensor.py): where the heads
+split, q, k and v are column-parallel (their replicated biases sliced with
+the columns), the attention runs the rank's heads and o is row-parallel (the
+whole bias added once after the sum); the MLP's fc1 column- and fc2
+row-parallel (`cm.gelu_mlp`). The modulation (`ada`, `final`) and the
+embeddings stay whole: every rank computes the same. The tower finds its
+tensor group in its parameters.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ from intact_tpu_torch.models import common as cm
 from intact_tpu_torch.models.common import DEFAULT_POLICY, FP32_POLICY, DtypePolicy
 from intact_tpu_torch.models.diffusion import timestep_embedding
 from intact_tpu_torch.ops.attention import multi_head_attention
+from intact_tpu_torch.parallel import tensor as tensor_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,18 +89,19 @@ def apply(params: cm.Params, x_t: torch.Tensor, t_int: torch.Tensor, cond: torch
                      policy)
     c = F.silu(t_emb + cm.dense(params["cond_proj"], policy.cast(cond), policy))
 
+    tp = tensor_parallel.of(params["blocks"])
     for i in range(cfg.depth):
         bp = cm.layer(params["blocks"], i)
+        attn, mlp = bp["attn"], bp["mlp"]
         sh1, sc1, g1, sh2, sc2, g2 = cm.dense(bp["ada"], c, policy).chunk(6, dim=-1)
         n = x.shape[1]
-        y = _modulate(_ln(x), sh1, sc1)
-        q = cm.dense(bp["attn"]["q"], y, policy).reshape(b, n, h, hd)
-        k = cm.dense(bp["attn"]["k"], y, policy).reshape(b, n, h, hd)
-        v = cm.dense(bp["attn"]["v"], y, policy).reshape(b, n, h, hd)
+        tpa = tensor_parallel.region(tp, attn["q"], d)
+        y = tensor_parallel.copy_in(_modulate(_ln(x), sh1, sc1), tpa)
+        q, k, v = (cm.dense_column(attn[name], y, policy, tpa).reshape(b, n, -1, hd) for name in ("q", "k", "v"))
         att = multi_head_attention(q, k, v, mask=None)
-        x = x + g1[:, None, :] * cm.dense(bp["attn"]["o"], att.reshape(b, n, d), policy)
+        x = x + g1[:, None, :] * cm.dense_row(attn["o"], att.reshape(b, n, -1), policy, tpa)
         y = _modulate(_ln(x), sh2, sc2)
-        x = x + g2[:, None, :] * cm.gelu_mlp(bp["mlp"], y, policy)
+        x = x + g2[:, None, :] * cm.gelu_mlp(mlp, y, policy, tensor_parallel.region(tp, mlp["fc1"], d * cfg.mlp_ratio))
 
     sh, sc = cm.dense(params["final"]["ada"], c, policy).chunk(2, dim=-1)
     x = _modulate(_ln(x), sh, sc)

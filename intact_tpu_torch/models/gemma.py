@@ -16,15 +16,15 @@ hand-written CUDA kernel for "pallas" (with the plain backward where a
 gradient is required); decode's split-cache attention and the suffix-only last
 layer of the joint pass stay on the plain path.
 
-Over tensor ranks (Megatron-style, parallel/tensor.py; Pi0 at mesh.tensor >
-1) each rank runs its local query heads: q, gate and up are column-parallel
-(their inputs through `copy_in`), o and down row-parallel (their partials
-all-reduced), and the attention takes the rank's H / t heads against the K/V
-head. Pi0's one K/V head does not split: k and v are computed whole on every
-tensor rank (their kernels replicated, their gradient summed over tensor by
-the optimizer). Each entry point finds its tensor group in its parameters
-(`tensor_parallel.of`), so a tree without tensor-split leaves runs as on one
-card.
+Over tensor ranks (Megatron-style, parallel/tensor.py; Pi0, Pi0FAST and MVLA
+at mesh.tensor > 1) each rank runs its local query heads: q, gate and up are
+column-parallel (their inputs through `copy_in`), o and down row-parallel
+(their partials all-reduced), and the attention takes the rank's H / t heads
+against the K/V head. Pi0's one K/V head does not split: k and v are computed
+whole on every tensor rank (their kernels replicated, their gradient summed
+over tensor by the optimizer). Each entry point finds its tensor group in its
+parameters (`tensor_parallel.of`), so a tree without tensor-split leaves runs
+as on one card.
 """
 
 from __future__ import annotations

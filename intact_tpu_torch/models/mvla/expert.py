@@ -14,6 +14,17 @@ the depth must be even.
 which the suffix attends into. Sampling caches the prompt's K/V once with
 `gemma.prefill(kv_only=True)` and runs only the suffix per step through
 `gemma.decode`; without a cache one prefill runs over [prompt | suffix].
+
+Over tensor ranks (Megatron-style, parallel/tensor.py) each layer runs the
+rank's query heads, as Gemma's do (models/gemma.py): the self layer's q, gate
+and up column-, o and down row-parallel, its one K/V head whole; the cross
+layer's q column- and o row-parallel, its one K/V head of the prompt
+computed whole on every rank (the prompt through `copy_in`: each rank's
+gradient of it is its heads' part). The cross attention, on the plain path,
+takes the rank's heads among zero ones at one card's shapes
+(`tensor_parallel.whole_groups`), as `gemma.decode` does. The joint pattern
+runs `gemma.prefill` and `gemma.decode`, which take the tensor axis
+themselves. Each entry point finds its tensor group in its parameters.
 """
 
 from __future__ import annotations
@@ -23,9 +34,10 @@ import torch
 from intact_tpu_torch.models import common as cm
 from intact_tpu_torch.models import gemma
 from intact_tpu_torch.models.common import DEFAULT_POLICY, DtypePolicy
-from intact_tpu_torch.models.gemma import GemmaConfig, _post_attention, _qkv
+from intact_tpu_torch.models.gemma import GemmaConfig, _attention_region, _post_attention, _qkv
 from intact_tpu_torch.ops.attention import multi_head_attention
 from intact_tpu_torch.ops.masks import make_att_2d_masks
+from intact_tpu_torch.parallel import tensor as tensor_parallel
 
 
 def _cross_block_params(init: cm.Initializer, cfg: GemmaConfig, prompt_dim: int, lead: tuple) -> cm.Params:
@@ -97,21 +109,24 @@ def forward(
     fsdp ranks)."""
     b, s, _ = suffix.shape
     scale = cfg.head_dim**-0.5
+    tp = tensor_parallel.of(params["pairs"])
     x = suffix
     for i in range(cfg.depth // 2):
         bp_self, bp_cross = cm.layer(params["pairs"]["self"], i), cm.layer(params["pairs"]["cross"], i)
+        tpc = _attention_region(bp_cross, cfg, tp)
         ki, vi = (prompt_kv[0][i], prompt_kv[1][i]) if prompt_kv is not None else _prompt_kv(
-            bp_cross["attn"], prompt, cfg, policy)
-        # self attention over the suffix (block mask + rope)
+            bp_cross["attn"], tensor_parallel.copy_in(prompt, tpc), cfg, policy)
+        # self attention over the suffix (block mask + rope), the rank's heads
         y = cm.rms_norm(bp_self["ln1"], x, cfg.norm_eps)
-        q, k, v = _qkv(bp_self, y, positions, cfg, policy)
+        q, k, v = _qkv(bp_self, y, positions, cfg, policy, tp)
         att = multi_head_attention(q, k, v, mask=suffix_mask, impl=attention_impl, scale=scale)
-        x = _post_attention(bp_self, x, att, cfg, policy)
-        # cross attention into the prompt (no rope, full attention, plain path)
-        y = cm.rms_norm(bp_cross["ln1"], x, cfg.norm_eps)
-        q = cm.dense(bp_cross["attn"]["q"], y, policy).reshape(b, s, cfg.num_heads, cfg.head_dim)
+        x = _post_attention(bp_self, x, att, cfg, policy, tp)
+        # cross attention into the prompt (no rope, full attention, plain path), the rank's heads among zero ones
+        y = tensor_parallel.copy_in(cm.rms_norm(bp_cross["ln1"], x, cfg.norm_eps), tpc)
+        q = cm.dense_column(bp_cross["attn"]["q"], y, policy, tpc).reshape(b, s, -1, cfg.head_dim)
+        q, own = tensor_parallel.whole_groups(q, tpc, cfg.num_heads, cfg.num_kv_heads)
         att = multi_head_attention(q, ki.to(q.dtype), vi.to(q.dtype), mask=None, scale=scale)
-        x = _post_attention(bp_cross, x, att, cfg, policy)
+        x = _post_attention(bp_cross, x, att[:, :, own], cfg, policy, tp)
     return cm.rms_norm(params["final_norm"], x, cfg.norm_eps)
 
 

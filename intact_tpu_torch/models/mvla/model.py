@@ -16,6 +16,14 @@ denoiser over the pooled prompt (models/dit.py, models/diffusion.py).
 
 Interface as the other model modules (init / compute_loss / sample_actions),
 so the trainer, Pi0Policy and the serving wrapper apply.
+
+Over tensor ranks (Megatron-style, parallel/tensor.py; mesh.tensor > 1) every
+tower runs its local heads, found in its parameters: SigLIP and the VLM
+prefill as Pi0's, the connector and the DiT (models/connector.py,
+models/dit.py) and the expert (models/mvla/expert.py). The prompt, the
+pooled condition and the actions are whole on every tensor rank; the
+tensor ranks of one batch coordinate sample on the same noise, and the DDIM
+sampler (eta 0) draws nothing more.
 """
 
 from __future__ import annotations
@@ -63,6 +71,17 @@ def init_params(init: cm.Initializer, cfg: MVLAConfig) -> cm.Params:
         "action_out_proj": cm.dense_init(init, pw, cfg.max_action_dim),
     })
     return params
+
+
+def tensor_heads(cfg: MVLAConfig) -> dict:
+    """{tower: (query heads, K/V heads)}: what the tensor axis must divide on
+    each tower's attention projections (parallel/sharding.py), the expert's
+    self/cross pairs under "expert". The DiT's 6 heads split at tensor 2 and
+    stay whole at 4, where the JAX package's rules split its projections by
+    their width; the cross layers' one K/V head stays whole."""
+    return {"siglip": (cfg.vision.num_heads, cfg.vision.num_heads), "vlm": (cfg.vlm.num_heads, cfg.vlm.num_kv_heads),
+            "expert": (cfg.expert.num_heads, cfg.expert.num_kv_heads),
+            "connector": (cfg.connector.num_heads, cfg.connector.num_heads), "dit": (cfg.dit_heads, cfg.dit_heads)}
 
 
 def init(cfg: MVLAConfig, seed: int = 0, device=None, dtype=torch.float32) -> cm.Params:

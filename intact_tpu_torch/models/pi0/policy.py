@@ -8,7 +8,7 @@ everything else is numpy.
 
 Over several ranks (`mesh` with a process group, one process per card) the
 policy holds this rank's shard of the parameters (parallel/sharding.py's
-rules at fsdp > 1, gathered layer by layer; at tensor > 1, Pi0 and
+rules at fsdp > 1, gathered layer by layer; at tensor > 1, Pi0, MVLA and
 Pi0FAST, its tensor slice of the split leaves, whose towers then run their
 local heads, by the model module's `tensor_heads`). The serving wrapper
 (serve/policy_wrapper.py) owns the ranks' serving group: it pads the batch,

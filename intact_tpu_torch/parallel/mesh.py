@@ -8,12 +8,12 @@ Axes, as in the JAX package:
           optimizer state in global block rows, the whole parameters gathered
           after each update (ZeRO-2, train/fused_joint.py)
   tensor  Megatron-style tensor parallelism (serving Pi0, Pi0FAST, native
-          SpatialVLA and native Magma; Pi0's standard step): column-parallel
-          q, k, v (where their heads split), gate, up, fc1 and Magma's
-          lm_head, row-parallel o, down and fc2, the embeddings split over
-          their vocabulary, the greedy argmax reduced over tensor
-          (models/common.py, parallel/tensor.py); every other path refuses
-          tensor > 1 (`refuse_tensor`)
+          SpatialVLA, native Magma and MVLA; the standard step of Pi0 and
+          MVLA): column-parallel q, k, v (where their heads split), gate, up,
+          fc1 and Magma's lm_head, row-parallel o, down and fc2, the
+          embeddings split over their vocabulary, the greedy argmax reduced
+          over tensor (models/common.py, parallel/tensor.py); every other
+          path refuses tensor > 1 (`refuse_tensor`)
 
 `MeshConfig.resolve(n)` takes the world size: the port runs one process per
 card, where the JAX package runs one process over all local devices. Rank r
@@ -116,21 +116,22 @@ class Mesh:
         return self.groups["world"] is not None
 
 
-TENSOR_FAMILIES = ("pi0",)  # the model modules whose training step runs at tensor > 1
-# the model modules whose serving runs at tensor > 1: Pi0 and the token-decoding families (their
-# logits split over the vocabulary, the greedy argmax reduced over tensor: parallel/tensor.py)
-TENSOR_SERVING_FAMILIES = ("pi0", "pi0fast", "spatialvla", "magma")
-_SLICE = ("the tensor-parallel slice covers serving Pi0, Pi0FAST, native SpatialVLA and native Magma and Pi0's "
-          "standard training step")
+TENSOR_FAMILIES = ("pi0", "mvla")  # the model modules whose standard training step runs at tensor > 1
+# the model modules whose serving runs at tensor > 1: Pi0, MVLA (mvla, mmmvla, the DiT head) and the
+# token-decoding families (their logits split over the vocabulary, the greedy argmax reduced over tensor:
+# parallel/tensor.py)
+TENSOR_SERVING_FAMILIES = ("pi0", "mvla", "pi0fast", "spatialvla", "magma")
+_SLICE = ("the tensor-parallel slice covers serving Pi0, MVLA, Pi0FAST, native SpatialVLA and native Magma and "
+          "the standard training step of Pi0 and MVLA")
 
 
 def refuse_tensor(cfg: MeshConfig, family: str | None = None, fused: bool = False, serving: bool = False) -> None:
     """Raise unless the mesh's tensor axis is 1 or the path runs it: serving
     (`serving`) a family of TENSOR_SERVING_FAMILIES (`family`, the model
-    module's package name), or Pi0's standard training step. The fused step,
-    every other family's training (Pi0FAST's vocabulary-parallel cross
-    entropy is not ported) and every other family's serving (MVLA, mmmvla,
-    Octo, the HF-scaffold types) refuse it."""
+    module's package name), or the standard training step of a family of
+    TENSOR_FAMILIES (Pi0, MVLA). The fused step, every other family's
+    training (Pi0FAST's vocabulary-parallel cross entropy is not ported) and
+    every other family's serving (Octo, the HF-scaffold types) refuse it."""
     if cfg.tensor == 1:
         return
     if fused:

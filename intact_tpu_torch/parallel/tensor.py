@@ -28,10 +28,12 @@ where the K/V heads do not split, `whole_groups` pads a rank's query heads
 to whole groups of one K/V head. Every collective is one
 of parallel/collectives.py's tensor_* wrappers, counted there; without a
 recorded gradient the forwards run the collective alone. A leaf replicated
-over tensor whose use is partial (Pi0's K/V kernels, which every rank applies
-for its own query heads only; SigLIP's q/k/v biases, sliced with their
-columns) has a gradient that is one rank's part: the standard step sums it
-over tensor (`partial_paths`, train/train_step.py).
+over tensor whose use is partial (the one-head K/V kernels of Pi0's towers
+and of MVLA's expert pairs, which every rank applies for its own query heads
+only; SigLIP's and the DiT's q/k/v biases, sliced with their columns; the
+connector's per-head q/k norm scales) has a gradient that is one rank's
+part: the standard step sums it over tensor (`partial_paths`,
+train/train_step.py).
 """
 
 from __future__ import annotations
@@ -216,19 +218,24 @@ def kv_heads(tp: TensorParallel | None, heads: int, kv: int) -> slice:
     return slice(tp.index * local // group, -(-(tp.index + 1) * local // group))
 
 
+# (a leaf replicated over tensor, the projection whose split makes its use partial), within one layer stack's
+# attention: "blocks/attn" of a tower, "pairs/self/attn" or "pairs/cross/attn" of MVLA's expert
 _PARTIAL = (
     # K/V kernels replicated over tensor (their heads do not split) beside split query heads
-    re.compile(r"(.*?)/blocks/attn/[kv]/kernel(_q)?$"),
+    (re.compile(r"(.*?/(?:blocks|pairs/self|pairs/cross)/attn)/[kv]/kernel(?:_q)?$"), "q"),
     # q/k/v biases, replicated by the rules and sliced with their columns at use
-    re.compile(r"(.*?)/blocks/attn/[qkv]/bias$"),
+    (re.compile(r"(.*?/blocks/attn)/([qkv])/bias$"), None),
+    # the connector's per-head q/k norms, applied to the rank's heads
+    (re.compile(r"(.*?/blocks/attn)/([qk])_norm/scale$"), None),
 )
 
 
 def partial_paths(flat_params: dict) -> frozenset:
     """The leaves replicated over tensor whose gradient on a rank is its
-    part only (summed over tensor by the optimizer): a tower's K/V kernels
-    held whole beside its split q, and its q/k/v biases where their kernel
-    is split."""
+    part only (summed over tensor by the optimizer): a layer stack's K/V
+    kernels held whole beside its split q (a tower's blocks, MVLA's expert
+    pairs), its q/k/v biases where their kernel is split, and the
+    connector's per-head q/k norm scales where q/k split."""
     from intact_tpu_torch.parallel.sharding import Sharded
 
     def split(path: str) -> bool:
@@ -239,16 +246,9 @@ def partial_paths(flat_params: dict) -> frozenset:
     for path, leaf in flat_params.items():
         if isinstance(leaf, Sharded) and leaf.tensor is not None:
             continue
-        for pattern in _PARTIAL:
+        for pattern, projection in _PARTIAL:
             m = pattern.match(path)
-            if m is None:
-                continue
-            blocks = f"{m.group(1)}/blocks/attn"
-            if pattern is _PARTIAL[0]:
-                used_partially = any(split(f"{blocks}/q/{k}") for k in ("kernel", "kernel_q"))
-            else:
-                name = path.split("/")[-2]
-                used_partially = any(split(f"{blocks}/{name}/{k}") for k in ("kernel", "kernel_q"))
-            if used_partially:
+            if m is not None and any(split(f"{m.group(1)}/{projection or m.group(2)}/{k}")
+                                     for k in ("kernel", "kernel_q")):
                 out.add(path)
     return frozenset(out)

@@ -24,9 +24,9 @@ the config trains; with it, `eval_cfg.role` server serves the configured
 policy over the websocket protocol (under torchrun every rank holds its
 share of the parameters, rank 0 serves and the others run their rows of
 each fused batch, serve/group.py; the mesh must fill the world; at
-mesh.tensor > 1, Pi0, Pi0FAST, native SpatialVLA and native Magma, the tensor
-ranks of a batch coordinate run their slices of the model on the same rows;
-Octo runs whole on rank 0), and client runs the simulator evaluator
+mesh.tensor > 1, Pi0, MVLA, Pi0FAST, native SpatialVLA and native Magma, the
+tensor ranks of a batch coordinate run their slices of the model on the same
+rows; Octo runs whole on rank 0), and client runs the simulator evaluator
 that `eval_cfg.simulator_path` names (built from simulator_name) against such
 a server; it touches no device, and its simulator (SimplerEnv, ManiSkill3 or
 LIBERO) must be installed.

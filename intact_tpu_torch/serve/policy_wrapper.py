@@ -20,10 +20,10 @@ fsdp > 1) and run their device calls through serve/group.py: rank 0 serves
 and pads each fused batch to a multiple of the world (`effective_fused_size`),
 every rank runs its rows, and `switch_model` restores each rank's share. Octo
 and the HF-scaffold wrappers (`serves_on_ranks` False) run whole on rank 0,
-as the JAX package serves Octo on one device. At mesh.tensor > 1 Pi0, Pi0FAST,
-native SpatialVLA and native Magma serve (each rank its tensor slice of the
-split leaves, by the model module's `tensor_heads`; the tensor ranks of one
-batch coordinate on the same rows); the other families refuse it.
+as the JAX package serves Octo on one device. At mesh.tensor > 1 Pi0, MVLA,
+Pi0FAST, native SpatialVLA and native Magma serve (each rank its tensor slice
+of the split leaves, by the model module's `tensor_heads`; the tensor ranks of
+one batch coordinate on the same rows); the other families refuse it.
 """
 
 from __future__ import annotations

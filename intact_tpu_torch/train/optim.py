@@ -31,15 +31,15 @@ slice once and each replicated leaf once per fsdp group (the fsdp index 0
 rank), summed over fsdp. On one rank nothing is split and the arithmetic is
 the single card's.
 
-Over tensor (Pi0, Megatron-style): a leaf split over tensor is this rank's
+Over tensor (Pi0, MVLA; Megatron-style): a leaf split over tensor is this rank's
 tensor slice (split further over fsdp where the rules say so); its gradient
 is complete for the slice and is averaged over the batch coordinates (the
 data group where it is also fsdp-split, else the batch group: data x fsdp).
 A leaf replicated over tensor is averaged over the world; where its use is
-partial (`partial`, from `tensor.partial_paths`: Pi0's K/V kernels, the
-sliced SigLIP biases), each tensor rank's gradient is its part, which the
-standard step sums over tensor at every micro-step
-(train/train_step.py), so it reaches the optimizer whole. The clip counts a
+partial (`partial`, from `tensor.partial_paths`: the one-head K/V kernels,
+the sliced q/k/v biases, the connector's q/k norm scales), each tensor
+rank's gradient is its part, which the standard step sums over tensor at
+every micro-step (train/train_step.py), so it reaches the optimizer whole. The clip counts a
 leaf on the ranks that hold distinct parts of it (fsdp index 0 where it is
 not fsdp-split, tensor index 0 where it is not tensor-split), summed over
 the model group (fsdp x tensor). An 8-bit slice's block scales are the whole

@@ -28,12 +28,13 @@ slice rounds with a generator seeded from that seed and the fsdp index, so
 fsdp ranks never repeat each other's bits. The optimizer reduces the
 gradients once per emitted update (train/optim.py).
 
-Over tensor (Pi0, parallel/tensor.py): the draws are keyed on the batch
+Over tensor (Pi0, MVLA; parallel/tensor.py): the draws are keyed on the batch
 coordinate d * fsdp + f, so the tensor ranks of one coordinate draw the same
 noise and time for the same rows; a leaf split over tensor alone is
 differentiated as the slice it is (autograd forms its gradient); the
 gradient of a leaf replicated over tensor whose use is partial (the
-optimizer's `partial`: Pi0's K/V kernels, SigLIP's q/k/v biases) is each
+optimizer's `partial`: the one-head K/V kernels, SigLIP's and the DiT's q/k/v
+biases, the connector's q/k norm scales) is each
 rank's part, summed over tensor at once, before the norms and the
 accumulation; a tensor slice rounds with a generator seeded from the
 rounding seed, its fsdp index and its tensor index, while the leaves

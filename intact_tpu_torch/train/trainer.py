@@ -47,11 +47,11 @@ global_batch_size rows: accumulation = global / (per_device x data x fsdp).
   * the fused step stays ZeRO-2: whole parameters on every rank, its
     optimizer state split over fsdp in global block rows
     (train/fused_joint.py).
-  * the tensor axis (Pi0's standard step only, Megatron-style): the ranks
+  * the tensor axis (the standard step of Pi0 and MVLA, Megatron-style): the ranks
     of one batch coordinate d * fsdp + f read the same episode shard and
     draw the same noise; each holds its tensor slice of the split leaves
-    (column-parallel q, gate, up, fc1 and patch embed, row-parallel o, down
-    and fc2, the embedding's vocabulary rows), split further over fsdp by
+    (column-parallel q, gate, up and fc1, row-parallel o, down and fc2, the
+    embedding's vocabulary rows), split further over fsdp by
     ZeRO-3 (parallel/tensor.py, train/optim.py). The fused step and every
     other family refuse mesh.tensor > 1.
 Rank 0 logs, reports to W&B and writes checkpoints, in the one-rank layout

@@ -430,7 +430,7 @@ def test_greedy_families_at_2x2_equal_one_rank(groups, name):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("override, error, match", [
-    (["--mesh.tensor", "2", "--model_cfg.type", "mvla_tiny"], NotImplementedError, "tensor axis .* serving mvla"),
+    (["--mesh.tensor", "2", "--model_cfg.type", "octo_tiny"], NotImplementedError, "tensor axis .* serving octo"),
     (["--mesh.fsdp", "2"], ValueError, "not divisible by fsdp"),
 ], ids=["tensor", "unfilled"])
 def test_server_role_refuses_tensor_and_an_unfilled_mesh(override, error, match):

@@ -458,18 +458,21 @@ def test_flash_attention_takes_local_heads(heads):
                                         "magma_native_tiny", "octo_tiny", "spatialvla", "magma", "pi0-fused"])
 def test_every_other_path_refuses_the_tensor_axis(model_type):
     """What the tensor-parallel slice leaves out refuses tensor > 1 with a
-    reason that names the slice: training every family but Pi0 (Pi0FAST's,
-    SpatialVLA's and Magma's among them), serving MVLA, mmmvla, Octo and the
-    HF-scaffold types, and the fused step; Pi0's training and tensor 1
-    pass."""
+    reason that names the slice: training every family but Pi0 and MVLA
+    (Pi0FAST's, SpatialVLA's and Magma's among them), serving Octo and the
+    HF-scaffold types, and the fused step of every family (MVLA's and
+    mmmvla's included); Pi0's and MVLA's standard step and tensor 1 pass."""
     from intact_tpu_torch.models import registry
-    from intact_tpu_torch.parallel.mesh import TENSOR_SERVING_FAMILIES, MeshConfig, refuse_tensor
+    from intact_tpu_torch.parallel.mesh import TENSOR_FAMILIES, TENSOR_SERVING_FAMILIES, MeshConfig, refuse_tensor
 
-    fused = model_type == "pi0-fused"
-    family = "pi0" if fused else registry.family(model_type)
-    slice_named = "tensor axis .* not ported .*serving Pi0, Pi0FAST, native SpatialVLA and native Magma"
+    family = "pi0" if model_type == "pi0-fused" else registry.family(model_type)
+    fused = model_type == "pi0-fused" or family in TENSOR_FAMILIES
+    slice_named = ("tensor axis .* not ported .*serving Pi0, MVLA, Pi0FAST, native SpatialVLA and native Magma "
+                   "and the standard training step of Pi0 and MVLA")
     with pytest.raises(NotImplementedError, match=slice_named):
         refuse_tensor(MeshConfig(data=1, fsdp=1, tensor=2), family, fused=fused)
+    if family in TENSOR_FAMILIES:
+        refuse_tensor(MeshConfig(data=1, fsdp=1, tensor=2), family)
     if fused or family not in TENSOR_SERVING_FAMILIES:
         with pytest.raises(NotImplementedError, match=slice_named):
             refuse_tensor(MeshConfig(data=1, fsdp=1, tensor=2), family, fused=fused, serving=True)
@@ -489,8 +492,12 @@ def test_serving_takes_the_tensor_axis_for_the_token_decoding_families(model_typ
 
 
 def test_policy_refuses_the_tensor_axis_for_mvla():
-    """Pi0Policy with MVLA's module on a tensor-2 mesh refuses before
-    building anything; with Pi0FAST's it holds its tensor slices."""
+    """Pi0Policy on a tensor-2 mesh refuses a model module outside the
+    serving families before building anything; with MVLA's (since the
+    tensor axis for MVLA) and Pi0FAST's it holds their tensor slices, the
+    one-head K/V kernels whole."""
+    import types
+
     from intact_tpu_torch.models.mvla import model as mvla
     from intact_tpu_torch.models.mvla.config import MVLAConfig
     from intact_tpu_torch.models.pi0.policy import Pi0Policy
@@ -501,8 +508,13 @@ def test_policy_refuses_the_tensor_axis_for_mvla():
     from intact_tpu_torch.parallel.sharding import Sharded
 
     mesh = Mesh(1, 1, 2, 0, dict.fromkeys(("data", "fsdp", "tensor", "batch", "model", "world")))
-    with pytest.raises(NotImplementedError, match="tensor axis .* serving mvla"):
-        Pi0Policy(MVLAConfig.tiny(), tokenizer_path="hash", device="cpu", model_module=mvla, mesh=mesh)
+    octo = types.SimpleNamespace(__name__="intact_tpu_torch.models.octo.model")
+    with pytest.raises(NotImplementedError, match="tensor axis .* serving octo"):
+        Pi0Policy(MVLAConfig.tiny(), tokenizer_path="hash", device="cpu", model_module=octo, mesh=mesh)
+    policy = Pi0Policy(MVLAConfig.tiny(), tokenizer_path="hash", device="cpu", model_module=mvla, mesh=mesh)
+    conn, cross = policy.params["connector"]["blocks"]["attn"], policy.params["expert"]["pairs"]["cross"]["attn"]
+    assert isinstance(conn["q"]["kernel"], Sharded) and conn["q"]["kernel"].tensor.parts == 2
+    assert not isinstance(cross["k"]["kernel"], Sharded)
     policy = Pi0Policy(Pi0FASTConfig.tiny(), tokenizer_path="hash", device="cpu", model_module=fast, mesh=mesh)
     q, k = (policy.params["vlm"]["blocks"]["attn"][n]["kernel"] for n in ("q", "k"))
     assert isinstance(q, Sharded) and q.tensor.parts == 2 and not isinstance(k, Sharded)
