@@ -137,6 +137,34 @@ Phases, each failing loudly (non-zero exit):
              same steps without a group on rank 0 (as 3d's). Reported: each
              inference's time on the ranks and in the staged collectives,
              peak memory per rank
+  3g. the tensor axis for the last two training paths: as 3d, two ranks on
+             the one card over gloo, mesh (1, 1, 2), against the same work on
+             one card without a group (run here first: the same seed's
+             weights, batches, draws and salt). First the row kernel at tensor
+             rank 1's rows of the Gemma-2B layer pack (its part of the gate
+             leaf with the salt shifted, its up leaf at a row offset) and the
+             attention kernel on 4 local heads at both paths' training shapes,
+             each against its plain version and timed. Then Pi0FAST's
+             standard step (pi0fast_finetune_bridge.yaml's model at full
+             width, FAST_SERVING_DEPTH trunk and TP_PI0_VISION_DEPTH SigLIP
+             layers, the 257,152-row tied table split 128,576 per rank), two
+             fp32 micro-steps with the plain attention (one AdamW update) and
+             two bf16 ones with the kernel, on TPT_ROWS rows. Gates: fp32
+             loss, grad_norm and param_norm within TPT_FP32_RTOL, the params
+             within TPT_PARAMS_ATOL, token accuracy equal, the table's first
+             gradient gathered within TPT_TABLE_RTOL; bf16 at 3d's
+             tolerances; per micro-step the tensor all-reduces and MAX
+             all-reduces and the attention launches on 4 local heads as
+             counted. Then two fused steps of the 1-chip recipe (bf16 masters,
+             SR, fp8 moments, both kernels) at full width and TPT_FUSED_DEPTH
+             layer pairs: loss, grad_norm, params, updates and moment codes at
+             phase 4's kernel-vs-plain tolerances, grad_norm and the delayed
+             clip equal on both ranks, the row kernel's launches per rank as
+             counted from the packs' row split, the attention launches and
+             tensor collectives as counted; and layer 0 of the VLM trunk
+             updated once from one card's gradient (each rank its share)
+             bit-equal to one card, params and moments. Reported: the ranks'
+             time per path, staged collectives, peak memory per rank
   4. training the 1-chip joint recipe (config/train/pi0_finetune_bridge_1chip.yaml:
              fused step, bf16 params with stochastic rounding, fp8 moments,
              batch 16, synthetic data) at full width and depth through the
@@ -2897,6 +2925,612 @@ def tpm_gates(ranks: list, refs: dict, mcs: dict, card: str, ranks_s: float) -> 
     tp_steps_against_one_card(ranks, "tensor parallel MVLA")
     log(f"# tensor parallel MVLA: the staged collectives took {staged:.1f} s of the ranks' inferences over both "
         f"ranks; the ranks' processes {ranks_s:.1f} s")
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# 3g. the tensor axis for the last two training paths (two ranks on one card)
+# ---------------------------------------------------------------------------
+
+TPT_DIR = Path(".chip_smoke_tp_train")  # the phase's inputs and each rank's results (git-ignored), removed after it
+TPT_JOIN_S = 600.0  # the two ranks' limit, then the phase fails and kills them
+TPT_ROWS = 4  # the rows of each micro-step and fused step: one batch coordinate, which both ranks take
+TPT_SEED, TPT_SALT = 6, 12345
+# Pi0FAST at phase 3e's trunk depth (FAST_SERVING_DEPTH) and phase 3d's SigLIP depth; the fused step at 4 of its
+# 18 layer pairs (it needs equal VLM and expert depth) and the same SigLIP
+TPT_FUSED_DEPTH = 4
+TPT_VISION_DEPTH = TP_PI0_VISION_DEPTH
+# Pi0FAST's two fp32 micro-steps (AdamW, accumulation 2: phase 3d's TP_TRAIN_OPT) against one card: the ranks'
+# row-parallel products and cross entropy sum fp32 partials in another order than one card's GEMMs and softmax
+TPT_FP32_RTOL = 1e-5  # loss, grad_norm, param_norm
+TPT_PARAMS_ATOL = 1e-5  # the params after the update
+TPT_TABLE_RTOL = 1e-5  # rel L2 of the tied table's first micro-step gradient, gathered over the ranks
+# the fused step (bf16 masters, SR, fp8 moments, the kernels) against one card: loss and grad_norm at the
+# kernel-vs-plain tolerances of phase 4 (TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL), params, updates and moment codes at
+# TRAIN_PARAMS_RTOL, TRAIN_UPDATE_RTOL and TRAIN_CODES_SHARE: the ranks' reduced gradient rounds otherwise (the
+# partial K/V and bias sums, the row-parallel fp32 partials), and the stochastic rounding carries each difference
+# to a bf16 ulp
+TPT_BLOCK = 2048
+
+
+def tpt_fast_config():
+    """Pi0FAST's recipe model (pi0fast_finetune_bridge.yaml) at full width,
+    FAST_SERVING_DEPTH trunk and TPT_VISION_DEPTH SigLIP layers."""
+    full = trainer_config(FAST_RECIPE, FAST_OVERRIDES).make_model_config()
+    return dataclasses.replace(full, vlm=dataclasses.replace(full.vlm, depth=FAST_SERVING_DEPTH),
+                               vision=dataclasses.replace(full.vision, depth=TPT_VISION_DEPTH))
+
+
+def tpt_fused_config():
+    """(the 1-chip recipe's config, its model at full width, TPT_FUSED_DEPTH
+    layer pairs and TPT_VISION_DEPTH SigLIP layers, its optimizer)."""
+    from intact_tpu_torch.config.pipeline import optimizer_config_from_model_json
+
+    cfg = recipe_config()
+    full = cfg.make_model_config()
+    mc = dataclasses.replace(full, attention_impl="pallas", vlm=dataclasses.replace(full.vlm, depth=TPT_FUSED_DEPTH),
+                             expert=dataclasses.replace(full.expert, depth=TPT_FUSED_DEPTH),
+                             vision=dataclasses.replace(full.vision, depth=TPT_VISION_DEPTH))
+    return cfg, mc, optimizer_config_from_model_json(cfg.model_cfg, cfg)
+
+
+def tpt_host(flat: dict, mesh, dtype=None) -> dict | None:
+    """{path: leaf} whole on the host: every rank joins each split leaf's
+    gather (one at a time); rank 0 (or one card, mesh None) keeps them."""
+    from intact_tpu_torch.parallel.sharding import Sharded, gather_leaf
+
+    out = {}
+    for k, v in flat.items():
+        whole = gather_leaf(v.local, v) if isinstance(v, Sharded) else v
+        if mesh is None or mesh.rank == 0:
+            out[k] = whole.detach().to("cpu", dtype or whole.dtype, copy=True)
+        del whole
+    return out if mesh is None or mesh.rank == 0 else None
+
+
+def tpt_counters() -> tuple:
+    from intact_tpu_torch.ops.flash_attention import flash_attention
+    from intact_tpu_torch.ops.fused_adam import fused_adam_rows
+    from intact_tpu_torch.parallel import collectives
+
+    return flash_attention.launches, fused_adam_rows.launches, collectives.counts()
+
+
+def tpt_delta(before: tuple) -> dict:
+    """The kernels' launches and the tensor group's collectives since `before`."""
+    flash, adam, coll = tpt_counters()
+    out = {"flash_attention": flash - before[0], "fused_adam_rows": adam - before[1]}
+    out.update({k: v - before[2][k] for k, v in coll.items() if k.startswith("tensor_")})
+    return out
+
+
+def tpt_fast_steps(device, mesh, inputs: dict, heads: list) -> dict:
+    """Pi0FAST's standard step at full width: two fp32 micro-steps with the
+    plain attention (one AdamW update), then two bf16 ones with the kernel,
+    on the mesh's tensor slices or (mesh None) on one card, from the seed's
+    weights and the same batches. -> per micro-step the loss, token accuracy,
+    [grad_norm, param_norm], launches, tensor collectives and attention
+    heads; on rank 0 (or one card) the params after the fp32 update and the
+    tied table's first micro-step gradient, whole on the host."""
+    from intact_tpu_torch.models import common as cm
+    from intact_tpu_torch.models.pi0fast import model
+    from intact_tpu_torch.parallel.mesh import single_rank_mesh
+    from intact_tpu_torch.parallel.sharding import gather_leaf, shard_tree
+    from intact_tpu_torch.train.optim import OptimizerConfig, make_optimizer
+    from intact_tpu_torch.train.train_step import init_train_state, make_train_step
+
+    base = tpt_fast_config()
+    params = model.init(base, inputs["seed"], device, torch.float32)
+    if mesh is not None:
+        params = shard_tree(params, mesh, consume=True, heads=model.tensor_heads(base))
+    tx, _ = make_optimizer(OptimizerConfig(**TP_TRAIN_OPT), None, mesh=mesh or single_rank_mesh())
+    state = init_train_state(params, tx, seed=0)
+    table = []
+    real_apply = tx.apply
+
+    def apply(grads, *args):  # the first micro-step's gradient of the tied table, as the step hands it over
+        if not table:
+            table.append(grads["vlm_embed/embedding"].clone())
+        return real_apply(grads, *args)
+
+    tx.apply = apply
+    batches = [{k: v.to(device) for k, v in b.items()} for b in inputs["fast_batches"]]
+    res = {"losses": [], "accs": [], "norms": [], "counts": [], "heads": [], "partial": sorted(tx.partial)}
+    for precision, impl, policy in (("fp32", "xla", cm.FP32_POLICY), ("bf16", "pallas", cm.DEFAULT_POLICY)):
+        mc = dataclasses.replace(base, attention_impl=impl)
+        step = make_train_step(lambda p, r, b, n, t, mc=mc, policy=policy: model.compute_loss(p, r, b, mc, policy), tx)
+        for b in batches:
+            heads.clear()
+            before = tpt_counters()
+            state, metrics = step(state, b)
+            torch.cuda.synchronize()
+            res["counts"].append(tpt_delta(before))
+            res["heads"].append(sorted(set(heads)))
+            res["losses"].append(metrics["l2_loss"].item())
+            res["accs"].append(metrics["token_accuracy"].item())
+            res["norms"].append([metrics["grad_norm"].item(), metrics["param_norm"].item()])
+        if precision == "fp32":  # every rank joins the gathers; rank 0 keeps the leaves
+            flat = cm.flatten_paths(state.params)
+            res["params"] = tpt_host(flat, mesh)
+            like = flat["vlm_embed/embedding"]
+            grad = gather_leaf(table[0], like) if mesh is not None else table[0]
+            res["table_grad"] = grad.cpu() if mesh is None or mesh.rank == 0 else None
+            res["table_split"] = mesh is not None and like.tensor is not None
+            del flat, grad, table[:]
+    del params, state, tx
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tpt_row_launches(state, mesh) -> int:
+    """fused_adam_rows launches of one fused step on this rank (mesh None:
+    one card): each kernel-eligible trunk leaf with rows in the rank's share
+    of its layer's pack, in every layer, and each eligible 8-bit leaf of the
+    head and the embed side with rows in the rank's share of its own."""
+    from intact_tpu_torch.ops.fused_adam import eligible
+    from intact_tpu_torch.parallel.mesh import single_rank_mesh
+    from intact_tpu_torch.parallel.sharding import held
+    from intact_tpu_torch.train import fused_joint as fj
+
+    mesh = mesh or single_rank_mesh()
+    n = 0
+    for tower in ("vlm", "expert"):
+        blocks = state.params[tower]["blocks"]
+        pack = fj.TrunkPack(blocks, TPT_BLOCK)
+        shard = fj.pack_shard(pack, mesh)
+        depth = held(next(fj.tree_items(blocks))[1]).shape[0]
+        n += depth * sum(eligible(size, TPT_BLOCK) and max(off, shard.r0) < min(off + r, shard.r1)
+                         for size, r, off in zip(pack.sizes, pack.rows, pack.offsets))
+    for name in fj.EMBED_NAMES + ("action_out_proj",):
+        moments = dict(fj.tree_items(state.mu[name], quant_leaves=True))
+        for path, p in fj.tree_items(state.params[name]):
+            shard = fj.leaf_shard(p, TPT_BLOCK, mesh) if fj._is_quant_leaf(moments[path]) else None
+            n += shard is not None and shard.rows > 0
+    return n
+
+
+def tpt_fused_steps(device, mesh, inputs: dict, heads: list) -> dict:
+    """Two fused steps of the 1-chip recipe (bf16 masters with stochastic
+    rounding, fp8 moments, the attention and row kernels) at full width and
+    TPT_FUSED_DEPTH layer pairs, from the seed's weights past the warmup, on
+    the mesh's tensor slices or (mesh None) on one card. -> per step the
+    loss, grad_norm, clip factor, launches, tensor collectives and attention
+    heads, the row kernel's launches counted from the packs' row split, the
+    tensor-split leaves outside the trunks; on rank 0 (or one card) the
+    params before and after and the moments in the one-card layout, on the
+    host."""
+    from intact_tpu_torch.models import common as cm
+    from intact_tpu_torch.models.pi0 import model as pi0
+    from intact_tpu_torch.parallel.mesh import single_rank_mesh
+    from intact_tpu_torch.parallel.sharding import Sharded, shard_tree
+    from intact_tpu_torch.train import fused_joint as fj
+
+    _, mc, opt = tpt_fused_config()
+    params = pi0.init(mc, inputs["seed"], device, torch.bfloat16)
+    before = tpt_host(cm.flatten_paths(params), None) if mesh is None else None
+    if mesh is not None:
+        params = shard_tree(params, mesh, consume=True, heads=pi0.tensor_heads(mc), over_fsdp=False)
+    state = fj.init_fused_state(params, inputs["seed"], block_size=TPT_BLOCK, mesh=mesh)
+    state.count = opt.warmup_steps  # past the warmup: the learning rate at its peak
+    policy = cm.DtypePolicy(param_dtype=torch.float32, compute_dtype=torch.bfloat16)
+    step = fj.make_fused_joint_step(mc, opt, policy, block_size=TPT_BLOCK, stochastic_rounding=True,
+                                    scale_mode="exact", mesh=mesh)
+    batch = {k: v.to(device) for k, v in inputs["fused_batch"].items()}
+    res = {"losses": [], "gnorms": [], "clips": [], "counts": [], "heads": [],
+           "want_rows": tpt_row_launches(state, mesh),
+           "split_outside": sum(isinstance(v, Sharded) for k, v in cm.flatten_paths(params).items()
+                                if k.split("/")[0] in fj.EMBED_NAMES + ("action_out_proj",))}
+    for i in range(2):
+        heads.clear()
+        counters = tpt_counters()
+        state, metrics = step(state, batch, noise=inputs["fused_noise"][i].to(device),
+                              time=inputs["fused_time"][i].to(device), salt=inputs["salt"] + i)
+        torch.cuda.synchronize()
+        res["counts"].append(tpt_delta(counters))
+        res["heads"].append(sorted(set(heads)))
+        res["losses"].append(metrics["l2_loss"].item())
+        res["gnorms"].append(metrics["grad_norm"].item())
+        res["clips"].append(metrics["clip_factor"].item())
+    res["params"] = tpt_host(cm.flatten_paths(state.params), mesh)
+    mu, nu = fj.global_moments(state, mesh or single_rank_mesh(), block_size=TPT_BLOCK)
+    if mesh is None or mesh.rank == 0:
+        res["moments"] = {k: v.cpu() for k, v in cm.flatten_paths({"mu": mu, "nu": nu}).items()}
+        res["before"] = before  # one card's: the ranks start from the same weights
+    del params, state, mu, nu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tpt_fed_update(device, mesh, inputs: dict) -> dict:
+    """One update of layer 0 of the VLM trunk (every leaf of Gemma-2B's layer,
+    bf16 with stochastic rounding, fp8 moments, the row kernel) fed one
+    card's gradient, drawn from the seed: on the mesh each rank its share
+    (its tensor slices; a partial leaf's on tensor index 0, zeros on the
+    other), through the fused step's own updater, or on one card (mesh
+    None). -> the launches; on rank 0 (or one card) the layer's leaves and
+    its moment rows in the one-card layout, on the host."""
+    from intact_tpu_torch.models import common as cm
+    from intact_tpu_torch.models.pi0 import model as pi0
+    from intact_tpu_torch.ops.fused_adam import fused_adam_rows
+    from intact_tpu_torch.parallel import sharding
+    from intact_tpu_torch.parallel import tensor as tensor_parallel
+    from intact_tpu_torch.parallel.mesh import single_rank_mesh
+    from intact_tpu_torch.parallel.sharding import shard_tree
+    from intact_tpu_torch.train import fused_joint as fj
+
+    _, mc, opt = tpt_fused_config()
+    params = pi0.init(mc, inputs["seed"], device, torch.bfloat16)
+    if mesh is not None:
+        params = shard_tree(params, mesh, consume=True, heads=pi0.tensor_heads(mc), over_fsdp=False)
+    state = fj.init_fused_state(params, inputs["seed"], block_size=TPT_BLOCK, mesh=mesh)
+    partial = tensor_parallel.partial_paths(cm.flatten_paths(params)) if mesh is not None else frozenset()
+    blocks = params["vlm"]["blocks"]
+    gen = torch.Generator(device=device).manual_seed(inputs["seed"] + 1)
+    grads = []
+    for path, leaf in fj.tree_items(blocks):
+        g = torch.randn(fj._whole_shape(leaf)[1:], generator=gen, device=device).mul_(1e-3).to(torch.bfloat16)
+        if mesh is not None and fj._split(leaf) is not None:
+            g = fj._slice_of(leaf, g).contiguous()
+        elif mesh is not None and "vlm/blocks/" + "/".join(path) in partial and mesh.tensor_index != 0:
+            g = torch.zeros_like(g)
+        grads.append(g)
+    hyp = torch.tensor([1 - 0.9**3, 1 - 0.999**3, 5e-5, 0.7], device=device)
+    upd = fj._Updater(hyp, opt, torch.zeros(1, device=device), stochastic=True, block_size=TPT_BLOCK,
+                      use_kernel=True, scale_mode="exact", apply_updates=True,
+                      mesh=mesh or single_rank_mesh(), partial=partial)
+    pack = fj.TrunkPack(blocks, TPT_BLOCK)
+    a0 = fused_adam_rows.launches
+    upd.trunk_rows(pack, blocks, grads, state.mu["vlm"]["blocks"], state.nu["vlm"]["blocks"], 0, inputs["salt"],
+                   "vlm/blocks/")
+    torch.cuda.synchronize()
+    res = {"launches": fused_adam_rows.launches - a0}
+    leaves = fj._tensor_whole([x for _, x in fj.tree_items(blocks)], 0)
+    rows = {}
+    for tree in ("mu", "nu"):
+        for k, x in getattr(state, tree)["vlm"]["blocks"].items():
+            rows[f"{tree}/{k}"] = (x[0] if mesh is None else
+                                   sharding.gather_leading(x[:1], mesh, pack.nb, axis=1)[0])
+    if mesh is None or mesh.rank == 0:
+        res["leaves"] = [x.cpu() for x in leaves]
+        res["moments"] = {k: v.cpu() for k, v in rows.items()}
+    del params, state, leaves, rows, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+@contextlib.contextmanager
+def tpt_attention(heads: list, errors: list):
+    """ops.attention's flash_attention recording each launch's query heads,
+    and the first launch at each shape held against its plain version on
+    its own inputs (its shape, rel L2 and max abs difference into `errors`;
+    gated at phase 5's STD_ATTN_RTOL: the activations reach |out| ~ 10, where
+    KERNEL_ATOL's two bf16 ulps at 1 do not apply); restored on exit."""
+    from intact_tpu_torch.ops import attention
+    from intact_tpu_torch.ops.flash_attention import flash_attention_reference
+
+    real = attention.flash_attention
+    seen = set()
+
+    def counted(q, k, v, mask=None, scale=None):
+        heads.append(q.shape[2])
+        out = real(q, k, v, mask, scale)
+        if tuple(q.shape) not in seen:
+            seen.add(tuple(q.shape))
+            ref = flash_attention_reference(q, k, v, mask, scale)
+            errors.append((tuple(q.shape), rel_l2(out, ref), (out.float() - ref.float()).abs().max().item()))
+        return out
+
+    attention.flash_attention = counted
+    try:
+        yield
+    finally:
+        attention.flash_attention = real
+
+
+def tpt_rank(rank: int, world: int, port: int, workdir: str) -> None:
+    """One of the phase's two ranks: a gloo group over the card's tensors
+    (NCCL refuses two ranks of one device), mesh (1, 1, 2); Pi0FAST's
+    micro-steps, the fused steps and the fed update. Writes
+    workdir/rank{r}.pt."""
+    import os
+
+    from intact_tpu_torch.parallel import MeshConfig, collectives, distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    workdir = Path(workdir)
+    inputs = torch.load(workdir / "inputs.pt", weights_only=False)
+    device = distributed.initialize(DEVICE, backend="gloo")
+    mesh = make_mesh(MeshConfig(1, 1, world))
+    heads, errors = [], []
+    result = {"backend": distributed.backend(), "mesh": mesh.shape}
+    try:
+        with tpt_attention(heads, errors):
+            collectives.reset()
+            t = time.perf_counter()
+            result["fast"] = tpt_fast_steps(device, mesh, inputs, heads)
+            result["fast_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            result["fused"] = tpt_fused_steps(device, mesh, inputs, heads)
+            result["fused_s"] = time.perf_counter() - t
+            result["fed"] = tpt_fed_update(device, mesh, inputs)
+        result["attention_errors"] = errors
+        result["staged"] = collectives.staged_calls()
+        result["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        torch.save(result, workdir / f"rank{rank}.pt")
+        distributed.destroy()
+
+
+def tpt_kernel_checks(card: str) -> None:
+    """The row kernel at a tensor rank's rows of the Gemma-2B layer pack at t =
+    2 (57,344 rows, 28,672 per rank): rank 1's part of the gate leaf (its
+    salt shifted by the rows before it, row_offset 0) and its up leaf (at
+    row_offset 8,704), each against its plain version, timed beside its
+    bound; flash_attention on one rank's 4 local query heads at the two
+    paths' training shapes at the recipes' micro-batch 16 (Pi0FAST's 357
+    tokens with the causal suffix, the fused step's 333), beside SDPA."""
+    from intact_tpu_torch.models import gemma
+    from intact_tpu_torch.models.common import Initializer
+    from intact_tpu_torch.ops.fused_adam import fused_adam_rows, fused_adam_rows_reference, shift_salt
+    from intact_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+    from intact_tpu_torch.parallel.mesh import Mesh
+    from intact_tpu_torch.train import fused_joint as fj
+    from intact_tpu_torch.train.optim import OptimizerConfig
+
+    blocks = gemma.init_block_params(Initializer(0, torch.device("meta"), torch.bfloat16), gemma.gemma_2b(), (1,))
+    pack = fj.TrunkPack(blocks, TPT_BLOCK)
+    shard = fj.pack_shard(pack, Mesh(1, 1, 2, 1, dict.fromkeys(("data", "fsdp", "tensor", "batch", "model", "world"))))
+    names = ["/".join(p) for p, _ in fj.tree_items(blocks)]
+    hp = OptimizerConfig(lr=5e-5, weight_decay=0.0)
+    hyp = torch.tensor([1 - 0.9**3, 1 - 0.999**3, 5e-5, 0.7], device="cuda")
+    rng = np.random.default_rng(9)
+    for name in ("mlp/gate/kernel", "mlp/up/kernel"):
+        i = names.index(name)
+        off, r = pack.offsets[i], pack.rows[i]
+        a, b = max(off, shard.r0), min(off + r, shard.r1)
+        orig = adam_case(rng, 1, b - a, shard.per, TPT_BLOCK, True)
+        kw = dict(layer=0, row_offset=a - shard.r0, hyp=hyp, hp=hp, salt=shift_salt(987654321, (a - off) * TPT_BLOCK),
+                  stochastic=True)
+        adam_check_case(f"tensor rank 1's {name} rows [{a}, {b}) of the layer pack", orig, kw)
+        ss = torch.zeros(1, device="cuda")
+        ms = cuda_ms(lambda: fused_adam_rows(*orig, ss=ss, **kw))
+        plain_ms = cuda_ms(lambda: fused_adam_rows_reference(*orig, ss=ss, **kw), reps=3, warmup=1)
+        n = (b - a) * TPT_BLOCK
+        bytes_ms = adam_bytes(b - a, TPT_BLOCK, torch.bfloat16, True) / H100_BYTES_PER_S * 1e3
+        ops_ms = n * ADAM_FLOPS_PER_ELEM / H100_FP32_FLOPS * 1e3
+        log(f"# tensor parallel training: fused_adam_rows at rank 1's {name} rows ({card}): {b - a} rows from "
+            f"row_offset {a - shard.r0}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{max(bytes_ms, ops_ms):.4f} ms ({'bytes' if bytes_ms >= ops_ms else 'operations'})")
+        del orig
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(10)
+    for name, (b_, n, mask) in {"Pi0FAST micro-step": (16, 357, fast_mask(16, 28, rng)),
+                                "fused step": (16, 333, prefix_mask(16, 256, 77, rng))}.items():
+        q, k, v, mask = attention_case(rng, b_, n, n, 4, 1, 256, torch.bfloat16, mask)
+        out = flash_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        err = (out.float() - flash_attention_reference(q, k, v, mask).float()).abs().max().item()
+        ms = cuda_ms(lambda: flash_attention(q, k, v, mask))
+        plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, mask), reps=10)
+        library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask[:, None], enable_gqa=True))
+        moved = 2 * q.numel() * 2 + 2 * k.numel() * 2 + mask.numel()
+        flops = 4 * 4 * 256 * int(mask.sum())
+        bound = max(moved / H100_BYTES_PER_S, flops / H100_BF16_FLOPS) * 1e3
+        log(f"# tensor parallel training: flash_attention at the {name}'s shape on 4 local heads ({card}): q "
+            f"{tuple(q.shape)}, max_abs_err {err:.3e} (atol {KERNEL_ATOL}), kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, sdpa {library_ms:.4f} ms, bound {bound:.4f} ms")
+        if not (err <= KERNEL_ATOL and torch.isfinite(out).all()):
+            raise SystemExit(f"flash_attention disagrees with its plain version at the {name}'s local heads")
+    flash_attention.launches = 0  # comparison launches do not count
+    fused_adam_rows.launches = 0
+
+
+def phase_tensor_parallel_train() -> dict:
+    """-> {kernel: launches} of Pi0FAST's standard micro-steps and Pi0's
+    fused steps at tensor 2 by two ranks on the one card (gloo, every
+    collective staged through the host), summed over the ranks. The one-card
+    references (the same functions without a group: the same weights,
+    batches, draws and salt) run here first."""
+    import shutil
+    import socket
+
+    import torch.multiprocessing as mp
+
+    card = gpu_name_and_power()
+    tpt_kernel_checks(card)
+    shutil.rmtree(TPT_DIR, ignore_errors=True)
+    TPT_DIR.mkdir(parents=True)
+    try:
+        rng = np.random.default_rng(60)
+        fast_mc, (_, fused_mc, _) = tpt_fast_config(), tpt_fused_config()
+        batch = make_train_batch(rng, fused_mc, TPT_ROWS)
+        inputs = {"seed": TPT_SEED, "salt": TPT_SALT,
+                  "fast_batches": [{k: torch.from_numpy(np.asarray(v)) for k, v in
+                                    make_train_batch(rng, fast_mc, TPT_ROWS).items()} for _ in range(2)],
+                  "fused_batch": {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()},
+                  "fused_noise": [torch.from_numpy(rng.standard_normal(batch["actions"].shape, dtype=np.float32))
+                                  for _ in range(2)],
+                  "fused_time": [torch.from_numpy(rng.uniform(0.1, 0.9, TPT_ROWS).astype(np.float32))
+                                 for _ in range(2)]}
+        torch.save(inputs, TPT_DIR / "inputs.pt")
+        heads, errors = [], []
+        t = time.perf_counter()
+        with tpt_attention(heads, errors):
+            one = {"fast": tpt_fast_steps(DEVICE, None, inputs, heads),
+                   "fused": tpt_fused_steps(DEVICE, None, inputs, heads),
+                   "fed": tpt_fed_update(DEVICE, None, inputs)}
+        log(f"# tensor parallel training: the one-card references in {time.perf_counter() - t:.1f} s, attention "
+            f"against its plain version {errors}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(tpt_rank, args=(2, port, str(TPT_DIR)), nprocs=2, join=False, start_method="spawn")
+        deadline = time.monotonic() + TPT_JOIN_S
+        while not ctx.join(timeout=max(0.5, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise SystemExit(f"the tensor-parallel training ranks did not finish within {TPT_JOIN_S:.0f} s")
+        ranks_s = time.perf_counter() - t0
+        log(f"# tensor parallel training: the two ranks ran in {ranks_s:.1f} s")
+        ranks = [torch.load(TPT_DIR / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    finally:
+        shutil.rmtree(TPT_DIR, ignore_errors=True)
+    return tpt_gates(ranks, one, fast_mc, fused_mc, card)
+
+
+def tpt_fast_gates(ranks: list, one: dict, mc, card: str) -> None:
+    """Pi0FAST's micro-steps on the ranks against one card's."""
+    local = mc.vlm.num_heads // 2
+    # per micro-step: SigLIP's o and fc2 partials and its two regions' input gradients (4 a layer); the trunk's
+    # o and down partials, o's again in the recompute (torch's checkpoint stops recomputing after the last saved
+    # tensor, before down's) and its two regions' input gradients (5 a layer); the language and the
+    # teacher-forced lookups, the cross entropy's sums, the head's input gradient and the partial leaves' sum
+    # (5); the MAX all-reduces of the cross entropy and of the accuracy's argmax (2)
+    want_sum, want_max = 4 * mc.vision.depth + 5 * mc.vlm.depth + 5, 2
+    want_flash = 2 * mc.vlm.depth  # the checkpointed prefill's forward and recompute
+    ref = one["fast"]
+    for r, res in enumerate(ranks):
+        fast = res["fast"]
+        log(f"# tensor parallel training rank {r} Pi0FAST micro-steps (2 fp32 with the plain attention, then 2 bf16 "
+            f"with the kernel; {card}): losses {fast['losses']}, token accuracy {fast['accs']}, [grad_norm, "
+            f"param_norm] {fast['norms']}, launches and tensor collectives {fast['counts']} (expected per micro-step "
+            f"{want_sum} all-reduces, {want_max} MAX all-reduces, {want_flash} flash_attention in bf16), attention "
+            f"heads {fast['heads']}, summed over tensor {fast['partial']}, the table a tensor slice "
+            f"{fast['table_split']}; {res['fast_s']:.1f} s")
+        for i, c in enumerate(fast["counts"]):
+            bf16 = i >= 2
+            ok = c["tensor_all_reduce"] == want_sum and c["tensor_all_reduce_max"] == want_max
+            ok = ok and c["flash_attention"] == (want_flash if bf16 else 0) and c["tensor_all_gather"] == 0
+            ok = ok and fast["heads"][i] == ([local] if bf16 else [])
+            if not ok:
+                raise SystemExit(f"tensor parallel training rank {r} Pi0FAST micro-step {i + 1}: launches or "
+                                 f"collectives {c}, heads {fast['heads'][i]}")
+        if not (fast["table_split"] and {"vlm/blocks/attn/k/kernel", "siglip/blocks/attn/q/bias"} <= set(
+                fast["partial"]) and np.isfinite(fast["losses"] + sum(fast["norms"], [])).all()):
+            raise SystemExit(f"tensor parallel training rank {r}: Pi0FAST's split, partial leaves or metrics")
+    lead = ranks[0]["fast"]
+    if ranks[1]["fast"]["losses"] != lead["losses"] or ranks[1]["fast"]["accs"] != lead["accs"]:
+        raise SystemExit("tensor parallel training: the two ranks' Pi0FAST losses differ")
+    got, want = np.array(lead["norms"]), np.array(ref["norms"])
+    loss_rel = np.abs(np.array(lead["losses"]) / np.array(ref["losses"]) - 1)
+    norm_rel = np.abs(got / want - 1)
+    params_diff = max((lead["params"][k] - ref["params"][k]).abs().max().item() for k in ref["params"])
+    table_rel = rel_l2(lead["table_grad"], ref["table_grad"])
+    log(f"# tensor parallel training Pi0FAST against one card: fp32 losses {ref['losses'][:2]} (max rel "
+        f"{loss_rel[:2].max():.3e}, rtol {TPT_FP32_RTOL}), norms max rel {norm_rel[:2].max():.3e} (rtol "
+        f"{TPT_FP32_RTOL}), token accuracy {ref['accs'][:2]} (equal: {lead['accs'][:2] == ref['accs'][:2]}), params "
+        f"after the update max abs {params_diff:.3e} (atol {TPT_PARAMS_ATOL}), the tied table's gradient rel L2 "
+        f"{table_rel:.3e} (rtol {TPT_TABLE_RTOL}); bf16 with the kernel losses {ref['losses'][2:]} (max rel "
+        f"{loss_rel[2:].max():.3e}, rtol {TP_BF16_LOSS_RTOL}), norms max rel {norm_rel[2:].max():.3e} (rtol "
+        f"{TP_BF16_GNORM_RTOL}); one card's launches and collectives {ref['counts']}")
+    ok = loss_rel[:2].max() <= TPT_FP32_RTOL and norm_rel[:2].max() <= TPT_FP32_RTOL
+    ok = ok and lead["accs"][:2] == ref["accs"][:2] and params_diff <= TPT_PARAMS_ATOL and table_rel <= TPT_TABLE_RTOL
+    ok = ok and loss_rel[2:].max() <= TP_BF16_LOSS_RTOL and norm_rel[2:].max() <= TP_BF16_GNORM_RTOL
+    if not ok:
+        raise SystemExit("tensor parallel training: Pi0FAST's micro-steps disagree with one card's")
+
+
+def bits_of(x: torch.Tensor) -> torch.Tensor:
+    """x, with fp8 codes as their bytes (torch.equal takes no fp8 on the host)."""
+    return x.view(torch.uint8) if x.dtype in (torch.float8_e4m3fn, torch.float8_e5m2) else x
+
+
+def tpt_fused_gates(ranks: list, one: dict, mc, card: str) -> None:
+    """The fused steps and the fed update on the ranks against one card's."""
+    depth, local = mc.vlm.depth, mc.vlm.num_heads // 2
+    ref = one["fused"]
+    # per step: the trunk's forward (no gradient) and recomputed pairs with the kernel, the suffix-only last pair
+    # plain; the tensor all-reduces: 12 per full layer pair (the two streams' o and down partials in the forward
+    # and again in the recompute, their two regions' input gradients), 5 for the last pair, 4 per SigLIP layer
+    # and the frozen lookup; the tensor all-gathers: each trunk layer's split leaves joined for its update (2 per
+    # layer pair) and each split leaf outside the trunks
+    want_flash = 2 * (depth - 1)
+    want_sum = 12 * (depth - 1) + 5 + 4 * mc.vision.depth + 1
+    for r, res in enumerate(ranks):
+        fused = res["fused"]
+        want_gather = 2 * depth + fused["split_outside"]
+        log(f"# tensor parallel training rank {r} fused steps (bf16 masters, SR, fp8 moments, the kernels; "
+            f"{card}): losses {fused['losses']}, grad_norm {fused['gnorms']}, clip {fused['clips']}, launches and "
+            f"tensor collectives {fused['counts']} (expected per step fused_adam_rows {fused['want_rows']} from the "
+            f"packs' row split, flash_attention {want_flash} on {local} local heads, {want_sum} all-reduces, "
+            f"{want_gather} all-gathers), attention heads {fused['heads']}; {res['fused_s']:.1f} s")
+        for i, c in enumerate(fused["counts"]):
+            ok = c["fused_adam_rows"] == fused["want_rows"] and c["flash_attention"] == want_flash
+            ok = ok and c["tensor_all_reduce"] == want_sum and c["tensor_all_gather"] == want_gather
+            ok = ok and fused["heads"][i] == [local] and np.isfinite(fused["losses"][i]) and c["tensor_all_reduce_max"] == 0
+            if not ok:
+                raise SystemExit(f"tensor parallel training rank {r} fused step {i + 1}: launches or collectives {c}")
+    a, b = ranks[0]["fused"], ranks[1]["fused"]
+    if a["gnorms"] != b["gnorms"] or a["clips"] != b["clips"] or a["losses"] != b["losses"]:
+        raise SystemExit(f"tensor parallel training: the ranks' fused grad_norm {a['gnorms']} / {b['gnorms']} or "
+                         f"clip {a['clips']} / {b['clips']} differ")
+    loss_rel = max(abs(x / y - 1) for x, y in zip(a["losses"], ref["losses"]))
+    gnorm_rel = max(abs(x / y - 1) for x, y in zip(a["gnorms"], ref["gnorms"]))
+    pk, pp, p0 = a["params"], ref["params"], ref["before"]
+    num = sum((pk[k].float() - pp[k].float()).square().sum().item() for k in pp)
+    den = sum(pp[k].float().square().sum().item() for k in pp)
+    dnum = sum(((pk[k].float() - p0[k].float()) - (pp[k].float() - p0[k].float())).square().sum().item() for k in pp)
+    dden = sum((pp[k].float() - p0[k].float()).square().sum().item() for k in pp)
+    far = total = 0
+    for k, x in ref["moments"].items():
+        if x.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+            gap = (fp8_index(a["moments"][k]) - fp8_index(x)).abs()
+            far += int((gap > 1).sum())
+            total += gap.numel()
+    share = far / max(total, 1)
+    log(f"# tensor parallel training fused steps against one card: losses {ref['losses']} (max rel {loss_rel:.3e}, "
+        f"tol {TRAIN_LOSS_RTOL}), grad_norm {ref['gnorms']} (max rel {gnorm_rel:.3e}, tol {TRAIN_GNORM_RTOL}), "
+        f"clip {ref['clips']}, params rel L2 {(num / den) ** 0.5:.3e} (tol {TRAIN_PARAMS_RTOL}), update rel L2 "
+        f"{(dnum / dden) ** 0.5:.3e} (tol {TRAIN_UPDATE_RTOL}), moment codes more than one apart {share:.3e} of "
+        f"{total} (tol {TRAIN_CODES_SHARE}); one card's launches and collectives {ref['counts']}, its row kernel "
+        f"launches expected {ref['want_rows']}")
+    ok = loss_rel <= TRAIN_LOSS_RTOL and gnorm_rel <= TRAIN_GNORM_RTOL and (num / den) ** 0.5 <= TRAIN_PARAMS_RTOL
+    ok = ok and (dnum / dden) ** 0.5 <= TRAIN_UPDATE_RTOL and share <= TRAIN_CODES_SHARE
+    ok = ok and all(c["fused_adam_rows"] == ref["want_rows"] for c in ref["counts"])
+    if not ok:
+        raise SystemExit("tensor parallel training: the fused steps disagree with one card's")
+    fed, fed_one = ranks[0]["fed"], one["fed"]
+    same_leaves = all(torch.equal(x, y) for x, y in zip(fed["leaves"], fed_one["leaves"]))
+    same_moments = all(torch.equal(bits_of(x), bits_of(fed_one["moments"][k])) for k, x in fed["moments"].items())
+    moved = sum(not torch.equal(x, y) for x, y in zip(fed["leaves"], fed_one["leaves"]))
+    log(f"# tensor parallel training: layer 0 of the VLM trunk fed one card's gradient (bf16, SR, fp8 moments, the "
+        f"row kernel on each rank's rows with its salt shifted): params bit-equal {same_leaves} ({moved} leaves "
+        f"differ), moments bit-equal {same_moments}; fused_adam_rows launches rank 0 {fed['launches']}, rank 1 "
+        f"{ranks[1]['fed']['launches']}, one card {fed_one['launches']}")
+    if not (same_leaves and same_moments and fed["launches"] > 0 and ranks[1]["fed"]["launches"] > 0):
+        raise SystemExit("tensor parallel training: the fed update is not one card's bit for bit")
+
+
+def tpt_gates(ranks: list, one: dict, fast_mc, fused_mc, card: str) -> dict:
+    """The phase's gates over the two ranks' results -> the path's launches."""
+    for r, res in enumerate(ranks):
+        if res["backend"] != "gloo" or res["mesh"] != {"data": 1, "fsdp": 1, "tensor": 2}:
+            raise SystemExit(f"tensor parallel training rank {r}: group {res['backend']} mesh {res['mesh']}")
+        worst = max((e for _, e, _ in res["attention_errors"]), default=float("inf"))
+        log(f"# tensor parallel training rank {r}: attention launches against their plain versions (shape, rel L2, "
+            f"max abs) {res['attention_errors']} (rel L2 gate {STD_ATTN_RTOL}), {res['staged']} collectives staged "
+            f"through the host, peak {res['peak_gib']:.2f} GiB")
+        if not worst <= STD_ATTN_RTOL:
+            raise SystemExit(f"tensor parallel training rank {r}: an attention launch disagrees with its plain version")
+    tpt_fast_gates(ranks, one, fast_mc, card)
+    tpt_fused_gates(ranks, one, fused_mc, card)
+    totals = {"flash_attention": 0, "fused_adam_rows": 0}
+    for res in ranks:
+        for path in ("fast", "fused"):
+            for c in res[path]["counts"]:
+                for k in totals:
+                    totals[k] += c[k]
     return totals
 
 
@@ -6038,6 +6672,7 @@ def main() -> int:
     kernels.update(tp_kernels)
     tensor_parallel_ar = run(phase_tensor_parallel_ar)
     tensor_parallel_mvla = run(phase_tensor_parallel_mvla)
+    tensor_parallel_train = run(phase_tensor_parallel_train)
     training = run(phase_training)
     run(phase_rlds_data)
     standard = run(phase_standard_training)
@@ -6052,7 +6687,7 @@ def main() -> int:
     client = run(phase_client)
     paths = {"serving": {"flash_attention": serving}, "int8": int8, "group_serving": group_serving,
              "tensor_parallel": tensor_parallel, "tensor_parallel_ar": tensor_parallel_ar,
-             "tensor_parallel_mvla": tensor_parallel_mvla,
+             "tensor_parallel_mvla": tensor_parallel_mvla, "tensor_parallel_train": tensor_parallel_train,
              "training": training, "standard": standard,
              "multirank": multirank, "fast_serving": fast_serving, "fast_training": fast_training, "mvla_serving": mvla_serving,
              "mvla_training": mvla_training, "svla_serving": svla_serving, "magma_serving": magma_serving,
@@ -6075,7 +6710,9 @@ def main() -> int:
         f"{tensor_parallel['w8a8_partial']} and w8a8_finish {tensor_parallel['w8a8_finish']}; flash_attention "
         f"{tensor_parallel['flash_attention']} on local heads) + {tensor_parallel_mvla['w8a8_matmul']} MVLA on the "
         f"two tensor ranks (w8a8_partial {tensor_parallel_mvla['w8a8_partial']}, w8a8_finish "
-        f"{tensor_parallel_mvla['w8a8_finish']}, flash_attention {tensor_parallel_mvla['flash_attention']}) + "
+        f"{tensor_parallel_mvla['w8a8_finish']}, flash_attention {tensor_parallel_mvla['flash_attention']}; "
+        f"training on the two tensor ranks: flash_attention {tensor_parallel_train['flash_attention']}, "
+        f"fused_adam_rows {tensor_parallel_train['fused_adam_rows']}) + "
         f"{standard['w8a8_matmul']} expert-only training + "
         f"{multirank['w8a8_matmul']} multi-card expert-only + "
         f"{fast_serving['w8a8_matmul']} Pi0FAST int8 serving + {mvla_serving['w8a8_matmul']} MVLA int8 serving; "

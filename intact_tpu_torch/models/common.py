@@ -427,10 +427,21 @@ def layer(blocks: Params, i: int) -> Params:
 
 
 def gathered(tree: Params) -> Params:
-    """A tree with its `Sharded` leaves whole, through one bucket (a tree
-    used several times in one pass: gathered once, its gradient summed by
-    autograd before the one reduce-scatter)."""
-    return gather_tree(tree)
+    """A tree with its `Sharded` leaves whole over fsdp, through one bucket
+    (a tree used several times in one pass: gathered once, its gradient
+    summed by autograd before the one reduce-scatter); a leaf split over
+    tensor stays this rank's tensor slice, held by a `Sharded` of no fsdp
+    group, so its users still find the tensor group (`tensor_parallel.of`)."""
+    out = gather_tree(tree)
+
+    def keep(node, whole):
+        if isinstance(node, dict):
+            return {k: keep(v, whole[k]) for k, v in node.items()}
+        if isinstance(node, Sharded) and node.tensor is not None:
+            return Sharded(whole, 0, tuple(whole.shape), None, 1, tensor=node.tensor)
+        return whole
+
+    return keep(tree, out)
 
 
 # ---------------------------------------------------------------------------

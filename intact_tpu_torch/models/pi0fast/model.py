@@ -15,18 +15,19 @@ previous token times sqrt(width).
 Interface as the other model modules (init / compute_loss / sample_actions),
 so the trainer, Pi0Policy and the serving wrapper apply.
 
-Over tensor ranks (serving at mesh.tensor > 1, `tensor_heads`) SigLIP and
-the trunk run their local heads (models/gemma.py; the one K/V head whole on
-every rank, so the cache holds it whole), the table is split over its
-vocabulary: a rank looks up its rows, forms the logits of its rows of the
-action window (the window's tail rows sit on the last rank or ranks) and the
-greedy token is reduced over tensor (`tensor_parallel.vocab_argmax`).
+Over tensor ranks (serving and the standard training step at mesh.tensor
+> 1, `tensor_heads`) SigLIP and the trunk run their local heads
+(models/gemma.py; the one K/V head whole on every rank, so the cache holds it
+whole), the table is split over its vocabulary: a rank looks up its rows,
+forms the logits of its rows (of the action window when decoding: the
+window's tail rows sit on the last rank or ranks), the greedy token is
+reduced over tensor (`tensor_parallel.vocab_argmax`) and the training loss is
+the vocabulary-parallel cross entropy (`tensor_parallel.vocab_cross_entropy`).
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from intact_tpu_torch.models import common as cm
 from intact_tpu_torch.models import gemma, siglip
@@ -132,11 +133,17 @@ def compute_loss(params, rng, batch: dict, cfg: Pi0FASTConfig, policy: DtypePoli
     tokens (the token mask, else not action_is_pad). The loss draws nothing:
     `rng`, `noise` and `time` are unused (Pi0's flow-matching draws, taken
     so that one trainer calls every family alike). Each trunk layer is
-    recomputed in the backward (gemma.prefill under autograd)."""
+    recomputed in the backward (gemma.prefill under autograd). Over tensor
+    the logits are this rank's vocabulary columns, the cross entropy and the
+    accuracy's argmax reduced over tensor (`tensor_parallel.vocab_cross_entropy`,
+    `vocab_argmax`)."""
     del rng, train, noise, time
     # the tied table serves the language lookup, the teacher-forced inputs and
     # the head: over fsdp ranks it is gathered once, and its three gradients
-    # meet in autograd before its one reduce-scatter
+    # meet in autograd before its one reduce-scatter; over tensor a rank holds
+    # its vocabulary rows, and its lookups' rows and its head's columns are
+    # both gradients of those rows
+    tp = tensor_parallel.of(params["vlm_embed"])
     params = {**params, "vlm_embed": cm.gathered(params["vlm_embed"])}
     if "action_tokens" in batch:
         targets = batch["action_tokens"].long()
@@ -159,8 +166,9 @@ def compute_loss(params, rng, batch: dict, cfg: Pi0FASTConfig, policy: DtypePoli
 
     out, _ = gemma.prefill(params["vlm"], embs, make_att_2d_masks(pad, att), positions, cfg.vlm, policy,
                            cfg.attention_impl)
-    logits = _logits(params, out[:, -t:], policy)  # [B, T, V]
-    nll = -torch.gather(F.log_softmax(logits, dim=-1), -1, targets[:, :, None])[..., 0]
+    # [B, T, V] (over tensor this rank's columns: the head's input through copy_in, its gradient summed)
+    logits = _logits(params, tensor_parallel.copy_in(out[:, -t:], tp), policy)
+    nll = tensor_parallel.vocab_cross_entropy(logits, targets, tp, cfg.vlm.vocab_size)
 
     if token_keep is not None:
         keep = token_keep
@@ -171,7 +179,7 @@ def compute_loss(params, rng, batch: dict, cfg: Pi0FASTConfig, policy: DtypePoli
     keep_f = keep.to(nll.dtype)
     n_keep = keep_f.sum().clamp_min(1)
     loss = (nll * keep_f).sum() / n_keep
-    acc = ((logits.argmax(dim=-1) == targets).to(torch.float32) * keep_f).sum() / n_keep
+    acc = ((tensor_parallel.vocab_argmax(logits.detach(), tp) == targets).to(torch.float32) * keep_f).sum() / n_keep
     return loss, {"l2_loss": loss, "ce_loss": loss, "token_accuracy": acc, "losses": nll * keep_f}
 
 

@@ -5,13 +5,15 @@ Axes, as in the JAX package:
   fsdp    data parallelism with the state split over the ranks: the standard
           step's parameters, gradients and optimizer state by the rules
           (ZeRO-3, parallel/sharding.py, train/optim.py); the fused step's
-          optimizer state in global block rows, the whole parameters gathered
-          after each update (ZeRO-2, train/fused_joint.py)
+          optimizer state in global block rows of the one-card pack, over
+          fsdp x tensor, the parameters whole over fsdp and gathered after
+          each update (ZeRO-2, train/fused_joint.py)
   tensor  Megatron-style tensor parallelism (serving Pi0, Pi0FAST, native
-          SpatialVLA, native Magma and MVLA; the standard step of Pi0 and
-          MVLA): column-parallel q, k, v (where their heads split), gate, up,
-          fc1 and Magma's lm_head, row-parallel o, down and fc2, the
-          embeddings split over their vocabulary, the greedy argmax reduced
+          SpatialVLA, native Magma and MVLA; the standard step of Pi0,
+          Pi0FAST and MVLA and Pi0's fused step): column-parallel q, k, v
+          (where their heads split), gate, up, fc1 and Magma's lm_head,
+          row-parallel o, down and fc2, the embeddings split over their
+          vocabulary, the greedy argmax and Pi0FAST's cross entropy reduced
           over tensor (models/common.py, parallel/tensor.py); every other
           path refuses tensor > 1 (`refuse_tensor`)
 
@@ -101,6 +103,11 @@ class Mesh:
         return self.rank % self.tensor
 
     @property
+    def model_index(self) -> int:
+        """The rank's place f * tensor + t in its model group (fsdp x tensor)."""
+        return self.rank % (self.fsdp * self.tensor)
+
+    @property
     def batch_index(self) -> int:
         """The rank's batch coordinate d * fsdp + f: the rows it takes."""
         return self.rank // self.tensor
@@ -116,28 +123,25 @@ class Mesh:
         return self.groups["world"] is not None
 
 
-TENSOR_FAMILIES = ("pi0", "mvla")  # the model modules whose standard training step runs at tensor > 1
+TENSOR_FAMILIES = ("pi0", "pi0fast", "mvla")  # the model modules whose training steps run at tensor > 1
 # the model modules whose serving runs at tensor > 1: Pi0, MVLA (mvla, mmmvla, the DiT head) and the
 # token-decoding families (their logits split over the vocabulary, the greedy argmax reduced over tensor:
 # parallel/tensor.py)
 TENSOR_SERVING_FAMILIES = ("pi0", "mvla", "pi0fast", "spatialvla", "magma")
 _SLICE = ("the tensor-parallel slice covers serving Pi0, MVLA, Pi0FAST, native SpatialVLA and native Magma and "
-          "the standard training step of Pi0 and MVLA")
+          "training Pi0 (its standard and fused steps), Pi0FAST and MVLA")
 
 
-def refuse_tensor(cfg: MeshConfig, family: str | None = None, fused: bool = False, serving: bool = False) -> None:
+def refuse_tensor(cfg: MeshConfig, family: str | None = None, serving: bool = False) -> None:
     """Raise unless the mesh's tensor axis is 1 or the path runs it: serving
     (`serving`) a family of TENSOR_SERVING_FAMILIES (`family`, the model
-    module's package name), or the standard training step of a family of
-    TENSOR_FAMILIES (Pi0, MVLA). The fused step, every other family's
-    training (Pi0FAST's vocabulary-parallel cross entropy is not ported) and
-    every other family's serving (Octo, the HF-scaffold types) refuse it."""
+    module's package name), or training a family of TENSOR_FAMILIES (Pi0's
+    standard and fused steps, Pi0FAST's and MVLA's standard step; the
+    trainer takes the fused step for Pi0 only). Every other family's
+    training (Octo, the HF-scaffold types) and serving (Octo, the
+    HF-scaffold types) refuse it."""
     if cfg.tensor == 1:
         return
-    if fused:
-        raise NotImplementedError(
-            f"the tensor axis (mesh.tensor={cfg.tensor}) is not ported for the fused step: {_SLICE}; "
-            "train the fused recipe at tensor 1")
     if family not in (TENSOR_SERVING_FAMILIES if serving else TENSOR_FAMILIES):
         what = f"serving {family or 'this model'}" if serving else f"training {family or 'this model'}"
         raise NotImplementedError(

@@ -18,12 +18,14 @@ Two splits:
 The gradient and parameter helpers run the collectives of
 parallel/collectives.py, so the steps call them only when the mesh has a
 process group (without one a rank's gradient is the mean, and its rows are
-the leaf's): the fused step's `mean_rows` (reduce-scatter over fsdp,
-all-reduce over data, divided by the world size: the mean of the ranks'
-gradients) and `gather_rows` (all-gather of the updated rows over fsdp, bit
-for bit), and `mean_full` (one all-reduce over the world: both steps'
-replicated leaves). A world of one reduces nothing: its results
-equal those of no group bit for bit.
+the leaf's): the fused step's `mean_rows` (reduce-scatter over the model
+group, fsdp x tensor, all-reduce over data, divided by the batch
+coordinates: the mean of the coordinates' gradients, each summed over its
+tensor ranks' parts) and `gather_rows` (all-gather of the updated rows over
+the model group, bit for bit), and `mean_full` (one all-reduce over the
+world: the standard step's replicated leaves). At tensor 1 the model group
+is the fsdp group and the batch coordinates are the world. A world of one
+reduces nothing: its results equal those of no group bit for bit.
 
 The parameters (ZeRO-3 by the JAX package's DEFAULT_RULES: serving and the
 standard training step): `spec_for_path` gives a leaf's spec, a tuple of
@@ -142,8 +144,11 @@ def local_rows(tree, rank: int, world: int):
 # ---------------------------------------------------------------------------
 
 def mean_rows(g: torch.Tensor, shard: RowShard, mesh: Mesh) -> torch.Tensor:
-    """fp32 [e1 - e0]: the mean over the world of the ranks' g, at this
-    rank's rows (the mesh has a process group)."""
+    """fp32 [e1 - e0]: the ranks' g summed over the model group (fsdp x
+    tensor: `shard` splits the rows over it) and over data, divided by the
+    batch coordinates, at this rank's rows (the mesh has a process group).
+    Where a tensor rank's g holds its part of the leaf and zeros elsewhere,
+    that is the mean over the coordinates of their whole gradients."""
     flat = g.reshape(-1).to(torch.float32)
     size = shard.parts * shard.per * shard.block
     if flat.numel() == size:  # the shares tile the leaf: no padded copy
@@ -152,9 +157,9 @@ def mean_rows(g: torch.Tensor, shard: RowShard, mesh: Mesh) -> torch.Tensor:
         padded = torch.zeros(size, dtype=torch.float32, device=g.device)
         padded[:shard.n] = flat
     out = torch.empty(shard.per * shard.block, dtype=torch.float32, device=g.device)
-    collectives.reduce_scatter(out, padded, mesh.groups["fsdp"])
+    collectives.reduce_scatter(out, padded, mesh.groups["model"])
     collectives.all_reduce(out, mesh.groups["data"])
-    return out[:shard.e1 - shard.e0] / mesh.size
+    return out[:shard.e1 - shard.e0] / mesh.batch_size
 
 
 def mean_full(g: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -178,22 +183,23 @@ def all_gather_bytes(x: torch.Tensor, group, parts: int) -> torch.Tensor:
 
 
 def gather_rows(flat_p: torch.Tensor, shard: RowShard, mesh: Mesh) -> None:
-    """Copy every fsdp rank's rows of a flattened leaf (a view of its storage)
-    into it, after each rank updated its own rows (the mesh has a process
-    group)."""
+    """Copy every model-group rank's rows of a flattened leaf (a view of its
+    storage) into it, after each rank updated its own rows (the mesh has a
+    process group)."""
     local = torch.zeros(shard.per * shard.block, dtype=flat_p.dtype, device=flat_p.device)
     local[:shard.e1 - shard.e0] = flat_p[shard.e0:shard.e1]
-    full = all_gather_bytes(local, mesh.groups["fsdp"], shard.parts).view(-1)
+    full = all_gather_bytes(local, mesh.groups["model"], shard.parts).view(-1)
     flat_p.copy_(full[:shard.n])
 
 
 def gather_leading(x: torch.Tensor, mesh: Mesh, total: int, axis: int = 0) -> torch.Tensor:
-    """Concatenate the fsdp ranks' equal local slices of a state tensor along
-    `axis` (rank order) and keep the first `total` entries: the global layout
-    of a row-sharded state tensor. A copy of x without a process group."""
+    """Concatenate the model group's (fsdp x tensor) equal local slices of a
+    state tensor along `axis` (rank order) and keep the first `total`
+    entries: the global layout of a row-sharded state tensor. A copy of x
+    without a process group."""
     if not mesh.distributed:
         return x.narrow(axis, 0, total).clone()
-    parts = all_gather_bytes(x, mesh.groups["fsdp"], mesh.fsdp)  # [F, *x.shape]
+    parts = all_gather_bytes(x, mesh.groups["model"], mesh.fsdp * mesh.tensor)  # [F * T, *x.shape]
     return torch.cat(list(parts.unbind(0)), dim=axis).narrow(axis, 0, total)
 
 
@@ -420,11 +426,12 @@ def _layer_slices(leaves: list, index) -> tuple[list, list]:
     return xs, dims
 
 
-def gather_bucket(leaves: list, index=None) -> list[torch.Tensor]:
+def gather_bucket(leaves: list, index=None, all_gather=None) -> list[torch.Tensor]:
     """The leaves whole (at `index`): their local slices packed into one byte
     buffer, each at a 128-byte aligned offset, gathered over the group with
-    one all-gather, and unpacked leaf by leaf into a tensor of its own
-    (the parts concatenated along the split dimension, contiguous)."""
+    one all-gather (`all_gather`, the bucket's own by default), and unpacked
+    leaf by leaf into a tensor of its own (the parts concatenated along the
+    split dimension, contiguous)."""
     from torch.profiler import record_function
 
     xs, dims = _layer_slices(leaves, index)
@@ -438,7 +445,7 @@ def gather_bucket(leaves: list, index=None) -> list[torch.Tensor]:
         for x, o in zip(xs, offsets):
             send[o:o + x.numel() * x.element_size()].view(x.dtype).view(x.shape).copy_(x)
         recv = torch.empty(parts * size, dtype=torch.uint8, device=send.device)
-        collectives.bucket_all_gather(recv, send, group)
+        (all_gather or collectives.bucket_all_gather)(recv, send, group)
     with record_function("bucket unpack"):
         out = []
         for x, dim, o in zip(xs, dims, offsets):
@@ -568,13 +575,15 @@ def take_slice(whole: torch.Tensor, like: Sharded) -> torch.Tensor:
     return whole.narrow(like.dim, like.index * n, n)
 
 
-def shard_leaf(path: str, x: torch.Tensor, mesh: Mesh, put=None, rules=None, heads=None):
+def shard_leaf(path: str, x: torch.Tensor, mesh: Mesh, put=None, rules=None, heads=None, over_fsdp: bool = True):
     """A whole leaf -> this rank's: a `Sharded` part where the rules split it
-    over fsdp (fsdp > 1) or tensor (tensor > 1; `heads` as for
-    spec_for_path), else the leaf. `put` moves the (sliced) leaf to its
-    device and dtype first; the part never shares the whole leaf's storage."""
+    over fsdp (fsdp > 1; not without `over_fsdp`: the leaf stays whole over
+    fsdp, as the fused step's ZeRO-2 keeps it) or tensor (tensor > 1; `heads`
+    as for spec_for_path), else the leaf. `put` moves the (sliced) leaf to
+    its device and dtype first; the part never shares the whole leaf's
+    storage."""
     spec = spec_for_path(path, x.shape, mesh, rules, heads) if mesh.fsdp > 1 or mesh.tensor > 1 else ()
-    fsdp = "fsdp" in spec and mesh.fsdp > 1
+    fsdp = "fsdp" in spec and mesh.fsdp > 1 and over_fsdp
     if not fsdp and "tensor" not in spec:
         return put(x) if put else x
     piece, tensor = x, None
@@ -595,13 +604,13 @@ def shard_leaf(path: str, x: torch.Tensor, mesh: Mesh, put=None, rules=None, hea
     return Sharded(local, dim, shape, group, parts, index, tensor=tensor)
 
 
-def shard_tree(tree, mesh: Mesh, put=None, consume: bool = False, rules=None, heads=None):
+def shard_tree(tree, mesh: Mesh, put=None, consume: bool = False, rules=None, heads=None, over_fsdp: bool = True):
     """A whole parameter tree -> this rank's, leaf by leaf (`shard_leaf`).
     consume=True empties `tree` as it goes, so the whole leaves go as their
     slices are made."""
     def walk(node, path):
         if not isinstance(node, dict):
-            return shard_leaf(_path_str(path), node, mesh, put, rules, heads)
+            return shard_leaf(_path_str(path), node, mesh, put, rules, heads, over_fsdp)
         out = {}
         for k in list(node):
             out[k] = walk(node[k], path + (k,))

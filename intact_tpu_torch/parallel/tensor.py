@@ -21,9 +21,11 @@ and the vocabulary-parallel pieces of the token-decoding families:
 `vocab_lookup` (each rank looks up the ids in its rows of a float or int8
 table, zeros elsewhere, summed by g: one non-zero term, so exact),
 `vocab_window` (a rank's rows of a window of the vocabulary, Pi0FAST's
-action tail) and `vocab_argmax` (the first index of the maximum over logits
+action tail), `vocab_argmax` (the first index of the maximum over logits
 split over tensor, as argmax over the whole: one MAX all-reduce of a packed
-int64 per row). `kv_heads` gives the K/V heads a rank's query heads read
+int64 per row) and `vocab_cross_entropy` (Megatron's vocabulary-parallel
+cross entropy, Pi0FAST's training loss: one MAX all-reduce and one sum
+all-reduce per call, the gradient softmax - one-hot on the rank's columns). `kv_heads` gives the K/V heads a rank's query heads read
 where the K/V heads do not split, `whole_groups` pads a rank's query heads
 to whole groups of one K/V head. Every collective is one
 of parallel/collectives.py's tensor_* wrappers, counted there; without a
@@ -42,6 +44,7 @@ import dataclasses
 import re
 
 import torch
+import torch.nn.functional as F
 
 from intact_tpu_torch.parallel import collectives
 
@@ -187,6 +190,53 @@ def vocab_argmax(logits: torch.Tensor, tp: TensorParallel | None, offset: int | 
         packed = (key << 32) | (_LOW - (index[..., 0] + offset))
     collectives.tensor_all_reduce_max(packed, tp.group)
     return _LOW - (packed & _LOW)
+
+
+class _VocabParallelCrossEntropy(torch.autograd.Function):
+    """Megatron's _VocabParallelCrossEntropy over this rank's fp32 logit
+    columns start.. of the vocabulary: the row maximum by one MAX all-reduce
+    (no gradient through it), then Σexp(logit - max) and the target's logit
+    (on the rank that holds the target, 0 elsewhere) summed over tensor in
+    one all-reduce; nll = -((target logit - max) - log Σ), as log_softmax's
+    order. The backward: softmax - one-hot on the rank's columns, times the
+    incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, start, vocab, group):
+        n = logits.shape[-1]
+        x = logits
+        if start + n > vocab:  # the rows of a table padded past the vocabulary count as -inf
+            x = logits.masked_fill(torch.arange(start, start + n, device=logits.device) >= vocab, float("-inf"))
+        m = collectives.tensor_all_reduce_max(x.amax(dim=-1), group)
+        e = torch.exp(x - m[..., None])
+        local = targets - start
+        mine = (local >= 0) & (local < n)
+        local = local.clamp(0, n - 1)
+        picked = x.gather(-1, local[..., None])[..., 0]
+        sums = torch.stack([e.sum(dim=-1), torch.where(mine, picked, picked.new_zeros(()))])
+        collectives.tensor_all_reduce(sums, group)
+        nll = -((sums[1] - m) - torch.log(sums[0]))
+        ctx.save_for_backward(e.div_(sums[0][..., None]), local, mine)
+        return nll
+
+    @staticmethod
+    def backward(ctx, grad):
+        softmax, local, mine = ctx.saved_tensors
+        g = softmax.scatter_add(-1, local[..., None], -mine.to(softmax.dtype)[..., None])
+        return g * grad[..., None], None, None, None, None
+
+
+def vocab_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, tp: TensorParallel | None,
+                        vocab: int) -> torch.Tensor:
+    """-log softmax(logits)[target] per row, fp32 [...], of fp32 logits
+    [..., n] over a vocabulary of `vocab` entries split over tensor (this
+    rank's columns: entries index * n.., those past `vocab` counted as
+    -inf) against int64 targets [...] of the whole vocabulary. Without `tp`
+    the logits are whole: log_softmax and the target's entry, one card's
+    arithmetic."""
+    if tp is None:
+        return -torch.gather(F.log_softmax(logits, dim=-1), -1, targets[..., None])[..., 0]
+    return _VocabParallelCrossEntropy.apply(logits, targets.long(), tp.index * logits.shape[-1], vocab, tp.group)
 
 
 def whole_groups(q: torch.Tensor, tp: TensorParallel | None, heads: int, kv: int) -> tuple[torch.Tensor, slice]:

@@ -64,18 +64,34 @@ Several ranks (`mesh`, parallel/): every rank runs the step on its own rows
 of the batch, drawing their noise and time from default_rng((seed, count,
 rank)); the salt stays the one of (seed, count). Each layer's gradient is
 reduced inside the backward, before its update: a trunk layer's leaves are
-laid out in the pack's rows, reduce-scattered over fsdp by pack rows and
-all-reduced over data (the world mean), and each rank updates its rows
-[P0, P1) of the pack (`parallel.sharding.row_shard` over the pack's NB rows,
-in 128-row shares) and holds only those moment rows; a kernel-eligible 8-bit
-leaf of the head or the embed side is split the same way over its own rows;
-the other leaves (fp32 moments, ragged codes) are all-reduced over the world
-and replicated. A row range updates with the salt shifted by its first
-element (`ops.fused_adam.shift_salt`), so its rounding bits are the whole
-leaf's: where the reduced gradient equals one card's, the update is bit for
-bit one card's. The updated rows are all-gathered over fsdp after each
-layer. The delayed clip's sum of squares is summed over the fsdp group (each
+laid out in the one-card pack's rows, reduce-scattered over the model group
+(fsdp x tensor) by pack rows and all-reduced over data, divided by the batch
+coordinates, and each rank updates its rows [P0, P1) of the pack
+(`parallel.sharding.row_shard` over the pack's NB rows, in 128-row shares)
+and holds only those moment rows; a kernel-eligible 8-bit leaf of the head or
+the embed side is split the same way over its own rows; the other leaves (fp32
+moments, ragged codes) are all-reduced over the world and replicated. A row
+range updates with the salt shifted by its first element
+(`ops.fused_adam.shift_salt`), so its rounding bits are the whole leaf's:
+where the reduced gradient equals one card's, the update is bit for bit one
+card's. The updated rows are all-gathered over the model group after each
+layer. The delayed clip's sum of squares is summed over the model group (each
 replicated leaf counted once).
+
+Over tensor (Megatron-style, as the standard step: parallel/tensor.py) a rank
+holds its tensor slice of every leaf the rules split (`Sharded.tensor`; whole
+over fsdp, ZeRO-2), runs the towers' tensor regions (the trunk pairs, the
+suffix-only last pair and SigLIP on local heads; the frozen vlm_embed looked
+up over its vocabulary rows), and keeps the moments in the one-card layout:
+a layer's gradient is written into a zeroed fp32 pack of the whole layer at
+its slice's element positions (a leaf replicated over tensor whose use is
+whole, a norm scale, by tensor index 0 alone; one whose use is partial,
+`tensor.partial_paths`, by every rank: the sum is then the whole gradient
+once), the layer's split leaves are joined over tensor before the update
+(one all-gather of their bytes) and each rank copies its slices back out of
+the updated layer. So the moments and a checkpoint are one card's, and a run
+resumes on any mesh. Each rank moves the whole layer's fp32 pack: t times a
+Megatron-minimal exchange.
 """
 
 from __future__ import annotations
@@ -100,7 +116,9 @@ from intact_tpu_torch.ops.fused_adam import (
     shift_salt,
 )
 from intact_tpu_torch.parallel import collectives, sharding
+from intact_tpu_torch.parallel import tensor as tensor_parallel
 from intact_tpu_torch.parallel.mesh import Mesh, single_rank_mesh
+from intact_tpu_torch.parallel.sharding import Sharded, held
 from intact_tpu_torch.train.optim import OptimizerConfig, cosine_warmup_restarts
 
 EMBED_NAMES = ("siglip", "img_proj", "state_proj", "action_in_proj", "time_mlp_in", "time_mlp_out")
@@ -134,12 +152,63 @@ def _leaves(tree) -> list:
 
 def _grad_views(tree):
     """Detached views of a param tree's leaves that require grad: the
-    gradient lands on them, the update writes the shared storage."""
-    return cm.tree_map(lambda t: t.detach().requires_grad_(), tree)
+    gradient lands on them, the update writes the shared storage (a tensor
+    slice's `Sharded` holder keeps its split)."""
+    def view(t):
+        if isinstance(t, Sharded):
+            return t.with_local(t.local.detach().requires_grad_())
+        return t.detach().requires_grad_()
+
+    return cm.tree_map(view, tree)
 
 
 def _grads(outputs, inputs, grad_outputs=None):
-    return torch.autograd.grad(outputs, inputs, grad_outputs, allow_unused=True, materialize_grads=True)
+    return torch.autograd.grad(outputs, [held(x) for x in inputs], grad_outputs, allow_unused=True,
+                               materialize_grads=True)
+
+
+def _split(p):
+    """A leaf's tensor split (`sharding.TensorSplit`), None where it is held whole."""
+    return p.tensor if isinstance(p, Sharded) else None
+
+
+def _whole_shape(p) -> tuple:
+    return tuple(p.whole_shape) if isinstance(p, Sharded) else tuple(p.shape)
+
+
+def _dim(p, x: torch.Tensor) -> int:
+    """The split dimension of `p` in x, its held tensor or a layer of it."""
+    return p.tensor.dim - (held(p).ndim - x.ndim)
+
+
+def _tensor_whole(leaves: list, index=None) -> list[torch.Tensor]:
+    """Each leaf (its layer `index` of a stacked leaf, or all of it) whole:
+    a view of a leaf held whole; the tensor slices of the split ones joined
+    over their tensor group as one bucket (`sharding.gather_bucket`: one
+    all-gather of their bytes), into tensors of their own."""
+    xs = [held(p) if index is None else held(p)[index] for p in leaves]
+    split = [j for j, p in enumerate(leaves) if _split(p) is not None]
+    if split:
+        over = [dataclasses.replace(leaves[j], dim=leaves[j].tensor.dim, group=leaves[j].tensor.group,
+                                    parts=leaves[j].tensor.parts, index=leaves[j].tensor.index, grad=None)
+                for j in split]
+        for j, whole in zip(split, sharding.gather_bucket(over, index, collectives.tensor_all_gather)):
+            xs[j] = whole
+    return xs
+
+
+def _slice_of(p, whole: torch.Tensor) -> torch.Tensor:
+    """This rank's tensor slice of `whole` (shaped as a split leaf `p`, or a layer of it)."""
+    dim = _dim(p, whole)
+    n = whole.shape[dim] // p.tensor.parts
+    return whole.narrow(dim, p.tensor.index * n, n)
+
+
+def _take_back(leaves: list, wholes: list, index=None) -> None:
+    """Copy each split leaf's slice of its updated whole (layer) back into the leaf."""
+    for p, w in zip(leaves, wholes):
+        if _split(p) is not None:
+            (held(p) if index is None else held(p)[index]).copy_(_slice_of(p, w))
 
 
 # ---------------------------------------------------------------------------
@@ -160,7 +229,8 @@ class TrunkPack:
     """Fixed flat row layout of one trunk block tree's per-layer values.
 
     Every leaf [L, *dims] owns ceil(prod(dims)/block) rows of the packed
-    [NB, block] layer-row matrix. Leaves the kernel takes (size % block == 0
+    [NB, block] layer-row matrix (of its whole dims: a tensor slice's leaf
+    has the one-card pack's rows). Leaves the kernel takes (size % block == 0
     and rows % 128 == 0) come first, each at a 128-aligned offset; ragged
     leaves (norm scales) follow. Leaves are in sorted-key order, so the layout
     equals the reference's and packed moments carry across unchanged."""
@@ -168,7 +238,7 @@ class TrunkPack:
     def __init__(self, template, block_size: int):
         self.block = block_size
         leaves = _leaves(template)
-        self.sizes = [int(np.prod(x.shape[1:])) for x in leaves]
+        self.sizes = [int(np.prod(_whole_shape(x)[1:])) for x in leaves]
         self.rows = [-(-n // block_size) for n in self.sizes]
         aligned = [eligible(n, block_size) for n in self.sizes]
         order = sorted(range(len(leaves)), key=lambda i: (not aligned[i], i))
@@ -183,27 +253,33 @@ class TrunkPack:
 
 
 def pack_shard(pack: TrunkPack, mesh: Mesh) -> sharding.RowShard:
-    """This rank's rows of a trunk pack: 128-row shares of its NB rows."""
-    return sharding.row_shard(pack.nb * pack.block, pack.block, mesh.fsdp, mesh.fsdp_index, align=ROW_TILE)
+    """This rank's rows of a trunk pack: 128-row shares of its NB rows over
+    the model group (fsdp x tensor)."""
+    return sharding.row_shard(pack.nb * pack.block, pack.block, mesh.fsdp * mesh.tensor, mesh.model_index,
+                              align=ROW_TILE)
 
 
-def leaf_shard(p: torch.Tensor, block_size: int, mesh: Mesh) -> sharding.RowShard | None:
-    """This rank's rows of a non-trunk leaf with 8-bit moments, when the
-    kernel takes its rows (128-row shares); None for a replicated leaf."""
-    if not eligible(p.numel(), block_size):
+def leaf_shard(p, block_size: int, mesh: Mesh) -> sharding.RowShard | None:
+    """This rank's rows of a non-trunk leaf (whole: over its tensor slices)
+    with 8-bit moments, when the kernel takes its rows (128-row shares over
+    the model group); None for a replicated leaf."""
+    n = p.whole_numel() if isinstance(p, Sharded) else p.numel()
+    if not eligible(n, block_size):
         return None
-    return sharding.row_shard(p.numel(), block_size, mesh.fsdp, mesh.fsdp_index, align=ROW_TILE)
+    return sharding.row_shard(n, block_size, mesh.fsdp * mesh.tensor, mesh.model_index, align=ROW_TILE)
 
 
 def init_fused_state(params, seed: int, block_size: int = 2048, min_quant_elems: int = 65536,
                      mesh: Mesh | None = None) -> FusedTrainState:
     """Zero fp8 moments (exact fp32 below min_quant_elems) for every
-    trainable leaf, on the params' device: this rank's rows of the trunk
+    trainable leaf, on the params' device, in the one-card layout of the
+    whole leaves (tensor slices included): this rank's rows of the trunk
     packs and of the row-split leaves (`mesh`; all of them on one rank)."""
     mesh = mesh or single_rank_mesh()
+    device = held(params["vlm_embed"]["embedding"]).device
 
     def zeros(shape, dtype):
-        return torch.zeros(shape, dtype=dtype, device=params["vlm_embed"]["embedding"].device)
+        return torch.zeros(shape, dtype=dtype, device=device)
 
     def moment_tree(signed: bool):
         fp8 = torch.float8_e4m3fn if signed else torch.float8_e5m2
@@ -214,7 +290,7 @@ def init_fused_state(params, seed: int, block_size: int = 2048, min_quant_elems:
             if name in ("vlm", "expert"):
                 pack = TrunkPack(sub["blocks"], block_size)
                 rows = pack_shard(pack, mesh).per
-                L = _leaves(sub["blocks"])[0].shape[0]
+                L = held(_leaves(sub["blocks"])[0]).shape[0]
                 dt = fp8 if pack.nb * block_size >= min_quant_elems else torch.float32
                 out[name] = {
                     "blocks": {"q": zeros((L, rows, block_size), dt), "scale": zeros((L, rows), torch.float32)},
@@ -223,16 +299,17 @@ def init_fused_state(params, seed: int, block_size: int = 2048, min_quant_elems:
                 continue
 
             def leaf(p):
-                if p.numel() >= min_quant_elems:
+                shape = _whole_shape(p)
+                n = int(np.prod(shape))
+                if n >= min_quant_elems:
                     shard = leaf_shard(p, block_size, mesh)
-                    nb = -(-p.numel() // block_size) if shard is None else shard.per
+                    nb = -(-n // block_size) if shard is None else shard.per
                     return {"q": zeros((nb, block_size), fp8), "scale": zeros((nb,), torch.float32)}
-                return zeros(p.shape, torch.float32)
+                return zeros(shape, torch.float32)
 
             out[name] = cm.tree_map(leaf, sub)
         return out
 
-    device = params["vlm_embed"]["embedding"].device
     return FusedTrainState(params=params, mu=moment_tree(True), nu=moment_tree(False), count=0,
                            prev_gnorm=torch.zeros((), dtype=torch.float32, device=device), seed=seed)
 
@@ -261,8 +338,8 @@ def _map_state_rows(state: FusedTrainState, moments: tuple, mesh: Mesh, block_si
 
 
 def global_moments(state: FusedTrainState, mesh: Mesh, block_size: int = 2048) -> tuple:
-    """(mu, nu) in the one-rank layout: the fsdp ranks' rows gathered (every
-    rank must call it). What a checkpoint holds."""
+    """(mu, nu) in the one-rank layout: the model group's rows gathered
+    (every rank must call it). What a checkpoint holds."""
     return _map_state_rows(state, (state.mu, state.nu), mesh, block_size,
                            lambda x, shard, axis, total: sharding.gather_leading(x, mesh, total, axis))
 
@@ -336,17 +413,20 @@ def _chunked_quant_update(p2, g2, qm, sm, qn, sn, *, c1, c2, lr, clip_factor, hp
 class _Updater:
     """The per-leaf updates of one step: hyperparameters, the ss
     accumulators, the choice of kernel or plain path, and the ranks' mesh:
-    the gradient reductions before each update and the gathers after."""
+    the gradient reductions before each update and the gathers after.
+    `partial`: the paths of the leaves replicated over tensor whose gradient
+    a rank holds in part (`tensor.partial_paths`)."""
 
     def __init__(self, hyp: torch.Tensor, hp: OptimizerConfig, ss: torch.Tensor, *, stochastic: bool,
-                 block_size: int, use_kernel: bool, scale_mode: str, apply_updates: bool, mesh: Mesh):
+                 block_size: int, use_kernel: bool, scale_mode: str, apply_updates: bool, mesh: Mesh,
+                 partial: frozenset = frozenset()):
         self.hyp, self.hp, self.ss = hyp, hp, ss
-        # replicated leaves: counted once per fsdp group (on its first rank)
-        self.ss_rep = ss if mesh.fsdp == 1 else torch.zeros_like(ss)
+        # replicated leaves: counted once per model group (on its first rank)
+        self.ss_rep = ss if mesh.fsdp * mesh.tensor == 1 else torch.zeros_like(ss)
         self.c1, self.c2, self.lr, self.clip = hyp.unbind()
         self.stochastic, self.blk, self.use_kernel = stochastic, block_size, use_kernel
         self.scale_mode, self.apply_updates = scale_mode, apply_updates
-        self.mesh = mesh
+        self.mesh, self.partial = mesh, partial
 
     def _plain_kw(self):
         return dict(c1=self.c1, c2=self.c2, lr=self.lr, clip_factor=self.clip, hp=self.hp,
@@ -357,30 +437,46 @@ class _Updater:
         ss.add_(torch.square(g.to(torch.float32)).sum())
 
     def total_ss(self) -> torch.Tensor:
-        """The step's sum of squares over the fsdp group."""
+        """The step's sum of squares over the model group (fsdp x tensor)."""
         mesh = self.mesh
-        ss = self.ss if mesh.fsdp == 1 or mesh.fsdp_index != 0 else self.ss + self.ss_rep
+        ss = self.ss if mesh.fsdp * mesh.tensor == 1 or mesh.model_index != 0 else self.ss + self.ss_rep
         if mesh.distributed:
-            collectives.all_reduce(ss, mesh.groups["fsdp"])
+            collectives.all_reduce(ss, mesh.groups["model"])
         return ss
 
-    def trunk_rows(self, pack: TrunkPack, blocks, grads: list, mom_mu, mom_nu, layer: int, key: int) -> None:
+    def _place(self, dst: torch.Tensor, p, g: torch.Tensor, path: str) -> None:
+        """Write a rank's gradient g of leaf `p` (or of a layer of it) into
+        dst, the zeroed whole (layer): a tensor slice's at its place; a leaf
+        replicated over tensor by every rank where its use is partial, by
+        tensor index 0 alone where it is whole."""
+        if _split(p) is not None:
+            _slice_of(p, dst).copy_(g)
+        elif path in self.partial or self.mesh.tensor_index == 0:
+            dst.copy_(g)
+
+    def trunk_rows(self, pack: TrunkPack, blocks, grads: list, mom_mu, mom_nu, layer: int, key: int,
+                   prefix: str = "") -> None:
         """Update this rank's rows of row `layer` of every leaf of one trunk
-        tree (leaf path), from the world mean of the ranks' gradients, then
-        gather the layer's updated rows from the fsdp group."""
+        tree (leaf path, `prefix` its path in the params), from the mean over
+        the batch coordinates of the ranks' gradients, then gather the layer's
+        updated rows from the model group (and each split leaf's slice out of
+        the whole layer)."""
         blk, mesh = pack.block, self.mesh
         shard = pack_shard(pack, mesh)
         p0, p1 = shard.r0, shard.r1
-        leaves_p = _leaves(blocks)
+        items = list(tree_items(blocks))
+        leaves_p = [x for _, x in items]
+        wholes = _tensor_whole(leaves_p, layer) if self.apply_updates else [None] * len(leaves_p)
         local = None
         if mesh.distributed:  # the layer's gradient in the pack's row layout, reduced to this rank's rows
             packed = torch.zeros(pack.nb * blk, dtype=torch.float32, device=grads[0].device)
-            for g_leaf, n, off in zip(grads, pack.sizes, pack.offsets):
-                packed[off * blk:off * blk + n] = g_leaf.reshape(-1)
+            for (path, p_leaf), g_leaf, n, off in zip(items, grads, pack.sizes, pack.offsets):
+                dst = packed[off * blk:off * blk + n].view(_whole_shape(p_leaf)[1:])
+                self._place(dst, p_leaf, g_leaf, prefix + "/".join(path))
             local = sharding.mean_rows(packed, shard, mesh).view(-1, blk)
             del packed
         qm, sm, qn, sn = mom_mu["q"], mom_mu["scale"], mom_nu["q"], mom_nu["scale"]
-        for i, (p_leaf, g_leaf, n, r, off) in enumerate(zip(leaves_p, grads, pack.sizes, pack.rows, pack.offsets)):
+        for i, (w, g_leaf, n, r, off) in enumerate(zip(wholes, grads, pack.sizes, pack.rows, pack.offsets)):
             a, b = max(off, p0), min(off + r, p1)
             if a >= b:
                 continue  # no row of this leaf on this rank
@@ -388,22 +484,21 @@ class _Updater:
                 flat = g_leaf.reshape(-1)
                 g_rows = (flat if n == r * blk else torch.nn.functional.pad(flat, (0, r * blk - n))).view(r, blk)
             else:
-                g_rows = local[a - p0:b - p0].to(p_leaf.dtype)
+                g_rows = local[a - p0:b - p0].to(held(leaves_p[i]).dtype)
             if not self.apply_updates:
                 self._add_ss(self.ss, g_rows)
                 continue
             salt = shift_salt(_sr_subkey(key, i), (a - off) * blk)
             lo, hi = a - p0, b - p0  # the rows of the local moment pack
-            L = p_leaf.shape[0]
             if self.use_kernel and eligible(n, blk):
-                fused_adam_rows(p_leaf.view(L, r, blk)[layer:layer + 1, a - off:b - off], g_rows,
+                fused_adam_rows(w.view(1, r, blk)[:, a - off:b - off], g_rows,
                                 qm[layer:layer + 1], sm[layer:layer + 1], qn[layer:layer + 1], sn[layer:layer + 1],
                                 layer=0, row_offset=lo, hyp=self.hyp, ss=self.ss, hp=self.hp, salt=salt,
                                 stochastic=self.stochastic)
                 continue
             self._add_ss(self.ss, g_rows)
             e0, e1 = (a - off) * blk, min((b - off) * blk, n)
-            p_flat = p_leaf[layer].view(-1)
+            p_flat = w.view(-1)
 
             def rows_of(x):
                 return torch.nn.functional.pad(x.reshape(-1), (0, (b - a) * blk - x.numel())).view(b - a, blk)
@@ -423,43 +518,62 @@ class _Updater:
             qn[layer, lo:hi] = qn2
             sn[layer, lo:hi] = sn2[:, 0]
         if self.apply_updates and mesh.distributed:
-            self._gather_layer(pack, shard, leaves_p, layer)
+            self._gather_layer(pack, shard, wholes)
+            _take_back(leaves_p, wholes, layer)
 
-    def _gather_layer(self, pack: TrunkPack, shard, leaves_p: list, layer: int) -> None:
-        """Every fsdp rank's updated rows of one layer, into every rank's leaves."""
+    def _gather_layer(self, pack: TrunkPack, shard, wholes: list) -> None:
+        """Every model-group rank's updated rows of one layer, into this rank's whole layer."""
         blk, (p0, p1) = pack.block, (shard.r0, shard.r1)
-        dtypes = {x.dtype for x in leaves_p}
+        dtypes = {x.dtype for x in wholes}
         if len(dtypes) != 1:
             raise TypeError(f"a trunk's leaves share one dtype; got {sorted(map(str, dtypes))}")
-        local = torch.zeros(shard.per * blk, dtype=leaves_p[0].dtype, device=leaves_p[0].device)
-        for p_leaf, n, r, off in zip(leaves_p, pack.sizes, pack.rows, pack.offsets):
+        local = torch.zeros(shard.per * blk, dtype=wholes[0].dtype, device=wholes[0].device)
+        for w, n, r, off in zip(wholes, pack.sizes, pack.rows, pack.offsets):
             a, b = max(off, p0), min(off + r, p1)
             if a < b:
                 e0, e1 = (a - off) * blk, min((b - off) * blk, n)
-                local[(a - p0) * blk:(a - p0) * blk + e1 - e0] = p_leaf[layer].view(-1)[e0:e1]
-        full = sharding.all_gather_bytes(local, self.mesh.groups["fsdp"], shard.parts).view(-1)
-        for p_leaf, n, off in zip(leaves_p, pack.sizes, pack.offsets):
-            p_leaf[layer].view(-1).copy_(full[off * blk:off * blk + n])
+                local[(a - p0) * blk:(a - p0) * blk + e1 - e0] = w.view(-1)[e0:e1]
+        full = sharding.all_gather_bytes(local, self.mesh.groups["model"], shard.parts).view(-1)
+        for w, n, off in zip(wholes, pack.sizes, pack.offsets):
+            w.view(-1).copy_(full[off * blk:off * blk + n])
 
-    def leaf(self, p, g, mu_s, nu_s, key: int) -> None:
-        """fused_joint.leaf_update for one non-trunk leaf, in place, from the
-        world mean of the ranks' gradients: this rank's rows of a row-split
-        leaf (then gathered over fsdp), the whole of a replicated one."""
-        mesh = self.mesh
+    def _whole_grad(self, p, g: torch.Tensor, path: str) -> torch.Tensor:
+        """A rank's gradient of a leaf as its part of the whole leaf's (fp32,
+        zeros elsewhere: `_place`); g itself at tensor 1."""
+        if self.mesh.tensor == 1:
+            return g
+        out = torch.zeros(_whole_shape(p), dtype=torch.float32, device=g.device)
+        self._place(out, p, g, path)
+        return out
+
+    def leaf(self, p, g, mu_s, nu_s, key: int, path: str = "") -> None:
+        """fused_joint.leaf_update for one non-trunk leaf (`path` in the
+        params), in place, from the mean over the batch coordinates of the
+        ranks' gradients: this rank's rows of a row-split leaf (then gathered
+        over the model group), the whole of a replicated one; a tensor slice's
+        leaf is joined over tensor for it and its slice copied back."""
+        mesh, dtype = self.mesh, g.dtype
         shard = leaf_shard(p, self.blk, mesh) if _is_quant_leaf(mu_s) else None
+        if mesh.distributed:
+            g = self._whole_grad(p, g, path)
+        w = _tensor_whole([p])[0]
         if shard is None:
             if mesh.distributed:
-                g = sharding.mean_full(g, mesh).to(g.dtype)
-            return self._replicated_leaf(p, g, mu_s, nu_s, key)
+                out = g.to(torch.float32, copy=True)
+                collectives.all_reduce(out, mesh.groups["world"])
+                g = (out / mesh.batch_size).to(dtype)
+            self._replicated_leaf(w, g, mu_s, nu_s, key)
+            _take_back([p], [w])
+            return
         blk, rows, r0 = self.blk, shard.rows, shard.r0
         if mesh.distributed:
-            g_rows = sharding.mean_rows(g, shard, mesh).to(g.dtype).view(rows, blk)
+            g_rows = sharding.mean_rows(g, shard, mesh).to(dtype).view(rows, blk)
         else:
             g_rows = g.reshape(rows, blk)
         if not self.apply_updates:
             self._add_ss(self.ss, g_rows)
             return
-        p_rows = p.view(shard.nb, blk)[r0:r0 + rows]
+        p_rows = w.view(shard.nb, blk)[r0:r0 + rows]
         salt = shift_salt(key, r0 * blk)
         mq, ms, nq, ns = mu_s["q"][:rows], mu_s["scale"][:rows], nu_s["q"][:rows], nu_s["scale"][:rows]
         if rows and self.use_kernel:
@@ -477,7 +591,8 @@ class _Updater:
             nq.copy_(qn2)
             ns.copy_(sn2[:, 0])
         if mesh.distributed:
-            sharding.gather_rows(p.view(-1), shard, mesh)
+            sharding.gather_rows(w.view(-1), shard, mesh)
+            _take_back([p], [w])
 
     def _replicated_leaf(self, p, g, mu_s, nu_s, key: int) -> None:
         ss = self.ss_rep
@@ -516,10 +631,11 @@ class _Updater:
         nu_s["scale"].copy_(sn2[:, 0])
 
     def small_tree(self, ptree, grads: list, mtree, ntree, base_key: int) -> None:
+        """The leaves of a tree keyed by their paths in the params."""
         m_by = dict(tree_items(mtree, quant_leaves=True))
         n_by = dict(tree_items(ntree, quant_leaves=True))
         for i, ((path, p), g) in enumerate(zip(tree_items(ptree), grads)):
-            self.leaf(p, g, m_by[path], n_by[path], _sr_subkey(base_key, i))
+            self.leaf(p, g, m_by[path], n_by[path], _sr_subkey(base_key, i), "/".join(path))
 
 
 # ---------------------------------------------------------------------------
@@ -572,7 +688,7 @@ def make_fused_joint_step(cfg, opt: OptimizerConfig, policy=None, *, block_size:
 
     def step(state: FusedTrainState, batch: dict, noise=None, time=None, salt=None):
         params, mu, nu = state.params, state.mu, state.nu
-        device = params["vlm_embed"]["embedding"].device
+        device = held(params["vlm_embed"]["embedding"]).device
         actions = batch["actions"].to(torch.float32)
         b = actions.shape[0]
         draws = np.random.default_rng((state.seed, state.count))
@@ -598,8 +714,10 @@ def make_fused_joint_step(cfg, opt: OptimizerConfig, policy=None, *, block_size:
             clip = torch.ones((), dtype=torch.float32, device=device)
         hyp = torch.cat([torch.tensor([c1, c2, lr], dtype=torch.float32, device=device), clip.reshape(1)])
         ss = torch.zeros(1, dtype=torch.float32, device=device)
+        partial = tensor_parallel.partial_paths(cm.flatten_paths(params)) if mesh.tensor > 1 else frozenset()
         upd = _Updater(hyp, opt, ss, stochastic=stochastic_rounding, block_size=block_size,
-                       use_kernel=use_kernel, scale_mode=scale_mode, apply_updates=apply_updates, mesh=mesh)
+                       use_kernel=use_kernel, scale_mode=scale_mode, apply_updates=apply_updates, mesh=mesh,
+                       partial=partial)
 
         # ---- flow matching (compute_loss semantics) ----
         t = time[:, None, None]
@@ -622,7 +740,8 @@ def make_fused_joint_step(cfg, opt: OptimizerConfig, policy=None, *, block_size:
         mask_2d, positions = pi0_model.flow_masks(pre_pad, cfg)
         p_len = pre_pad.shape[1]
         pos_pre, pos_suf = positions[:, :p_len], positions[:, p_len:]
-        body = gemma._joint_body(mask_2d, pos_pre, pos_suf, cfg.vlm, cfg.expert, policy, cfg.attention_impl)
+        tps = (tensor_parallel.of(params["vlm"]), tensor_parallel.of(params["expert"]))
+        body = gemma._joint_body(mask_2d, pos_pre, pos_suf, cfg.vlm, cfg.expert, policy, cfg.attention_impl, tps)
         vlm_blocks, exp_blocks = params["vlm"]["blocks"], params["expert"]["blocks"]
         pack_v, pack_e = TrunkPack(vlm_blocks, block_size), TrunkPack(exp_blocks, block_size)
 
@@ -644,7 +763,7 @@ def make_fused_joint_step(cfg, opt: OptimizerConfig, policy=None, *, block_size:
         xp_top, xs_top = (x.requires_grad_() for x in carry)
         with torch.enable_grad():
             xs = gemma.joint_last_pair(head_p["last_v"], head_p["last_e"], xp_top, xs_top,
-                                       mask_2d[:, p_len:, :], pos_pre, pos_suf, cfg.vlm, cfg.expert, policy)
+                                       mask_2d[:, p_len:, :], pos_pre, pos_suf, cfg.vlm, cfg.expert, policy, tps)
             xs = cm.rms_norm(head_p["final_norm"], xs, cfg.expert.norm_eps)
             v_t = cm.dense(head_p["out_proj"], xs[:, -cfg.chunk_size:].to(torch.float32), cm.FP32_POLICY)
             loss = (torch.square(u_t - v_t) * keep).sum() / denom
@@ -660,9 +779,9 @@ def make_fused_joint_step(cfg, opt: OptimizerConfig, policy=None, *, block_size:
         with torch.no_grad():
             # ---- 4a. head updates: layer L-1 of both trunks, final_norm + out_proj ----
             upd.trunk_rows(pack_v, vlm_blocks, g_v, mu["vlm"]["blocks"], nu["vlm"]["blocks"], L - 1,
-                           _sr_subkey(k_sr, 1001))
+                           _sr_subkey(k_sr, 1001), "vlm/blocks/")
             upd.trunk_rows(pack_e, exp_blocks, g_e, mu["expert"]["blocks"], nu["expert"]["blocks"], L - 1,
-                           _sr_subkey(k_sr, 1002))
+                           _sr_subkey(k_sr, 1002), "expert/blocks/")
             upd.small_tree({"final_norm": params["expert"]["final_norm"], "out_proj": params["action_out_proj"]},
                            list(g_fo),
                            {"final_norm": mu["expert"]["final_norm"], "out_proj": mu["action_out_proj"]},
@@ -685,9 +804,9 @@ def make_fused_joint_step(cfg, opt: OptimizerConfig, policy=None, *, block_size:
             del out, bp_v, bp_e, x_in
             with torch.no_grad():
                 upd.trunk_rows(pack_v, vlm_blocks, grads[:len(lv)], mu["vlm"]["blocks"], nu["vlm"]["blocks"],
-                               layer, k_v)
+                               layer, k_v, "vlm/blocks/")
                 upd.trunk_rows(pack_e, exp_blocks, grads[len(lv):len(lv) + len(le)], mu["expert"]["blocks"],
-                               nu["expert"]["blocks"], layer, k_e)
+                               nu["expert"]["blocks"], layer, k_e, "expert/blocks/")
             dxp, dxs = grads[-2:]
             del grads
 

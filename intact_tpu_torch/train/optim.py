@@ -31,10 +31,12 @@ slice once and each replicated leaf once per fsdp group (the fsdp index 0
 rank), summed over fsdp. On one rank nothing is split and the arithmetic is
 the single card's.
 
-Over tensor (Pi0, MVLA; Megatron-style): a leaf split over tensor is this rank's
-tensor slice (split further over fsdp where the rules say so); its gradient
-is complete for the slice and is averaged over the batch coordinates (the
-data group where it is also fsdp-split, else the batch group: data x fsdp).
+Over tensor (Pi0, Pi0FAST, MVLA; Megatron-style): a leaf split over tensor
+is this rank's tensor slice (split further over fsdp where the rules say so);
+its gradient is complete for the slice and is averaged over the batch
+coordinates (the data group where it is also fsdp-split, else the batch
+group: data x fsdp), never summed over tensor: Pi0FAST's tied table, whose
+lookups' and head's gradients both fall on the rank's vocabulary rows.
 A leaf replicated over tensor is averaged over the world; where its use is
 partial (`partial`, from `tensor.partial_paths`: the one-head K/V kernels,
 the sliced q/k/v biases, the connector's q/k norm scales), each tensor

@@ -28,7 +28,7 @@ slice rounds with a generator seeded from that seed and the fsdp index, so
 fsdp ranks never repeat each other's bits. The optimizer reduces the
 gradients once per emitted update (train/optim.py).
 
-Over tensor (Pi0, MVLA; parallel/tensor.py): the draws are keyed on the batch
+Over tensor (Pi0, Pi0FAST, MVLA; parallel/tensor.py): the draws are keyed on the batch
 coordinate d * fsdp + f, so the tensor ranks of one coordinate draw the same
 noise and time for the same rows; a leaf split over tensor alone is
 differentiated as the slice it is (autograd forms its gradient); the

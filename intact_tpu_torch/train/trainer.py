@@ -44,16 +44,19 @@ global_batch_size rows: accumulation = global / (per_device x data x fsdp).
     too (train/optim.py). A layer is whole only inside its forward or its
     recomputed backward, gathered in one collective and its gradient
     reduce-scattered in one (models/common.py's `layer`);
-  * the fused step stays ZeRO-2: whole parameters on every rank, its
-    optimizer state split over fsdp in global block rows
-    (train/fused_joint.py).
-  * the tensor axis (the standard step of Pi0 and MVLA, Megatron-style): the ranks
-    of one batch coordinate d * fsdp + f read the same episode shard and
-    draw the same noise; each holds its tensor slice of the split leaves
-    (column-parallel q, gate, up and fc1, row-parallel o, down and fc2, the
-    embedding's vocabulary rows), split further over fsdp by
-    ZeRO-3 (parallel/tensor.py, train/optim.py). The fused step and every
-    other family refuse mesh.tensor > 1.
+  * the fused step stays ZeRO-2: the parameters whole over fsdp on every
+    rank, its optimizer state split over fsdp x tensor in global block rows
+    of the one-card pack (train/fused_joint.py).
+  * the tensor axis (the standard step of Pi0, Pi0FAST and MVLA, and Pi0's
+    fused step; Megatron-style): the ranks of one batch coordinate d * fsdp
+    + f read the same episode shard and draw the same noise; each holds its
+    tensor slice of the split leaves (column-parallel q, gate, up and fc1,
+    row-parallel o, down and fc2, the embedding's vocabulary rows: Pi0FAST's
+    tied table trains there, its cross entropy vocabulary-parallel), split
+    further over fsdp by ZeRO-3 in the standard step (parallel/tensor.py,
+    train/optim.py); the fused step keeps the one-card pack's moments
+    (train/fused_joint.py). Octo and the HF-scaffold types refuse
+    mesh.tensor > 1.
 Rank 0 logs, reports to W&B and writes checkpoints, in the one-rank layout
 (gathered leaf by leaf, over fsdp and tensor), so a run resumes on any mesh;
 validation samples through the gathered layers, scores each batch
@@ -271,6 +274,7 @@ class Trainer:
                                  torch.bfloat16 if self.bf16_masters else torch.float32)
         if not self.bf16_masters and cfg.use_bf16:
             params["vlm_embed"] = cm.tree_map(lambda x: x.to(torch.bfloat16), params["vlm_embed"])
+        params = self._shard(params, over_fsdp=False)  # ZeRO-2: whole over fsdp, tensor slices at tensor > 1
         self.state = fj.init_fused_state(params, cfg.seed, mesh=self.mesh)
         oc = self.opt_cfg
         self.lr_schedule = cosine_warmup_restarts(
@@ -321,17 +325,19 @@ class Trainer:
 
         self.train_step = ts.make_train_step(loss_fn, self.tx, stochastic_rounding=self.bf16_masters)
 
-    def _shard(self, params):
-        """ZeRO-3 at fsdp > 1: a host tree -> this rank's on the device, leaf
+    def _shard(self, params, over_fsdp: bool = True):
+        """ZeRO-3 at fsdp > 1 (without `over_fsdp`, the fused step's ZeRO-2:
+        tensor slices alone): a host tree -> this rank's on the device, leaf
         by leaf: its slice of every leaf the rules split, the rest whole,
-        each host leaf released as it is placed. At fsdp 1 the tree as it
-        is."""
-        if self.mesh.fsdp == 1 and self.mesh.tensor == 1:
+        each host leaf released as it is placed. At fsdp 1 and tensor 1 the
+        tree as it is."""
+        if (self.mesh.fsdp == 1 or not over_fsdp) and self.mesh.tensor == 1:
             return params
         from intact_tpu_torch.parallel.sharding import shard_tree
 
         heads = self.model.tensor_heads(self.model_cfg) if self.mesh.tensor > 1 else None
-        return shard_tree(params, self.mesh, put=lambda x: x.to(self.device), consume=True, heads=heads)
+        return shard_tree(params, self.mesh, put=lambda x: x.to(self.device), consume=True, heads=heads,
+                          over_fsdp=over_fsdp)
 
     def _freeze_mask(self, params):
         """True = trainable; None when nothing is frozen. The reference's
@@ -366,8 +372,7 @@ class Trainer:
 
     @staticmethod
     def _refuse_unported(cfg: TrainPipelineConfig) -> None:
-        refuse_tensor(MeshConfig(cfg.mesh.data, cfg.mesh.fsdp, cfg.mesh.tensor), registry.family(cfg.model_type),
-                      fused=cfg.fused_update)
+        refuse_tensor(MeshConfig(cfg.mesh.data, cfg.mesh.fsdp, cfg.mesh.tensor), registry.family(cfg.model_type))
         if getattr(cfg.data.train, "service_address", None):
             raise NotImplementedError(
                 "not ported yet: the tf.data service the RLDS backend would read through "

@@ -95,7 +95,7 @@ def test_local_rows():
 def test_make_mesh_without_a_group():
     """One process, no launcher: a world of one. The repo's fsdp 4 mesh does
     not fit it (the JAX package's error), nor a tensor-2 mesh; the tensor axis
-    is refused for every family but Pi0."""
+    is refused for training a family outside the tensor-parallel slice (Octo)."""
     mesh = make_mesh(MeshConfig())
     assert mesh.shape == {"data": 1, "fsdp": 1, "tensor": 1} and mesh.size == 1 and not mesh.distributed
     assert (mesh.rank, mesh.fsdp_index, mesh.tensor_index, mesh.batch_index, mesh.batch_size) == (0, 0, 0, 0, 1)
@@ -104,7 +104,7 @@ def test_make_mesh_without_a_group():
     with pytest.raises(ValueError, match="1 devices not divisible by fsdp\\*tensor=2"):
         make_mesh(MeshConfig(data=-1, fsdp=1, tensor=2))
     with pytest.raises(NotImplementedError, match="tensor axis"):
-        refuse_tensor(MeshConfig(data=-1, fsdp=1, tensor=2), "pi0fast")
+        refuse_tensor(MeshConfig(data=-1, fsdp=1, tensor=2), "octo")
     assert distributed.process_mean({"b": 2.0, "a": 1.0}) == {"b": 2.0, "a": 1.0}
     assert np.array_equal(distributed.broadcast_from_host0(np.arange(3)), np.arange(3))
     assert (distributed.process_index(), distributed.process_count(), distributed.backend()) == (0, 1, None)

@@ -13,7 +13,8 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 # the rank children the multi-rank tests spawn run only the port, as the card does
 RANK_CHILDREN = [REPO / "tests" / f"test_torch_{name}.py" for name in (
-    "distributed_ranks", "serve_ranks_child", "tensor_parallel_ranks", "tensor_parallel_ar_ranks")]
+    "distributed_ranks", "serve_ranks_child", "tensor_parallel_ranks", "tensor_parallel_ar_ranks",
+    "tensor_parallel_mvla_ranks", "tensor_parallel_train_ranks")]
 PORT_FILES = sorted(p for p in (REPO / "intact_tpu_torch").rglob("*.py") if "_build" not in p.parts) + [
     REPO / "chip_smoke.py"] + RANK_CHILDREN
 

@@ -458,32 +458,42 @@ def test_flash_attention_takes_local_heads(heads):
                                         "magma_native_tiny", "octo_tiny", "spatialvla", "magma", "pi0-fused"])
 def test_every_other_path_refuses_the_tensor_axis(model_type):
     """What the tensor-parallel slice leaves out refuses tensor > 1 with a
-    reason that names the slice: training every family but Pi0 and MVLA
-    (Pi0FAST's, SpatialVLA's and Magma's among them), serving Octo and the
-    HF-scaffold types, and the fused step of every family (MVLA's and
-    mmmvla's included); Pi0's and MVLA's standard step and tensor 1 pass."""
+    reason that names the slice: training SpatialVLA, Magma, Octo and the
+    HF-scaffold types, serving Octo and the HF-scaffold types. The training
+    steps of Pi0, Pi0FAST and MVLA pass at tensor 2 and 4 (since the tensor
+    axis for the last two training paths, `pi0fast_tiny` and `pi0-fused`
+    through the trainer's own check on their repo recipes), as tensor 1
+    passes everywhere."""
     from intact_tpu_torch.models import registry
     from intact_tpu_torch.parallel.mesh import TENSOR_FAMILIES, TENSOR_SERVING_FAMILIES, MeshConfig, refuse_tensor
+    from intact_tpu_torch.train.trainer import Trainer
 
     family = "pi0" if model_type == "pi0-fused" else registry.family(model_type)
-    fused = model_type == "pi0-fused" or family in TENSOR_FAMILIES
     slice_named = ("tensor axis .* not ported .*serving Pi0, MVLA, Pi0FAST, native SpatialVLA and native Magma "
-                   "and the standard training step of Pi0 and MVLA")
-    with pytest.raises(NotImplementedError, match=slice_named):
-        refuse_tensor(MeshConfig(data=1, fsdp=1, tensor=2), family, fused=fused)
+                   "and training Pi0 \\(its standard and fused steps\\), Pi0FAST and MVLA")
     if family in TENSOR_FAMILIES:
-        refuse_tensor(MeshConfig(data=1, fsdp=1, tensor=2), family)
-    if fused or family not in TENSOR_SERVING_FAMILIES:
+        for tensor in (2, 4):
+            refuse_tensor(MeshConfig(data=1, fsdp=1, tensor=tensor), family)
+    else:
         with pytest.raises(NotImplementedError, match=slice_named):
-            refuse_tensor(MeshConfig(data=1, fsdp=1, tensor=2), family, fused=fused, serving=True)
-    refuse_tensor(MeshConfig(data=1, fsdp=2, tensor=1), family, fused=fused)
+            refuse_tensor(MeshConfig(data=1, fsdp=1, tensor=2), family)
+    if family not in TENSOR_SERVING_FAMILIES:
+        with pytest.raises(NotImplementedError, match=slice_named):
+            refuse_tensor(MeshConfig(data=1, fsdp=1, tensor=2), family, serving=True)
+    recipe = {"pi0fast_tiny": (child.dist_child.FAST_RECIPE, {"model_cfg.type": "pi0fast_tiny"}),
+              "pi0-fused": (child.dist_child.REPO / "config/train/pi0_finetune_bridge_1chip.yaml", {})}.get(model_type)
+    if recipe is not None:
+        for tensor in (2, 4):
+            Trainer._refuse_unported(child.dist_child.recipe_config(recipe[0], **{
+                "mesh.data": 1, "mesh.fsdp": 1, "mesh.tensor": tensor, **recipe[1]}))
+    refuse_tensor(MeshConfig(data=1, fsdp=2, tensor=1), family)
     refuse_tensor(MeshConfig(data=1, fsdp=1, tensor=2), registry.family("pi0_tiny"))
 
 
 @pytest.mark.parametrize("model_type", ["pi0fast_tiny", "spatialvla_native_tiny", "magma_native_tiny", "pi0_tiny"])
 def test_serving_takes_the_tensor_axis_for_the_token_decoding_families(model_type):
     """Serving Pi0, Pi0FAST, native SpatialVLA and native Magma passes at
-    tensor 2 and 4 (the trainer's refusal of the last three stands)."""
+    tensor 2 and 4 (the trainer's refusal of the last two stands)."""
     from intact_tpu_torch.models import registry
     from intact_tpu_torch.parallel.mesh import MeshConfig, refuse_tensor
 

@@ -434,7 +434,9 @@ def test_trainer_is_freed_on_del(make_cfg, recipe):
     pytest.param("expertonly", {"mesh.fsdp": 4}, r"1 devices not divisible by fsdp\*tensor=4",
                  id="expertonly-overrides2-meshes"),
     ("expertonly", {"global_batch_size": 5}, "not a multiple"),
-    pytest.param("joint", {"mesh.tensor": 2, "fused_update": "true"}, "the tensor axis", id="joint-tensor-axis"),
+    # the fused step takes the tensor axis (and Pi0FAST's step); training Octo still refuses it
+    pytest.param("joint", {"mesh.tensor": 2, "model_cfg.type": "octo_tiny"}, "the tensor axis .* training octo",
+                 id="joint-tensor-axis"),
 ])
 def test_refusals(make_cfg, recipe, overrides, error):
     from intact_tpu_torch.train.trainer import Trainer
